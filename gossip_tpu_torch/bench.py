@@ -1,0 +1,94 @@
+"""The port's headline number: simulated node-rounds/s per chip.
+
+The flagship run of the JAX package's ``bench.py`` (``run_tpu_fused``):
+single-rumor pull gossip over N = 10M nodes on the implicit complete
+graph, to 99% coverage, as
+
+    node_rounds_per_sec_per_chip = N * rounds / wall_seconds
+
+with the wall of one steady run (after a warm-up run that also builds
+the kernel) read from CUDA events.  It prints one JSON line with the
+card's name and power limit::
+
+    python -m gossip_tpu_torch.bench [--n N]
+
+There is no CPU row: without a CUDA device it prints nothing and exits
+non-zero.  There is no ``vs_baseline`` either: the JAX package derives
+that figure for a TPU v4-8.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from gossip_tpu_torch.ops import fused_round as FR
+from gossip_tpu_torch.utils.timing import steady_timed
+
+N_FLAGSHIP = 10_000_000
+TARGET = 0.99
+LINE_KEYS = ("metric", "value", "unit", "n", "rounds", "wall_ms", "backend",
+             "card", "power_limit")
+
+
+def card_info() -> dict:
+    """The CUDA card's name and power limit, as ``nvidia-smi`` reports
+    them.  Raises when there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the bench measures the card "
+                           "and prints no CPU row")
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={torch.cuda.current_device()}"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    name, power_limit = (s.strip() for s in out.rsplit(",", 1))
+    return {"name": name, "power_limit": power_limit}
+
+
+def run_fused(n: int = N_FLAGSHIP, device=None):
+    """(rounds, seconds) of the flagship loop at ``n``: one warm-up run,
+    then one timed run of ``until_fused`` from a fresh state."""
+    dev = FR.resolve_device(device)
+    FR.until_fused(n, seed=0, target_coverage=TARGET, device=dev)
+    (final, cov), seconds = steady_timed(
+        dev, FR.until_fused, n, seed=0, target_coverage=TARGET, device=dev)
+    if cov < np.float32(TARGET):
+        raise RuntimeError(f"coverage {cov} below the target after "
+                           f"{final.round} rounds")
+    return final.round, seconds
+
+
+def measurement_line(n: int, rounds: int, seconds: float,
+                     card: dict) -> dict:
+    """The one-line result, with the card it ran on."""
+    rate = n * rounds / seconds
+    return {"metric": "node_rounds_per_sec_per_chip",
+            "value": rate,
+            "unit": f"node-rounds/s/chip (N={n}, fused-cuda pull SI to "
+                    f"99% in {rounds} rounds, {seconds * 1e3:.3f} ms)",
+            "n": n, "rounds": rounds, "wall_ms": seconds * 1e3,
+            "backend": "cuda", "card": card["name"],
+            "power_limit": card["power_limit"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="gossip_tpu_torch.bench")
+    ap.add_argument("--n", type=int, default=N_FLAGSHIP)
+    a = ap.parse_args(argv)
+    try:
+        card = card_info()
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    rounds, seconds = run_fused(a.n, "cuda")
+    print(json.dumps(measurement_line(a.n, rounds, seconds, card)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,185 @@
+"""Build, bind and launch the port's hand-written CUDA kernels.
+
+Each kernel source under ``gossip_tpu_torch/csrc/`` has a plain C entry
+point.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library under ``gossip_tpu_torch/_build/`` (named by a hash of
+the source and flags, so an edited source never loads a stale build) and
+bound with ``ctypes``.  A wrapper checks device, dtype, shape and
+contiguity, launches on PyTorch's current stream, raises if the entry
+point returns an error, and counts its launches in a plain integer.
+
+Nothing here is built or launched for a CPU tensor; a build starts at
+the first launch (or :func:`build_all`), never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home
+                 else []) + [shutil.which("nvcc") or "",
+                             "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from source at first use")
+
+
+class Kernel:
+    """One CUDA source and its C entry point.  ``launches`` counts the
+    wrapper's launches; ``build_s`` is the first-use build and load time
+    (None before), ``ptxas`` the compiler's register report."""
+
+    def __init__(self, name: str, source: str, entry: str, argtypes):
+        self.name = name
+        self.source = CSRC / source
+        self.entry = entry
+        self.argtypes = argtypes
+        self.launches = 0
+        self.build_s = None
+        self.ptxas = ""
+        self._fn = None
+
+    def library(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
+
+    def start_build(self):
+        """Start nvcc for this source; None when the library is built.
+        The output lands under a private name and is renamed into place,
+        so concurrent builds never load a half-written file."""
+        lib = self.library()
+        if lib.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, lib
+
+    def finish_build(self, started, t0: float):
+        if started is not None:
+            proc, tmp, lib = started
+            self.ptxas = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for {self.source.name}:\n"
+                                   f"{self.ptxas}")
+            os.replace(tmp, lib)
+        fn = getattr(ctypes.CDLL(str(self.library())), self.entry)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        self.build_s = time.perf_counter() - t0
+
+    def fn(self):
+        if self._fn is None:
+            build_all([self])
+        return self._fn
+
+
+FUSED_ROUND = Kernel(
+    "fused_round", "fused_round.cu", "fused_round_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _U, _U, _U, _P])
+KERNELS = (FUSED_ROUND,)
+
+
+def build_all(kernels=KERNELS):
+    """Build every given kernel that is not loaded yet, one nvcc per
+    source, all started together; then load them."""
+    todo = [k for k in kernels if k._fn is None]
+    t0 = time.perf_counter()
+    started = [(k, k.start_build()) for k in todo]
+    for k, s in started:
+        k.finish_build(s, t0)
+
+
+def _check(name: str, t, rows: int, shape=None):
+    """Raise unless ``t`` is a contiguous int32 CUDA tensor of ``shape``
+    (default ``[rows, 128]``)."""
+    shape = tuple(shape or (rows, 128))
+    if t.device.type != "cuda" or t.dtype != torch.int32 \
+            or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 CUDA tensor "
+                         f"of shape {list(shape)}, got {t.dtype} "
+                         f"{list(t.shape)} on {t.device}")
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def fused_round(table, n: int, fanout: int, key, drop_threshold: int,
+                plane_sharing: int, inject_bits=None, alive_table=None,
+                cut_words=None, out=None, pop=None):
+    """Launch ``fused_round_launch`` once: one round from ``table`` into
+    ``out`` (allocated when None; never ``table``).  ``pop`` (int32[1])
+    gets the new table's popcount added."""
+    rows = table.shape[0]
+    _check("table", table, rows)
+    dev = table.device
+    major, minor = torch.cuda.get_device_capability(dev)
+    if (major, minor) != (9, 0):
+        raise ValueError(f"the fused round kernel is built for sm_90a; "
+                         f"{torch.cuda.get_device_name(dev)} is "
+                         f"sm_{major}{minor}")
+    if out is None:
+        out = torch.empty_like(table)
+    _check("out", out, rows)
+    if out.data_ptr() == table.data_ptr():
+        raise ValueError("out must not be the input table: other blocks "
+                         "read the pre-round table while the round writes")
+    operands = [table, out]
+    for name, t in (("alive_table", alive_table), ("cut_words", cut_words)):
+        if t is not None:
+            _check(name, t, rows)
+            operands.append(t)
+    sbits = rbits = None
+    if inject_bits is not None:
+        sbits, rbits = inject_bits
+        _check("sbits", sbits, rows, (8, 128))
+        _check("rbits", rbits, rows, (fanout * 32 // plane_sharing, rows, 128))
+        operands += [sbits, rbits]
+    if pop is not None:
+        _check("pop", pop, rows, (1,))
+        operands.append(pop)
+    if any(t.device != dev for t in operands):
+        raise ValueError("all operands of the fused round must be on "
+                         f"{dev}")
+    n_valid_words = -(-n // 32)
+    tail = n % 32
+    k0, k1 = key
+    fn = FUSED_ROUND.fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_ptr(table), _ptr(out), _ptr(alive_table), _ptr(cut_words),
+                 _ptr(sbits), _ptr(rbits), _ptr(pop), rows, fanout,
+                 plane_sharing, k0, k1, drop_threshold & 0xFFFFFFFF,
+                 n_valid_words, ((1 << tail) - 1) if tail else 0,
+                 ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"fused_round_launch failed: CUDA error {err}")
+    FUSED_ROUND.launches += 1
+    return out
