@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in this checkout,
-holds it bitwise against its plain PyTorch version at N = 10M, drives the
-flagship run (single-rumor pull gossip to 99% coverage) through the
-port's own entry points, and measures it.  One JSON line per phase:
+It builds the port's CUDA kernels from the sources in this checkout,
+holds each bitwise against its plain PyTorch version at N = 10M, drives
+the flagship run (single-rumor pull gossip to 99% coverage) and the
+multi-rumor run (32 rumors, to 99% min-over-rumors coverage) through the
+port's own entry points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
-2. ``build``   the kernel build (one ``nvcc`` per source, started together);
+2. ``build``   every kernel's build (one ``nvcc`` per source, started
+   together);
 3. ``checks``  one kernel round against the plain version on the card,
    bitwise (tolerance 0), on the Philox stream at fanout 1 and 2,
    plane sharing 1 and 2, with the drop coin, alive and cut tables, at
@@ -20,7 +22,29 @@ port's own entry points, and measures it.  One JSON line per phase:
    just after; then the same loop replayed round by round with the
    plain version, the cost of the loop's once-per-round host read, and
    the kernel's share of the loop's wall (rounds x kernel time / wall);
-5. ``bench``   the node-rounds/s line of ``gossip_tpu_torch.bench``.
+5. ``bench``   the node-rounds/s line of ``gossip_tpu_torch.bench``;
+6. ``mr_build``  the two multi-rumor kernels' build reports;
+7. ``mr_checks``  both multi-rumor kernels against their plain versions
+   on the card, bitwise, at N = 10M and 10M - 37 with 32 rumors: fanout 1
+   and 2, the drop coin, alive and cut words and all three, injected bits
+   and the coin boundary; each case also runs the whole staged round
+   against the plain value round (the two routes draw one stream), and
+   holds both kernels' per-rumor counters against the plain counts; then
+   each kernel's time, its plain version's, its bound, and the staged
+   route's torch rotation;
+8. ``mr_routes``  both routes' time per round at 10M x 32 and 1M x 32,
+   fanout 1 and 2, as a loop pays it, the value kernel's own time at each,
+   and the routing rule those times give; the port's loops take the value
+   route at every size, so the phase fails where the staged route is
+   faster;
+9. ``mr_main_path``  ``run_simulation`` at N = 10M, 32 rumors, pull,
+   fanout 1, seed 0, target 0.99, counts set to 0 just before and read
+   just after; on the same line, the same loop replayed through the
+   plain version, the loop's time (``until_fused_multirumor`` and the
+   curve loop), its host read per round and node-rounds/s;
+10. ``mr_staged_path``  the main path's rounds stepped through the staged
+   round ``fused_mr_round_big`` (counts set to 0 just before and read
+   just after), which must end in the same table.
 
 Then the ``kernels`` line, and last ``{"ok": true, "device": ...}``.  Any
 failed check raises, and the exit code is not 0.  Without a CUDA device,
@@ -60,6 +84,18 @@ INT32_OPS_PER_S = 67e12 / 4
 PHILOX_OPS = 40           # 10 rounds of 2 wide products and 2 xor3
 PULL_OPS = 9              # lane 1, bit 2, partner bit 2, coin 2, OR-in 2
 WORD_OPS = 3              # phantom mask 2, popcount 1
+# multi-rumor pull: lane 1, row shift lookup 1, wrapped row 2, address 1,
+# coin 2, masked OR-in 1
+MR_PULL_OPS = 8
+# staged pull: lane 1, address 1, coin 2, masked OR-in 1
+MR_GATHER_PULL_OPS = 5
+# per word: phantom mask 2; per-rumor counts: 5 transpose stages of a
+# shuffle, a funnel shift, a select and a three-input logic op, then one
+# popcount and one add
+MR_WORD_OPS = 2 + 5 * 4 + 2
+RUMORS = 32
+N_SMALL = 1_000_000       # the second size of the route comparison
+ROUTE_ROUNDS = 10         # rounds per timed route batch
 
 
 def emit(phase: str, **fields) -> None:
@@ -81,10 +117,40 @@ def round_bound(n: int, fanout: int, plane_sharing: int):
     draws = draw_count(fanout, plane_sharing)
     ops = ((words * draws / 4 + LANES) * PHILOX_OPS
            + words * draws * plane_sharing * PULL_OPS + words * WORD_OPS)
-    nbytes = 2 * words * 4 + 4
+    return _bound(ops, 2 * words * 4 + 4)
+
+
+def _bound(ops: float, nbytes: float):
+    """(ms, what bounds it): the larger of the operations' time at the
+    int32 rate and the bytes' time at the memory rate."""
     t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def mr_round_bound(n: int, fanout: int):
+    """(bound_ms, bound_by) of one multi-rumor round through the value
+    kernel: the table read and written once plus the 32 counters, and
+    the integer work of the Philox stream (one call per four draws of a
+    word, plus the 128 lane shifts of every draw), of every pull, and of
+    the phantom mask and per-rumor counts of every word."""
+    from gossip_tpu_torch.ops.fused_mr_round import LANES, mr_rows
+    words = mr_rows(n) * LANES
+    calls = words * -(-fanout // 4) + LANES * fanout
+    ops = (calls * PHILOX_OPS + words * fanout * MR_PULL_OPS
+           + words * MR_WORD_OPS)
+    return _bound(ops, 2 * words * 4 + RUMORS * 4)
+
+
+def mr_gather_bound(n: int):
+    """(bound_ms, bound_by) of one staged pass that adds the counts (the
+    last, and at fanout 1 the only, pass): tin and rot read and the
+    output written once, one Philox call, one pull and the epilogue per
+    word."""
+    from gossip_tpu_torch.ops.fused_mr_round import LANES, mr_rows
+    words = mr_rows(n) * LANES
+    ops = words * (PHILOX_OPS + MR_GATHER_PULL_OPS + MR_WORD_OPS)
+    return _bound(ops, 3 * words * 4 + RUMORS * 4)
 
 
 def kernel_ms(launch) -> float:
@@ -167,6 +233,311 @@ def phase_checks(dev, n: int):
     return results, max_err, tables[n]
 
 
+def random_mr_table(rng, n: int, dev):
+    """A one-word-per-node table at n with every rumor bit set at rate
+    1/32 (the AND of five random words), phantom words zero."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    words = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    for _ in range(4):
+        words &= rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    flat = np.zeros(MR.mr_rows(n) * MR.LANES, np.uint32)
+    flat[:n] = words
+    return torch.from_numpy(flat.view(np.int32).reshape(-1, MR.LANES)).to(dev)
+
+
+def _words_err(a, b) -> int:
+    from gossip_tpu_torch.ops.fused_round import to_words
+    return int((to_words(a) - to_words(b)).abs().max())
+
+
+def phase_mr_checks(dev, n: int):
+    """Both multi-rumor kernels against their plain versions on the card,
+    bitwise, and the staged route against the plain value round.
+    Returns the cases' results, each kernel's largest absolute
+    difference, and the table at n."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.config import FaultConfig
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.ops import philox
+    from gossip_tpu_torch.ops.fused_round import drop_threshold_for
+
+    rng = np.random.default_rng(SEED + 1)
+    tables = {m: random_mr_table(rng, m, dev) for m in (n, n - 37)}
+    alive = MR.render_alive_words(
+        torch.from_numpy(rng.random(n) < 0.9).to(dev), n)
+    cut = MR.render_cut_words(n // 3, n, dev)
+    thr = drop_threshold_for(FaultConfig(drop_prob=0.05))
+    rows = MR.mr_rows(n)
+    inject = {f: (rng.integers(0, 2**32, size=(f, 8, MR.LANES),
+                               dtype=np.uint32),
+                  rng.integers(0, 2**32, size=(f, rows, MR.LANES),
+                               dtype=np.uint32)) for f in (1, 2)}
+    # every draw's coin field exactly at the threshold or one below it
+    coin = np.where(rng.random(inject[1][1].shape) < 0.5, thr, thr - 1)
+    boundary = (inject[1][0], (coin.astype(np.uint32) << np.uint32(12))
+                | (inject[1][1] & np.uint32(0xFFF)))
+    inject = {f: tuple(torch.from_numpy(b.view(np.int32)).to(dev)
+                       for b in bits) for f, bits in inject.items()}
+    boundary = tuple(torch.from_numpy(np.ascontiguousarray(b).view(np.int32))
+                     .to(dev) for b in boundary)
+    # (name, n, fanout, drop threshold, alive, cut, inject)
+    cases = [("f1", n, 1, 0, None, None, None),
+             ("f2", n, 2, 0, None, None, None),
+             ("drop", n, 1, thr, None, None, None),
+             ("alive", n, 1, 0, alive, None, None),
+             ("cut", n, 1, 0, None, cut, None),
+             ("drop_alive_cut", n, 2, thr, alive, cut, None),
+             ("tail_f1", n - 37, 1, 0, None, None, None),
+             ("tail_f2", n - 37, 2, 0, None, None, None),
+             ("inject_f1", n, 1, 0, None, None, inject[1]),
+             ("inject_f2_faults", n, 2, thr, alive, cut, inject[2]),
+             ("inject_coin_boundary", n, 1, thr, None, None, boundary)]
+    key = philox.round_key(SEED, CHECK_ROUND, philox.MR_SALT)
+    results = []
+    err = {"fused_mr_round": 0, "mr_gather": 0}
+    for name, m, fanout, t, a, c, bits in cases:
+        table = tables[m]
+        want = MR.fused_mr_round_plain(table, SEED, CHECK_ROUND, m, fanout,
+                                       bits, t, a, c)
+        counts = MR.rumor_counts(want, RUMORS).to(torch.int32)
+        pops = [torch.zeros(RUMORS, dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        value = MR.fused_multirumor_pull_round(
+            table, SEED, CHECK_ROUND, m, fanout, bits, t, a, c, RUMORS,
+            pop=pops[0])
+        staged = MR.fused_mr_round_big(table, SEED, CHECK_ROUND, m, fanout,
+                                       bits, t, a, c, RUMORS, pop=pops[1])
+        # the gather kernel alone against its plain version, draw 0
+        if bits is None:
+            shifts = philox.shift_words(*key, fanout, dev)[0]
+            rb, rb_kernel = philox.draw_words(*key, rows, 1, dev)[0], None
+        else:
+            shifts, rb = bits[0][0, 0], bits[1][0]
+            rb_kernel = rb
+        src = table & a if a is not None else table
+        rot = MR.rotate_rows(src, shifts)
+        rot_cut = MR.rotate_rows(c, shifts) if c is not None else None
+        g_kernel = MR.mr_gather(table, rot, m, 0, key, t, RUMORS,
+                                rbits=rb_kernel, alive_words=a,
+                                rot_cut=rot_cut, cut_words=c)
+        g_plain = MR.mr_gather_plain(table, rot, rb, m, t, a, rot_cut, c)
+        e_value = _words_err(value, want)
+        e_gather = max(_words_err(g_kernel, g_plain),
+                       _words_err(staged, want))
+        ok = {"value_equal": bool(torch.equal(value, want)),
+              "staged_equal": bool(torch.equal(staged, want)),
+              "gather_equal": bool(torch.equal(g_kernel, g_plain)),
+              "value_counts_equal": bool(torch.equal(pops[0], counts)),
+              "staged_counts_equal": bool(torch.equal(pops[1], counts))}
+        grew = int(MR.rumor_counts(want, RUMORS).sum()
+                   - MR.rumor_counts(table, RUMORS).sum())
+        results.append({"case": name, "n": m, "fanout": fanout, **ok,
+                        "max_abs_err": max(e_value, e_gather),
+                        "newly_informed": grew})
+        check(all(ok.values()) and grew > 0,
+              f"multi-rumor kernels vs plain, {name}: {ok}")
+        err["fused_mr_round"] = max(err["fused_mr_round"], e_value)
+        err["mr_gather"] = max(err["mr_gather"], e_gather)
+    return results, err, tables[n]
+
+
+def route_ms(dev, fn) -> float:
+    """Milliseconds per round of ``fn`` as a run loop pays them (the
+    host's enqueue included): ROUTE_ROUNDS calls between two synchronizes,
+    timed with CUDA events, after a warm-up; the median of three."""
+    from gossip_tpu_torch.utils.timing import steady_timed
+
+    def batch():
+        for _ in range(ROUTE_ROUNDS):
+            fn()
+    batch()
+    return 1e3 * statistics.median(
+        steady_timed(dev, batch)[1] for _ in range(3)) / ROUTE_ROUNDS
+
+
+def phase_mr_routes(dev, big_table):
+    """Both routes per round at 10M x 32 and 1M x 32, fanout 1 and 2, in
+    turns (value, staged, staged, value), and the rule the times give."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+
+    tables = {N: big_table,
+              N_SMALL: random_mr_table(np.random.default_rng(SEED + 2),
+                                       N_SMALL, dev)}
+    rows = []
+    for m, table in tables.items():
+        out = torch.empty_like(table)
+        pop = torch.zeros(RUMORS, dtype=torch.int32, device=dev)
+        for fanout in (1, 2):
+            def value():
+                MR.fused_multirumor_pull_round(
+                    table, SEED, CHECK_ROUND, m, fanout, rumors=RUMORS,
+                    out=out, pop=pop)
+
+            def staged():
+                MR.fused_mr_round_big(table, SEED, CHECK_ROUND, m, fanout,
+                                      rumors=RUMORS, out=out, pop=pop)
+            v1, s1, s2, v2 = (route_ms(dev, value), route_ms(dev, staged),
+                              route_ms(dev, staged), route_ms(dev, value))
+            v, st = statistics.median([v1, v2]), statistics.median([s1, s2])
+            rows.append({"n": m, "fanout": fanout, "value_ms": [v1, v2],
+                         "staged_ms": [s1, s2],
+                         "value_kernel_ms": kernel_ms(value),
+                         "faster": "staged" if st < v else "value"})
+    return rows
+
+
+def phase_mr(dev, smi: str):
+    """Phases 6 to 10, the multi-rumor path; returns its two kernels'
+    entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.backend import run_simulation
+    from gossip_tpu_torch.config import (ProtocolConfig, RunConfig,
+                                         TopologyConfig)
+    from gossip_tpu_torch.ops import _kernels, philox
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.utils.timing import steady_timed
+
+    # 6. build reports of the multi-rumor kernels
+    mr = (_kernels.FUSED_MR_ROUND, _kernels.MR_GATHER)
+    emit("mr_build", kernels={k.name: {
+        "build_s": k.build_s,
+        "sources": [p.name for p in k.sources()],
+        "ptxas": [ln.strip() for ln in k.ptxas.splitlines()
+                  if "registers" in ln or "spill" in ln]} for k in mr})
+
+    # 7. kernels against plain, then times at the main path's shape
+    results, err, table = phase_mr_checks(dev, N)
+    key = philox.round_key(SEED, CHECK_ROUND, philox.MR_SALT)
+    out = torch.empty_like(table)
+    pop = torch.zeros(RUMORS, dtype=torch.int32, device=dev)
+    value_ms = kernel_ms(lambda: MR.fused_multirumor_pull_round(
+        table, SEED, CHECK_ROUND, N, rumors=RUMORS, out=out, pop=pop))
+    shifts = philox.shift_words(*key, 1, dev)[0]
+    rot = MR.rotate_rows(table, shifts)
+    gather_ms = kernel_ms(lambda: MR.mr_gather(table, rot, N, 0, key,
+                                               rumors=RUMORS, out=out,
+                                               pop=pop))
+    rotation_ms = kernel_ms(lambda: MR.rotate_rows(table, shifts))
+    shift_ms = kernel_ms(lambda: philox.shift_words(*key, 1, dev))
+    rb = philox.draw_words(*key, MR.mr_rows(N), 1, dev)[0]
+    value_plain_ms = 1e3 * statistics.median(
+        steady_timed(dev, MR.fused_mr_round_plain, table, SEED, CHECK_ROUND,
+                     N)[1] for _ in range(3))
+    gather_plain_ms = 1e3 * statistics.median(
+        steady_timed(dev, MR.mr_gather_plain, table, rot, rb, N)[1]
+        for _ in range(3))
+    value_bound = mr_round_bound(N, 1)
+    gather_bound = mr_gather_bound(N)
+    emit("mr_checks", cases=results, max_abs_err=err, tolerance=0,
+         rumors=RUMORS, value_kernel_ms=value_ms,
+         value_plain_ms=value_plain_ms, value_bound_ms=value_bound[0],
+         value_bound_by=value_bound[1], gather_kernel_ms=gather_ms,
+         gather_plain_ms=gather_plain_ms, gather_bound_ms=gather_bound[0],
+         gather_bound_by=gather_bound[1], rotation_ms=rotation_ms,
+         shift_words_ms=shift_ms, card=smi)
+
+    # 8. the two routes, and the rule their times give
+    routes = phase_mr_routes(dev, table)
+    staged_faster = [(r["n"], r["fanout"]) for r in routes
+                     if r["faster"] == "staged"]
+    emit("mr_routes", rows=routes, rule=(
+        "staged where faster: " + str(staged_faster) if staged_faster
+        else "value at every measured size"), code_route="value", card=smi)
+    check(not staged_faster, "the loops take the value route at every "
+          f"size, but the staged route was faster at {staged_faster}")
+
+    # 9. the main path, counts from 0
+    proto = ProtocolConfig(mode="pull", fanout=1, rumors=RUMORS)
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    report = run_simulation(proto, TopologyConfig(family="complete", n=N),
+                            RunConfig(seed=SEED, target_coverage=0.99,
+                                      engine="fused"),
+                            device="cuda")
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    rounds = report.rounds
+    check(rounds > 0 and report.coverage >= np.float32(0.99),
+          f"coverage {report.coverage} after {rounds} rounds")
+    check(report.msgs == float(np.float32(2 * N * rounds)),
+          f"msgs {report.msgs} != 2*n*rounds")
+    check(report.meta["route"] == "value"
+          and launches["fused_mr_round"] == rounds
+          and sum(launches.values()) == rounds,
+          f"route {report.meta['route']}, launches {launches} for {rounds} "
+          "rounds")
+
+    # the same loop, round by round through the plain version
+    final, _ = MR.until_fused_multirumor(N, RUMORS, SEED, device=dev)
+    plain = MR.init_multirumor_state(N, RUMORS, 0, dev).table
+    for r in range(final.round):
+        plain = MR.fused_mr_round_plain(plain, SEED, r, N)
+    check(final.round == rounds and torch.equal(final.table, plain),
+          "multi-rumor main path vs its plain replay")
+    until_s = statistics.median(
+        steady_timed(dev, MR.until_fused_multirumor, N, RUMORS, SEED,
+                     device=dev)[1] for _ in range(5))
+    curve_s = statistics.median(
+        steady_timed(dev, MR.curve_fused_multirumor, N, RUMORS, SEED,
+                     max_rounds=rounds, device=dev)[1] for _ in range(5))
+    emit("mr_main_path", report=report.to_dict(), launches=launches,
+         plain_replay_equal=True, until_ms=until_s * 1e3,
+         curve_ms=curve_s * 1e3,
+         host_read_ms_per_round=(until_s - curve_s) * 1e3 / rounds,
+         node_rounds_per_s=N * rounds / until_s,
+         kernel_share_of_until=rounds * value_ms / (until_s * 1e3),
+         kernel_share_of_curve=rounds * value_ms / (curve_s * 1e3),
+         card=smi)
+
+    # 10. the main path's rounds through the staged round, counts from 0
+    staged = MR.init_multirumor_state(N, RUMORS, 0, dev).table
+    spare = torch.empty_like(staged)
+    pops = torch.zeros(rounds, RUMORS, dtype=torch.int32, device=dev)
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    for r in range(rounds):
+        staged, spare = MR.fused_mr_round_big(staged, SEED, r, N,
+                                              rumors=RUMORS, out=spare,
+                                              pop=pops[r]), staged
+    staged_launches = {k.name: k.launches for k in _kernels.KERNELS}
+    staged_cov = MR.coverage_words(staged, N, RUMORS)
+    check(torch.equal(staged, final.table)
+          and staged_cov == report.coverage
+          and torch.equal(pops[-1], MR.rumor_counts(staged, RUMORS)
+                          .to(torch.int32))
+          and staged_launches["mr_gather"] == rounds
+          and sum(staged_launches.values()) == rounds,
+          f"staged path: coverage {staged_cov}, launches {staged_launches} "
+          f"for {rounds} rounds")
+    emit("mr_staged_path", rounds=rounds, coverage=staged_cov,
+         launches=staged_launches, same_table_as_value_route=True, card=smi)
+
+    library_note = "no single PyTorch call computes this round"
+    return [{"name": "fused_mr_round", "route": "cuda",
+             "source": "gossip_tpu_torch/csrc/fused_mr_round.cu",
+             "replaces": "gossip_tpu/ops/pallas_round.py:558",
+             "launches": launches["fused_mr_round"],
+             "max_abs_err": err["fused_mr_round"], "bitwise_equal": True,
+             "ms": value_ms, "plain_ms": value_plain_ms,
+             "bound_ms": value_bound[0], "bound_by": value_bound[1],
+             "library_ms": None, "library_note": library_note,
+             "path": "mr_main_path", "card": smi},
+            {"name": "mr_gather", "route": "cuda",
+             "source": "gossip_tpu_torch/csrc/mr_gather.cu",
+             "replaces": "gossip_tpu/ops/pallas_round.py:667",
+             "launches": staged_launches["mr_gather"],
+             "max_abs_err": err["mr_gather"], "bitwise_equal": True,
+             "ms": gather_ms, "plain_ms": gather_plain_ms,
+             "bound_ms": gather_bound[0], "bound_by": gather_bound[1],
+             "library_ms": None, "library_note": library_note,
+             "path": "mr_staged_path", "card": smi}]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -230,9 +601,9 @@ def main() -> int:
           f"coverage {report.coverage} after {rounds} rounds")
     check(report.msgs == float(np.float32(2 * N * rounds)),
           f"msgs {report.msgs} != 2*n*rounds")
-    check(all(v > 0 for v in launches.values()), f"launches {launches}")
-    check(launches["fused_round"] == rounds,
-          f"{launches['fused_round']} launches for {rounds} rounds")
+    check(launches["fused_round"] == rounds
+          and sum(launches.values()) == rounds,
+          f"launches {launches} for {rounds} rounds")
     emit("main_path", report=report.to_dict(), launches=launches, card=smi)
 
     # the same loop, round by round through the plain version
@@ -262,6 +633,8 @@ def main() -> int:
     check(b_rounds == rounds, f"bench ran {b_rounds} rounds, not {rounds}")
     emit("bench", line=line)
 
+    mr_kernels = phase_mr(dev, smi)
+
     print(json.dumps({"kernels": [{
         "name": "fused_round", "route": "cuda",
         "source": "gossip_tpu_torch/csrc/fused_round.cu",
@@ -270,7 +643,7 @@ def main() -> int:
         "bitwise_equal": True, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "library_note": "no single PyTorch call computes this round",
-        "card": smi}]}), flush=True)
+        "card": smi}, *mr_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

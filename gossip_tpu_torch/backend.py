@@ -1,11 +1,13 @@
-"""``run_simulation``: the port's backend for the fused single-rumor route.
+"""``run_simulation``: the port's backend for the fused pull routes.
 
 The port of the JAX package's ``backend.run_simulation`` on its
-``engine='fused'``, single-device, one-rumor branch (``_run_fused``): pull
-gossip on the implicit complete graph, one CUDA kernel launch per round
-(:mod:`gossip_tpu_torch.ops.fused_round`).  The report carries the
-reference's ``RunReport`` fields.  Whatever this slice does not run is
-refused with a ``ValueError``, never run some other way.
+``engine='fused'``, single-device branch (``_run_fused``): pull gossip on
+the implicit complete graph, one rumor on the node-packed bitmap
+(:mod:`gossip_tpu_torch.ops.fused_round`) or up to 32 on one word per
+node (:mod:`gossip_tpu_torch.ops.fused_mr_round`), one CUDA kernel
+launch per round.  The report carries the reference's ``RunReport``
+fields.  Whatever the port does not run is refused with a
+``ValueError``, never run some other way.
 
 The run is on the CUDA device unless the caller passes ``device="cpu"``,
 which runs the round's plain version; with no card and no explicit
@@ -15,6 +17,7 @@ device it raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional
 
@@ -24,10 +27,9 @@ import torch
 from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig, RunConfig,
                                      TopologyConfig)
 from gossip_tpu_torch.ops import _kernels
+from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
 from gossip_tpu_torch.utils.timing import steady_timed, timing_meta
-
-LAYOUT = "node-packed bitmap"
 
 
 @dataclasses.dataclass
@@ -71,10 +73,10 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
     if topo.family != "complete":
         return ("engine='fused' runs on the implicit complete "
                 f"topology only (got family {topo.family!r})")
-    if proto.rumors != 1:
-        return (f"rumors={proto.rumors}: more than one rumor needs the "
-                "multi-rumor kernel (_fused_mr_kernel), which the port "
-                "has not ported yet; this slice runs one rumor")
+    if proto.rumors > FR.BITS:
+        return (f"engine='fused' packs <= {FR.BITS} rumors per word on "
+                f"one device (got rumors={proto.rumors}); rumor planes "
+                "across devices wait for the port's multi-GPU slice")
     if fault is not None and fault.churn is not None:
         return ("engine='fused' routing does not run churn schedules "
                 "single-device")
@@ -89,33 +91,44 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
 def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
                    run: RunConfig, fault: Optional[FaultConfig] = None,
                    want_curve: bool = False, device=None) -> RunReport:
-    """Run the fused single-rumor pull loop to ``run.target_coverage`` or
-    ``run.max_rounds`` (``want_curve``: exactly ``max_rounds`` rounds,
-    with the coverage after each).  ``meta`` names the engine that ran
-    (``fused-cuda``: the kernel; ``fused-plain``: the plain version on
-    the CPU), its launches, and the wall's parts."""
+    """Run the fused pull loop to ``run.target_coverage`` (with several
+    rumors: the minimum over rumors) or ``run.max_rounds``
+    (``want_curve``: exactly ``max_rounds`` rounds, with the coverage
+    after each).  ``meta`` names the engine that ran (``fused-cuda``: the
+    kernels; ``fused-plain``: the plain versions on the CPU), the layout,
+    the multi-rumor route, every kernel's launches, and the wall's
+    parts."""
     reason = fused_ineligible_reason(proto, topo, run, fault)
     if reason is not None:
         raise ValueError(reason)
     dev = FR.resolve_device(device)
     n = topo.n
+    multi = proto.rumors > 1
+    table_bytes = (MR.check_fused_fits(n, proto.rumors, dev)
+                   if multi else MR.fused_table_bytes(n, 1))
     t0 = time.perf_counter()
     build_s = 0.0
     if dev.type == "cuda":
         _kernels.build_all()
         build_s = time.perf_counter() - t0
-    launches0 = _kernels.FUSED_ROUND.launches
+    launches0 = {k.name: k.launches for k in _kernels.KERNELS}
     kw = dict(seed=run.seed, fanout=proto.fanout, max_rounds=run.max_rounds,
               origin=run.origin, fault=fault, device=dev)
+    if multi:
+        until_fn = functools.partial(MR.until_fused_multirumor,
+                                     rumors=proto.rumors)
+        curve_fn = functools.partial(MR.curve_fused_multirumor,
+                                     rumors=proto.rumors)
+    else:
+        until_fn, curve_fn = FR.until_fused, FR.curve_fused
     if want_curve:
-        (final, covs), steady = steady_timed(dev, FR.curve_fused, n, **kw)
+        (final, covs), steady = steady_timed(dev, curve_fn, n, **kw)
         rounds, cov, msgs, curve = _curve_summary(
             covs, [float(final.msgs)], run.target_coverage)
         host_reads = 1
     else:
         (final, cov), steady = steady_timed(
-            dev, FR.until_fused, n, target_coverage=run.target_coverage,
-            **kw)
+            dev, until_fn, n, target_coverage=run.target_coverage, **kw)
         hit = cov >= float(np.float32(run.target_coverage))
         rounds, msgs, curve = (final.round if hit else -1), \
             float(final.msgs), None
@@ -127,10 +140,13 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
         meta={"clock": "rounds", "devices": 1,
               "msgs_counts": "transmissions",
               "engine": "fused-cuda" if dev.type == "cuda" else "fused-plain",
-              "layout": LAYOUT,
-              "table_bytes": FR.n_rows(n) * FR.LANES * 4,
+              "layout": ("one 32-rumor word per node" if multi
+                         else "node-packed bitmap"),
+              "route": "value" if multi else None,
+              "table_bytes": table_bytes,
               "device": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"),
-              "launches": _kernels.FUSED_ROUND.launches - launches0,
+              "launches": {k.name: k.launches - launches0[k.name]
+                           for k in _kernels.KERNELS},
               "host_reads": host_reads,
               **timing_meta(build_s, steady, wall)})

@@ -1,10 +1,9 @@
 """Command line of the port: ``python -m gossip_tpu_torch run ...``.
 
-The port of the JAX package's ``run`` command on the one route this
-slice runs::
+The port of the JAX package's ``run`` command on the fused pull routes::
 
     python -m gossip_tpu_torch run --mode pull --n 10000000 --engine fused \\
-        [--fanout F] [--drop-prob P] [--curve] [--device cpu]
+        [--rumors R] [--fanout F] [--drop-prob P] [--curve] [--device cpu]
 
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
@@ -26,7 +25,7 @@ def cmd_run(a) -> int:
     from gossip_tpu_torch.backend import run_simulation
     fault = FaultConfig(drop_prob=a.drop_prob) if a.drop_prob else None
     report = run_simulation(
-        ProtocolConfig(mode=a.mode, fanout=a.fanout),
+        ProtocolConfig(mode=a.mode, fanout=a.fanout, rumors=a.rumors),
         TopologyConfig(family="complete", n=a.n),
         RunConfig(engine=a.engine), fault, want_curve=a.curve,
         device=a.device)
@@ -44,6 +43,8 @@ def main(argv=None) -> int:
     p.add_argument("--n", type=int, required=True)
     p.add_argument("--engine", required=True, choices=("fused",))
     p.add_argument("--fanout", type=int, default=1)
+    p.add_argument("--rumors", type=int, default=1,
+                   help="concurrent rumors (up to 32, one word per node)")
     p.add_argument("--drop-prob", type=float, default=0.0,
                    help="per-pull drop probability")
     p.add_argument("--curve", action="store_true",

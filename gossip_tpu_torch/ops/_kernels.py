@@ -3,8 +3,9 @@
 Each kernel source under ``gossip_tpu_torch/csrc/`` has a plain C entry
 point.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``gossip_tpu_torch/_build/`` (named by a hash of
-the source and flags, so an edited source never loads a stale build) and
-bound with ``ctypes``.  A wrapper checks device, dtype, shape and
+the source, every ``csrc/`` header it includes and the flags, so an
+edited source or header never loads a stale build) and bound with
+``ctypes``.  A wrapper checks device, dtype, shape and
 contiguity, launches on PyTorch's current stream, raises if the entry
 point returns an error, and counts its launches in a plain integer.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -61,9 +64,22 @@ class Kernel:
         self.ptxas = ""
         self._fn = None
 
+    def sources(self):
+        """The source and every file it includes with ``#include "..."``,
+        transitively (all under ``csrc/``), each once, in a fixed order."""
+        found, todo = set(), [self.source]
+        while todo:
+            path = todo.pop()
+            if path not in found:
+                found.add(path)
+                todo += [CSRC / name
+                         for name in _INCLUDE.findall(path.read_text())]
+        return sorted(found)
+
     def library(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in self.sources():
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
         return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
 
     def start_build(self):
@@ -103,7 +119,15 @@ class Kernel:
 FUSED_ROUND = Kernel(
     "fused_round", "fused_round.cu", "fused_round_launch",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _U, _U, _U, _P])
-KERNELS = (FUSED_ROUND,)
+FUSED_MR_ROUND = Kernel(
+    "fused_mr_round", "fused_mr_round.cu", "fused_mr_round_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _I, _P])
+MR_GATHER = Kernel(
+    "mr_gather", "mr_gather.cu", "mr_gather_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _I, _P])
+KERNELS = (FUSED_ROUND, FUSED_MR_ROUND, MR_GATHER)
+MR_MAX_FANOUT = 64        # the value kernel keeps fanout x 128 shifts in
+                          # shared memory (csrc/fused_mr_round.cu)
 
 
 def build_all(kernels=KERNELS):
@@ -127,8 +151,33 @@ def _check(name: str, t, rows: int, shape=None):
                          f"{list(t.shape)} on {t.device}")
 
 
+def _check_sm90(dev, what: str):
+    major, minor = torch.cuda.get_device_capability(dev)
+    if (major, minor) != (9, 0):
+        raise ValueError(f"the {what} kernel is built for sm_90a; "
+                         f"{torch.cuda.get_device_name(dev)} is "
+                         f"sm_{major}{minor}")
+
+
+def _same_device(dev, operands, what: str):
+    if any(t.device != dev for t in operands):
+        raise ValueError(f"all operands of the {what} must be on {dev}")
+
+
 def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(kernel: Kernel, dev, *args):
+    """Call ``kernel``'s entry point on ``dev``'s current stream; raise on
+    a nonzero CUDA error, else count the launch."""
+    fn = kernel.fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{kernel.entry} failed: CUDA error {err}")
+    kernel.launches += 1
 
 
 def fused_round(table, n: int, fanout: int, key, drop_threshold: int,
@@ -140,11 +189,7 @@ def fused_round(table, n: int, fanout: int, key, drop_threshold: int,
     rows = table.shape[0]
     _check("table", table, rows)
     dev = table.device
-    major, minor = torch.cuda.get_device_capability(dev)
-    if (major, minor) != (9, 0):
-        raise ValueError(f"the fused round kernel is built for sm_90a; "
-                         f"{torch.cuda.get_device_name(dev)} is "
-                         f"sm_{major}{minor}")
+    _check_sm90(dev, "fused round")
     if out is None:
         out = torch.empty_like(table)
     _check("out", out, rows)
@@ -165,21 +210,94 @@ def fused_round(table, n: int, fanout: int, key, drop_threshold: int,
     if pop is not None:
         _check("pop", pop, rows, (1,))
         operands.append(pop)
-    if any(t.device != dev for t in operands):
-        raise ValueError("all operands of the fused round must be on "
-                         f"{dev}")
+    _same_device(dev, operands, "fused round")
     n_valid_words = -(-n // 32)
     tail = n % 32
     k0, k1 = key
-    fn = FUSED_ROUND.fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptr(table), _ptr(out), _ptr(alive_table), _ptr(cut_words),
-                 _ptr(sbits), _ptr(rbits), _ptr(pop), rows, fanout,
-                 plane_sharing, k0, k1, drop_threshold & 0xFFFFFFFF,
-                 n_valid_words, ((1 << tail) - 1) if tail else 0,
-                 ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"fused_round_launch failed: CUDA error {err}")
-    FUSED_ROUND.launches += 1
+    _launch(FUSED_ROUND, dev, _ptr(table), _ptr(out), _ptr(alive_table),
+            _ptr(cut_words), _ptr(sbits), _ptr(rbits), _ptr(pop), rows,
+            fanout, plane_sharing, k0, k1, drop_threshold & 0xFFFFFFFF,
+            n_valid_words, ((1 << tail) - 1) if tail else 0)
+    return out
+
+
+def fused_mr_round(table, n: int, fanout: int, key, drop_threshold: int,
+                   rumors: int, inject_bits=None, alive_words=None,
+                   cut_words=None, out=None, pop=None):
+    """Launch ``fused_mr_round_launch`` once: one multi-rumor round from
+    ``table`` into ``out`` (allocated when None; never ``table``).
+    ``pop`` (int32[32]) gets the count of each of the first ``rumors``
+    bits of the new table added."""
+    rows = table.shape[0]
+    _check("table", table, rows)
+    dev = table.device
+    _check_sm90(dev, "multi-rumor round")
+    if not 0 < fanout <= MR_MAX_FANOUT:
+        raise ValueError(f"the multi-rumor round kernel takes fanout 1 to "
+                         f"{MR_MAX_FANOUT}, got {fanout}")
+    if out is None:
+        out = torch.empty_like(table)
+    _check("out", out, rows)
+    if out.data_ptr() == table.data_ptr():
+        raise ValueError("out must not be the input table: other blocks "
+                         "read the pre-round table while the round writes")
+    operands = [table, out]
+    for name, t in (("alive_words", alive_words), ("cut_words", cut_words)):
+        if t is not None:
+            _check(name, t, rows)
+            operands.append(t)
+    sbits = rbits = None
+    if inject_bits is not None:
+        sbits, rbits = inject_bits
+        _check("sbits", sbits, rows, (fanout, 8, 128))
+        _check("rbits", rbits, rows, (fanout, rows, 128))
+        operands += [sbits, rbits]
+    if pop is not None:
+        _check("pop", pop, rows, (32,))
+        operands.append(pop)
+    _same_device(dev, operands, "multi-rumor round")
+    k0, k1 = key
+    _launch(FUSED_MR_ROUND, dev, _ptr(table), _ptr(out), _ptr(alive_words),
+            _ptr(cut_words), _ptr(sbits), _ptr(rbits), _ptr(pop), rows,
+            fanout, k0, k1, drop_threshold & 0xFFFFFFFF, n, rumors)
+    return out
+
+
+def mr_gather(tin, rot, n: int, f: int, key, drop_threshold: int,
+              rumors: int, rbits=None, alive_words=None, rot_cut=None,
+              cut_words=None, out=None, pop=None):
+    """Launch ``mr_gather_launch`` once: fanout draw ``f`` of the staged
+    round, ``tin | partner`` from the pre-rotated ``rot`` into ``out``
+    (allocated when None; it may be ``tin``, never ``rot``).  ``rbits``
+    (int32[rows, 128]) replaces this draw's stream bits; ``pop``
+    (int32[32]) gets the per-rumor counts of the output added."""
+    rows = tin.shape[0]
+    _check("tin", tin, rows)
+    dev = tin.device
+    _check_sm90(dev, "multi-rumor gather")
+    if f < 0:
+        raise ValueError(f"fanout draw index must be >= 0, got {f}")
+    if (rot_cut is None) != (cut_words is None):
+        raise ValueError("rot_cut and cut_words come together")
+    if out is None:
+        out = torch.empty_like(tin)
+    operands = [tin]
+    for name, t in (("rot", rot), ("out", out), ("alive_words", alive_words),
+                    ("rot_cut", rot_cut), ("cut_words", cut_words),
+                    ("rbits", rbits)):
+        if t is not None:
+            _check(name, t, rows)
+            operands.append(t)
+    if rot.data_ptr() == out.data_ptr():
+        raise ValueError("out must not be rot: the pass reads any word of "
+                         "rot's row while it writes")
+    if pop is not None:
+        _check("pop", pop, rows, (32,))
+        operands.append(pop)
+    _same_device(dev, operands, "multi-rumor gather")
+    k0, k1 = key
+    _launch(MR_GATHER, dev, _ptr(tin), _ptr(rot), _ptr(out),
+            _ptr(alive_words), _ptr(rot_cut), _ptr(cut_words), _ptr(rbits),
+            _ptr(pop), rows, f, k0, k1, drop_threshold & 0xFFFFFFFF, n,
+            rumors)
     return out

@@ -226,7 +226,7 @@ def draw_round_bits(seed: int, round_: int, rows: int, fanout: int = 1,
     uint32 bits.  Only row 0 of ``sbits`` is used; rows 1-7 are zero."""
     k0, k1 = philox.round_key(seed, round_)
     sbits = torch.zeros(8, LANES, dtype=torch.int64, device=device)
-    sbits[0] = philox.shift_words(k0, k1, device)
+    sbits[0] = philox.shift_words(k0, k1, 1, device)[0]
     rbits = philox.draw_words(k0, k1, rows, draw_count(fanout, plane_sharing),
                               device)
     return from_words(sbits), from_words(rbits)

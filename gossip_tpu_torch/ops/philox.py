@@ -1,10 +1,11 @@
-"""Philox4x32-10 in plain torch, and the random stream of the fused round.
+"""Philox4x32-10 in plain torch, and the random streams of the fused rounds.
 
 The TPU kernel draws its partner bits from the TPU's hardware generator
 (``pltpu.prng_seed`` / ``prng_random_bits``), which has no counterpart on
-a GPU.  The port defines its own counter-based stream instead; the CUDA
-kernel (``csrc/fused_round.cu``) computes exactly the same bits, and the
-plain round in :mod:`gossip_tpu_torch.ops.fused_round` draws them here.
+a GPU.  The port defines its own counter-based streams instead; the CUDA
+kernels (``csrc/philox.cuh``) compute exactly the same bits, and the
+plain rounds in :mod:`gossip_tpu_torch.ops.fused_round` and
+:mod:`gossip_tpu_torch.ops.fused_mr_round` draw them here.
 
 Stream specification (the CUDA source mirrors it word for word)
 ---------------------------------------------------------------
@@ -26,6 +27,22 @@ Stream specification (the CUDA source mirrors it word for word)
   ``% rows`` (unsigned) by the round, as the TPU kernel reduces
   ``sbits[0, j]``.
 
+The multi-rumor round (``csrc/fused_mr_round.cu`` and ``csrc/mr_gather.cu``,
+both routes of :mod:`gossip_tpu_torch.ops.fused_mr_round`) draws one
+stream of its own:
+
+* Key: ``k1`` carries the salt ``0x5D0`` (:data:`MR_SALT`, the TPU
+  path's ``round_salt``), so ``(uint32(seed) * 1000003, uint32(round) ^
+  0x5D0)``.
+* Shift word of lane ``j`` for fanout draw ``f``:
+  ``Philox(ctr=(j, f, 1, 0), key)[0]``, reduced ``% rows``.
+* Draw ``f`` of word ``w``: ``Philox(ctr=(w, f >> 2, 0, 0), key)[f & 3]``
+  (the single-rumor layout with one draw per fanout draw).
+
+The TPU path's staged route keys a different stream (threefry shifts,
+per-block hardware seeds); that stream is an artifact of the TPU and is
+not reproduced: both routes of the port draw the stream above.
+
 Representation: torch has no unsigned 32-bit arithmetic on every backend,
 so the plain functions hold 32-bit words as int64 values in
 ``[0, 2^32)`` and mask after every operation.  A 32 x 32-bit product
@@ -44,6 +61,7 @@ PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 ROUND_MIX = 1000003          # seed-mixing prime of the TPU path's seed pair
+MR_SALT = 0x5D0              # round salt of the multi-rumor stream
 LANES = 128
 
 
@@ -82,10 +100,14 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def shift_words(k0: int, k1: int, device=None) -> torch.Tensor:
-    """int64[128]: the raw shift word of every lane (reduce ``% rows``)."""
+def shift_words(k0: int, k1: int, draws: int = 1,
+                device=None) -> torch.Tensor:
+    """int64[draws, 128]: the raw shift word of every lane for every
+    fanout draw ``f < draws``, ``Philox(ctr=(j, f, 1, 0))[0]`` (reduce
+    ``% rows``).  The single-rumor round takes draw 0 only."""
     lanes = torch.arange(LANES, dtype=torch.int64, device=device)
-    return philox4x32_10(lanes, 0, 1, 0, k0, k1)[0]
+    fs = torch.arange(draws, dtype=torch.int64, device=device)
+    return philox4x32_10(lanes[None, :], fs[:, None], 1, 0, k0, k1)[0]
 
 
 def draw_words(k0: int, k1: int, rows: int, draws: int,

@@ -1,6 +1,7 @@
 """Shared by the port's tests: the bit-preserving conversions between the
 JAX package's uint32 arrays and the port's int32 tensors, and the JAX
-package's fused loop replayed on the port's Philox bits."""
+package's fused loops (one rumor and several) replayed on the port's
+Philox bits."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +9,7 @@ import torch
 
 from gossip_tpu.ops import pallas_round as J
 from gossip_tpu_torch.config import FaultConfig
+from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
 
 CPU = torch.device("cpu")
@@ -43,6 +45,29 @@ def jax_replay(n, seed, fanout, target, max_rounds, drop_prob):
                                    drop_threshold=thr)
         msgs = msgs + 2.0 * fanout * n
         cov = J.coverage_node_packed(table, n)
+        rounds += 1
+        tables.append(np.asarray(table))
+    return tables, rounds, np.float32(msgs), float(cov)
+
+
+def jax_mr_replay(n, rumors, seed, fanout, target, max_rounds, drop_prob):
+    """The reference multi-rumor loop (compiled_until_fused_multirumor's
+    while_loop semantics) stepped on the host, each round through the
+    JAX package's round on the port's multi-rumor Philox bits.  Returns
+    the table after every round and the final (round, msgs, coverage)."""
+    thr = J.drop_threshold_for(FaultConfig(drop_prob=drop_prob))
+    st = J.init_multirumor_state(n, rumors)
+    table, msgs = st.table, st.msgs
+    tables, cov = [], J.coverage_words(table, n, rumors)
+    rounds = 0
+    while bool(cov < jnp.float32(target)) and rounds < max_rounds:
+        sb, rb = MR.draw_mr_round_bits(seed, rounds, table.shape[0], fanout,
+                                       device=CPU)
+        table = J.fused_multirumor_pull_round(
+            table, seed, rounds, n, fanout, interpret=True,
+            inject_bits=(as_u32(sb), as_u32(rb)), drop_threshold=thr)
+        msgs = msgs + 2.0 * fanout * n
+        cov = J.coverage_words(table, n, rumors)
         rounds += 1
         tables.append(np.asarray(table))
     return tables, rounds, np.float32(msgs), float(cov)

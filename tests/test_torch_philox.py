@@ -3,15 +3,17 @@
 
 The plain torch Philox is held against Random123's published known
 answers and against an independent numpy model in uint64 arithmetic
-(exact: a product of two 32-bit words is below 2^64).  The stream's
-layout (draw d of word w, the lane shifts, the round key) is checked
-against the same numpy model, bitwise.
+(exact: a product of two 32-bit words is below 2^64).  The layouts of
+both streams, the single-rumor round's and the multi-rumor round's
+(draws of word w, the lane shifts, the round key), are checked against
+the same numpy model, bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
 from gossip_tpu_torch.ops import philox
 
@@ -100,3 +102,33 @@ def test_stream_layout(fanout, sharing):
     for d in range(draws):
         want = numpy_philox((words, d >> 2, 0, 0), (k0, k1))[d & 3]
         np.testing.assert_array_equal(rb[d].reshape(-1), want)
+
+
+@pytest.mark.parametrize("fanout", [1, 2, 5])
+def test_multirumor_stream_layout(fanout):
+    """The multi-rumor stream: key (seed * 1000003, round ^ 0x5D0); the
+    shift word of lane j for fanout draw f is Philox(ctr=(j, f, 1, 0))[0];
+    draw f of word w is Philox(ctr=(w, f>>2, 0, 0))[f & 3]; the bits come
+    in the reference's inject layout (sbits [F, 8, 128], rbits
+    [F, rows, 128])."""
+    rows, seed, round_ = 8, 11, 4
+    wrapped = np.array([seed], np.int64).astype(np.int32) * np.int32(1000003)
+    key = (int(wrapped.view(np.uint32)[0]), round_ ^ 0x5D0)
+    assert philox.round_key(seed, round_, philox.MR_SALT) == key
+    sbits, rbits = MR.draw_mr_round_bits(seed, round_, rows, fanout,
+                                         device="cpu")
+    assert sbits.shape == (fanout, 8, 128) and sbits.dtype == torch.int32
+    assert rbits.shape == (fanout, rows, 128) and rbits.dtype == torch.int32
+    sb = sbits.numpy().view(np.uint32)
+    rb = rbits.numpy().view(np.uint32)
+    assert not sb[:, 1:].any()
+    lanes = np.arange(128, dtype=np.uint64)
+    words = np.arange(rows * 128, dtype=np.uint64)
+    for f in range(fanout):
+        np.testing.assert_array_equal(
+            sb[f, 0], numpy_philox((lanes, f, 1, 0), key)[0])
+        np.testing.assert_array_equal(
+            rb[f].reshape(-1), numpy_philox((words, f >> 2, 0, 0), key)[f & 3])
+    np.testing.assert_array_equal(
+        philox.shift_words(*key, fanout).numpy().astype(np.uint64),
+        sb[:, 0].astype(np.uint64))
