@@ -4,9 +4,11 @@
 
 It builds the port's CUDA kernels from the sources in this checkout,
 holds each bitwise against its plain PyTorch version at N = 10M, drives
-the flagship run (single-rumor pull gossip to 99% coverage) and the
-multi-rumor run (32 rumors, to 99% min-over-rumors coverage) through the
-port's own entry points, and measures them.  One JSON line per phase:
+the flagship run (single-rumor pull gossip to 99% coverage), the
+multi-rumor run (32 rumors, to 99% min-over-rumors coverage) and the
+threefry-keyed XLA engine (with its threefry sampler and with the
+sampling kernel) through the port's own entry points, and measures them.
+One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (one ``nvcc`` per source, started
@@ -44,7 +46,28 @@ port's own entry points, and measures them.  One JSON line per phase:
    curve loop), its host read per round and node-rounds/s;
 10. ``mr_staged_path``  the main path's rounds stepped through the staged
    round ``fused_mr_round_big`` (counts set to 0 just before and read
-   just after), which must end in the same table.
+   just after), which must end in the same table;
+11. ``sampler_checks``  the sampling kernel (``csrc/sampler.cu``) against
+   its plain version on the card, bitwise, at n = 10M and 10M - 37, k = 1
+   and 3, self-exclusion on and off, three seed scalars (a wrapped
+   negative one among them), and under injected zero, all-ones and
+   random bits; the chi-square of a 10M-draw stream; then its time, its
+   plain version's, its bound and ``torch.randint``'s time;
+12. ``xla_main_path``  ``run_simulation`` with ``engine='xla'`` at
+   N = 10M and 1M, pull, fanout 1, seed 0, target 0.99, which must give
+   the JAX package's rounds, coverage and msgs (``XLA_10M``,
+   ``XLA_1M``); at 1M the card's final states of pull, anti-entropy and
+   pull with drops and deaths equal the port's CPU runs; then the
+   round's time split (threefry draw, gather, requests, coverage read)
+   and the packed bench loop;
+13. ``xla_sampler_path``  ``compiled_until_packed(sampler="kernel")`` at
+   N = 10M, counts set to 0 just before and read just after: one sampler
+   launch a round, 25-30 rounds to 99%, and the same table as a replay
+   with the plain sampler; its time per round against threefry's;
+14. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
+   N = 10M with ``node_death_rate=0.1`` against their plain replays, the
+   stop test's counter-read coverage against a recount, and their ms per
+   round.
 
 Then the ``kernels`` line, and last ``{"ok": true, "device": ...}``.  Any
 failed check raises, and the exit code is not 0.  Without a CUDA device,
@@ -96,6 +119,18 @@ MR_WORD_OPS = 2 + 5 * 4 + 2
 RUMORS = 32
 N_SMALL = 1_000_000       # the second size of the route comparison
 ROUTE_ROUNDS = 10         # rounds per timed route batch
+# sampler, per draw: a 32-bit remainder by a runtime divisor 20, the
+# self-exclusion compare and add 2, the row step 2, the store 1 (the
+# Philox call, a quarter per draw, is counted apart)
+SAMPLER_DRAW_OPS = 25
+# (rounds, coverage, msgs) of the JAX package's XLA engine, jax 0.9.0 on
+# the CPU: run_simulation('jax-tpu', ProtocolConfig(mode='pull',
+# fanout=1), TopologyConfig(family='complete', n=N), RunConfig(
+# engine='xla', seed=0, target_coverage=0.99)), meta.engine
+# 'bit-packed'.  Threefry does not depend on the platform, so the port
+# must print the same on the card.
+XLA_10M = (27, 0.9992427229881287, 540000000.0)
+XLA_1M = (23, 0.9972720146179199, 46000000.0)
 
 
 def emit(phase: str, **fields) -> None:
@@ -538,6 +573,321 @@ def phase_mr(dev, smi: str):
              "path": "mr_staged_path", "card": smi}]
 
 
+def sampler_bound(n_rows: int, k: int):
+    """(bound_ms, bound_by) of one sampler launch: the int32 output
+    written once, and per draw a quarter Philox call plus
+    SAMPLER_DRAW_OPS."""
+    draws = n_rows * k
+    return _bound(draws * (PHILOX_OPS / 4 + SAMPLER_DRAW_OPS), draws * 4)
+
+
+def phase_sampler_checks(dev, smi: str):
+    """The sampling kernel against its plain version on the card,
+    bitwise, then the stream's chi-square and the times.  Returns the
+    kernel's entry of the ``kernels`` line (launches filled in later)."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.ops import fast_sampling as FS
+    from gossip_tpu_torch.utils.timing import steady_timed
+
+    rng = np.random.default_rng(SEED + 3)
+    seeds = (0, FS.round_seed(123456789, 7), 2**31 - 1)
+    check(seeds[1] < 0, "the wrapped round seed is negative")
+    results, max_err = [], 0
+
+    def compare(name, m, k, excl, seed, bits=None):
+        nonlocal max_err
+        got = FS.sample_targets(seed, m, m, k, excl, inject_bits=bits,
+                                device=dev)
+        want = FS.sample_targets_plain(seed, m, m, k, excl,
+                                       inject_bits=bits, device=dev)
+        err = int((got.long() - want.long()).abs().max())
+        equal = bool(torch.equal(got, want))
+        results.append({"case": name, "n": m, "k": k, "exclude_self": excl,
+                        "seed": seed, "bitwise_equal": equal,
+                        "max_abs_err": err})
+        check(equal, f"sampler vs plain, {name}")
+        if excl:
+            check(not bool((got == torch.arange(m, device=dev)[:, None])
+                           .any()), f"sampler drew a node itself, {name}")
+        check(int(got.min()) >= 0 and int(got.max()) < m,
+              f"sampler out of range, {name}")
+        max_err = max(max_err, err)
+
+    for m in (N, N - 37):
+        for k in (1, 3):
+            for excl in (True, False):
+                for seed in seeds:
+                    compare("stream", m, k, excl, seed)
+    for m, k, excl in ((N, 1, True), (N - 37, 3, False)):
+        for fill, bits in (
+                ("zeros", np.zeros((m, k), np.uint32)),
+                ("ones", np.full((m, k), 2**32 - 1, np.uint32)),
+                ("random", rng.integers(0, 2**32, (m, k), np.uint32))):
+            compare(f"inject_{fill}", m, k, excl, seeds[0],
+                    torch.from_numpy(bits.view(np.int32)).to(dev))
+    # uniformity of the 10M-draw stream: n = 64 (no modulo bias), 16
+    # buckets, the chi-square bound of tests/test_pallas.py
+    t = FS.sample_targets(11, N, 64, 1, False, device=dev)[:, 0]
+    counts = torch.bincount(t.long() * 16 // 64, minlength=16).double()
+    expected = N / 16
+    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    check(chi2 < 60, f"sampler stream chi-square {chi2}")
+
+    out = torch.empty(N, 1, dtype=torch.int32, device=dev)
+    seed = FS.round_seed(SEED, CHECK_ROUND)
+    ms = kernel_ms(lambda: _kernels.sampler(out, N, True, seed))
+    plain_ms = 1e3 * statistics.median(
+        steady_timed(dev, FS.sample_targets_plain, seed, N, N, 1, True,
+                     device=dev)[1] for _ in range(3))
+    library_ms = kernel_ms(lambda: torch.randint(
+        0, N, (N, 1), dtype=torch.int32, device=dev))
+    bound_ms, bound_by = sampler_bound(N, 1)
+    emit("sampler_checks", cases=results, max_abs_err=max_err, tolerance=0,
+         chi_square=chi2, kernel_ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+         library="torch.randint(0, n, (n, 1), int32)", card=smi)
+    return {"name": "sampler", "route": "cuda",
+            "source": "gossip_tpu_torch/csrc/sampler.cu",
+            "replaces": "gossip_tpu/ops/pallas_sampling.py:51",
+            "launches": None, "max_abs_err": max_err, "bitwise_equal": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_note": "torch.randint draws the same distribution "
+                            "without self-exclusion, on another stream",
+            "path": "xla_sampler_path", "card": smi}
+
+
+def _median_ms(dev, fn, *args, **kwargs) -> float:
+    """Median of five timed calls after a warm-up, in ms, as a loop pays
+    them (host enqueue and waits included; CUDA events)."""
+    from gossip_tpu_torch.utils.timing import steady_timed
+    fn(*args, **kwargs)
+    return 1e3 * statistics.median(
+        steady_timed(dev, fn, *args, **kwargs)[1] for _ in range(5))
+
+
+def _xla_packed(n: int, dev, mode: str = "pull", fault=None):
+    """(rounds, coverage, msgs, final state) of the XLA engine's packed
+    loop, fanout 1, seed 0, target 0.99, on ``dev``."""
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.models.si_packed import simulate_until_packed
+    from gossip_tpu_torch.topology import generators as G
+    return simulate_until_packed(
+        ProtocolConfig(mode=mode, fanout=1), G.complete(n),
+        RunConfig(seed=SEED, target_coverage=0.99, engine="xla"), fault,
+        device=dev)
+
+
+def phase_xla_main_path(dev, smi: str):
+    """``engine='xla'`` at N = 10M and 1M on the card against the JAX
+    package's values, the card's 1M states against the port's CPU runs,
+    and the round's time split.  Returns the packed bench loop's ms per
+    round."""
+    import torch
+    from gossip_tpu_torch import bench
+    from gossip_tpu_torch.backend import run_simulation
+    from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig,
+                                         RunConfig, TopologyConfig)
+    from gossip_tpu_torch.models import si as si_mod
+    from gossip_tpu_torch.models.si_packed import (init_packed_state,
+                                                   pull_merge_packed)
+    from gossip_tpu_torch.ops import _kernels, threefry
+    from gossip_tpu_torch.ops.bitpack import coverage_packed
+    from gossip_tpu_torch.ops.sampling import sample_peers
+    from gossip_tpu_torch.topology import generators as G
+
+    proto = ProtocolConfig(mode="pull", fanout=1)
+    run = RunConfig(seed=SEED, target_coverage=0.99, engine="xla")
+    reports = {}
+    for n in (N, N_SMALL):
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        reports[n] = run_simulation(
+            proto, TopologyConfig(family="complete", n=n), run, device=dev)
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        rep = reports[n]
+        got = (rep.rounds, rep.coverage, rep.msgs)
+        want = XLA_10M if n == N else XLA_1M
+        check(got == want and rep.meta["engine"] == "bit-packed"
+              and sum(launches.values()) == 0,
+              f"xla at n={n}: {got} {rep.meta['engine']} {launches}, "
+              f"want {want}")
+    # card against CPU at 1M, bitwise: pull, anti-entropy, and pull with
+    # drops and deaths
+    cpu = torch.device("cpu")
+    same = {}
+    for name, mode, fault in (
+            ("pull", "pull", None), ("antientropy", "antientropy", None),
+            ("pull_drop_death", "pull",
+             FaultConfig(drop_prob=0.05, node_death_rate=0.1))):
+        card = _xla_packed(N_SMALL, dev, mode, fault)
+        host = _xla_packed(N_SMALL, cpu, mode, fault)
+        ok = (card[:3] == host[:3]
+              and torch.equal(card[3].seen.cpu(), host[3].seen)
+              and card[3].msgs.item() == host[3].msgs.item())
+        same[name] = {"rounds": card[0], "coverage": card[1],
+                      "msgs": card[2], "card_equals_cpu": ok}
+        check(ok, f"card vs CPU at 1M, {name}: {card[:3]} {host[:3]}")
+    check(same["pull"]["rounds"] == XLA_1M[0], "1M pull rounds")
+    report = reports[N]
+
+    # time split of one 10M round: threefry draw, gather, request count,
+    # coverage count with its host read
+    topo = G.complete(N)
+    st = init_packed_state(run, proto, N, dev)
+    ids = torch.arange(N, dtype=torch.int64, device=dev)
+    qkey = threefry.fold_in(threefry.fold_in(st.key, CHECK_ROUND),
+                            si_mod.PULL_TAG)
+
+    partners = sample_peers(qkey, ids, topo, 1)
+    split = {"threefry_ms": _median_ms(dev, sample_peers, qkey, ids, topo,
+                                       1),
+             "gather_ms": _median_ms(dev, pull_merge_packed, st.seen,
+                                     partners, N),
+             "requests_ms": _median_ms(
+                 dev, lambda: si_mod.f32((partners < N).sum())),
+             "coverage_read_ms": _median_ms(dev, coverage_packed, st.seen,
+                                            1)}
+    b_rounds, seconds = bench.run_xla_packed(N, dev)
+    check(b_rounds == report.rounds, f"xla bench ran {b_rounds} rounds")
+    round_ms = seconds * 1e3 / b_rounds
+    emit("xla_main_path", report=report.to_dict(), want=XLA_10M,
+         small=reports[N_SMALL].to_dict(), want_small=XLA_1M,
+         card_vs_cpu_1m=same, ms_per_round=round_ms, **split,
+         threefry_share=split["threefry_ms"] / round_ms,
+         line=bench.measurement_line(N, b_rounds, seconds, bench.card_info(),
+                                     "bit-packed threefry"),
+         card=smi)
+    return round_ms
+
+
+def phase_xla_sampler_path(dev, smi: str, threefry_round_ms: float):
+    """``compiled_until_packed(sampler="kernel")`` at N = 10M, counts set
+    to 0 just before and read just after; replayed with the plain
+    sampler; and its time per round against the threefry loop's."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch import bench
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.models.si_packed import (compiled_until_packed,
+                                                   pull_merge_packed)
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.ops import fast_sampling as FS
+    from gossip_tpu_torch.ops.bitpack import coverage_packed
+    from gossip_tpu_torch.topology import generators as G
+
+    proto = ProtocolConfig(mode="pull", fanout=1)
+    run = RunConfig(seed=SEED, target_coverage=0.99, max_rounds=128)
+    loop, init = compiled_until_packed(proto, G.complete(N), run,
+                                       sampler="kernel", device=dev)
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    final = loop(init)
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    rounds = final.round
+    cov = coverage_packed(final.seen, 1)
+    check(launches["sampler"] == rounds and sum(launches.values()) == rounds,
+          f"sampler path: launches {launches} for {rounds} rounds")
+    check(25 <= rounds <= 30 and cov >= np.float32(0.99),
+          f"sampler path: {rounds} rounds, coverage {cov}")
+    check(final.msgs.item() == np.float32(2 * N * rounds),
+          f"sampler path msgs {final.msgs.item()}")
+    # replay round by round with the plain sampler on the card
+    seen = init.seen.clone()
+    for r in range(rounds):
+        partners = FS.sample_targets_plain(FS.round_seed(SEED, r), N, N, 1,
+                                           True, device=dev)
+        seen = seen | pull_merge_packed(seen, partners, N)
+    check(torch.equal(seen, final.seen), "sampler path vs plain replay")
+    b_rounds, seconds = bench.run_xla_packed(N, dev, "kernel")
+    check(b_rounds == rounds, f"kernel bench ran {b_rounds} rounds")
+    # time split of one round: the sampler call (allocation and launch),
+    # the gather, the request count, the coverage count and its host read
+    split = {"sampler_call_ms": _median_ms(
+                 dev, FS.sample_peers_fast, SEED, CHECK_ROUND, N, N,
+                 device=dev),
+             "gather_ms": _median_ms(dev, pull_merge_packed, final.seen,
+                                     partners, N),
+             "requests_ms": _median_ms(
+                 dev, lambda: (partners < N).sum().to(torch.float32)),
+             "coverage_read_ms": _median_ms(dev, coverage_packed,
+                                            final.seen, 1)}
+    emit("xla_sampler_path", rounds=rounds, coverage=cov, launches=launches,
+         plain_replay_equal=True, ms_per_round=seconds * 1e3 / rounds,
+         **split, threefry_ms_per_round=threefry_round_ms,
+         line=bench.measurement_line(N, rounds, seconds, bench.card_info(),
+                                     "bit-packed kernel-sampler"),
+         card=smi)
+    return launches["sampler"]
+
+
+def _loop_ms(dev, fn, *args, **kwargs) -> float:
+    """Median of three steady runs of a run loop, in ms."""
+    from gossip_tpu_torch.utils.timing import steady_timed
+    return 1e3 * statistics.median(
+        steady_timed(dev, fn, *args, **kwargs)[1] for _ in range(3))
+
+
+def phase_fused_deaths(dev, smi: str):
+    """One single-rumor and one 32-rumor fused run with node_death_rate
+    0.1 at N = 10M against their plain replays, bitwise; the stop test's
+    coverage, read from the kernels' counters, against a recount of the
+    final table; and each loop's ms per round."""
+    import torch
+    from gossip_tpu_torch.config import FaultConfig
+    from gossip_tpu_torch.models.state import alive_mask
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.ops import fused_round as FR
+
+    fault = FaultConfig(node_death_rate=0.1)
+    rows = {}
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    final, cov = FR.until_fused(N, SEED, fault=fault, device=dev)
+    alive, _ = FR.fault_masks_node_packed(fault, N, 0, dev)
+    plain = FR.init_fused_state(N, 0, dev).table
+    for r in range(final.round):
+        plain = FR.fused_pull_round_plain(plain, SEED, r, N,
+                                          alive_table=alive)
+    rows["single"] = {"rounds": final.round, "coverage": cov,
+                      "launches": _kernels.FUSED_ROUND.launches,
+                      "until_ms_per_round": _loop_ms(
+                          dev, FR.until_fused, N, SEED, fault=fault,
+                          device=dev) / final.round}
+    check(torch.equal(final.table, plain) and cov >= 0.99
+          and cov == FR.coverage_node_packed_alive(final.table, alive)
+          and rows["single"]["launches"] == final.round,
+          f"fused deaths, one rumor: {rows['single']}")
+    # 32 rumors from the first run of 32 alive nodes (a rumor started at
+    # a dead node never spreads)
+    a = alive_mask(fault, N, 0, dev)
+    origin = int(torch.nonzero(a.unfold(0, RUMORS, 1).all(dim=1))[0])
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    final, cov = MR.until_fused_multirumor(N, RUMORS, SEED, origin=origin,
+                                           fault=fault, device=dev)
+    words, _ = MR.fault_masks_word(fault, N, origin, dev)
+    plain = MR.init_multirumor_state(N, RUMORS, origin, dev).table
+    for r in range(final.round):
+        plain = MR.fused_mr_round_plain(plain, SEED, r, N,
+                                        alive_words=words)
+    launches = _kernels.FUSED_MR_ROUND.launches
+    rows["rumors32"] = {"rounds": final.round, "coverage": cov,
+                        "origin": origin, "launches": launches,
+                        "until_ms_per_round": _loop_ms(
+                            dev, MR.until_fused_multirumor, N, RUMORS, SEED,
+                            origin=origin, fault=fault,
+                            device=dev) / final.round}
+    check(torch.equal(final.table, plain) and cov >= 0.99
+          and cov == MR.coverage_words_alive(final.table, words, RUMORS)
+          and launches == final.round,
+          f"fused deaths, 32 rumors: {rows['rumors32']}")
+    emit("fused_deaths", runs=rows, plain_replay_equal=True, card=smi)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -635,6 +985,12 @@ def main() -> int:
 
     mr_kernels = phase_mr(dev, smi)
 
+    sampler = phase_sampler_checks(dev, smi)
+    threefry_round_ms = phase_xla_main_path(dev, smi)
+    sampler["launches"] = phase_xla_sampler_path(dev, smi,
+                                                 threefry_round_ms)
+    phase_fused_deaths(dev, smi)
+
     print(json.dumps({"kernels": [{
         "name": "fused_round", "route": "cuda",
         "source": "gossip_tpu_torch/csrc/fused_round.cu",
@@ -643,7 +999,7 @@ def main() -> int:
         "bitwise_equal": True, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "library_note": "no single PyTorch call computes this round",
-        "card": smi}, *mr_kernels]}), flush=True)
+        "card": smi}, *mr_kernels, sampler]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

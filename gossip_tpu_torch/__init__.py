@@ -2,18 +2,27 @@
 
 The port of the JAX package ``gossip_tpu`` to an NVIDIA H100.  It imports
 ``torch`` and ``numpy`` only, never ``jax`` or ``gossip_tpu``; its tests
-hold it against the JAX package.  It runs pull gossip on the implicit
-complete graph, one hand-written CUDA kernel per round: one rumor
-(``csrc/fused_round.cu``) or up to 32 (``csrc/fused_mr_round.cu``, and the
-staged route's ``csrc/mr_gather.cu``).
+hold it against the JAX package.  On one device it runs two engines: the
+fused pull route, one hand-written CUDA kernel per round (one rumor,
+``csrc/fused_round.cu``; up to 32, ``csrc/fused_mr_round.cu`` and the
+staged route's ``csrc/mr_gather.cu``), and the threefry-keyed XLA engine
+(every SI mode and topology, bitwise equal to the JAX package), whose
+packed loop can draw its partners with ``csrc/sampler.cu``.
 
 Layout:
   - :mod:`gossip_tpu_torch.config`           the run configuration
-  - :mod:`gossip_tpu_torch.ops.philox`       the rounds' random streams
+  - :mod:`gossip_tpu_torch.ops.philox`       the kernels' random streams
+  - :mod:`gossip_tpu_torch.ops.threefry`     ``jax.random``'s threefry
   - :mod:`gossip_tpu_torch.ops.fused_round`  the single-rumor round, its
     plain version, the state and the run loops
   - :mod:`gossip_tpu_torch.ops.fused_mr_round`  the multi-rumor round's
     two routes, their plain versions, the layout helpers and the loops
+  - :mod:`gossip_tpu_torch.ops.sampling`, ``propagate``, ``bitpack``,
+    ``fast_sampling``                        the XLA engine's operations
+    and the sampling kernel's wrapper
+  - :mod:`gossip_tpu_torch.topology.generators`  the graph families
+  - :mod:`gossip_tpu_torch.models`           state, bool and packed rounds
+  - :mod:`gossip_tpu_torch.runtime.simulator`  the bool rounds' loops
   - :mod:`gossip_tpu_torch.ops._kernels`     build, binding and launch
   - :mod:`gossip_tpu_torch.backend`          ``run_simulation``
   - :mod:`gossip_tpu_torch.cli`              ``python -m gossip_tpu_torch``

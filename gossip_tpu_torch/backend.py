@@ -1,17 +1,29 @@
-"""``run_simulation``: the port's backend for the fused pull routes.
+"""``run_simulation``: the port's backend, single device.
 
-The port of the JAX package's ``backend.run_simulation`` on its
-``engine='fused'``, single-device branch (``_run_fused``): pull gossip on
-the implicit complete graph, one rumor on the node-packed bitmap
-(:mod:`gossip_tpu_torch.ops.fused_round`) or up to 32 on one word per
-node (:mod:`gossip_tpu_torch.ops.fused_mr_round`), one CUDA kernel
-launch per round.  The report carries the reference's ``RunReport``
-fields.  Whatever the port does not run is refused with a
-``ValueError``, never run some other way.
+The port of the JAX package's ``backend.run_simulation`` for the SI modes
+on one device (``run_jax`` and ``_run_fused``):
+
+* ``engine='fused'``: pull gossip on the implicit complete graph, one CUDA
+  kernel launch per round: one rumor on the node-packed bitmap
+  (:mod:`gossip_tpu_torch.ops.fused_round`) or up to 32 on one word per
+  node (:mod:`gossip_tpu_torch.ops.fused_mr_round`), with the static fault
+  masks (deaths and drops) in the kernel;
+* ``engine='xla'``: the threefry-keyed engine, bitwise equal to the JAX
+  package's XLA path: pull and anti-entropy without a curve on the
+  bit-packed rounds (:mod:`gossip_tpu_torch.models.si_packed`,
+  ``meta.engine = "bit-packed"``), everything else on the bool rounds
+  (:mod:`gossip_tpu_torch.runtime.simulator`);
+* ``engine='auto'``: fused where :func:`fused_ineligible_reason` is None,
+  else xla.
+
+The report carries the reference's ``RunReport`` fields and ``meta``
+keys, plus the device and every kernel's launches.  Whatever the port
+does not run yet is refused with a ``ValueError`` that names the slice it
+waits for, never run some other way.
 
 The run is on the CUDA device unless the caller passes ``device="cpu"``,
-which runs the round's plain version; with no card and no explicit
-device it raises.
+which runs the plain versions; with no card and no explicit device it
+raises.
 """
 
 from __future__ import annotations
@@ -24,11 +36,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig, RunConfig,
-                                     TopologyConfig)
+from gossip_tpu_torch import config as C
+from gossip_tpu_torch.config import (FaultConfig, MeshConfig, ProtocolConfig,
+                                     RunConfig, TopologyConfig)
 from gossip_tpu_torch.ops import _kernels
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
+from gossip_tpu_torch.ops.common import resolve_device
 from gossip_tpu_torch.utils.timing import steady_timed, timing_meta
 
 
@@ -62,15 +76,12 @@ def _curve_summary(covs, msgs, target):
 def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
                             run: RunConfig,
                             fault: Optional[FaultConfig]) -> Optional[str]:
-    """Why this slice cannot run the configuration, or None if it can.
-    Configuration reasons only; the device is resolved afterwards."""
-    if run.engine != "fused":
-        return (f"the port runs engine='fused' only (got {run.engine!r}); "
-                "the XLA engines wait for the threefry port")
-    if proto.mode != "pull":
+    """Why the fused route cannot run the configuration, or None if it
+    can.  Configuration reasons only; the device is resolved afterwards."""
+    if proto.mode != C.PULL:
         return (f"engine='fused' implements pull rounds only "
                 f"(got mode {proto.mode!r})")
-    if topo.family != "complete":
+    if topo.family != C.COMPLETE:
         return ("engine='fused' runs on the implicit complete "
                 f"topology only (got family {topo.family!r})")
     if proto.rumors > FR.BITS:
@@ -80,28 +91,48 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
     if fault is not None and fault.churn is not None:
         return ("engine='fused' routing does not run churn schedules "
                 "single-device")
-    if fault is not None and fault.node_death_rate:
-        return FR.DEATHS_NEED_THREEFRY
     if topo.n >= 1 << 31:
         return (f"n={topo.n}: node ids and the round's popcount counter "
                 "are 32-bit; n must stay below 2^31")
     return None
 
 
-def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
-                   run: RunConfig, fault: Optional[FaultConfig] = None,
-                   want_curve: bool = False, device=None) -> RunReport:
-    """Run the fused pull loop to ``run.target_coverage`` (with several
-    rumors: the minimum over rumors) or ``run.max_rounds``
-    (``want_curve``: exactly ``max_rounds`` rounds, with the coverage
-    after each).  ``meta`` names the engine that ran (``fused-cuda``: the
-    kernels; ``fused-plain``: the plain versions on the CPU), the layout,
-    the multi-rumor route, every kernel's launches, and the wall's
-    parts."""
-    reason = fused_ineligible_reason(proto, topo, run, fault)
-    if reason is not None:
-        raise ValueError(reason)
-    dev = FR.resolve_device(device)
+def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
+    """Why no engine of the port runs this request yet, or None."""
+    if run.engine == "native":
+        return ("engine='native' is the JAX package's go-native event "
+                "core; the port's engines are auto|xla|fused")
+    if log_cfg is not None or txn_cfg is not None:
+        return ("the log and txn payload workloads wait for the port's "
+                "payload slice (ROADMAP queue 1, item 4)")
+    if proto.mode in (C.SWIM, C.RUMOR):
+        return (f"mode {proto.mode!r} waits for the port's models slice "
+                "(ROADMAP queue 1, item 4)")
+    if mesh_cfg is not None and (mesh_cfg.n_devices > 1
+                                 or mesh_cfg.exchange != "dense"):
+        return ("more than one device, and the sparse and halo "
+                "exchanges, wait for the port's multi-GPU slice (ROADMAP "
+                "queue 1, item 5)")
+    if fault is not None and fault.churn is not None:
+        return ("churn schedules wait for the port's nemesis slice "
+                "(ROADMAP queue 1, item 3)")
+    return None
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in _kernels.KERNELS}
+
+
+def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,
+               fault: Optional[FaultConfig], want_curve: bool,
+               dev: torch.device) -> RunReport:
+    """The fused pull loop to ``run.target_coverage`` (with several
+    rumors: the minimum over rumors) or ``run.max_rounds`` (``want_curve``:
+    exactly ``max_rounds`` rounds, with the coverage after each)."""
     n = topo.n
     multi = proto.rumors > 1
     table_bytes = (MR.check_fused_fits(n, proto.rumors, dev)
@@ -111,7 +142,7 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
     if dev.type == "cuda":
         _kernels.build_all()
         build_s = time.perf_counter() - t0
-    launches0 = {k.name: k.launches for k in _kernels.KERNELS}
+    launches0 = _launch_counts()
     kw = dict(seed=run.seed, fanout=proto.fanout, max_rounds=run.max_rounds,
               origin=run.origin, fault=fault, device=dev)
     if multi:
@@ -134,6 +165,7 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
             float(final.msgs), None
         host_reads = final.round
     wall = time.perf_counter() - t0
+    launches1 = _launch_counts()
     return RunReport(
         backend=f"torch-{dev.type}", mode=proto.mode, n=n, rounds=rounds,
         coverage=cov, msgs=msgs, wall_s=round(wall, 4), curve=curve,
@@ -144,9 +176,79 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
                          else "node-packed bitmap"),
               "route": "value" if multi else None,
               "table_bytes": table_bytes,
-              "device": (torch.cuda.get_device_name(dev)
-                         if dev.type == "cuda" else "cpu"),
-              "launches": {k.name: k.launches - launches0[k.name]
-                           for k in _kernels.KERNELS},
+              "device": _device_name(dev),
+              "launches": {k: launches1[k] - launches0[k]
+                           for k in launches1},
               "host_reads": host_reads,
               **timing_meta(build_s, steady, wall)})
+
+
+def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
+             fault: Optional[FaultConfig], want_curve: bool,
+             dev: torch.device) -> RunReport:
+    """The XLA engine: bit-packed pull / anti-entropy without a curve,
+    the bool rounds otherwise."""
+    from gossip_tpu_torch.topology import generators as G
+    t0 = time.perf_counter()
+    topo = G.build(tc, dev)
+    topo_build_s = time.perf_counter() - t0
+    launches0 = _launch_counts()
+    base = {"clock": "rounds", "devices": 1,
+            "msgs_counts": "transmissions"}
+    t0 = time.perf_counter()
+    if proto.mode in (C.PULL, C.ANTI_ENTROPY) and not want_curve:
+        from gossip_tpu_torch.models.si_packed import simulate_until_packed
+        (rounds, cov, msgs, _), steady = steady_timed(
+            dev, simulate_until_packed, proto, topo, run, fault, dev)
+        curve = None
+        meta = {**base, "engine": "bit-packed"}
+    elif want_curve:
+        from gossip_tpu_torch.runtime.simulator import simulate_curve
+        res, steady = steady_timed(dev, simulate_curve, proto, topo, run,
+                                   fault, dev)
+        rounds, cov = res.rounds_to_target, res.final_coverage
+        msgs, curve = float(res.msgs[-1]), [float(c) for c in res.coverage]
+        meta = dict(base)
+    else:
+        from gossip_tpu_torch.runtime.simulator import simulate_until
+        res, steady = steady_timed(dev, simulate_until, proto, topo, run,
+                                   fault, dev)
+        rounds, cov, msgs, curve = res.rounds, res.coverage, res.msgs, None
+        meta = dict(base)
+    wall = time.perf_counter() - t0
+    launches1 = _launch_counts()
+    meta.update({"device": _device_name(dev),
+                 "launches": {k: launches1[k] - launches0[k]
+                              for k in launches1},
+                 **timing_meta(0.0, steady, wall),
+                 "topo_build_s": round(topo_build_s, 4)})
+    return RunReport(backend=f"torch-{dev.type}", mode=proto.mode, n=tc.n,
+                     rounds=rounds, coverage=cov, msgs=msgs,
+                     wall_s=round(wall, 4), curve=curve, meta=meta)
+
+
+def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
+                   run: RunConfig, fault: Optional[FaultConfig] = None,
+                   want_curve: bool = False, device=None,
+                   mesh_cfg: Optional[MeshConfig] = None,
+                   log_cfg=None, txn_cfg=None) -> RunReport:
+    """Run one simulation on one device with ``run.engine`` (module doc).
+    ``meta`` names what ran: ``engine`` (``fused-cuda`` / ``fused-plain``
+    for the fused route, ``bit-packed`` for the packed XLA rounds, absent
+    for the bool rounds, as in the reference), ``engine_auto`` when
+    ``auto`` picked the fused route, every kernel's launches, and the
+    wall's parts."""
+    reason = _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg)
+    if reason is not None:
+        raise ValueError(reason)
+    fused_reason = fused_ineligible_reason(proto, topo, run, fault)
+    if run.engine == "fused" and fused_reason is not None:
+        raise ValueError(fused_reason)
+    dev = resolve_device(device)
+    if run.engine == "fused" or (run.engine == "auto"
+                                 and fused_reason is None):
+        rep = _run_fused(proto, topo, run, fault, want_curve, dev)
+        if run.engine == "auto":
+            rep.meta["engine_auto"] = "fused"
+        return rep
+    return _run_xla(proto, topo, run, fault, want_curve, dev)

@@ -12,6 +12,10 @@ card's name and power limit::
 
     python -m gossip_tpu_torch.bench [--n N]
 
+:func:`run_xla_packed` times the XLA engine's bit-packed pull loop (the
+JAX package's ``run_xla_packed``) for the same line; ``chip_smoke.py``
+prints it.
+
 There is no CPU row: without a CUDA device it prints nothing and exits
 non-zero.  There is no ``vs_baseline`` either: the JAX package derives
 that figure for a TPU v4-8.
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from gossip_tpu_torch.ops import fused_round as FR
+from gossip_tpu_torch.ops.common import resolve_device
 from gossip_tpu_torch.utils.timing import steady_timed
 
 N_FLAGSHIP = 10_000_000
@@ -53,7 +58,7 @@ def card_info() -> dict:
 def run_fused(n: int = N_FLAGSHIP, device=None):
     """(rounds, seconds) of the flagship loop at ``n``: one warm-up run,
     then one timed run of ``until_fused`` from a fresh state."""
-    dev = FR.resolve_device(device)
+    dev = resolve_device(device)
     FR.until_fused(n, seed=0, target_coverage=TARGET, device=dev)
     (final, cov), seconds = steady_timed(
         dev, FR.until_fused, n, seed=0, target_coverage=TARGET, device=dev)
@@ -63,13 +68,40 @@ def run_fused(n: int = N_FLAGSHIP, device=None):
     return final.round, seconds
 
 
-def measurement_line(n: int, rounds: int, seconds: float,
-                     card: dict) -> dict:
+def run_xla_packed(n: int = N_FLAGSHIP, device=None,
+                   sampler: str = "threefry"):
+    """(rounds, seconds) of the XLA engine's bit-packed pull loop at
+    ``n`` (the JAX package's ``bench.py:run_xla_packed``): one warm-up
+    run, then one timed run of ``compiled_until_packed`` from a fresh
+    state.  ``sampler="kernel"`` draws the partners with
+    ``csrc/sampler.cu``."""
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.models.si_packed import (compiled_until_packed,
+                                                   init_packed_state)
+    from gossip_tpu_torch.ops.bitpack import coverage_packed
+    from gossip_tpu_torch.topology import generators as G
+    dev = resolve_device(device)
+    proto = ProtocolConfig(mode="pull", fanout=1, rumors=1)
+    run = RunConfig(target_coverage=TARGET, max_rounds=128, seed=0)
+    loop, init = compiled_until_packed(proto, G.complete(n), run,
+                                       sampler=sampler, device=dev)
+    loop(init)
+    final, seconds = steady_timed(dev, loop,
+                                  init_packed_state(run, proto, n, dev))
+    cov = coverage_packed(final.seen, proto.rumors)
+    if cov < np.float32(TARGET):
+        raise RuntimeError(f"coverage {cov} below the target after "
+                           f"{final.round} rounds")
+    return final.round, seconds
+
+
+def measurement_line(n: int, rounds: int, seconds: float, card: dict,
+                     engine: str = "fused-cuda") -> dict:
     """The one-line result, with the card it ran on."""
     rate = n * rounds / seconds
     return {"metric": "node_rounds_per_sec_per_chip",
             "value": rate,
-            "unit": f"node-rounds/s/chip (N={n}, fused-cuda pull SI to "
+            "unit": f"node-rounds/s/chip (N={n}, {engine} pull SI to "
                     f"99% in {rounds} rounds, {seconds * 1e3:.3f} ms)",
             "n": n, "rounds": rounds, "wall_ms": seconds * 1e3,
             "backend": "cuda", "card": card["name"],

@@ -1,10 +1,16 @@
 """Command line of the port: ``python -m gossip_tpu_torch run ...``.
 
-The port of the JAX package's ``run`` command on the fused pull routes::
+The port of the JAX package's ``run`` command on one device::
 
-    python -m gossip_tpu_torch run --mode pull --n 10000000 --engine fused \\
-        [--rumors R] [--fanout F] [--drop-prob P] [--curve] [--device cpu]
+    python -m gossip_tpu_torch run --mode pull --n 10000000 --engine xla \\
+        [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
+        [--fanout F] [--period T] [--seed S] [--origin O] [--target C]
+        [--max-rounds M] [--drop-prob P] [--death D] [--curve]
+        [--device cpu]
 
+``--mode`` is one of the five SI modes and ``--engine`` one of
+``auto|xla|fused`` (``backend.run_simulation``).  The topology and the
+fault take ``--seed`` as their seeds too, as the JAX command sets them.
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
@@ -17,18 +23,24 @@ import argparse
 import json
 import sys
 
+from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig, RunConfig,
                                      TopologyConfig)
 
 
 def cmd_run(a) -> int:
     from gossip_tpu_torch.backend import run_simulation
-    fault = FaultConfig(drop_prob=a.drop_prob) if a.drop_prob else None
+    fault = (FaultConfig(node_death_rate=a.death, drop_prob=a.drop_prob,
+                         seed=a.seed)
+             if a.drop_prob > 0 or a.death > 0 else None)
     report = run_simulation(
-        ProtocolConfig(mode=a.mode, fanout=a.fanout, rumors=a.rumors),
-        TopologyConfig(family="complete", n=a.n),
-        RunConfig(engine=a.engine), fault, want_curve=a.curve,
-        device=a.device)
+        ProtocolConfig(mode=a.mode, fanout=a.fanout, rumors=a.rumors,
+                       period=a.period),
+        TopologyConfig(family=a.family, n=a.n, k=a.k, p=a.p,
+                       degree_cap=a.degree_cap, seed=a.seed),
+        RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
+                  seed=a.seed, origin=a.origin, engine=a.engine),
+        fault, want_curve=a.curve, device=a.device)
     print(json.dumps(report.to_dict()))
     return 0
 
@@ -39,20 +51,36 @@ def main(argv=None) -> int:
         description="gossip simulation on PyTorch and CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="run one simulation")
-    p.add_argument("--mode", required=True, choices=("pull",))
+    p.add_argument("--mode", required=True, choices=C.SI_MODES)
     p.add_argument("--n", type=int, required=True)
-    p.add_argument("--engine", required=True, choices=("fused",))
+    p.add_argument("--engine", required=True, choices=("auto", "xla",
+                                                       "fused"))
+    p.add_argument("--family", default=C.COMPLETE, choices=C.FAMILIES)
+    p.add_argument("--k", type=int, default=4,
+                   help="ring/WS neighbors; BA attachment edges")
+    p.add_argument("--p", type=float, default=0.01,
+                   help="ER edge prob / WS rewire prob")
+    p.add_argument("--degree-cap", type=int, default=None)
     p.add_argument("--fanout", type=int, default=1)
     p.add_argument("--rumors", type=int, default=1,
-                   help="concurrent rumors (up to 32, one word per node)")
+                   help="concurrent rumors (fused: up to 32, one word per "
+                        "node)")
+    p.add_argument("--period", type=int, default=1,
+                   help="anti-entropy exchange period (rounds)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--origin", type=int, default=0)
+    p.add_argument("--target", type=float, default=0.99)
+    p.add_argument("--max-rounds", type=int, default=256)
     p.add_argument("--drop-prob", type=float, default=0.0,
-                   help="per-pull drop probability")
+                   help="per-message drop probability per round")
+    p.add_argument("--death", type=float, default=0.0,
+                   help="fraction of nodes statically dead")
     p.add_argument("--curve", action="store_true",
                    help="run exactly max_rounds rounds and include the "
                         "per-round coverage curve")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
-                   help="cpu runs the round's plain version (default: "
-                        "cuda, which must be present)")
+                   help="cpu runs the plain versions (default: cuda, which "
+                        "must be present)")
     p.set_defaults(fn=cmd_run)
     a = ap.parse_args(argv)
     try:

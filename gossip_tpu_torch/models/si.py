@@ -1,0 +1,152 @@
+"""SI-family rounds of the XLA engine: push, pull, push-pull, flood and
+anti-entropy, on bool state.
+
+The port of the JAX package's ``models/si.py`` (static faults; churn
+schedules wait for the nemesis slice).  One round is a function
+``SimState -> SimState``; its draws are the reference's threefry draws
+(same tags, same per-node keys), so ``seen``, ``round`` and ``msgs`` equal
+the reference's bit for bit.  ``msgs`` is a float32 scalar that grows in
+the reference's order, one float32 add per term.
+
+Faults: ``node_death_rate`` kills a static set (dead nodes neither send,
+answer nor receive); ``drop_prob`` drops each (sender, target) use per
+round.  Anti-entropy with ``period > 1`` exchanges on rounds that are a
+multiple of the period and is quiescent on the others: the port draws
+nothing on a quiescent round, where the reference draws and masks it
+all, with the same result.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from gossip_tpu_torch import config as C
+from gossip_tpu_torch.config import FaultConfig, ProtocolConfig
+from gossip_tpu_torch.models.state import SimState, alive_mask
+from gossip_tpu_torch.ops import threefry
+from gossip_tpu_torch.ops.bitpack import f32_mean
+from gossip_tpu_torch.ops.common import f32_fraction, resolve_device
+from gossip_tpu_torch.ops.propagate import (flood_gather, pull_merge,
+                                            push_delta)
+from gossip_tpu_torch.ops.sampling import apply_drop, drop_mask, sample_peers
+from gossip_tpu_torch.topology.generators import Topology
+
+# Sub-key tags, so push and pull draws of one round are independent.
+PUSH_TAG, PULL_TAG, PUSH_DROP_TAG, PULL_DROP_TAG, FLOOD_DROP_TAG = (
+    1, 2, 3, 4, 5)
+
+CHURN_WAITS = ("churn schedules wait for the port's nemesis slice "
+               "(ROADMAP queue 1, item 3)")
+
+
+def check_static_faults(fault: Optional[FaultConfig]) -> None:
+    if fault is not None and fault.churn is not None:
+        raise ValueError(CHURN_WAITS)
+
+
+def topology_device(topo: Topology, device=None) -> torch.device:
+    """The device a run on ``topo`` uses: the table's, unless the caller
+    names one (which must then hold the table)."""
+    if topo.nbrs is not None:
+        dev = topo.nbrs.device
+        if device is not None and torch.device(device) != dev:
+            raise ValueError(f"the topology's table is on {dev}, not "
+                             f"{device}")
+        return dev
+    return resolve_device(device)
+
+
+def f32(x) -> torch.Tensor:
+    """A count as float32 (int32/int64 to float32 rounds to nearest, as
+    the reference's ``astype(float32)``)."""
+    return x.to(torch.float32)
+
+
+def make_si_round(proto: ProtocolConfig, topo: Topology,
+                  fault: Optional[FaultConfig] = None, origin: int = 0,
+                  device=None):
+    """The single-device round step ``SimState -> SimState`` on
+    ``device`` (default: the topology's table's, or CUDA)."""
+    n, k = topo.n, proto.fanout
+    mode = proto.mode
+    if mode == C.SWIM:
+        raise ValueError("SWIM rounds wait for the port's models slice "
+                         "(ROADMAP queue 1, item 4)")
+    if mode == C.RUMOR:
+        raise ValueError("rumor-mongering rounds wait for the port's "
+                         "models slice (ROADMAP queue 1, item 4)")
+    if mode == C.FLOOD and topo.implicit:
+        raise ValueError("flood mode needs an explicit neighbor table")
+    check_static_faults(fault)
+    dev = topology_device(topo, device)
+    drop_prob = 0.0 if fault is None else fault.drop_prob
+    alive = alive_mask(fault, n, origin, dev)
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+
+    def step(state: SimState) -> SimState:
+        rkey = threefry.fold_in(state.key, state.round)
+        seen = state.seen
+        visible = seen if alive is None else seen & alive[:, None]
+        delta = torch.zeros_like(seen)
+        msgs = state.msgs
+
+        if mode in (C.PUSH, C.PUSH_PULL):
+            pkey = threefry.fold_in(rkey, PUSH_TAG)
+            targets = sample_peers(pkey, ids, topo, k, proto.exclude_self)
+            targets = apply_drop(rkey, PUSH_DROP_TAG, ids, targets,
+                                 drop_prob, n)
+            sender_active = visible.any(dim=1)
+            valid = (targets < n) & sender_active[:, None]
+            delta = delta | push_delta(n, torch.where(valid, targets, n),
+                                       visible)
+            msgs = msgs + f32(valid.sum())
+
+        exchange = (mode != C.ANTI_ENTROPY or proto.period <= 1
+                    or state.round % proto.period == 0)
+        if mode in (C.PULL, C.PUSH_PULL, C.ANTI_ENTROPY) and exchange:
+            qkey = threefry.fold_in(rkey, PULL_TAG)
+            partners = sample_peers(qkey, ids, topo, k, proto.exclude_self)
+            partners = apply_drop(rkey, PULL_DROP_TAG, ids, partners,
+                                  drop_prob, n)
+            pulled = pull_merge(visible, partners, n)
+            if alive is not None:     # dead nodes neither ask nor receive
+                partners = torch.where(alive[:, None], partners, n)
+            n_req = f32((partners < n).sum())
+            if mode == C.ANTI_ENTROPY:
+                # both directions: request, digest, reverse delta
+                back = push_delta(n, partners, visible)
+                delta = delta | pulled | back
+                msgs = msgs + 3.0 * n_req
+            else:
+                delta = delta | pulled
+                msgs = msgs + 2.0 * n_req     # request + digest response
+
+        if mode == C.FLOOD:
+            nbrs = topo.nbrs.to(torch.int64)
+            if drop_prob > 0.0:
+                dropped = drop_mask(rkey, FLOOD_DROP_TAG, ids,
+                                    nbrs.shape[1], drop_prob)
+                nbrs = torch.where(dropped, n, nbrs)
+            delta = flood_gather(visible, nbrs, n)
+            sender_active = visible.any(dim=1)
+            msgs = msgs + f32(torch.where(sender_active, topo.deg, 0).sum())
+
+        if alive is not None:
+            delta = delta & alive[:, None]   # dead nodes receive nothing
+        return SimState(seen=seen | delta, round=state.round + 1,
+                        key=state.key, msgs=msgs)
+
+    return step
+
+
+def coverage(seen: torch.Tensor,
+             alive: Optional[torch.Tensor] = None) -> float:
+    """Min-over-rumors fraction of (alive) nodes holding each rumor, in
+    the reference's float32 rounding (:mod:`gossip_tpu_torch.ops.bitpack`
+    module doc)."""
+    if alive is None:
+        return f32_mean(int(seen.sum(dim=0).min()), seen.shape[0])
+    counts = (seen & alive[:, None]).sum(dim=0)
+    return f32_fraction(int(counts.min()), int(alive.sum()))

@@ -1,0 +1,163 @@
+"""Bit-packed pull and anti-entropy rounds: the XLA engine's fast path.
+
+The port of the JAX package's ``models/si_packed.py`` (static faults).
+``seen`` is packed 32 rumors to a word (:mod:`gossip_tpu_torch.ops.bitpack`),
+so a pull moves one word per partner.  The semantics are exactly
+:mod:`gossip_tpu_torch.models.si`'s pull and anti-entropy modes (same
+tags, same per-node keys, same message accounting), bitwise.  Push modes
+are refused, as in the reference; anti-entropy's reverse delta unpacks to
+bools for the scatter and packs again, on exchange rounds only.
+
+``sampler``: ``"threefry"`` (default, the reference's stream) or
+``"kernel"`` (the reference's ``"pallas"``): partners from the sampling
+kernel ``csrc/sampler.cu`` (:mod:`gossip_tpu_torch.ops.fast_sampling`), a
+Philox stream of its own, on the implicit complete graph only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gossip_tpu_torch import config as C
+from gossip_tpu_torch.config import FaultConfig, ProtocolConfig, RunConfig
+from gossip_tpu_torch.models import si as si_mod
+from gossip_tpu_torch.models.state import SimState, alive_mask, init_state
+from gossip_tpu_torch.ops import threefry
+from gossip_tpu_torch.ops.bitpack import coverage_packed, pack, unpack
+from gossip_tpu_torch.ops.fast_sampling import sample_peers_fast
+from gossip_tpu_torch.ops.propagate import push_delta
+from gossip_tpu_torch.ops.sampling import apply_drop, sample_peers
+from gossip_tpu_torch.topology.generators import Topology
+
+SAMPLERS = ("threefry", "kernel")
+
+
+def init_packed_state(run: RunConfig, proto: ProtocolConfig, n: int,
+                      device=None) -> SimState:
+    """:func:`init_state` with ``seen`` packed to int32[N, ceil(R/32)]."""
+    st = init_state(run, proto, n, device)
+    return st._replace(seen=pack(st.seen))
+
+
+def pull_merge_packed(packed_all: torch.Tensor, partners: torch.Tensor,
+                      sentinel: int) -> torch.Tensor:
+    """int32[N, W]: the OR of the k sampled peers' words; sentinel
+    entries pull nothing."""
+    valid = partners < sentinel
+    safe = torch.clamp(partners, max=sentinel - 1).to(torch.int64)
+    got = torch.where(valid[:, :, None], packed_all[safe], 0)
+    out = got[:, 0, :]
+    for j in range(1, got.shape[1]):
+        out = out | got[:, j, :]
+    return out
+
+
+def make_packed_round(proto: ProtocolConfig, topo: Topology,
+                      fault: Optional[FaultConfig] = None, origin: int = 0,
+                      sampler: str = "threefry", sampler_seed: int = 0,
+                      device=None):
+    """Packed pull / anti-entropy round step ``SimState -> SimState`` on
+    ``device`` (default: the topology's table's, or CUDA)."""
+    n, k = topo.n, proto.fanout
+    mode = proto.mode
+    if mode not in (C.PULL, C.ANTI_ENTROPY):
+        raise ValueError(
+            f"packed rounds support pull/antientropy only, got {mode!r} "
+            "(the push half needs a scatter-OR; use models/si.py)")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}; choose from "
+                         f"{SAMPLERS}")
+    if sampler == "kernel" and not topo.implicit:
+        raise ValueError("the kernel sampler draws on the implicit "
+                         "complete graph only")
+    si_mod.check_static_faults(fault)
+    dev = si_mod.topology_device(topo, device)
+    drop_prob = 0.0 if fault is None else fault.drop_prob
+    alive = alive_mask(fault, n, origin, dev)
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    mfac = 3.0 if mode == C.ANTI_ENTROPY else 2.0
+
+    def step(state: SimState) -> SimState:
+        nxt = state._replace(round=state.round + 1)
+        if (mode == C.ANTI_ENTROPY and proto.period > 1
+                and state.round % proto.period):
+            return nxt                  # a quiescent round sends nothing
+        # the round key is one threefry of a single key: some 150 tiny
+        # launches, skipped where nothing draws from it
+        rkey = (threefry.fold_in(state.key, state.round)
+                if sampler == "threefry" or drop_prob > 0.0 else None)
+        packed = state.seen
+        visible = packed if alive is None else torch.where(
+            alive[:, None], packed, 0)
+        if sampler == "kernel":
+            partners = sample_peers_fast(sampler_seed, state.round, n, n, k,
+                                         proto.exclude_self, device=dev)
+        else:
+            qkey = threefry.fold_in(rkey, si_mod.PULL_TAG)
+            partners = sample_peers(qkey, ids, topo, k, proto.exclude_self)
+        partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, ids, partners,
+                              drop_prob, n)
+        pulled = pull_merge_packed(visible, partners, n)
+        if alive is not None:
+            partners = torch.where(alive[:, None], partners, n)
+        n_req = si_mod.f32((partners < n).sum())
+        if mode == C.ANTI_ENTROPY:
+            # the initiator's digest scatters back into the partner's row
+            pulled = pulled | pack(push_delta(n, partners,
+                                              unpack(visible, proto.rumors)))
+        if alive is not None:
+            pulled = torch.where(alive[:, None], pulled, 0)
+        return nxt._replace(seen=packed | pulled,
+                            msgs=state.msgs + mfac * n_req)
+
+    return step
+
+
+def _until(step, state: SimState, rumors: int, target: float,
+           max_rounds: int, alive) -> SimState:
+    """The reference's while-loop: step while the float32 coverage is
+    below the float32 target and the round below ``max_rounds``; the
+    coverage is read on the host once per round."""
+    tgt = np.float32(target)
+    while (coverage_packed(state.seen, rumors, alive) < tgt
+           and state.round < max_rounds):
+        state = step(state)
+    return state
+
+
+def simulate_until_packed(proto: ProtocolConfig, topo: Topology,
+                          run: RunConfig,
+                          fault: Optional[FaultConfig] = None, device=None):
+    """Run the packed round to ``run.target_coverage`` (alive-weighted
+    under deaths) or ``run.max_rounds``.  Returns ``(rounds, coverage,
+    msgs, final_state)``."""
+    loop, init = compiled_until_packed(proto, topo, run, fault,
+                                       device=device)
+    final = loop(init)
+    alive = alive_mask(fault, topo.n, run.origin, final.seen.device)
+    return (final.round, coverage_packed(final.seen, proto.rumors, alive),
+            float(final.msgs.item()), final)
+
+
+def compiled_until_packed(proto: ProtocolConfig, topo: Topology,
+                          run: RunConfig,
+                          fault: Optional[FaultConfig] = None,
+                          sampler: str = "threefry", device=None):
+    """``(loop, init)``: the packed while-loop and a fresh state; call
+    ``loop(state)``.  The reference's version also returns its topology
+    tables, which its jit takes as arguments; here the step holds them.
+    ``sampler="kernel"`` keys the sampling kernel with ``run.seed``."""
+    step = make_packed_round(proto, topo, fault, run.origin, sampler,
+                             run.seed, device)
+    dev = si_mod.topology_device(topo, device)
+    init = init_packed_state(run, proto, topo.n, dev)
+    alive = alive_mask(fault, topo.n, run.origin, dev)
+
+    def loop(state: SimState) -> SimState:
+        return _until(step, state, proto.rumors, run.target_coverage,
+                      run.max_rounds, alive)
+
+    return loop, init

@@ -125,7 +125,10 @@ FUSED_MR_ROUND = Kernel(
 MR_GATHER = Kernel(
     "mr_gather", "mr_gather.cu", "mr_gather_launch",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _I, _P])
-KERNELS = (FUSED_ROUND, FUSED_MR_ROUND, MR_GATHER)
+SAMPLER = Kernel(
+    "sampler", "sampler.cu", "sampler_launch",
+    [_P, _P, ctypes.c_ulonglong, _U, _U, _I, _U, _P])
+KERNELS = (FUSED_ROUND, FUSED_MR_ROUND, MR_GATHER, SAMPLER)
 MR_MAX_FANOUT = 64        # the value kernel keeps fanout x 128 shifts in
                           # shared memory (csrc/fused_mr_round.cu)
 
@@ -260,6 +263,28 @@ def fused_mr_round(table, n: int, fanout: int, key, drop_threshold: int,
     _launch(FUSED_MR_ROUND, dev, _ptr(table), _ptr(out), _ptr(alive_words),
             _ptr(cut_words), _ptr(sbits), _ptr(rbits), _ptr(pop), rows,
             fanout, k0, k1, drop_threshold & 0xFFFFFFFF, n, rumors)
+    return out
+
+
+def sampler(out, n_total: int, exclude_self: bool, seed_scalar: int,
+            inject_bits=None):
+    """Launch ``sampler_launch`` once: uniform peers into ``out``
+    (int32[n_rows, k]) from the sampler stream keyed by the int32
+    ``seed_scalar``, or from ``inject_bits`` (int32[n_rows, k] holding
+    the uint32 draws)."""
+    if out.dim() != 2:
+        raise ValueError(f"out must be [n_rows, k], got {list(out.shape)}")
+    _check("out", out, 0, out.shape)
+    dev = out.device
+    _check_sm90(dev, "sampler")
+    if inject_bits is not None:
+        _check("inject_bits", inject_bits, 0, out.shape)
+        _same_device(dev, [out, inject_bits], "sampler")
+    if not 0 < n_total < 1 << 31:
+        raise ValueError(f"n_total must be in [1, 2^31), got {n_total}")
+    _launch(SAMPLER, dev, _ptr(out), _ptr(inject_bits), out.numel(),
+            out.shape[1], n_total, int(bool(exclude_self)),
+            int(seed_scalar) & 0xFFFFFFFF)
     return out
 
 

@@ -1,0 +1,47 @@
+"""Decisions every engine of the port shares: which device an entry
+point runs on, how a 32-bit word is held, and the float32 division that
+turns a count into the reference's coverage."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gossip_tpu_torch.ops.philox import MASK32
+
+
+def to_words(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 values in [0, 2^32)."""
+    return x.to(torch.int64) & MASK32
+
+
+def from_words(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def bit_tensor(bits, device) -> torch.Tensor:
+    """Injected bits as a tensor on ``device``: a uint32 numpy array is
+    taken as int32 with the same bits, a tensor as it is."""
+    if isinstance(bits, np.ndarray):
+        bits = torch.from_numpy(
+            np.ascontiguousarray(bits, np.uint32).view(np.int32))
+    return bits.to(device)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  Without a card it raises, unless the CPU was asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError(
+            "the port needs a CUDA device (its rounds run on the card) "
+            "and torch sees none; pass device='cpu' (--device cpu) to run "
+            "the plain versions on the CPU")
+    return dev
+
+
+def f32_fraction(count: int, total: int) -> float:
+    """``float32(count) / float32(total)`` in float32, the reference's
+    coverage division (and so its loops' stop tests)."""
+    return float(np.float32(count) / np.float32(total))

@@ -48,10 +48,11 @@ import numpy as np
 import torch
 
 from gossip_tpu_torch.ops import _kernels, philox
-from gossip_tpu_torch.ops.fused_round import (
-    BITS, DEATHS_NEED_THREEFRY, LANES, MASK32, FusedState, _bit_tensor,
-    _f32_fraction, drop_threshold_for, from_words, n_rows, resolve_device,
-    to_words)
+from gossip_tpu_torch.ops.common import (MASK32, bit_tensor, f32_fraction,
+                                         from_words, resolve_device,
+                                         to_words)
+from gossip_tpu_torch.ops.fused_round import (BITS, LANES, FusedState,
+                                              drop_threshold_for, n_rows)
 
 
 def mr_rows(n: int) -> int:
@@ -99,7 +100,7 @@ def coverage_words(table: torch.Tensor, n: int, rumors: int) -> float:
     float32(n)`` (phantom words stay zero).  The reference sums the bits
     in float32, which is exact below 2^24 nodes; the port counts in
     integers."""
-    return _f32_fraction(int(rumor_counts(table, rumors).min()), n)
+    return f32_fraction(int(rumor_counts(table, rumors).min()), n)
 
 
 def coverage_words_alive(table: torch.Tensor, alive_words: torch.Tensor,
@@ -107,7 +108,7 @@ def coverage_words_alive(table: torch.Tensor, alive_words: torch.Tensor,
     """Alive-weighted min-over-rumors fraction (alive words are
     0xFFFFFFFF or 0, so bit 0 counts the alive nodes)."""
     n_alive = int((to_words(alive_words) & 1).sum())
-    return min(_f32_fraction(int(c), n_alive)
+    return min(f32_fraction(int(c), n_alive)
                for c in rumor_counts(table & alive_words, rumors).tolist())
 
 
@@ -178,7 +179,7 @@ def fused_mr_round_plain(table: torch.Tensor, seed, round_, n: int,
     dev = table.device
     if inject_bits is None:
         inject_bits = draw_mr_round_bits(seed, round_, rows, fanout, dev)
-    sbits, rbits = (to_words(_bit_tensor(b, dev)) for b in inject_bits)
+    sbits, rbits = (to_words(bit_tensor(b, dev)) for b in inject_bits)
     t = to_words(table)
     alive = to_words(alive_words) if alive_words is not None else None
     cut = to_words(cut_words) if cut_words is not None else None
@@ -279,7 +280,7 @@ def fused_mr_round_big(table: torch.Tensor, seed, round_, n: int,
     dev = table.device
     key = philox.round_key(seed, round_, philox.MR_SALT)
     if inject_bits is not None:
-        sbits, rbits = (_bit_tensor(b, dev) for b in inject_bits)
+        sbits, rbits = (bit_tensor(b, dev) for b in inject_bits)
         shift_words = sbits[:, 0]
     else:
         rbits = None
@@ -352,7 +353,7 @@ def fused_multirumor_pull_round(table: torch.Tensor, seed, round_, n: int,
     _check_round_args(table, n, fanout, rumors, out)
     if table.device.type == "cuda":
         if inject_bits is not None:
-            inject_bits = tuple(_bit_tensor(b, table.device)
+            inject_bits = tuple(bit_tensor(b, table.device)
                                 for b in inject_bits)
         return _kernels.fused_mr_round(
             table, n, fanout, philox.round_key(seed, round_, philox.MR_SALT),
@@ -366,27 +367,51 @@ def fused_multirumor_pull_round(table: torch.Tensor, seed, round_, n: int,
     return _finish_plain(new, rumors, out, pop)
 
 
-def fused_mr_cov_fn(n: int, rumors: int, fault=None, origin: int = 0):
-    """``table -> coverage`` for a multi-rumor run.  Alive-weighted
-    coverage needs the reference's threefry-drawn dead set, so a fault
-    with deaths is refused, as on the single-rumor route."""
-    if fault is not None and fault.node_death_rate:
-        raise ValueError(DEATHS_NEED_THREEFRY)
-    return lambda t: coverage_words(t, n, rumors)
+def fault_masks_word(fault, n: int, origin: int = 0, device=None):
+    """(alive_words or None, drop_threshold): the one-word-per-node
+    rendering of the static dead set (``models/state.alive_mask``) and
+    the 20-bit drop threshold."""
+    from gossip_tpu_torch.models.state import alive_mask
+    alive = alive_mask(fault, n, origin, resolve_device(device))
+    return (None if alive is None else render_alive_words(alive, n),
+            drop_threshold_for(fault))
 
 
-def _min_fraction(counts, rumors: int, n: int) -> float:
+def fused_mr_cov_fn(n: int, rumors: int, fault=None, alive_words=None):
+    """``table -> coverage`` for a multi-rumor run: alive-weighted over
+    ``alive_words`` exactly when the fault draws deaths."""
+    if fault is None or not fault.node_death_rate:
+        return lambda t: coverage_words(t, n, rumors)
+    if alive_words is None:
+        raise ValueError("a run with deaths needs its alive words")
+    return lambda t: coverage_words_alive(t, alive_words, rumors)
+
+
+def _alive_offsets(table, rumors: int, n: int, alive_words):
+    """``(total, dead)``: the coverage's denominator, and per rumor the
+    bits ``table`` holds at dead nodes.  Dead nodes receive nothing, so
+    those bits stay as they are for the whole run, and a round's
+    alive-weighted counts are the kernel's counters less them."""
+    if alive_words is None:
+        return n, [0] * rumors
+    return (int((to_words(alive_words) & 1).sum()),
+            rumor_counts(table & ~alive_words, rumors).tolist())
+
+
+def _min_fraction(counts, rumors: int, total: int, dead) -> float:
     """The stop test's coverage from one round's int32[32] counter."""
-    return _f32_fraction(min(counts[:rumors]), n)
+    return f32_fraction(min(c - d for c, d in zip(counts[:rumors], dead)),
+                        total)
 
 
 def _advance(state: FusedState, n: int, rumors: int, seed: int,
-             fanout: int, drop_threshold: int, spare, pop):
+             fanout: int, drop_threshold: int, alive_words, spare, pop):
     """One round of a run loop into ``spare``, its per-rumor counts into
     ``pop``, and ``2*fanout*n`` messages added in float32."""
     table = fused_multirumor_pull_round(
         state.table, seed, state.round, n, fanout,
-        drop_threshold=drop_threshold, rumors=rumors, out=spare, pop=pop)
+        drop_threshold=drop_threshold, alive_words=alive_words,
+        rumors=rumors, out=spare, pop=pop)
     return FusedState(table=table, round=state.round + 1,
                       msgs=np.float32(state.msgs
                                       + np.float32(2.0 * fanout * n)))
@@ -406,15 +431,18 @@ def until_fused_multirumor(n: int, rumors: int, seed: int, fanout: int = 1,
     which the loop reads once per round.  The first stop test needs the
     starting table's counts: a fresh state holds every rumor at exactly
     one node, so its coverage is ``float32(1) / float32(n)``; a given
-    state is counted (:func:`rumor_counts`, milliseconds at 10M nodes)."""
+    state is counted (:func:`rumor_counts`, milliseconds at 10M nodes).
+    Under deaths the round takes the alive words
+    (:func:`fault_masks_word`) and the stop test is the alive-weighted
+    coverage of the new table, read from the same counter
+    (:func:`_alive_offsets`)."""
     dev = resolve_device(device)
-    cov_fn = fused_mr_cov_fn(n, rumors, fault, origin)
-    thr = drop_threshold_for(fault)
-    if state is None:
-        st = init_multirumor_state(n, rumors, origin, dev)
-        cov = _f32_fraction(1, n)
-    else:
-        st, cov = state, cov_fn(state.table)
+    alive, thr = fault_masks_word(fault, n, origin, dev)
+    st = (state if state is not None
+          else init_multirumor_state(n, rumors, origin, dev))
+    cov = (f32_fraction(1, n) if state is None and alive is None
+           else fused_mr_cov_fn(n, rumors, fault, alive)(st.table))
+    total, dead = _alive_offsets(st.table, rumors, n, alive)
     target = np.float32(target_coverage)
     pops = torch.zeros(max(max_rounds - st.round, 1), BITS,
                        dtype=torch.int32, device=dev)
@@ -422,10 +450,10 @@ def until_fused_multirumor(n: int, rumors: int, seed: int, fanout: int = 1,
     first = st.round
     while cov < target and st.round < max_rounds:
         slot = pops[st.round - first]
-        nxt = _advance(st, n, rumors, seed, fanout, thr, spare, slot)
+        nxt = _advance(st, n, rumors, seed, fanout, thr, alive, spare, slot)
         spare = st.table
         st = nxt
-        cov = _min_fraction(slot.tolist(), rumors, n)
+        cov = _min_fraction(slot.tolist(), rumors, total, dead)
     return st, cov
 
 
@@ -437,13 +465,17 @@ def curve_fused_multirumor(n: int, rumors: int, seed: int, fanout: int = 1,
     ``compiled_curve_fused_multirumor`` scan.  Returns ``(state,
     [coverage per round])``; the counters are read once, at the end."""
     dev = resolve_device(device)
-    fused_mr_cov_fn(n, rumors, fault, origin)           # refuses deaths
-    thr = drop_threshold_for(fault)
+    alive, thr = fault_masks_word(fault, n, origin, dev)
     st = init_multirumor_state(n, rumors, origin, dev)
     pops = torch.zeros(max_rounds, BITS, dtype=torch.int32, device=dev)
     spare = torch.empty_like(st.table)
+    # under deaths a rumor may start at a dead node (only the origin is
+    # pinned alive), whose bit the kernel's counters include
+    total, dead = _alive_offsets(st.table, rumors, n, alive)
     for r in range(max_rounds):
-        nxt = _advance(st, n, rumors, seed, fanout, thr, spare, pops[r])
+        nxt = _advance(st, n, rumors, seed, fanout, thr, alive, spare,
+                       pops[r])
         spare = st.table
         st = nxt
-    return st, [_min_fraction(c, rumors, n) for c in pops.cpu().tolist()]
+    return st, [_min_fraction(c, rumors, total, dead)
+                for c in pops.cpu().tolist()]

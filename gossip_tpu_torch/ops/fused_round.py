@@ -37,6 +37,9 @@ import numpy as np
 import torch
 
 from gossip_tpu_torch.ops import _kernels, philox
+from gossip_tpu_torch.ops.common import (bit_tensor, f32_fraction,
+                                         from_words, resolve_device,
+                                         to_words)
 
 LANES = 128
 BITS = 32
@@ -52,28 +55,6 @@ def n_rows(n: int) -> int:
 
 def padded_n(n: int) -> int:
     return n_rows(n) * NODES_PER_ROW
-
-
-def to_words(x: torch.Tensor) -> torch.Tensor:
-    """int32 bit patterns -> int64 values in [0, 2^32)."""
-    return x.to(torch.int64) & MASK32
-
-
-def from_words(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 with the same bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU.  Without a card it raises, unless the CPU was asked for."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise ValueError(
-            "engine='fused' needs a CUDA device (the round is a CUDA "
-            "kernel) and torch sees none; pass device='cpu' "
-            "(--device cpu) to run the plain version on the CPU")
-    return dev
 
 
 def node_pack(infected: torch.Tensor) -> torch.Tensor:
@@ -104,23 +85,17 @@ def popcount(table: torch.Tensor) -> int:
     return int((((x * 0x01010101) & MASK32) >> 24).sum().item())
 
 
-def _f32_fraction(count: int, total: int) -> float:
-    """``float32(count) / float32(total)`` in float32, the reference's
-    coverage division (and so its loop's stop test)."""
-    return float(np.float32(count) / np.float32(total))
-
-
 def coverage_node_packed(table: torch.Tensor, n: int) -> float:
     """Infected fraction over the real n nodes (phantoms are kept zero)."""
-    return _f32_fraction(popcount(table), n)
+    return f32_fraction(popcount(table), n)
 
 
 def coverage_node_packed_alive(table: torch.Tensor,
                                alive_table: torch.Tensor) -> float:
     """Alive-weighted infected fraction (dead nodes are unreachable, not
     uninformed); phantoms are zero in both tables."""
-    return _f32_fraction(popcount(table & alive_table),
-                         popcount(alive_table))
+    return f32_fraction(popcount(table & alive_table),
+                        popcount(alive_table))
 
 
 class FusedState(NamedTuple):
@@ -173,20 +148,25 @@ def render_cut_bits(cut, n: int, device=None) -> torch.Tensor:
     return node_pack(ids >= int(cut))
 
 
-DEATHS_NEED_THREEFRY = (
-    "node_death_rate > 0 needs the reference's threefry-drawn dead set "
-    "(models/state.alive_mask: bernoulli(key(seed ^ 0x5157))), and the "
-    "threefry port has not landed; the fused route runs drop_prob "
-    "faults only")
+def fault_masks_node_packed(fault, n: int, origin: int = 0, device=None):
+    """(alive_table or None, drop_threshold): the node-packed rendering
+    of the static dead set (``models/state.alive_mask``, the threefry
+    draw ``bernoulli(key(seed ^ 0x5157))`` with the origin pinned
+    alive) and the 20-bit drop threshold."""
+    from gossip_tpu_torch.models.state import alive_mask
+    alive = alive_mask(fault, n, origin, resolve_device(device))
+    return (None if alive is None else node_pack(alive),
+            drop_threshold_for(fault))
 
 
-def fused_cov_fn(n: int, fault=None, origin: int = 0):
-    """``table -> coverage`` for a fused run.  Alive-weighted coverage
-    needs the reference's static dead set, which is drawn with threefry;
-    the port has no threefry yet, so a fault with deaths is refused."""
-    if fault is not None and fault.node_death_rate:
-        raise ValueError(DEATHS_NEED_THREEFRY)
-    return lambda t: coverage_node_packed(t, n)
+def fused_cov_fn(n: int, fault=None, alive_table=None):
+    """``table -> coverage`` for a fused run: alive-weighted over
+    ``alive_table`` exactly when the fault draws deaths."""
+    if fault is None or not fault.node_death_rate:
+        return lambda t: coverage_node_packed(t, n)
+    if alive_table is None:
+        raise ValueError("a run with deaths needs its alive table")
+    return lambda t: coverage_node_packed_alive(t, alive_table)
 
 
 def phantom_keep(rows: int, n: int, device=None) -> torch.Tensor:
@@ -202,15 +182,6 @@ def phantom_keep(rows: int, n: int, device=None) -> torch.Tensor:
         keep = torch.where(word_id == n_valid_words - 1, (1 << tail) - 1,
                            keep)
     return keep
-
-
-def _bit_tensor(bits, device) -> torch.Tensor:
-    """Injected bits as a tensor on ``device``: a uint32 numpy array is
-    taken as int32 with the same bits, a tensor as it is."""
-    if isinstance(bits, np.ndarray):
-        bits = torch.from_numpy(
-            np.ascontiguousarray(bits, np.uint32).view(np.int32))
-    return bits.to(device)
 
 
 def draw_count(fanout: int, plane_sharing: int) -> int:
@@ -246,7 +217,7 @@ def fused_pull_round_plain(table: torch.Tensor, seed, round_, n: int,
     if inject_bits is None:
         inject_bits = draw_round_bits(seed, round_, rows, fanout,
                                       plane_sharing, dev)
-    sbits, rbits = (to_words(_bit_tensor(b, dev)) for b in inject_bits)
+    sbits, rbits = (to_words(bit_tensor(b, dev)) for b in inject_bits)
     t = to_words(table)
     alive = to_words(alive_table) if alive_table is not None else None
     cut = to_words(cut_words) if cut_words is not None else None
@@ -320,7 +291,7 @@ def fused_pull_round(table: torch.Tensor, seed, round_, n: int,
                          f"{table.shape[0]} rows")
     if table.device.type == "cuda":
         if inject_bits is not None:
-            inject_bits = tuple(_bit_tensor(b, table.device)
+            inject_bits = tuple(bit_tensor(b, table.device)
                                 for b in inject_bits)
         return _kernels.fused_round(
             table, n, fanout, philox.round_key(seed, round_),
@@ -340,14 +311,15 @@ def fused_pull_round(table: torch.Tensor, seed, round_, n: int,
 
 
 def _advance(state: FusedState, n: int, seed: int, fanout: int,
-             drop_threshold: int, spare: torch.Tensor,
+             drop_threshold: int, alive_table, spare: torch.Tensor,
              pop: torch.Tensor) -> FusedState:
     """One round of a run loop: write ``spare``, count its bits into
     ``pop``, and account ``2*fanout*n`` messages in float32 (the
-    reference adds a weakly typed float to its float32 total)."""
+    reference adds a weakly typed float to its float32 total; dead and
+    dropped pulls count, as there)."""
     table = fused_pull_round(state.table, seed, state.round, n, fanout,
-                             drop_threshold=drop_threshold, out=spare,
-                             pop=pop)
+                             drop_threshold=drop_threshold,
+                             alive_table=alive_table, out=spare, pop=pop)
     return FusedState(table=table, round=state.round + 1,
                       msgs=np.float32(state.msgs
                                       + np.float32(2.0 * fanout * n)))
@@ -368,23 +340,29 @@ def until_fused(n: int, seed: int, fanout: int = 1,
     The stop test is read on the host: each round's kernel adds its
     table's popcount to that round's 4-byte device counter, and the
     loop reads it once per round (one device-to-host copy and
-    synchronize per round)."""
+    synchronize per round).  Under deaths the round takes the alive
+    table (:func:`fault_masks_node_packed`) and the stop test is the
+    alive-weighted coverage of the new table, read from the same
+    counter: dead nodes receive nothing, so the bits a carried-over table
+    holds at dead nodes stay as they are, and the alive count is the
+    counter less that constant, over ``popcount(alive)``."""
     dev = resolve_device(device)
-    cov_fn = fused_cov_fn(n, fault, origin)
-    thr = drop_threshold_for(fault)
+    alive, thr = fault_masks_node_packed(fault, n, origin, dev)
     st = state if state is not None else init_fused_state(n, origin, dev)
+    total, dead = ((n, 0) if alive is None else
+                   (popcount(alive), popcount(st.table & ~alive)))
     target = np.float32(target_coverage)
     pops = torch.zeros(max(max_rounds - st.round, 1), dtype=torch.int32,
                        device=dev)
     spare = torch.empty_like(st.table)
     first = st.round
-    cov = cov_fn(st.table)
+    cov = fused_cov_fn(n, fault, alive)(st.table)
     while cov < target and st.round < max_rounds:
         slot = pops[st.round - first:st.round - first + 1]
-        nxt = _advance(st, n, seed, fanout, thr, spare, slot)
+        nxt = _advance(st, n, seed, fanout, thr, alive, spare, slot)
         spare = st.table
         st = nxt
-        cov = _f32_fraction(int(slot.item()), n)
+        cov = f32_fraction(int(slot.item()) - dead, total)
     return st, cov
 
 
@@ -395,13 +373,17 @@ def curve_fused(n: int, seed: int, fanout: int = 1, max_rounds: int = 128,
     scan.  Returns ``(state, [coverage per round])``; the counters are
     read once, at the end."""
     dev = resolve_device(device)
-    fused_cov_fn(n, fault, origin)                 # refuses deaths
-    thr = drop_threshold_for(fault)
+    alive, thr = fault_masks_node_packed(fault, n, origin, dev)
     st = init_fused_state(n, origin, dev)
     pops = torch.zeros(max_rounds, dtype=torch.int32, device=dev)
     spare = torch.empty_like(st.table)
     for r in range(max_rounds):
-        nxt = _advance(st, n, seed, fanout, thr, spare, pops[r:r + 1])
+        nxt = _advance(st, n, seed, fanout, thr, alive, spare,
+                       pops[r:r + 1])
         spare = st.table
         st = nxt
-    return st, [_f32_fraction(int(c), n) for c in pops.cpu().tolist()]
+    # a fresh run's table stays inside the alive set (the origin is
+    # pinned alive, dead destinations receive nothing), so the round's
+    # popcount is the alive-weighted count under deaths too
+    total = n if alive is None else popcount(alive)
+    return st, [f32_fraction(int(c), total) for c in pops.cpu().tolist()]

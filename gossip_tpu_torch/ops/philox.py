@@ -43,6 +43,20 @@ The TPU path's staged route keys a different stream (threefry shifts,
 per-block hardware seeds); that stream is an artifact of the TPU and is
 not reproduced: both routes of the port draw the stream above.
 
+The peer sampler (``csrc/sampler.cu``, the plain
+:func:`gossip_tpu_torch.ops.fast_sampling.sample_targets_plain`) draws a
+third stream, one word per output element:
+
+* Key: ``(uint32(s), 0x5A3)`` (:data:`SAMPLER_SALT`), ``s`` the int32
+  seed scalar (``round_seed(seed, round)``).
+* Element ``e = i * k + c`` of the ``[n_rows, k]`` output:
+  ``Philox(ctr=(e >> 2, 0, 2, 0), key)[e & 3]``, so one call serves four
+  consecutive elements; counter word 2 keeps it apart from the round
+  streams, and ``n_rows * k < 2^34`` keeps ``e >> 2`` in 32 bits.
+
+The TPU kernel reseeds its hardware generator per 4096-row block; that
+blocking is an artifact of the TPU grid and is not reproduced.
+
 Representation: torch has no unsigned 32-bit arithmetic on every backend,
 so the plain functions hold 32-bit words as int64 values in
 ``[0, 2^32)`` and mask after every operation.  A 32 x 32-bit product
@@ -62,6 +76,8 @@ PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 ROUND_MIX = 1000003          # seed-mixing prime of the TPU path's seed pair
 MR_SALT = 0x5D0              # round salt of the multi-rumor stream
+SAMPLER_SALT = 0x5A3         # second key word of the sampler's stream
+SAMPLER_MAX_ELEMENTS = 1 << 34
 LANES = 128
 
 
@@ -108,6 +124,18 @@ def shift_words(k0: int, k1: int, draws: int = 1,
     lanes = torch.arange(LANES, dtype=torch.int64, device=device)
     fs = torch.arange(draws, dtype=torch.int64, device=device)
     return philox4x32_10(lanes[None, :], fs[:, None], 1, 0, k0, k1)[0]
+
+
+def sampler_words(seed_scalar: int, total: int,
+                  device=None) -> torch.Tensor:
+    """int64[total]: the sampler stream's word of every output element."""
+    if not 0 <= total < SAMPLER_MAX_ELEMENTS:
+        raise ValueError(f"the sampler stream numbers at most 2^34 "
+                         f"elements, got {total}")
+    calls = torch.arange(-(-total // 4), dtype=torch.int64, device=device)
+    words = philox4x32_10(calls, 0, 2, 0, int(seed_scalar) & MASK32,
+                          SAMPLER_SALT)
+    return torch.stack(words, dim=1).reshape(-1)[:total]
 
 
 def draw_words(k0: int, k1: int, rows: int, draws: int,

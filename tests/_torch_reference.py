@@ -26,15 +26,19 @@ def as_u32(t):
     return t.numpy().view(np.uint32)
 
 
-def jax_replay(n, seed, fanout, target, max_rounds, drop_prob):
+def jax_replay(n, seed, fanout, target, max_rounds, drop_prob,
+               death_rate=0.0):
     """The reference loop (compiled_until_fused's while_loop semantics)
     stepped on the host, each round through the JAX package's round on
-    the port's Philox bits.  Returns the table after every round and the
-    final (round, msgs, coverage)."""
-    thr = J.drop_threshold_for(FaultConfig(drop_prob=drop_prob))
+    the port's Philox bits; with ``death_rate`` the reference's alive
+    table (fault seed 0) and alive-weighted coverage.  Returns the table
+    after every round and the final (round, msgs, coverage)."""
+    fault = FaultConfig(drop_prob=drop_prob, node_death_rate=death_rate)
+    alive, thr = J.fault_masks_node_packed(fault, n)
+    cov_fn = J.fused_cov_fn(n, fault)
     st = J.init_fused_state(n)
     table, msgs = st.table, st.msgs
-    tables, cov = [], J.coverage_node_packed(table, n)
+    tables, cov = [], cov_fn(table)
     rounds = 0
     while bool(cov < jnp.float32(target)) and rounds < max_rounds:
         sb, rb = FR.draw_round_bits(seed, rounds, table.shape[0], fanout,
@@ -42,32 +46,38 @@ def jax_replay(n, seed, fanout, target, max_rounds, drop_prob):
         table = J.fused_pull_round(table, seed, rounds, n, fanout,
                                    interpret=True,
                                    inject_bits=(as_u32(sb), as_u32(rb)),
-                                   drop_threshold=thr)
+                                   drop_threshold=thr, alive_table=alive)
         msgs = msgs + 2.0 * fanout * n
-        cov = J.coverage_node_packed(table, n)
+        cov = cov_fn(table)
         rounds += 1
         tables.append(np.asarray(table))
     return tables, rounds, np.float32(msgs), float(cov)
 
 
-def jax_mr_replay(n, rumors, seed, fanout, target, max_rounds, drop_prob):
+def jax_mr_replay(n, rumors, seed, fanout, target, max_rounds, drop_prob,
+                  death_rate=0.0, origin=0):
     """The reference multi-rumor loop (compiled_until_fused_multirumor's
     while_loop semantics) stepped on the host, each round through the
-    JAX package's round on the port's multi-rumor Philox bits.  Returns
-    the table after every round and the final (round, msgs, coverage)."""
-    thr = J.drop_threshold_for(FaultConfig(drop_prob=drop_prob))
-    st = J.init_multirumor_state(n, rumors)
+    JAX package's round on the port's multi-rumor Philox bits; with
+    ``death_rate`` the reference's alive words (fault seed 0) and
+    alive-weighted coverage.  Returns the table after every round and the
+    final (round, msgs, coverage)."""
+    fault = FaultConfig(drop_prob=drop_prob, node_death_rate=death_rate)
+    alive, thr = J.fault_masks_word(fault, n, origin)
+    cov_fn = J.fused_mr_cov_fn(n, rumors, fault, origin)
+    st = J.init_multirumor_state(n, rumors, origin)
     table, msgs = st.table, st.msgs
-    tables, cov = [], J.coverage_words(table, n, rumors)
+    tables, cov = [], cov_fn(table)
     rounds = 0
     while bool(cov < jnp.float32(target)) and rounds < max_rounds:
         sb, rb = MR.draw_mr_round_bits(seed, rounds, table.shape[0], fanout,
                                        device=CPU)
         table = J.fused_multirumor_pull_round(
             table, seed, rounds, n, fanout, interpret=True,
-            inject_bits=(as_u32(sb), as_u32(rb)), drop_threshold=thr)
+            inject_bits=(as_u32(sb), as_u32(rb)), drop_threshold=thr,
+            alive_words=alive)
         msgs = msgs + 2.0 * fanout * n
-        cov = J.coverage_words(table, n, rumors)
+        cov = cov_fn(table)
         rounds += 1
         tables.append(np.asarray(table))
     return tables, rounds, np.float32(msgs), float(cov)

@@ -16,15 +16,23 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from gossip_tpu import config as JC
 from gossip_tpu.backend import RunReport as JRunReport
+from gossip_tpu.backend import run_simulation as jrun_simulation
+from gossip_tpu.models.si_packed import simulate_until_packed
+from gossip_tpu.ops import pallas_round as J
+from gossip_tpu.topology import generators as JG
 from gossip_tpu_torch import bench
 from gossip_tpu_torch.backend import run_simulation
-from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig, RunConfig,
-                                     TopologyConfig)
-from _torch_reference import jax_mr_replay, jax_replay
+from gossip_tpu_torch.config import (FaultConfig, MeshConfig, ProtocolConfig,
+                                     RunConfig, TopologyConfig)
+from gossip_tpu_torch.ops import fused_mr_round as MR
+from gossip_tpu_torch.ops import fused_round as FR
+from _torch_reference import as_u32, jax_mr_replay, jax_replay
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4096 * 8 - 37
@@ -63,7 +71,7 @@ def test_run_simulation_matches_reference(drop_prob):
     assert out["meta"]["engine"] == "fused-plain"
     assert out["backend"] == "torch-cpu"
     assert out["meta"]["launches"] == {"fused_round": 0, "fused_mr_round": 0,
-                                       "mr_gather": 0}
+                                       "mr_gather": 0, "sampler": 0}
 
 
 @pytest.mark.parametrize("fanout,drop_prob", [(1, 0.0), (2, 0.05)])
@@ -128,10 +136,10 @@ def test_cli_runs_several_rumors():
      "complete"),
     (ProtocolConfig(mode="pull", rumors=33), TOPO, RunConfig(), None,
      "32"),
-    (PULL, TOPO, RunConfig(), FaultConfig(node_death_rate=0.1),
-     "threefry"),
+    (ProtocolConfig(mode="swim"), TOPO, RunConfig(engine="xla"), None,
+     "models slice"),
     (PULL, TOPO, RunConfig(), FaultConfig(churn=object()), "churn"),
-    (PULL, TOPO, RunConfig(engine="auto"), None, "engine='fused' only"),
+    (PULL, TOPO, RunConfig(engine="native"), None, "go-native"),
     (PULL, TopologyConfig(n=1 << 31), RunConfig(), None, "2\\^31"),
 ])
 def test_refusals_are_loud(proto, topo, run, fault, match):
@@ -139,16 +147,142 @@ def test_refusals_are_loud(proto, topo, run, fault, match):
         run_simulation(proto, topo, run, fault, device="cpu")
 
 
+@pytest.mark.parametrize("kw,match", [
+    (dict(mesh_cfg=MeshConfig(n_devices=2)), "multi-GPU"),
+    (dict(mesh_cfg=MeshConfig(exchange="sparse")), "multi-GPU"),
+    (dict(log_cfg=object()), "payload slice"),
+    (dict(txn_cfg=object()), "payload slice"),
+])
+def test_later_slices_are_refused(kw, match):
+    for engine in ("xla", "auto", "fused"):
+        with pytest.raises(ValueError, match=match):
+            run_simulation(PULL, TOPO, RunConfig(engine=engine), device="cpu",
+                           **kw)
+
+
 @pytest.mark.parametrize("args", [
-    ["--mode", "push", "--n", "1000", "--engine", "fused"],
-    ["--mode", "pull", "--n", "1000", "--engine", "xla"],
-    ["--mode", "pull", "--n", "1000", "--engine", "fused", "--seed", "1"],
+    ["--mode", "swim", "--n", "1000", "--engine", "xla"],
+    ["--mode", "pull", "--n", "1000", "--engine", "native"],
+    ["--mode", "pull", "--n", "1000", "--engine", "xla", "--devices", "2"],
     ["--mode", "pull", "--n", "1000", "--engine", "fused", "--device",
      "tpu"],
 ])
 def test_cli_refuses_other_flags_and_values(args):
     proc = _port("-m", "gossip_tpu_torch", "run", *args)
     assert proc.returncode == 2 and not proc.stdout
+
+
+def _both(mode, family="complete", engine="xla", fault=None, n=3000,
+          curve=False, **proto):
+    """The port's and the reference's report for one configuration."""
+    kw = dict(mode=mode, fanout=proto.pop("fanout", 1), **proto)
+    tk = dict(family=family, n=n, k=4, p=0.004, seed=2)
+    rk = dict(engine=engine, seed=3, max_rounds=40)
+    port = run_simulation(
+        ProtocolConfig(**kw), TopologyConfig(**tk), RunConfig(**rk),
+        None if fault is None else FaultConfig(**fault), want_curve=curve,
+        device="cpu")
+    ref = jrun_simulation(
+        "jax-tpu", JC.ProtocolConfig(**kw), JC.TopologyConfig(**tk),
+        JC.RunConfig(**rk),
+        None if fault is None else JC.FaultConfig(**fault),
+        want_curve=curve)
+    return port, ref
+
+
+FAULT = dict(node_death_rate=0.1, drop_prob=0.05, seed=2)
+
+
+@pytest.mark.parametrize("mode,family,engine,fault,curve,proto", [
+    ("pull", "complete", "xla", None, False, {}),
+    ("pull", "complete", "xla", FAULT, False, {"rumors": 33}),
+    ("antientropy", "complete", "auto", None, False, {"period": 2}),
+    ("antientropy", "watts_strogatz", "xla", FAULT, False, {}),
+    ("push", "complete", "xla", None, False, {"fanout": 2}),
+    ("push", "erdos_renyi", "auto", FAULT, False, {}),
+    ("pull", "complete", "xla", None, True, {}),
+    ("pushpull", "erdos_renyi", "auto", None, True, {"rumors": 2}),
+    ("pull", "ring", "auto", None, False, {}),
+])
+def test_xla_engine_matches_reference(mode, family, engine, fault, curve,
+                                      proto):
+    port, ref = _both(mode, family, engine, fault, curve=curve, **proto)
+    assert (port.rounds, port.coverage, port.msgs) == (ref.rounds,
+                                                       ref.coverage,
+                                                       ref.msgs)
+    assert port.curve == ref.curve
+    assert port.meta.get("engine") == ref.meta.get("engine")
+    assert "engine_auto" not in port.meta and "engine_auto" not in ref.meta
+    assert set(ref.meta) - set(port.meta) <= {"compile_s"}
+    assert port.backend == "torch-cpu" and set(port.meta["launches"]
+                                               .values()) == {0}
+
+
+def test_auto_takes_the_fused_route_where_eligible():
+    rep = run_simulation(PULL, TOPO, RunConfig(engine="auto", seed=4),
+                         FaultConfig(node_death_rate=0.1), device="cpu")
+    assert rep.meta["engine_auto"] == "fused"
+    assert rep.meta["engine"] == "fused-plain"
+
+
+@pytest.mark.parametrize("rumors", [1, 8])
+def test_fused_deaths_match_reference(rumors):
+    """node_death_rate on the fused route: the alive tables equal the
+    reference's renderings, and the loop equals the reference's round
+    replayed on the port's bits with the reference's alive operand."""
+    fault = FaultConfig(node_death_rate=0.1)
+    jfault = JC.FaultConfig(node_death_rate=0.1)
+    # the multi-rumor origins 6..13 are alive under this draw (node 1 is
+    # dead: a rumor starting there could never spread)
+    origin = 0 if rumors == 1 else 6
+    if rumors == 1:
+        want, _ = J.fault_masks_node_packed(jfault, N)
+        got, _ = FR.fault_masks_node_packed(fault, N, device="cpu")
+        _, rounds, msgs, cov = jax_replay(N, 4, 1, 0.99, 256, 0.05, 0.1)
+    else:
+        want, _ = J.fault_masks_word(jfault, N)
+        got, _ = MR.fault_masks_word(fault, N, device="cpu")
+        _, rounds, msgs, cov = jax_mr_replay(N, rumors, 4, 1, 0.99, 256,
+                                             0.05, 0.1, origin)
+    np.testing.assert_array_equal(as_u32(got), np.asarray(want))
+    proto = ProtocolConfig(mode="pull", rumors=rumors)
+    faults = FaultConfig(node_death_rate=0.1, drop_prob=0.05)
+    rep = run_simulation(proto, TOPO, RunConfig(seed=4, origin=origin),
+                         faults, device="cpu")
+    assert cov >= np.float32(0.99)
+    assert (rep.rounds, rep.coverage, rep.msgs) == (rounds, cov,
+                                                    float(msgs))
+    curve = run_simulation(proto, TOPO,
+                           RunConfig(seed=4, origin=origin,
+                                     max_rounds=rounds),
+                           faults, want_curve=True, device="cpu")
+    assert curve.rounds == rounds and curve.curve[-1] == cov
+
+
+def test_cli_runs_the_xla_engine():
+    flags = ["--mode", "antientropy", "--n", "2000", "--engine", "xla",
+             "--family", "erdos_renyi", "--p", "0.005", "--period", "2",
+             "--seed", "3", "--origin", "5", "--target", "0.95",
+             "--max-rounds", "30", "--death", "0.1", "--drop-prob", "0.05",
+             "--fanout", "2", "--device", "cpu"]
+    proc = _port("-m", "gossip_tpu_torch", "run", *flags)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref = jrun_simulation(
+        "jax-tpu", JC.ProtocolConfig(mode="antientropy", fanout=2, period=2),
+        JC.TopologyConfig(family="erdos_renyi", n=2000, p=0.005, seed=3),
+        JC.RunConfig(target_coverage=0.95, max_rounds=30, seed=3, origin=5,
+                     engine="xla"),
+        JC.FaultConfig(node_death_rate=0.1, drop_prob=0.05, seed=3))
+    assert (out["rounds"], out["coverage"], out["msgs"]) == \
+        (ref.rounds, ref.coverage, ref.msgs)
+    assert out["meta"]["engine"] == "bit-packed"
+    proc = _port("-m", "gossip_tpu_torch", "run", "--mode", "flood", "--n",
+                 "500", "--engine", "auto", "--family", "grid", "--curve",
+                 "--max-rounds", "5", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    assert len(json.loads(proc.stdout.strip().splitlines()[-1])["curve"]) \
+        == 5
 
 
 def test_no_card_no_run():
@@ -172,6 +306,15 @@ def test_bench_line_and_no_cpu_row(tmp_path):
                                   {"name": "card", "power_limit": "1 W"})
     assert tuple(line) == bench.LINE_KEYS and line["backend"] == "cuda"
     assert line["value"] == N * rounds / seconds
+    # the XLA engine's packed loop: the reference's rounds, and the
+    # kernel sampler's within two of them
+    rounds, _ = bench.run_xla_packed(N, "cpu")
+    want, _, _, _ = simulate_until_packed(
+        JC.ProtocolConfig(mode="pull"), JG.complete(N),
+        JC.RunConfig(max_rounds=128))
+    assert rounds == want
+    kernel_rounds, _ = bench.run_xla_packed(N, "cpu", "kernel")
+    assert abs(kernel_rounds - want) <= 2
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.card_info()

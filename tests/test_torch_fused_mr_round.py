@@ -302,13 +302,61 @@ def test_fresh_state_coverage_is_one_node_per_rumor(origin):
         assert final.round == rounds >= 1 and cov == want
 
 
-def test_deaths_are_refused():
-    with pytest.raises(ValueError, match="threefry"):
-        MR.until_fused_multirumor(4096, 4, 0, fault=FaultConfig(
-            node_death_rate=0.1), device=CPU)
-    with pytest.raises(ValueError, match="threefry"):
-        MR.curve_fused_multirumor(4096, 4, 0, fault=FaultConfig(
-            node_death_rate=0.1), device=CPU)
+def test_deaths_run_and_need_alive_words():
+    """Deaths run on the fused route; refused is an alive-weighted
+    coverage without its alive words.  Under the seed-0 draw at rate 0.1
+    node 1 is dead, so rumor 1 (started there) never spreads: both loops
+    keep its coverage at 0, as the reference does."""
+    fault = FaultConfig(node_death_rate=0.1)
+    with pytest.raises(ValueError, match="alive words"):
+        MR.fused_mr_cov_fn(4096, 4, fault)
+    final, cov = MR.until_fused_multirumor(4096, 4, 0, max_rounds=12,
+                                           fault=fault, device=CPU)
+    assert final.round == 12 and cov == 0.0
+    _, covs = MR.curve_fused_multirumor(4096, 4, 0, max_rounds=12,
+                                        fault=fault, device=CPU)
+    assert covs == [0.0] * 12
+    want = J.fused_mr_cov_fn(4096, 4, fault)(jnp.asarray(as_u32(
+        final.table)))
+    assert float(want) == 0.0
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_death_stop_test_reads_the_counters(carried):
+    """Under deaths both loops read the alive-weighted coverage from the
+    kernel's counters less the bits held at dead nodes; it equals a
+    recount of every round's table, from a fresh state (whose rumor 1
+    starts at a dead node) and from a carried-over one with bits set at
+    dead nodes."""
+    n, rumors, target = 3000, 4, 0.9
+    fault = FaultConfig(node_death_rate=0.1, drop_prob=0.05)
+    alive, thr = MR.fault_masks_word(fault, n, device=CPU)
+    cov_fn = MR.fused_mr_cov_fn(n, rumors, fault, alive)
+    if carried:
+        rng = np.random.default_rng(7)
+        seen = torch.from_numpy(rng.random((n, rumors)) < 0.05)
+        st = MR.FusedState(MR.word_pack(seen), 3, np.float32(0.0))
+        assert MR.rumor_counts(st.table & ~alive, rumors).min() > 0
+    else:
+        st = MR.init_multirumor_state(n, rumors, device=CPU)
+    covs, tables = [], [st.table]
+    for r in range(st.round, st.round + 12):
+        tables.append(MR.fused_multirumor_pull_round(
+            tables[-1], 0, r, n, drop_threshold=thr, alive_words=alive,
+            rumors=rumors))
+        covs.append(cov_fn(tables[-1]))
+    stop = next((i for i, c in enumerate(covs) if c >= np.float32(target)),
+                len(covs) - 1)
+    final, cov = MR.until_fused_multirumor(
+        n, rumors, 0, target_coverage=target, max_rounds=st.round + 12,
+        fault=fault, device=CPU,
+        state=st._replace(table=st.table.clone()) if carried else None)
+    assert (final.round, cov) == (st.round + stop + 1, covs[stop])
+    assert torch.equal(final.table, tables[stop + 1])
+    if not carried:
+        _, curve = MR.curve_fused_multirumor(n, rumors, 0, max_rounds=12,
+                                             fault=fault, device=CPU)
+        assert curve == covs
 
 
 @pytest.mark.parametrize("seed", [0, 1])

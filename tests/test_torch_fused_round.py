@@ -188,6 +188,40 @@ def test_whole_loop_matches_reference_replay(drop_prob):
     assert covs[-1] == cov and st.msgs == msgs
 
 
+@pytest.mark.parametrize("carried", [False, True])
+def test_death_stop_test_reads_the_counter(carried):
+    """Under deaths the loop reads the alive-weighted coverage from the
+    kernel's counter less the bits held at dead nodes; it stops where a
+    recount of every round's table first reaches the target, from a
+    fresh state and from a carried-over one with bits set at dead
+    nodes."""
+    n, target = 4096 * 8 - 37, 0.9
+    fault = FaultConfig(node_death_rate=0.1, drop_prob=0.05)
+    alive, thr = FR.fault_masks_node_packed(fault, n, device=CPU)
+    cov_fn = FR.fused_cov_fn(n, fault, alive)
+    if carried:
+        rng = np.random.default_rng(7)
+        table = as_port(_table(rng, n))
+        st = FR.FusedState(table, 2, np.float32(0.0))
+        assert FR.popcount(table & ~alive) > 0
+    else:
+        st = FR.init_fused_state(n, 0, CPU)
+    covs, tables = [], [st.table]
+    for r in range(st.round, st.round + 12):
+        tables.append(FR.fused_pull_round(tables[-1], 5, r, n,
+                                          drop_threshold=thr,
+                                          alive_table=alive))
+        covs.append(cov_fn(tables[-1]))
+    stop = next((i for i, c in enumerate(covs) if c >= np.float32(target)),
+                len(covs) - 1)
+    final, cov = FR.until_fused(
+        n, 5, target_coverage=target, max_rounds=st.round + 12,
+        fault=fault, device=CPU,
+        state=st._replace(table=st.table.clone()) if carried else None)
+    assert (final.round, cov) == (st.round + stop + 1, covs[stop])
+    assert torch.equal(final.table, tables[stop + 1])
+
+
 def test_philox_stream_tracks_mean_field():
     """One round on the port's own stream: c' = 1-(1-c)^2 within 0.02."""
     n = 4096 * 32
