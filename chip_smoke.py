@@ -5,14 +5,14 @@
 It builds the port's CUDA kernels from the sources in this checkout,
 holds each bitwise against its plain PyTorch version at N = 10M, drives
 the flagship run (single-rumor pull gossip to 99% coverage), the
-multi-rumor run (32 rumors, to 99% min-over-rumors coverage) and the
+multi-rumor run (32 rumors, to 99% min-over-rumors coverage), the
 threefry-keyed XLA engine (with its threefry sampler and with the
-sampling kernel) through the port's own entry points, and measures them.
-One JSON line per phase:
+sampling kernel) and the roofline tool through the port's own entry
+points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
-2. ``build``   every kernel's build (one ``nvcc`` per source, started
-   together);
+2. ``build``   every kernel's build (seven entry points from five
+   sources, one ``nvcc`` per source, started together);
 3. ``checks``  one kernel round against the plain version on the card,
    bitwise (tolerance 0), on the Philox stream at fanout 1 and 2,
    plane sharing 1 and 2, with the drop coin, alive and cut tables, at
@@ -67,12 +67,28 @@ One JSON line per phase:
 14. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
    N = 10M with ``node_death_rate=0.1`` against their plain replays, the
    stop test's counter-read coverage against a recount, and their ms per
-   round.
+   round;
+15. ``roofline_checks`` and ``roofline``  the three calibration
+   microkernels (``csrc/calibrate.cu``) against their plain versions on
+   the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
+   i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
+   SASS instruction counts, recounted from the build, against
+   ``SASS_PER_WORD``, every opcode in a pipe list; their times, plain
+   times and bounds; then ``python -m gossip_tpu_torch.tools.roofline``
+   at N = 10M and 100M (its document on one line each, also written to
+   ``chiprun_out/``), counts set to 0 just before and read just after,
+   with hard checks: every kernel launched as often as the tool issued,
+   the stream beyond L2 and each microkernel's ALU and FMA pipe rates at
+   most 105% of the datasheet and its instructions at most 105% of two
+   pipes' issue, no microkernel faster than its bound, and each measured
+   round (single rumor at plane sharing 1 and 2, the value round, the
+   staged round) at least 95% of its calibrated floor.
 
-Then the ``kernels`` line, and last ``{"ok": true, "device": ...}``.  Any
-failed check raises, and the exit code is not 0.  Without a CUDA device,
-or without the repository around it, it exits non-zero and prints no
-result.
+Then the ``kernels`` line (each round kernel with its calibrated floor
+``floor_ms`` from the 10M document), and last ``{"ok": true, "device":
+...}``.  Any failed check raises, and the exit code is not 0.  Without a
+CUDA device, or without the repository around it, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -89,40 +105,10 @@ CHECK_ROUND = 3           # a round other than 0, so the key's k1 is not 0
 INFECTED = 0.03           # share of nodes infected in the checks' table
 TIMED_LAUNCHES = 20       # launches per timed batch
 TIMED_BATCHES = 9         # batches; the median batch is reported
-SLEEP_CYCLES = 20_000_000  # device sleep that queues a batch behind it
-
-# Least time for one round (the bound): the larger of bytes over the
-# memory rate and integer operations over the integer rate.  H100 SXM:
-# 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores counts an FMA as
-# two operations, so 33.5e12 float32 instructions/s, and Hopper issues
-# 64 int32 operations per SM per clock against 128 float32 (CUDA
-# C++ documentation, arithmetic instruction throughput, compute
-# capability 9.0): 67e12 / 4 int32 operations/s.  Operations are counted
-# as the fewest 32-bit instructions that compute the function: a 32 x 32
-# -> 64-bit product is one wide multiply-add, a three-input xor one
-# logic op, and the key schedule is the same in every thread (uniform
-# registers), so it is not counted.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
-PHILOX_OPS = 40           # 10 rounds of 2 wide products and 2 xor3
-PULL_OPS = 9              # lane 1, bit 2, partner bit 2, coin 2, OR-in 2
-WORD_OPS = 3              # phantom mask 2, popcount 1
-# multi-rumor pull: lane 1, row shift lookup 1, wrapped row 2, address 1,
-# coin 2, masked OR-in 1
-MR_PULL_OPS = 8
-# staged pull: lane 1, address 1, coin 2, masked OR-in 1
-MR_GATHER_PULL_OPS = 5
-# per word: phantom mask 2; per-rumor counts: 5 transpose stages of a
-# shuffle, a funnel shift, a select and a three-input logic op, then one
-# popcount and one add
-MR_WORD_OPS = 2 + 5 * 4 + 2
 RUMORS = 32
 N_SMALL = 1_000_000       # the second size of the route comparison
+N_BIG = 100_000_000       # the roofline's second size
 ROUTE_ROUNDS = 10         # rounds per timed route batch
-# sampler, per draw: a 32-bit remainder by a runtime divisor 20, the
-# self-exclusion compare and add 2, the row step 2, the store 1 (the
-# Philox call, a quarter per draw, is counted apart)
-SAMPLER_DRAW_OPS = 25
 # (rounds, coverage, msgs) of the JAX package's XLA engine, jax 0.9.0 on
 # the CPU: run_simulation('jax-tpu', ProtocolConfig(mode='pull',
 # fanout=1), TopologyConfig(family='complete', n=N), RunConfig(
@@ -142,69 +128,14 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def round_bound(n: int, fanout: int, plane_sharing: int):
-    """(bound_ms, bound_by) of one round of the fused kernel's function:
-    the table read and written once, and the integer work of the Philox
-    stream (one call per four draws, plus the 128 lane shifts), of every
-    pull and of the epilogue."""
-    from gossip_tpu_torch.ops.fused_round import LANES, draw_count, n_rows
-    words = n_rows(n) * LANES
-    draws = draw_count(fanout, plane_sharing)
-    ops = ((words * draws / 4 + LANES) * PHILOX_OPS
-           + words * draws * plane_sharing * PULL_OPS + words * WORD_OPS)
-    return _bound(ops, 2 * words * 4 + 4)
-
-
-def _bound(ops: float, nbytes: float):
-    """(ms, what bounds it): the larger of the operations' time at the
-    int32 rate and the bytes' time at the memory rate."""
-    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def mr_round_bound(n: int, fanout: int):
-    """(bound_ms, bound_by) of one multi-rumor round through the value
-    kernel: the table read and written once plus the 32 counters, and
-    the integer work of the Philox stream (one call per four draws of a
-    word, plus the 128 lane shifts of every draw), of every pull, and of
-    the phantom mask and per-rumor counts of every word."""
-    from gossip_tpu_torch.ops.fused_mr_round import LANES, mr_rows
-    words = mr_rows(n) * LANES
-    calls = words * -(-fanout // 4) + LANES * fanout
-    ops = (calls * PHILOX_OPS + words * fanout * MR_PULL_OPS
-           + words * MR_WORD_OPS)
-    return _bound(ops, 2 * words * 4 + RUMORS * 4)
-
-
-def mr_gather_bound(n: int):
-    """(bound_ms, bound_by) of one staged pass that adds the counts (the
-    last, and at fanout 1 the only, pass): tin and rot read and the
-    output written once, one Philox call, one pull and the epilogue per
-    word."""
-    from gossip_tpu_torch.ops.fused_mr_round import LANES, mr_rows
-    words = mr_rows(n) * LANES
-    ops = words * (PHILOX_OPS + MR_GATHER_PULL_OPS + MR_WORD_OPS)
-    return _bound(ops, 3 * words * 4 + RUMORS * 4)
-
-
-def kernel_ms(launch) -> float:
+def kernel_ms(launch, graph: bool = False) -> float:
     """Median time of one launch on the card: batches of launches queued
     behind a device sleep (so the host's enqueue is off the clock), timed
-    with CUDA events."""
-    import torch
-    per_launch = []
-    for _ in range(TIMED_BATCHES):
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMED_LAUNCHES):
-            launch()
-        stop.record()
-        torch.cuda.synchronize()
-        per_launch.append(start.elapsed_time(stop) / TIMED_LAUNCHES)
-    return statistics.median(per_launch)
+    with CUDA events (``utils.timing.timed_chain``; ``graph``: a batch
+    of many small torch launches, captured as one CUDA graph)."""
+    from gossip_tpu_torch.utils.timing import timed_chain
+    return 1e3 * timed_chain(lambda i, carry: launch(), None, TIMED_LAUNCHES,
+                             "cuda", TIMED_BATCHES, graph)
 
 
 def phase_checks(dev, n: int):
@@ -436,6 +367,7 @@ def phase_mr(dev, smi: str):
                                          TopologyConfig)
     from gossip_tpu_torch.ops import _kernels, philox
     from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.tools.roofline import mr_gather_bound, mr_round_bound
     from gossip_tpu_torch.utils.timing import steady_timed
 
     # 6. build reports of the multi-rumor kernels
@@ -459,7 +391,8 @@ def phase_mr(dev, smi: str):
                                                rumors=RUMORS, out=out,
                                                pop=pop))
     rotation_ms = kernel_ms(lambda: MR.rotate_rows(table, shifts))
-    shift_ms = kernel_ms(lambda: philox.shift_words(*key, 1, dev))
+    shift_ms = kernel_ms(lambda: philox.shift_words(*key, 1, dev),
+                         graph=True)
     rb = philox.draw_words(*key, MR.mr_rows(N), 1, dev)[0]
     value_plain_ms = 1e3 * statistics.median(
         steady_timed(dev, MR.fused_mr_round_plain, table, SEED, CHECK_ROUND,
@@ -573,14 +506,6 @@ def phase_mr(dev, smi: str):
              "path": "mr_staged_path", "card": smi}]
 
 
-def sampler_bound(n_rows: int, k: int):
-    """(bound_ms, bound_by) of one sampler launch: the int32 output
-    written once, and per draw a quarter Philox call plus
-    SAMPLER_DRAW_OPS."""
-    draws = n_rows * k
-    return _bound(draws * (PHILOX_OPS / 4 + SAMPLER_DRAW_OPS), draws * 4)
-
-
 def phase_sampler_checks(dev, smi: str):
     """The sampling kernel against its plain version on the card,
     bitwise, then the stream's chi-square and the times.  Returns the
@@ -589,6 +514,7 @@ def phase_sampler_checks(dev, smi: str):
     import torch
     from gossip_tpu_torch.ops import _kernels
     from gossip_tpu_torch.ops import fast_sampling as FS
+    from gossip_tpu_torch.tools.roofline import sampler_bound
     from gossip_tpu_torch.utils.timing import steady_timed
 
     rng = np.random.default_rng(SEED + 3)
@@ -888,6 +814,174 @@ def phase_fused_deaths(dev, smi: str):
     emit("fused_deaths", runs=rows, plain_replay_equal=True, card=smi)
 
 
+def _words(rng, shape, sparsity: int):
+    """uint32 words, each bit set at rate 2^-sparsity (the AND of that
+    many random words; 0: all bits random), as int32 bits."""
+    import numpy as np
+    words = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    for _ in range(sparsity - 1):
+        words &= rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    return words.view(np.int32)
+
+
+def phase_roofline_checks(dev):
+    """The three microkernels against their plain versions on the card,
+    bitwise, at rows n_rows(10M) and 8: on the stream at i = 0, 3 and
+    2^31 - 1, and under injected zero and random bits.  The table's bits
+    are sparse (1/16), so the gathers and the chain show in the output;
+    prng's output on the stream is all ones (32 ORed random words), and
+    the stream's bits are pinned by prng_gather's lane picks.  Returns
+    the cases and each kernel's largest absolute difference."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.ops import calibrate as CAL
+    from gossip_tpu_torch.ops.fused_round import n_rows
+
+    rng = np.random.default_rng(SEED + 4)
+    kernels = (("cal_prng", CAL.prng_chain_step, CAL.prng_chain_step_plain),
+               ("cal_prng_gather", CAL.prng_gather_step,
+                CAL.prng_gather_step_plain))
+    results, err = [], {"cal_prng": 0, "cal_prng_gather": 0, "cal_vpu": 0}
+
+    def compare(name, rows, i, fill, got, want):
+        e = _words_err(got, want)
+        equal = bool(torch.equal(got, want))
+        results.append({"kernel": name, "rows": rows, "i": i, "bits": fill,
+                        "bitwise_equal": equal, "max_abs_err": e})
+        check(equal, f"{name} vs plain, rows {rows}, i {i}, {fill}")
+        err[name] = max(err[name], e)
+
+    for rows in (n_rows(N), 8):
+        table = torch.from_numpy(_words(rng, (rows, 128), 4)).to(dev)
+        injected = {
+            "zeros": torch.zeros(32, rows, 128, dtype=torch.int32,
+                                 device=dev),
+            "random": torch.from_numpy(_words(rng, (32, rows, 128), 0))
+            .to(dev)}
+        for i in (0, CHECK_ROUND, 2**31 - 1):
+            for name, step, plain in kernels:
+                compare(name, rows, i, "stream", step(i, table.clone()),
+                        plain(i, table))
+            compare("cal_vpu", rows, i, "none", CAL.vpu_step(i, table.clone()),
+                    CAL.vpu_step_plain(i, table))
+        for fill, bits in injected.items():
+            for name, step, plain in kernels:
+                compare(name, rows, CHECK_ROUND, fill,
+                        step(CHECK_ROUND, table.clone(), bits),
+                        plain(CHECK_ROUND, table, bits))
+    return results, err
+
+
+def check_roofline_doc(doc: dict, launches: dict):
+    """The hard checks of one roofline document: every kernel launched
+    as often as the tool issued (the staged chain is a CUDA graph: its
+    warm-up and capture); the stream beyond L2 and every microkernel's
+    ALU and FMA pipe rates at most 105% of the datasheet, and all its
+    instructions at most 105% of the two pipes' issue; no microkernel
+    faster than its bound; every measured round at least 95% of its
+    calibrated floor."""
+    from gossip_tpu_torch.tools import roofline as R
+    chain = (R.CHAIN_REPEATS + 1) * doc["iters"]
+    cal = doc["calibration"]
+    want = {**cal["launches"], "fused_round": 2 * chain,
+            "fused_mr_round": chain, "mr_gather": 2 * doc["iters"],
+            "sampler": 0}
+    check(launches == want, f"roofline launches {launches}, want {want}")
+    stream = cal["hbm_beyond_l2"]["bytes_per_s"]
+    check(stream <= 1.05 * R.HBM_BYTES_PER_S,
+          f"stream beyond L2 {stream} B/s above the datasheet")
+    for short in ("prng", "prng_gather", "vpu"):
+        for pipe, most in (("alu", 1), ("fma", 1), ("sass", 2)):
+            rate = cal[f"{short}_{pipe}_per_s"]
+            check(rate <= 1.05 * most * R.INT32_OPS_PER_S,
+                  f"{short} {pipe} at {rate} instructions/s: above the "
+                  "datasheet, so the compiler removed work")
+        bound_ms = R.cal_bound(f"cal_{short}", cal["shape"][0])[0]
+        check(cal[f"t_{short}_ms"] >= bound_ms,
+              f"{short} at {cal[f't_{short}_ms']} ms beats its bound "
+              f"{bound_ms} ms")
+    sr = doc["single_rumor"]
+    for what, actual, floor in (
+            ("single", sr["actual_ms_per_round"], sr["floor_overlap_ms"]),
+            ("single, plane sharing 2", sr["actual_ms_plane_sharing2"],
+             sr["floor_overlap_ms_plane_sharing2"]),
+            ("value", doc["mr_value"]["actual_ms_per_round"],
+             doc["kernels"]["fused_mr_round"]["floor_ms"]),
+            ("staged", doc["mr_staged"]["actual_ms_per_round"],
+             doc["mr_staged"]["floor_overlap_ms"])):
+        check(actual >= 0.95 * floor,
+              f"{what} round {actual} ms below 95% of its floor {floor} ms")
+
+
+def phase_roofline(dev, smi: str):
+    """Phase 15: the microkernels' checks and times, the SASS recount,
+    then the roofline tool at N = 10M and 100M with its hard checks.
+    Returns the microkernels' entries of the ``kernels`` line and the
+    10M document's calibrated floors of the round kernels."""
+    from pathlib import Path
+
+    import torch
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.ops import calibrate as CAL
+    from gossip_tpu_torch.ops.fused_round import n_rows
+    from gossip_tpu_torch.tools import roofline as R
+    from gossip_tpu_torch.utils.timing import steady_timed
+
+    results, err = phase_roofline_checks(dev)
+    sass = R.sass_counts()
+    recount = {name: {k: c[k] for k in ("alu", "fma", "vector")}
+               for name, c in sass.items()}
+    check(recount == R.SASS_PER_WORD,
+          f"SASS counts {recount} differ from SASS_PER_WORD")
+    unassigned = {name: c["unassigned"] for name, c in sass.items()
+                  if c["unassigned"]}
+    check(not unassigned, f"SASS opcodes in no pipe list: {unassigned}")
+    rows = n_rows(N)
+    table = torch.zeros(rows, 128, dtype=torch.int32, device=dev)
+    times = {}
+    for name, step, plain in (
+            ("cal_prng", CAL.prng_chain_step, CAL.prng_chain_step_plain),
+            ("cal_prng_gather", CAL.prng_gather_step,
+             CAL.prng_gather_step_plain),
+            ("cal_vpu", CAL.vpu_step, CAL.vpu_step_plain)):
+        times[name] = (
+            kernel_ms(lambda: step(CHECK_ROUND, table)),
+            1e3 * statistics.median(steady_timed(dev, plain, CHECK_ROUND,
+                                                 table)[1] for _ in range(3)))
+    emit("roofline_checks", cases=results, max_abs_err=err, tolerance=0,
+         sass_per_word=sass, times_ms=times, card=smi)
+
+    docs, launches = {}, {}
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    for n in (N, N_BIG):
+        out = out_dir / f"roofline_n{n}.json"
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        check(R.main(["--n", str(n), "--out", str(out)]) == 0,
+              f"roofline at n={n}")
+        launches[n] = {k.name: k.launches for k in _kernels.KERNELS}
+        docs[n] = json.loads(out.read_text())
+        emit("roofline", n=n, doc=docs[n], launches=launches[n], card=smi)
+        check_roofline_doc(docs[n], launches[n])
+
+    note = ("no PyTorch call computes this microkernel: a calibration "
+            "kernel of the roofline tool")
+    entries = [{"name": name, "route": "cuda",
+                "source": "gossip_tpu_torch/csrc/calibrate.cu",
+                "replaces": f"tools/roofline.py:{line}",
+                "launches": launches[N][name], "max_abs_err": err[name],
+                "bitwise_equal": True, "ms": times[name][0],
+                "plain_ms": times[name][1],
+                "bound_ms": R.cal_bound(name, rows)[0],
+                "bound_by": R.cal_bound(name, rows)[1],
+                "library_ms": None, "library_note": note,
+                "path": "roofline", "card": smi}
+               for name, line in (("cal_prng", 148), ("cal_prng_gather", 156),
+                                  ("cal_vpu", 169))]
+    return entries, {name: k["floor_ms"]
+                     for name, k in docs[N]["kernels"].items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -902,6 +996,7 @@ def main() -> int:
                                          TopologyConfig)
     from gossip_tpu_torch.ops import _kernels
     from gossip_tpu_torch.ops import fused_round as FR
+    from gossip_tpu_torch.tools.roofline import round_bound
     from gossip_tpu_torch.utils.timing import steady_timed
 
     dev = torch.device("cuda", 0)
@@ -990,8 +1085,9 @@ def main() -> int:
     sampler["launches"] = phase_xla_sampler_path(dev, smi,
                                                  threefry_round_ms)
     phase_fused_deaths(dev, smi)
+    cal_kernels, floors = phase_roofline(dev, smi)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_round", "route": "cuda",
         "source": "gossip_tpu_torch/csrc/fused_round.cu",
         "replaces": "gossip_tpu/ops/pallas_round.py:316",
@@ -999,7 +1095,10 @@ def main() -> int:
         "bitwise_equal": True, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "library_note": "no single PyTorch call computes this round",
-        "card": smi}, *mr_kernels, sampler]}), flush=True)
+        "card": smi}, *mr_kernels, sampler]
+    for k in kernels:
+        k["floor_ms"] = floors[k["name"]]
+    print(json.dumps({"kernels": kernels + cal_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,9 @@ fused pull route, one hand-written CUDA kernel per round (one rumor,
 ``csrc/fused_round.cu``; up to 32, ``csrc/fused_mr_round.cu`` and the
 staged route's ``csrc/mr_gather.cu``), and the threefry-keyed XLA engine
 (every SI mode and topology, bitwise equal to the JAX package), whose
-packed loop can draw its partners with ``csrc/sampler.cu``.
+packed loop can draw its partners with ``csrc/sampler.cu``.  Its roofline
+tool calibrates the card's rates with the microkernels of
+``csrc/calibrate.cu`` and prices the round kernels' work with them.
 
 Layout:
   - :mod:`gossip_tpu_torch.config`           the run configuration
@@ -27,6 +29,10 @@ Layout:
   - :mod:`gossip_tpu_torch.backend`          ``run_simulation``
   - :mod:`gossip_tpu_torch.cli`              ``python -m gossip_tpu_torch``
   - :mod:`gossip_tpu_torch.bench`            the node-rounds/s line
+  - :mod:`gossip_tpu_torch.ops.calibrate`    the calibration microkernels
+  - :mod:`gossip_tpu_torch.tools.roofline`   floors, calibrated rates and
+    the datasheet bound model
+  - :mod:`gossip_tpu_torch.utils`            timing and provenance
 """
 
 from gossip_tpu_torch.config import (  # noqa: F401

@@ -124,7 +124,7 @@ def _device_name(dev: torch.device) -> str:
 
 
 def _launch_counts() -> Dict[str, int]:
-    return {k.name: k.launches for k in _kernels.KERNELS}
+    return {k.name: k.launches for k in _kernels.ROUND_KERNELS}
 
 
 def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,

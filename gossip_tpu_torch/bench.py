@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
@@ -33,26 +32,13 @@ import torch
 
 from gossip_tpu_torch.ops import fused_round as FR
 from gossip_tpu_torch.ops.common import resolve_device
+from gossip_tpu_torch.utils.provenance import card_info
 from gossip_tpu_torch.utils.timing import steady_timed
 
 N_FLAGSHIP = 10_000_000
 TARGET = 0.99
 LINE_KEYS = ("metric", "value", "unit", "n", "rounds", "wall_ms", "backend",
              "card", "power_limit")
-
-
-def card_info() -> dict:
-    """The CUDA card's name and power limit, as ``nvidia-smi`` reports
-    them.  Raises when there is no card."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the bench measures the card "
-                           "and prints no CPU row")
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", f"--id={torch.cuda.current_device()}"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    name, power_limit = (s.strip() for s in out.rsplit(",", 1))
-    return {"name": name, "power_limit": power_limit}
 
 
 def run_fused(n: int = N_FLAGSHIP, device=None):

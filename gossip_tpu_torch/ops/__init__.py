@@ -1,1 +1,2 @@
-"""Round kernels of the port and their plain versions."""
+"""Kernels of the port (the rounds' and the roofline's calibration
+microkernels) and their plain versions."""

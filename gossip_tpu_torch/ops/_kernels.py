@@ -128,19 +128,35 @@ MR_GATHER = Kernel(
 SAMPLER = Kernel(
     "sampler", "sampler.cu", "sampler_launch",
     [_P, _P, ctypes.c_ulonglong, _U, _U, _I, _U, _P])
-KERNELS = (FUSED_ROUND, FUSED_MR_ROUND, MR_GATHER, SAMPLER)
+# the roofline's three calibration microkernels: one source, three entry
+# points, one build (build_all)
+CAL_PRNG = Kernel("cal_prng", "calibrate.cu", "cal_prng_launch",
+                  [_P, _P, _I, _U, _U, _P])
+CAL_PRNG_GATHER = Kernel("cal_prng_gather", "calibrate.cu",
+                         "cal_prng_gather_launch", [_P, _P, _I, _U, _U, _P])
+CAL_VPU = Kernel("cal_vpu", "calibrate.cu", "cal_vpu_launch",
+                 [_P, _I, _U, _P])
+# the kernels a run launches (a run report counts these), and all of them
+ROUND_KERNELS = (FUSED_ROUND, FUSED_MR_ROUND, MR_GATHER, SAMPLER)
+KERNELS = ROUND_KERNELS + (CAL_PRNG, CAL_PRNG_GATHER, CAL_VPU)
 MR_MAX_FANOUT = 64        # the value kernel keeps fanout x 128 shifts in
                           # shared memory (csrc/fused_mr_round.cu)
 
 
 def build_all(kernels=KERNELS):
     """Build every given kernel that is not loaded yet, one nvcc per
-    source, all started together; then load them."""
+    source (entry points of one source share its build), all started
+    together; then load them."""
     todo = [k for k in kernels if k._fn is None]
     t0 = time.perf_counter()
-    started = [(k, k.start_build()) for k in todo]
-    for k, s in started:
-        k.finish_build(s, t0)
+    builds = {}
+    for k in todo:
+        if k.library() not in builds:
+            builds[k.library()] = (k, k.start_build())
+    for k in todo:
+        first, started = builds[k.library()]
+        k.finish_build(started if k is first else None, t0)
+        k.ptxas = first.ptxas
 
 
 def _check(name: str, t, rows: int, shape=None):
@@ -326,3 +342,41 @@ def mr_gather(tin, rot, n: int, f: int, key, drop_threshold: int,
             _ptr(pop), rows, f, k0, k1, drop_threshold & 0xFFFFFFFF, n,
             rumors)
     return out
+
+
+def _calibrate(kernel: Kernel, table, key, rbits):
+    """Launch one of the two drawing microkernels once, on ``table`` in
+    place, on round key ``key``'s stream or on ``rbits``
+    (int32[32, rows, 128])."""
+    rows = table.shape[0]
+    _check("table", table, rows)
+    dev = table.device
+    _check_sm90(dev, kernel.name)
+    if rbits is not None:
+        _check("rbits", rbits, rows, (32, rows, 128))
+        _same_device(dev, [table, rbits], kernel.name)
+    k0, k1 = key
+    _launch(kernel, dev, _ptr(table), _ptr(rbits), rows, k0, k1)
+    return table
+
+
+def cal_prng(table, key, rbits=None):
+    """Launch ``cal_prng_launch`` once: ``table |= OR of 32 draws``."""
+    return _calibrate(CAL_PRNG, table, key, rbits)
+
+
+def cal_prng_gather(table, key, rbits=None):
+    """Launch ``cal_prng_gather_launch`` once: ``table |= OR of 32
+    in-row gathers`` of the pre-call row."""
+    return _calibrate(CAL_PRNG_GATHER, table, key, rbits)
+
+
+def cal_vpu(table, s: int):
+    """Launch ``cal_vpu_launch`` once: the 256-step chain on every word
+    of ``table``, in place, with seed word ``s``."""
+    rows = table.shape[0]
+    _check("table", table, rows)
+    dev = table.device
+    _check_sm90(dev, CAL_VPU.name)
+    _launch(CAL_VPU, dev, _ptr(table), rows, s & 0xFFFFFFFF)
+    return table

@@ -103,8 +103,11 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     device of the tensor counters."""
     dev = next((c.device for c in (c0, c1, c2, c3)
                 if isinstance(c, torch.Tensor)), None)
+    # an int counter is filled on the device, not copied from the host,
+    # so a CUDA graph can capture the call
     c0, c1, c2, c3 = torch.broadcast_tensors(
-        *(torch.as_tensor(c, dtype=torch.int64, device=dev)
+        *(c.to(torch.int64) if isinstance(c, torch.Tensor)
+          else torch.full((), c, dtype=torch.int64, device=dev)
           for c in (c0, c1, c2, c3)))
     for r in range(PHILOX_ROUNDS):
         if r:

@@ -1,1 +1,1 @@
-"""Timing helpers of the port."""
+"""Timing and provenance helpers of the port."""

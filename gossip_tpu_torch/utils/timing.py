@@ -1,4 +1,5 @@
-"""Wall time of a run on the device it ran on.
+"""Wall time of a run on the device it ran on, and the device time of a
+chain of steps.
 
 There is no compile on this side: the CUDA kernels are built once, at
 first use, and that build is reported as ``build_s`` in place of the
@@ -7,9 +8,78 @@ reference's ``compile_s``.
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
+
+SLEEP_CYCLES = 20_000_000  # device sleep that queues a timed chain behind it
+
+
+def timed_chain(step, init, iters: int, device, repeats: int = 3,
+                graph: bool = False) -> float:
+    """Seconds per iteration for ``iters`` chained applications
+    ``carry = step(i, carry)``, ``i = 0 .. iters-1``, from ``init``: the
+    median of ``repeats`` timed chains after one warm-up chain (which
+    also builds the kernels).  The counterpart of the JAX package's
+    ``tools/_timing.timed_chain``, whose chain is one jitted
+    ``fori_loop`` with no host dispatch in it.  On a CUDA device each
+    chain is queued behind a device sleep and timed with CUDA events
+    (:func:`_behind_sleep`).  ``graph=True`` captures the chain once in
+    a CUDA graph and times its replays, for a chain of many small
+    launches: the capture calls each wrapper once more (its launch
+    counter counts that), the replays call none.  On the CPU it is the
+    host clock."""
+    device = torch.device(device)
+
+    def chain():
+        carry = init
+        for i in range(iters):
+            carry = step(i, carry)
+        return carry
+
+    chain()
+    run = chain
+    if graph and device.type == "cuda":
+        torch.cuda.synchronize(device)
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            chain()
+        run = captured.replay
+        run()                          # the first replay uploads the graph
+    samples = []
+    for _ in range(repeats):
+        if device.type == "cuda":
+            seconds = _behind_sleep(run, device)
+        else:
+            t0 = time.perf_counter()
+            run()
+            seconds = time.perf_counter() - t0
+        samples.append(seconds / iters)
+    return statistics.median(samples)
+
+
+def _behind_sleep(run, device) -> float:
+    """Device seconds of ``run()`` queued behind a device sleep
+    (``torch.cuda._sleep``), so the host's enqueue is off the clock.  If
+    the device reached the work before the host had queued all of it, the
+    reading would hold the enqueue: the sleep grows, up to 64-fold, and
+    then it raises."""
+    for grow in (1, 4, 16, 64):
+        torch.cuda.synchronize(device)
+        torch.cuda._sleep(SLEEP_CYCLES * grow)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        queued_first = not start.query()
+        stop.record()
+        torch.cuda.synchronize(device)
+        if queued_first:
+            return start.elapsed_time(stop) / 1e3
+    raise RuntimeError("the host queued the chain slower than the device "
+                       "slept, so its time would hold the enqueue; time it "
+                       "with graph=True")
 
 
 def steady_timed(device, fn, /, *args, **kwargs):
