@@ -14,11 +14,14 @@ points, and measures them.  One JSON line per phase:
 2. ``build``   every kernel's build (seven entry points from five
    sources, one ``nvcc`` per source, started together);
 3. ``checks``  one kernel round against the plain version on the card,
-   bitwise (tolerance 0), on the Philox stream at fanout 1 and 2,
-   plane sharing 1 and 2, with the drop coin, alive and cut tables, at
-   N = 10M and 10M - 37, and under injected bits (once with every
-   draw's drop coin at the threshold or one below it); then the
-   kernel's time per round, the plain version's, and the bound;
+   bitwise (tolerance 0), at N = 10M and 10M - 37, once for every
+   instantiation the launcher picks: fanout 1, plane sharing 1 on the
+   Philox stream with each combination of the drop coin, alive and cut
+   tables; the generic one at fanout 2 and plane sharing 2 (and with all
+   three operands), and under injected bits (once with every draw's drop
+   coin at the threshold or one below it); then the kernel's time per
+   round, the plain version's, the bound, and the static SASS counts of
+   the main path's instantiations;
 4. ``main_path``  ``run_simulation`` at N = 10M, pull, fanout 1, seed 0,
    target 0.99, with every launch count set to 0 just before and read
    just after; then the same loop replayed round by round with the
@@ -27,15 +30,20 @@ points, and measures them.  One JSON line per phase:
 5. ``bench``   the node-rounds/s line of ``gossip_tpu_torch.bench``;
 6. ``mr_build``  the two multi-rumor kernels' build reports;
 7. ``mr_checks``  both multi-rumor kernels against their plain versions
-   on the card, bitwise, at N = 10M and 10M - 37 with 32 rumors: fanout 1
-   and 2, the drop coin, alive and cut words and all three, injected bits
-   and the coin boundary; each case also runs the whole staged round
-   against the plain value round (the two routes draw one stream), and
-   holds both kernels' per-rumor counters against the plain counts; then
-   each kernel's time, its plain version's, its bound, and the staged
-   route's torch rotation;
+   on the card, bitwise, at N = 10M and 10M - 37 with 32 rumors, fanout
+   1, 2 and 3, each combination of the drop coin, alive and cut words,
+   and under injected bits (and at the coin boundary): the lane-major
+   kernel the loops launch against ``fused_mr_round_lanes_plain``,
+   ``fused_multirumor_pull_round`` (the kernel between two transposes)
+   and the whole staged round against ``fused_mr_round_plain`` (the
+   routes draw one stream), the gather pass against its plain version,
+   and every per-rumor counter against the plain counts; then each
+   kernel's time (the value kernel's as the loops launch it,
+   lane-major), its plain version's, its bound, the staged route's torch
+   rotation, and the value kernel's static SASS counts;
 8. ``mr_routes``  both routes' time per round at 10M x 32 and 1M x 32,
-   fanout 1 and 2, as a loop pays it, the value kernel's own time at each,
+   fanout 1 and 2, as a loop pays it (the value route on the loops'
+   lane-major buffers), the value kernel's own time at each,
    and the routing rule those times give; the port's loops take the value
    route at every size, so the phase fails where the staged route is
    faster;
@@ -139,7 +147,8 @@ def kernel_ms(launch, graph: bool = False) -> float:
 
 
 def phase_checks(dev, n: int):
-    """Kernel against plain on the card, bitwise.  Returns the cases'
+    """Kernel against plain on the card, bitwise, at n and n - 37, once
+    for every instantiation the launcher can pick.  Returns the cases'
     results, their largest absolute difference, and the table at n."""
     import numpy as np
     import torch
@@ -147,12 +156,6 @@ def phase_checks(dev, n: int):
     from gossip_tpu_torch.ops import fused_round as FR
 
     rng = np.random.default_rng(SEED)
-    tables = {}
-    for m in (n, n - 37):
-        tables[m] = FR.node_pack(
-            torch.from_numpy(rng.random(m) < INFECTED).to(dev))
-    alive = FR.node_pack(torch.from_numpy(rng.random(n) < 0.9).to(dev))
-    cut = FR.render_cut_bits(n // 3, n, dev)
     thr = FR.drop_threshold_for(FaultConfig(drop_prob=0.05))
     rows = FR.n_rows(n)
     inject = (
@@ -163,40 +166,57 @@ def phase_checks(dev, n: int):
     coin = np.where(rng.random(inject[1].shape) < 0.5, thr, thr - 1)
     boundary = (inject[0], (coin.astype(np.uint32) << np.uint32(12))
                 | (inject[1] & np.uint32(0xFFF)))
-    # (name, n, fanout, sharing, drop threshold, alive, cut, inject)
-    cases = [("f1_s1", n, 1, 1, 0, None, None, None),
-             ("f2_s1", n, 2, 1, 0, None, None, None),
-             ("f1_s2", n, 1, 2, 0, None, None, None),
-             ("f2_s2", n, 2, 2, 0, None, None, None),
-             ("drop", n, 1, 1, thr, None, None, None),
-             ("alive", n, 1, 1, 0, alive, None, None),
-             ("cut", n, 1, 1, 0, None, cut, None),
-             ("drop_alive_cut", n, 2, 1, thr, alive, cut, None),
-             ("tail_f1_s1", n - 37, 1, 1, 0, None, None, None),
-             ("tail_f2_s2", n - 37, 2, 2, 0, None, None, None),
-             ("inject", n, 1, 1, 0, None, None, inject),
-             ("inject_coin_boundary", n, 1, 1, thr, None, None, boundary)]
-    results, max_err = [], 0
-    for name, m, fanout, sharing, t, a, c, bits in cases:
-        table = tables[m]
-        pop = torch.zeros(1, dtype=torch.int32, device=dev)
-        got = FR.fused_pull_round(table, SEED, CHECK_ROUND, m, fanout,
-                                  inject_bits=bits, drop_threshold=t,
-                                  alive_table=a, plane_sharing=sharing,
-                                  cut_words=c, pop=pop)
-        want = FR.fused_pull_round_plain(table, SEED, CHECK_ROUND, m, fanout,
-                                         bits, t, a, sharing, c)
-        err = int((FR.to_words(got) - FR.to_words(want)).abs().max())
-        equal = bool(torch.equal(got, want))
-        pop_ok = int(pop.item()) == FR.popcount(want)
-        grew = FR.popcount(want) - FR.popcount(table)
-        results.append({"case": name, "n": m, "fanout": fanout,
-                        "sharing": sharing, "bitwise_equal": equal,
-                        "max_abs_err": err, "popcount_equal": pop_ok,
-                        "newly_infected": grew})
-        check(equal and pop_ok and grew > 0, f"kernel vs plain, {name}")
-        max_err = max(max_err, err)
+    # (name, fanout, sharing, drop, alive, cut, inject): fanout 1,
+    # sharing 1 on the stream takes the straight-line instantiation of its
+    # operand set; the rest take the generic one of their plane sharing
+    cases = [(f"f1_s1{'_drop' * d}{'_alive' * a}{'_cut' * c}" if d or a or c
+              else "f1_s1", 1, 1, d, a, c, None)
+             for d in (False, True) for a in (False, True)
+             for c in (False, True)]
+    cases += [("f2_s1", 2, 1, False, False, False, None),
+              ("f1_s2", 1, 2, False, False, False, None),
+              ("f2_s2", 2, 2, False, False, False, None),
+              ("f2_s1_drop_alive_cut", 2, 1, True, True, True, None),
+              ("inject", 1, 1, False, False, False, inject),
+              ("inject_coin_boundary", 1, 1, True, False, False, boundary)]
+    results, max_err, tables = [], 0, {}
+    for m in (n, n - 37):
+        tables[m] = FR.node_pack(
+            torch.from_numpy(rng.random(m) < INFECTED).to(dev))
+        alive = FR.node_pack(torch.from_numpy(rng.random(m) < 0.9).to(dev))
+        cut = FR.render_cut_bits(m // 3, m, dev)
+        for name, fanout, sharing, d, a, c, bits in cases:
+            table = tables[m]
+            t, a, c = thr if d else 0, alive if a else None, cut if c else None
+            pop = torch.zeros(1, dtype=torch.int32, device=dev)
+            got = FR.fused_pull_round(table, SEED, CHECK_ROUND, m, fanout,
+                                      inject_bits=bits, drop_threshold=t,
+                                      alive_table=a, plane_sharing=sharing,
+                                      cut_words=c, pop=pop)
+            want = FR.fused_pull_round_plain(table, SEED, CHECK_ROUND, m,
+                                             fanout, bits, t, a, sharing, c)
+            err = int((FR.to_words(got) - FR.to_words(want)).abs().max())
+            equal = bool(torch.equal(got, want))
+            pop_ok = int(pop.item()) == FR.popcount(want)
+            grew = FR.popcount(want) - FR.popcount(table)
+            results.append({
+                "case": name, "n": m, "fanout": fanout, "sharing": sharing,
+                "instantiation": ("straight line" if fanout == sharing == 1
+                                  and bits is None else "generic"),
+                "bitwise_equal": equal, "max_abs_err": err,
+                "popcount_equal": pop_ok, "newly_infected": grew})
+            check(equal and pop_ok and grew > 0,
+                  f"kernel vs plain, {name} at n={m}")
+            max_err = max(max_err, err)
     return results, max_err, tables[n]
+
+
+def round_sass(kernel) -> dict:
+    """The static SASS counts by pipe of the named instantiations in
+    ``kernel``'s build (``tools/roofline.ROUND_SASS_TAGS``); their loop
+    bodies run once a word."""
+    from gossip_tpu_torch.tools import roofline as R
+    return R.sass_counts(kernel.library(), R.ROUND_SASS_TAGS)
 
 
 def random_mr_table(rng, n: int, dev):
@@ -220,7 +240,8 @@ def _words_err(a, b) -> int:
 
 def phase_mr_checks(dev, n: int):
     """Both multi-rumor kernels against their plain versions on the card,
-    bitwise, and the staged route against the plain value round.
+    bitwise: the lane-major kernel against the lane-major plain round,
+    the public round and the staged route against the plain value round.
     Returns the cases' results, each kernel's largest absolute
     difference, and the table at n."""
     import numpy as np
@@ -231,10 +252,6 @@ def phase_mr_checks(dev, n: int):
     from gossip_tpu_torch.ops.fused_round import drop_threshold_for
 
     rng = np.random.default_rng(SEED + 1)
-    tables = {m: random_mr_table(rng, m, dev) for m in (n, n - 37)}
-    alive = MR.render_alive_words(
-        torch.from_numpy(rng.random(n) < 0.9).to(dev), n)
-    cut = MR.render_cut_words(n // 3, n, dev)
     thr = drop_threshold_for(FaultConfig(drop_prob=0.05))
     rows = MR.mr_rows(n)
     inject = {f: (rng.integers(0, 2**32, size=(f, 8, MR.LANES),
@@ -249,64 +266,79 @@ def phase_mr_checks(dev, n: int):
                        for b in bits) for f, bits in inject.items()}
     boundary = tuple(torch.from_numpy(np.ascontiguousarray(b).view(np.int32))
                      .to(dev) for b in boundary)
-    # (name, n, fanout, drop threshold, alive, cut, inject)
-    cases = [("f1", n, 1, 0, None, None, None),
-             ("f2", n, 2, 0, None, None, None),
-             ("drop", n, 1, thr, None, None, None),
-             ("alive", n, 1, 0, alive, None, None),
-             ("cut", n, 1, 0, None, cut, None),
-             ("drop_alive_cut", n, 2, thr, alive, cut, None),
-             ("tail_f1", n - 37, 1, 0, None, None, None),
-             ("tail_f2", n - 37, 2, 0, None, None, None),
-             ("inject_f1", n, 1, 0, None, None, inject[1]),
-             ("inject_f2_faults", n, 2, thr, alive, cut, inject[2]),
-             ("inject_coin_boundary", n, 1, thr, None, None, boundary)]
+    # (name, fanout, drop, alive, cut, inject): every operand combination
+    # at fanout 1, 2 and 3 (the staging loop over draws), then injected
+    cases = [(f"f{f}{'_drop' * d}{'_alive' * a}{'_cut' * c}", f, d, a, c,
+              None)
+             for f in (1, 2, 3) for d in (False, True)
+             for a in (False, True) for c in (False, True)]
+    cases += [("inject_f1", 1, False, False, False, inject[1]),
+              ("inject_f2_drop_alive_cut", 2, True, True, True, inject[2]),
+              ("inject_coin_boundary", 1, True, False, False, boundary)]
     key = philox.round_key(SEED, CHECK_ROUND, philox.MR_SALT)
-    results = []
+    results, tables = [], {}
     err = {"fused_mr_round": 0, "mr_gather": 0}
-    for name, m, fanout, t, a, c, bits in cases:
-        table = tables[m]
-        want = MR.fused_mr_round_plain(table, SEED, CHECK_ROUND, m, fanout,
-                                       bits, t, a, c)
-        counts = MR.rumor_counts(want, RUMORS).to(torch.int32)
-        pops = [torch.zeros(RUMORS, dtype=torch.int32, device=dev)
-                for _ in range(2)]
-        value = MR.fused_multirumor_pull_round(
-            table, SEED, CHECK_ROUND, m, fanout, bits, t, a, c, RUMORS,
-            pop=pops[0])
-        staged = MR.fused_mr_round_big(table, SEED, CHECK_ROUND, m, fanout,
-                                       bits, t, a, c, RUMORS, pop=pops[1])
-        # the gather kernel alone against its plain version, draw 0
-        if bits is None:
-            shifts = philox.shift_words(*key, fanout, dev)[0]
-            rb, rb_kernel = philox.draw_words(*key, rows, 1, dev)[0], None
-        else:
-            shifts, rb = bits[0][0, 0], bits[1][0]
-            rb_kernel = rb
-        src = table & a if a is not None else table
-        rot = MR.rotate_rows(src, shifts)
-        rot_cut = MR.rotate_rows(c, shifts) if c is not None else None
-        g_kernel = MR.mr_gather(table, rot, m, 0, key, t, RUMORS,
-                                rbits=rb_kernel, alive_words=a,
-                                rot_cut=rot_cut, cut_words=c)
-        g_plain = MR.mr_gather_plain(table, rot, rb, m, t, a, rot_cut, c)
-        e_value = _words_err(value, want)
-        e_gather = max(_words_err(g_kernel, g_plain),
-                       _words_err(staged, want))
-        ok = {"value_equal": bool(torch.equal(value, want)),
-              "staged_equal": bool(torch.equal(staged, want)),
-              "gather_equal": bool(torch.equal(g_kernel, g_plain)),
-              "value_counts_equal": bool(torch.equal(pops[0], counts)),
-              "staged_counts_equal": bool(torch.equal(pops[1], counts))}
-        grew = int(MR.rumor_counts(want, RUMORS).sum()
-                   - MR.rumor_counts(table, RUMORS).sum())
-        results.append({"case": name, "n": m, "fanout": fanout, **ok,
-                        "max_abs_err": max(e_value, e_gather),
-                        "newly_informed": grew})
-        check(all(ok.values()) and grew > 0,
-              f"multi-rumor kernels vs plain, {name}: {ok}")
-        err["fused_mr_round"] = max(err["fused_mr_round"], e_value)
-        err["mr_gather"] = max(err["mr_gather"], e_gather)
+    for m in (n, n - 37):
+        tables[m] = random_mr_table(rng, m, dev)
+        alive = MR.render_alive_words(
+            torch.from_numpy(rng.random(m) < 0.9).to(dev), m)
+        cut = MR.render_cut_words(m // 3, m, dev)
+        for name, fanout, d, a, c, bits in cases:
+            table = tables[m]
+            t, a, c = thr if d else 0, alive if a else None, cut if c else None
+            want = MR.fused_mr_round_plain(table, SEED, CHECK_ROUND, m,
+                                           fanout, bits, t, a, c)
+            counts = MR.rumor_counts(want, RUMORS).to(torch.int32)
+            pops = [torch.zeros(RUMORS, dtype=torch.int32, device=dev)
+                    for _ in range(3)]
+            # the loops' launch: lane-major in, lane-major out
+            lanes_bits = None if bits is None else MR.lanes_bits(bits, dev)
+            lanes_args = (MR.to_lanes(table), SEED, CHECK_ROUND, m, fanout,
+                          lanes_bits, t, MR.to_lanes(a), MR.to_lanes(c))
+            lanes = MR.fused_mr_round_lanes(*lanes_args, rumors=RUMORS,
+                                            pop=pops[0])
+            lanes_want = MR.fused_mr_round_lanes_plain(*lanes_args)
+            value = MR.fused_multirumor_pull_round(
+                table, SEED, CHECK_ROUND, m, fanout, bits, t, a, c, RUMORS,
+                pop=pops[1])
+            staged = MR.fused_mr_round_big(table, SEED, CHECK_ROUND, m,
+                                           fanout, bits, t, a, c, RUMORS,
+                                           pop=pops[2])
+            # the gather kernel alone against its plain version, draw 0
+            if bits is None:
+                shifts = philox.shift_words(*key, fanout, dev)[0]
+                rb, rb_kernel = philox.draw_words(*key, rows, 1, dev)[0], None
+            else:
+                shifts, rb = bits[0][0, 0], bits[1][0]
+                rb_kernel = rb
+            src = table & a if a is not None else table
+            rot = MR.rotate_rows(src, shifts)
+            rot_cut = MR.rotate_rows(c, shifts) if c is not None else None
+            g_kernel = MR.mr_gather(table, rot, m, 0, key, t, RUMORS,
+                                    rbits=rb_kernel, alive_words=a,
+                                    rot_cut=rot_cut, cut_words=c)
+            g_plain = MR.mr_gather_plain(table, rot, rb, m, t, a, rot_cut, c)
+            e_value = max(_words_err(lanes, lanes_want),
+                          _words_err(value, want))
+            e_gather = max(_words_err(g_kernel, g_plain),
+                           _words_err(staged, want))
+            ok = {"lanes_equal": bool(torch.equal(lanes, lanes_want)),
+                  "lanes_plain_is_value_plain": bool(torch.equal(
+                      MR.from_lanes(lanes_want), want)),
+                  "value_equal": bool(torch.equal(value, want)),
+                  "staged_equal": bool(torch.equal(staged, want)),
+                  "gather_equal": bool(torch.equal(g_kernel, g_plain)),
+                  "counts_equal": all(bool(torch.equal(p, counts))
+                                      for p in pops)}
+            grew = int(MR.rumor_counts(want, RUMORS).sum()
+                       - MR.rumor_counts(table, RUMORS).sum())
+            results.append({"case": name, "n": m, "fanout": fanout, **ok,
+                            "max_abs_err": max(e_value, e_gather),
+                            "newly_informed": grew})
+            check(all(ok.values()) and grew > 0,
+                  f"multi-rumor kernels vs plain, {name} at n={m}: {ok}")
+            err["fused_mr_round"] = max(err["fused_mr_round"], e_value)
+            err["mr_gather"] = max(err["mr_gather"], e_gather)
     return results, err, tables[n]
 
 
@@ -337,12 +369,14 @@ def phase_mr_routes(dev, big_table):
     rows = []
     for m, table in tables.items():
         out = torch.empty_like(table)
+        lanes = MR.to_lanes(table)
+        lanes_out = torch.empty_like(lanes)
         pop = torch.zeros(RUMORS, dtype=torch.int32, device=dev)
         for fanout in (1, 2):
             def value():
-                MR.fused_multirumor_pull_round(
-                    table, SEED, CHECK_ROUND, m, fanout, rumors=RUMORS,
-                    out=out, pop=pop)
+                MR.fused_mr_round_lanes(
+                    lanes, SEED, CHECK_ROUND, m, fanout, rumors=RUMORS,
+                    out=lanes_out, pop=pop)
 
             def staged():
                 MR.fused_mr_round_big(table, SEED, CHECK_ROUND, m, fanout,
@@ -383,8 +417,11 @@ def phase_mr(dev, smi: str):
     key = philox.round_key(SEED, CHECK_ROUND, philox.MR_SALT)
     out = torch.empty_like(table)
     pop = torch.zeros(RUMORS, dtype=torch.int32, device=dev)
-    value_ms = kernel_ms(lambda: MR.fused_multirumor_pull_round(
-        table, SEED, CHECK_ROUND, N, rumors=RUMORS, out=out, pop=pop))
+    # the value kernel as the loops launch it: lane-major buffers
+    lanes = MR.to_lanes(table)
+    lanes_out = torch.empty_like(lanes)
+    value_ms = kernel_ms(lambda: MR.fused_mr_round_lanes(
+        lanes, SEED, CHECK_ROUND, N, rumors=RUMORS, out=lanes_out, pop=pop))
     shifts = philox.shift_words(*key, 1, dev)[0]
     rot = MR.rotate_rows(table, shifts)
     gather_ms = kernel_ms(lambda: MR.mr_gather(table, rot, N, 0, key,
@@ -395,8 +432,8 @@ def phase_mr(dev, smi: str):
                          graph=True)
     rb = philox.draw_words(*key, MR.mr_rows(N), 1, dev)[0]
     value_plain_ms = 1e3 * statistics.median(
-        steady_timed(dev, MR.fused_mr_round_plain, table, SEED, CHECK_ROUND,
-                     N)[1] for _ in range(3))
+        steady_timed(dev, MR.fused_mr_round_lanes_plain, lanes, SEED,
+                     CHECK_ROUND, N)[1] for _ in range(3))
     gather_plain_ms = 1e3 * statistics.median(
         steady_timed(dev, MR.mr_gather_plain, table, rot, rb, N)[1]
         for _ in range(3))
@@ -408,7 +445,8 @@ def phase_mr(dev, smi: str):
          value_bound_by=value_bound[1], gather_kernel_ms=gather_ms,
          gather_plain_ms=gather_plain_ms, gather_bound_ms=gather_bound[0],
          gather_bound_by=gather_bound[1], rotation_ms=rotation_ms,
-         shift_words_ms=shift_ms, card=smi)
+         shift_words_ms=shift_ms,
+         value_sass_static=round_sass(_kernels.FUSED_MR_ROUND), card=smi)
 
     # 8. the two routes, and the rule their times give
     routes = phase_mr_routes(dev, table)
@@ -1030,7 +1068,8 @@ def main() -> int:
     bound_ms, bound_by = round_bound(N, 1, 1)
     emit("checks", cases=results, max_abs_err=max_err, tolerance=0,
          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by, card=smi)
+         bound_by=bound_by, sass_static=round_sass(_kernels.FUSED_ROUND),
+         card=smi)
 
     # 4. the main path, counts from 0
     for k in _kernels.KERNELS:

@@ -160,6 +160,12 @@ def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,
     else:
         (final, cov), steady = steady_timed(
             dev, until_fn, n, target_coverage=run.target_coverage, **kw)
+        # the report's coverage is the reference's eager one: without
+        # deaths the quotient, where the loop's stop test multiplied by
+        # float32(1 / n) as the compiled loop does; under deaths the same
+        if fault is None or not fault.node_death_rate:
+            cov = (MR.coverage_words(final.table, n, proto.rumors) if multi
+                   else FR.coverage_node_packed(final.table, n))
         hit = cov >= float(np.float32(run.target_coverage))
         rounds, msgs, curve = (final.round if hit else -1), \
             float(final.msgs), None

@@ -22,8 +22,10 @@
 //
 // What the design does about it: nothing beyond the round kernels' own
 // layout, on purpose: they measure the card's rates at the real kernels'
-// shape, so one thread per word and one 128-thread block per row
-// (csrc/fused_round.cu), Philox from philox.cuh, no loop inside a launch.
+// shape, so one thread per word and one 128-thread block per row, no loop
+// inside a launch, and Philox through philox.cuh's one form, the round
+// kernels' own (its ten round keys computed on the host and read from the
+// constant bank, each product one wide multiply).
 // prng_gather stages its row in shared memory and syncs before any write,
 // so it too runs in place.  The vpu chain is unrolled with k a
 // compile-time constant.  The injected variants are separate
@@ -42,6 +44,7 @@
 
 namespace {
 
+using gossip::PhiloxKeys;
 using gossip::philox4x32_10;
 
 constexpr int kLanes = 128;
@@ -51,7 +54,7 @@ constexpr int kVpuChain = 256;
 template <bool INJECT>
 __global__ void __launch_bounds__(kLanes)
 cal_prng_kernel(uint32_t* t, const uint32_t* __restrict__ rbits,
-                uint32_t k0, uint32_t k1, size_t draw_stride) {
+                const PhiloxKeys keys, size_t draw_stride) {
   const uint32_t w = blockIdx.x * kLanes + threadIdx.x;
   uint32_t acc = t[w];
 #pragma unroll
@@ -61,7 +64,7 @@ cal_prng_kernel(uint32_t* t, const uint32_t* __restrict__ rbits,
       for (int u = 0; u < 4; ++u) acc |= rbits[(4 * q + u) * draw_stride + w];
     } else {
       const uint4 r = philox4x32_10(
-          make_uint4(w, static_cast<uint32_t>(q), 0u, 0u), k0, k1);
+          make_uint4(w, static_cast<uint32_t>(q), 0u, 0u), keys);
       acc |= r.x | r.y | r.z | r.w;
     }
   }
@@ -71,7 +74,7 @@ cal_prng_kernel(uint32_t* t, const uint32_t* __restrict__ rbits,
 template <bool INJECT>
 __global__ void __launch_bounds__(kLanes)
 cal_prng_gather_kernel(uint32_t* t, const uint32_t* __restrict__ rbits,
-                       uint32_t k0, uint32_t k1, size_t draw_stride) {
+                       const PhiloxKeys keys, size_t draw_stride) {
   __shared__ uint32_t row[kLanes];
   const uint32_t w = blockIdx.x * kLanes + threadIdx.x;
   uint32_t acc = t[w];
@@ -85,7 +88,7 @@ cal_prng_gather_kernel(uint32_t* t, const uint32_t* __restrict__ rbits,
       for (int u = 0; u < 4; ++u) rb[u] = rbits[(4 * q + u) * draw_stride + w];
     } else {
       const uint4 r = philox4x32_10(
-          make_uint4(w, static_cast<uint32_t>(q), 0u, 0u), k0, k1);
+          make_uint4(w, static_cast<uint32_t>(q), 0u, 0u), keys);
       rb[0] = r.x;
       rb[1] = r.y;
       rb[2] = r.z;
@@ -117,12 +120,13 @@ extern "C" int cal_prng_launch(void* t, const void* rbits, int rows,
   auto* a_t = static_cast<uint32_t*>(t);
   const auto* a_rbits = static_cast<const uint32_t*>(rbits);
   const size_t stride = static_cast<size_t>(rows) * kLanes;
+  const PhiloxKeys keys = gossip::philox_keys(k0, k1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a_rbits) {
-    cal_prng_kernel<true><<<rows, kLanes, 0, st>>>(a_t, a_rbits, k0, k1,
+    cal_prng_kernel<true><<<rows, kLanes, 0, st>>>(a_t, a_rbits, keys,
                                                    stride);
   } else {
-    cal_prng_kernel<false><<<rows, kLanes, 0, st>>>(a_t, nullptr, k0, k1,
+    cal_prng_kernel<false><<<rows, kLanes, 0, st>>>(a_t, nullptr, keys,
                                                     stride);
   }
   return static_cast<int>(cudaGetLastError());
@@ -135,13 +139,14 @@ extern "C" int cal_prng_gather_launch(void* t, const void* rbits, int rows,
   auto* a_t = static_cast<uint32_t*>(t);
   const auto* a_rbits = static_cast<const uint32_t*>(rbits);
   const size_t stride = static_cast<size_t>(rows) * kLanes;
+  const PhiloxKeys keys = gossip::philox_keys(k0, k1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a_rbits) {
-    cal_prng_gather_kernel<true><<<rows, kLanes, 0, st>>>(a_t, a_rbits, k0,
-                                                          k1, stride);
+    cal_prng_gather_kernel<true><<<rows, kLanes, 0, st>>>(a_t, a_rbits, keys,
+                                                          stride);
   } else {
-    cal_prng_gather_kernel<false><<<rows, kLanes, 0, st>>>(a_t, nullptr, k0,
-                                                           k1, stride);
+    cal_prng_gather_kernel<false><<<rows, kLanes, 0, st>>>(a_t, nullptr,
+                                                           keys, stride);
   }
   return static_cast<int>(cudaGetLastError());
 }

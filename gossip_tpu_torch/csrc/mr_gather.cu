@@ -53,7 +53,7 @@ mr_gather_kernel(const uint32_t* tin, const uint32_t* __restrict__ rot,
                  const uint32_t* __restrict__ cut,
                  const uint32_t* __restrict__ rbits,
                  uint32_t* __restrict__ pop, uint32_t rows, int f,
-                 uint32_t k0, uint32_t k1, uint32_t thr, uint32_t n,
+                 const gossip::PhiloxKeys keys, uint32_t thr, uint32_t n,
                  int rumors) {
   __shared__ uint32_t block_counts[32];
   if (threadIdx.x < 32) block_counts[threadIdx.x] = 0u;
@@ -70,7 +70,7 @@ mr_gather_kernel(const uint32_t* tin, const uint32_t* __restrict__ rot,
               : gossip::philox_word(
                     gossip::philox4x32_10(
                         make_uint4(w, static_cast<uint32_t>(f >> 2), 0u, 0u),
-                        k0, k1),
+                        keys),
                     f & 3);
     const uint32_t p = (w & ~static_cast<uint32_t>(kLanes - 1)) |
                        (rb & (kLanes - 1));
@@ -109,6 +109,7 @@ extern "C" int mr_gather_launch(const void* tin, const void* rot, void* tout,
       static_cast<uint32_t*>(tout), static_cast<const uint32_t*>(alive),
       static_cast<const uint32_t*>(rot_cut), static_cast<const uint32_t*>(cut),
       static_cast<const uint32_t*>(rbits), static_cast<uint32_t*>(pop),
-      static_cast<uint32_t>(rows), f, k0, k1, thr, n, rumors);
+      static_cast<uint32_t>(rows), f, gossip::philox_keys(k0, k1), thr, n,
+      rumors);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,19 +17,39 @@ constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
+// The ten rounds' keys of one (k0, k1), computed once on the host and
+// passed as a kernel argument: each round's xor then reads its key from
+// the constant bank, where a kernel that keeps many calls in flight
+// would otherwise recompute the key schedule for every call.
+struct PhiloxKeys {
+  uint32_t k0[10];
+  uint32_t k1[10];
+};
+
+inline PhiloxKeys philox_keys(uint32_t k0, uint32_t k1) {
+  PhiloxKeys keys;
+  for (int r = 0; r < 10; ++r) {
+    keys.k0[r] = k0 + static_cast<uint32_t>(r) * kPhiloxW0;
+    keys.k1[r] = k1 + static_cast<uint32_t>(r) * kPhiloxW1;
+  }
+  return keys;
+}
+
+// The generator on precomputed keys, each round's two products written
+// as 32 x 32 -> 64-bit multiplies (one wide multiply-add each).  Every
+// kernel of the port, the calibration microkernels included, draws
+// through this one form, so the calibrated rate is that of the round
+// kernels' own code.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c,
+                                               const PhiloxKeys& keys) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
-    }
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    const uint64_t p0 = static_cast<uint64_t>(kPhiloxM0) * c.x;
+    const uint64_t p1 = static_cast<uint64_t>(kPhiloxM1) * c.z;
+    c = make_uint4(static_cast<uint32_t>(p1 >> 32) ^ c.y ^ keys.k0[r],
+                   static_cast<uint32_t>(p1),
+                   static_cast<uint32_t>(p0 >> 32) ^ c.w ^ keys.k1[r],
+                   static_cast<uint32_t>(p0));
   }
   return c;
 }

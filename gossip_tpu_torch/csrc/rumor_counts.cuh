@@ -7,9 +7,12 @@
 // threads, each holding one word, transposes its 32 x 32 bit matrix with
 // five shuffle stages; afterwards lane b holds bit b of the warp's 32 words,
 // and one __popc counts rumor b.  Lane b keeps that count in a register over
-// all the words its warp stores; at the end the block sums its warps in
-// shared memory and issues one atomicAdd per rumor into the round's
-// int32[32] counter slot.  Exact integers, so the order does not matter.
+// all the words its warp stores (mr_gather.cu transposes every 32 words;
+// fused_mr_round.cu first sums a thread's words in bit-sliced counters and
+// transposes each slice once, weighted by its bit); at the end the block
+// sums its warps in shared memory and issues one atomicAdd per rumor into
+// the round's int32[32] counter slot.  Exact integers, so the order does
+// not matter.
 
 #pragma once
 

@@ -37,6 +37,7 @@
 
 namespace {
 
+using gossip::PhiloxKeys;
 using gossip::philox4x32_10;
 using gossip::philox_word;
 
@@ -46,15 +47,14 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 sampler_kernel(int32_t* __restrict__ out, const uint32_t* __restrict__ inject,
                unsigned long long total, uint32_t k, uint32_t n_total,
-               int exclude_self, uint32_t k0) {
+               int exclude_self, const PhiloxKeys keys) {
   const unsigned long long q =
       static_cast<unsigned long long>(blockIdx.x) * kThreads + threadIdx.x;
   const unsigned long long e0 = q * 4ull;
   if (e0 >= total) return;
   uint4 r = make_uint4(0u, 0u, 0u, 0u);
   if (!inject)
-    r = philox4x32_10(make_uint4(static_cast<uint32_t>(q), 0u, 2u, 0u), k0,
-                      kSamplerSalt);
+    r = philox4x32_10(make_uint4(static_cast<uint32_t>(q), 0u, 2u, 0u), keys);
   // row id i and column c of element e0, stepped per element below
   unsigned long long i = e0 / k;
   uint32_t c = static_cast<uint32_t>(e0 - i * k);
@@ -99,6 +99,6 @@ extern "C" int sampler_launch(void* out, const void* inject,
   sampler_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(out), static_cast<const uint32_t*>(inject),
-      total, k, n_total, exclude_self, k0);
+      total, k, n_total, exclude_self, gossip::philox_keys(k0, kSamplerSalt));
   return static_cast<int>(cudaGetLastError());
 }

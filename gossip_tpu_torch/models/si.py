@@ -26,8 +26,8 @@ from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import FaultConfig, ProtocolConfig
 from gossip_tpu_torch.models.state import SimState, alive_mask
 from gossip_tpu_torch.ops import threefry
-from gossip_tpu_torch.ops.bitpack import f32_mean
-from gossip_tpu_torch.ops.common import f32_fraction, resolve_device
+from gossip_tpu_torch.ops.common import (f32_fraction, f32_mean,
+                                         resolve_device)
 from gossip_tpu_torch.ops.propagate import (flood_gather, pull_merge,
                                             push_delta)
 from gossip_tpu_torch.ops.sampling import apply_drop, drop_mask, sample_peers

@@ -118,7 +118,7 @@ class Kernel:
 
 FUSED_ROUND = Kernel(
     "fused_round", "fused_round.cu", "fused_round_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _U, _U, _U, _P])
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _U, _U, _U, _I, _P])
 FUSED_MR_ROUND = Kernel(
     "fused_mr_round", "fused_mr_round.cu", "fused_mr_round_launch",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _I, _P])
@@ -236,48 +236,53 @@ def fused_round(table, n: int, fanout: int, key, drop_threshold: int,
     _launch(FUSED_ROUND, dev, _ptr(table), _ptr(out), _ptr(alive_table),
             _ptr(cut_words), _ptr(sbits), _ptr(rbits), _ptr(pop), rows,
             fanout, plane_sharing, k0, k1, drop_threshold & 0xFFFFFFFF,
-            n_valid_words, ((1 << tail) - 1) if tail else 0)
+            n_valid_words, ((1 << tail) - 1) if tail else 0, dev.index)
     return out
 
 
-def fused_mr_round(table, n: int, fanout: int, key, drop_threshold: int,
-                   rumors: int, inject_bits=None, alive_words=None,
-                   cut_words=None, out=None, pop=None):
+def fused_mr_round(lanes, n: int, fanout: int, key, drop_threshold: int,
+                   rumors: int, inject_bits=None, alive_lanes=None,
+                   cut_lanes=None, out=None, pop=None):
     """Launch ``fused_mr_round_launch`` once: one multi-rumor round from
-    ``table`` into ``out`` (allocated when None; never ``table``).
-    ``pop`` (int32[32]) gets the count of each of the first ``rumors``
-    bits of the new table added."""
-    rows = table.shape[0]
-    _check("table", table, rows)
-    dev = table.device
+    the lane-major table ``lanes`` (int32[128, rows], word (i, j) of the
+    reference's layout at [j, i]) into ``out`` (allocated when None;
+    never ``lanes``).  ``alive_lanes``, ``cut_lanes`` and
+    ``inject_bits`` (sbits int32[fanout, 8, 128], rbits
+    int32[fanout, 128, rows]) are lane-major too; ``pop`` (int32[32])
+    gets the count of each of the first ``rumors`` bits of the new table
+    added."""
+    rows = lanes.shape[1] if lanes.dim() == 2 else 0
+    shape = (128, rows)
+    _check("table", lanes, rows, shape)
+    dev = lanes.device
     _check_sm90(dev, "multi-rumor round")
     if not 0 < fanout <= MR_MAX_FANOUT:
         raise ValueError(f"the multi-rumor round kernel takes fanout 1 to "
                          f"{MR_MAX_FANOUT}, got {fanout}")
     if out is None:
-        out = torch.empty_like(table)
-    _check("out", out, rows)
-    if out.data_ptr() == table.data_ptr():
+        out = torch.empty_like(lanes)
+    _check("out", out, rows, shape)
+    if out.data_ptr() == lanes.data_ptr():
         raise ValueError("out must not be the input table: other blocks "
                          "read the pre-round table while the round writes")
-    operands = [table, out]
-    for name, t in (("alive_words", alive_words), ("cut_words", cut_words)):
+    operands = [lanes, out]
+    for name, t in (("alive_lanes", alive_lanes), ("cut_lanes", cut_lanes)):
         if t is not None:
-            _check(name, t, rows)
+            _check(name, t, rows, shape)
             operands.append(t)
     sbits = rbits = None
     if inject_bits is not None:
         sbits, rbits = inject_bits
         _check("sbits", sbits, rows, (fanout, 8, 128))
-        _check("rbits", rbits, rows, (fanout, rows, 128))
+        _check("rbits", rbits, rows, (fanout, 128, rows))
         operands += [sbits, rbits]
     if pop is not None:
         _check("pop", pop, rows, (32,))
         operands.append(pop)
     _same_device(dev, operands, "multi-rumor round")
     k0, k1 = key
-    _launch(FUSED_MR_ROUND, dev, _ptr(table), _ptr(out), _ptr(alive_words),
-            _ptr(cut_words), _ptr(sbits), _ptr(rbits), _ptr(pop), rows,
+    _launch(FUSED_MR_ROUND, dev, _ptr(lanes), _ptr(out), _ptr(alive_lanes),
+            _ptr(cut_lanes), _ptr(sbits), _ptr(rbits), _ptr(pop), rows,
             fanout, k0, k1, drop_threshold & 0xFFFFFFFF, n, rumors)
     return out
 

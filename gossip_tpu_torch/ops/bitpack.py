@@ -10,8 +10,8 @@ float32 bits, which is exact below 2^24 nodes; the port counts in
 integers at every size.  Its rounding is the reference's: a plain mean
 is ``float32(count) * float32(1 / n)`` (XLA turns the mean's division by
 the constant ``n`` into a product with its reciprocal,
-:func:`f32_mean`), an alive-weighted one ``float32(count) /
-float32(n_alive)``.
+:func:`~gossip_tpu_torch.ops.common.f32_mean`), an alive-weighted one
+``float32(count) / float32(n_alive)``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gossip_tpu_torch.ops.common import f32_fraction, from_words
+from gossip_tpu_torch.ops.common import f32_fraction, f32_mean, from_words
 
 WORD = 32
 
@@ -60,13 +60,6 @@ def rumor_counts_packed(packed: torch.Tensor, rumors: int,
                           ).view(np.int32)
     return [int(torch.count_nonzero(words[:, r // WORD] & int(masks[r % WORD])))
             for r in range(rumors)]
-
-
-def f32_mean(count: int, n: int) -> float:
-    """``jnp.mean`` of ``n`` float32 bits of which ``count`` are set, as
-    XLA computes it: the exact sum times the float32 reciprocal of ``n``,
-    rounded to float32."""
-    return float(np.float32(count) * (np.float32(1) / np.float32(n)))
 
 
 def coverage_packed(packed: torch.Tensor, rumors: int,

@@ -1,6 +1,6 @@
 """Decisions every engine of the port shares: which device an entry
-point runs on, how a 32-bit word is held, and the float32 division that
-turns a count into the reference's coverage."""
+point runs on, how a 32-bit word is held, and the float32 arithmetic
+that turns a count into the reference's coverage."""
 
 from __future__ import annotations
 
@@ -45,3 +45,11 @@ def f32_fraction(count: int, total: int) -> float:
     """``float32(count) / float32(total)`` in float32, the reference's
     coverage division (and so its loops' stop tests)."""
     return float(np.float32(count) / np.float32(total))
+
+
+def f32_mean(count: int, n: int) -> float:
+    """``float32(count) * float32(1 / n)`` in float32: a plain mean of
+    ``n`` bits as XLA computes it (the exact sum times the float32
+    reciprocal of ``n``), and so any division by a static ``n`` inside
+    ``jax.jit``, such as the reference's compiled loops' coverage."""
+    return float(np.float32(count) * (np.float32(1) / np.float32(n)))

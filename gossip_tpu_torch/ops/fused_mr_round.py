@@ -24,10 +24,17 @@ used), ``rbits [F, R, 128]``.
 Two routes compute that function, bit for bit:
 
 * **value** (the reference's ``_fused_mr_kernel``): one launch of
-  ``csrc/fused_mr_round.cu`` per round, partners read by address
-  arithmetic.  :func:`fused_multirumor_pull_round` and the run loops
-  take it at every size: on an H100 it was faster than the staged route
-  at every measured size (10M and 1M nodes x 32 rumors, fanout 1 and 2;
+  ``csrc/fused_mr_round.cu`` per round on a **lane-major** table
+  ``int32[128, R]`` (word ``(i, j)`` at ``[j, i]``), where lane ``m``'s
+  partners of a block of destination rows are one contiguous run
+  (:func:`fused_mr_round_lanes`, whose plain version is
+  :func:`fused_mr_round_lanes_plain`).  The run loops transpose the
+  table once on entry, keep both ping-pong buffers lane-major, and
+  transpose back once on exit, so :class:`FusedState` stays ``[R, 128]``;
+  :func:`fused_multirumor_pull_round` keeps the reference's layout and,
+  on the card, transposes around one launch.  The loops take this route
+  at every size: on an H100 it was faster than the staged route at
+  every measured size (10M and 1M nodes x 32 rumors, fanout 1 and 2;
   ``chip_smoke.py``'s ``mr_routes`` phase, times in PERF.md), and it
   holds half the tables;
 * **staged** (the reference's ``_fused_mr_round_big``): per fanout draw,
@@ -36,7 +43,8 @@ Two routes compute that function, bit for bit:
   the tests and ``chip_smoke.py`` drive it.
 
 On a CUDA tensor each route launches its kernel; on a CPU tensor it runs
-the plain version (:func:`fused_mr_round_plain`, :func:`mr_gather_plain`).
+the plain version (:func:`fused_mr_round_lanes_plain` in the loops,
+:func:`fused_mr_round_plain` in the public round, :func:`mr_gather_plain`).
 Nothing falls back from one to the other.
 """
 
@@ -49,8 +57,8 @@ import torch
 
 from gossip_tpu_torch.ops import _kernels, philox
 from gossip_tpu_torch.ops.common import (MASK32, bit_tensor, f32_fraction,
-                                         from_words, resolve_device,
-                                         to_words)
+                                         f32_mean, from_words,
+                                         resolve_device, to_words)
 from gossip_tpu_torch.ops.fused_round import (BITS, LANES, FusedState,
                                               drop_threshold_for, n_rows)
 
@@ -202,6 +210,70 @@ def fused_mr_round_plain(table: torch.Tensor, seed, round_, n: int,
     return from_words(torch.where(_node_keep(rows, n, dev), acc, 0))
 
 
+def to_lanes(table: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``[R, 128]`` -> the lane-major ``[128, R]`` copy (None stays None)."""
+    return None if table is None else table.t().contiguous()
+
+
+def from_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """Lane-major ``[128, R]`` -> the reference's ``[R, 128]`` layout."""
+    return lanes.t().contiguous()
+
+
+def lanes_bits(inject_bits, device):
+    """Injected bits in the reference's layout -> the lane-major kernel's:
+    ``sbits`` as it is, each draw's ``rbits[f]`` transposed."""
+    sbits, rbits = (bit_tensor(b, device) for b in inject_bits)
+    return sbits, rbits.transpose(1, 2).contiguous()
+
+
+def fused_mr_round_lanes_plain(lanes: torch.Tensor, seed, round_, n: int,
+                               fanout: int = 1, inject_bits=None,
+                               drop_threshold=0, alive_lanes=None,
+                               cut_lanes=None) -> torch.Tensor:
+    """One round in plain torch on a lane-major table ``int32[128, R]``
+    (``lanes[j, i]`` is node ``i * 128 + j``), with ``alive_lanes`` and
+    ``cut_lanes`` lane-major too and ``inject_bits`` in the lane-major
+    kernel's layout (``sbits [F, 8, 128]``, ``rbits [F, 128, R]``).  For
+    each draw, each lane's row of ``src = lanes & alive`` is rolled by
+    its shift (``rot[m] = src[m].roll(s_m)``, so ``rot[m][i] =
+    src[m][(i - s_m) mod R]``), and node ``(i, j)`` takes ``rot[m][i]``,
+    ``m`` its draw's lane, under the coin, cut and alive masks; phantom
+    nodes are zeroed.  Without ``inject_bits`` it draws the port's
+    multi-rumor Philox stream."""
+    rows = lanes.shape[1]
+    dev = lanes.device
+    if inject_bits is None:
+        inject_bits = lanes_bits(draw_mr_round_bits(seed, round_, rows,
+                                                    fanout, dev), dev)
+    sbits, rbits = (to_words(bit_tensor(b, dev)) for b in inject_bits)
+    t = to_words(lanes)
+    alive = to_words(alive_lanes) if alive_lanes is not None else None
+    cut = to_words(cut_lanes) if cut_lanes is not None else None
+    thr = int(drop_threshold) & MASK32
+    src = t & alive if alive is not None else t
+
+    def rolled(x, s):
+        return torch.stack([x[m].roll(int(s[m])) for m in range(LANES)])
+
+    acc = t
+    for f in range(fanout):
+        s = sbits[f, 0] % rows
+        rb = rbits[f]
+        m = rb & (LANES - 1)
+        partner = torch.where((rb >> 12) >= thr,
+                              torch.gather(rolled(src, s), 0, m), 0)
+        if cut is not None:
+            partner = torch.where(
+                torch.gather(rolled(cut, s), 0, m) == cut, partner, 0)
+        if alive is not None:
+            partner = partner & alive
+        acc = acc | partner
+    node = (torch.arange(rows, device=dev)[None, :] * LANES
+            + torch.arange(LANES, device=dev)[:, None])
+    return from_words(torch.where(node < n, acc, 0))
+
+
 def rotate_rows(table: torch.Tensor, shift_words: torch.Tensor):
     """``rot[i, j] = table[(i - s_j) mod R, j]`` with ``s_j =
     shift_words[j] mod R`` (the 32-bit word read unsigned): the
@@ -300,14 +372,16 @@ def fused_mr_round_big(table: torch.Tensor, seed, round_, n: int,
     return acc
 
 
-def _check_round_args(table, n, fanout, rumors, out):
+def _check_round_args(table, n, fanout, rumors, out, lane_major=False):
+    lanes_dim = 0 if lane_major else 1
     if table.dtype != torch.int32 or table.dim() != 2 \
-            or table.shape[1] != LANES:
-        raise ValueError(f"table must be int32[R, {LANES}], got "
+            or table.shape[lanes_dim] != LANES:
+        want = f"[{LANES}, R]" if lane_major else f"[R, {LANES}]"
+        raise ValueError(f"table must be int32{want}, got "
                          f"{table.dtype}{list(table.shape)}")
-    if not 0 < n <= table.shape[0] * LANES:
-        raise ValueError(f"n={n} does not fit a table of "
-                         f"{table.shape[0]} rows")
+    rows = table.shape[1 - lanes_dim]
+    if not 0 < n <= rows * LANES:
+        raise ValueError(f"n={n} does not fit a table of {rows} rows")
     if fanout < 1:
         raise ValueError(f"fanout must be >= 1, got {fanout}")
     _check_rumors(rumors)
@@ -349,21 +423,56 @@ def fused_multirumor_pull_round(table: torch.Tensor, seed, round_, n: int,
     None) and ``pop``, an int32[32] tensor, gets the count of each of the
     first ``rumors`` bits of the new table added.  A CUDA table launches
     ``csrc/fused_mr_round.cu``, a CPU table runs
-    :func:`fused_mr_round_plain`."""
+    :func:`fused_mr_round_plain`.  On the card it transposes the table,
+    the alive and cut words and the injected bits to the kernel's
+    lane-major layout and the result back, around one launch: that is
+    for checks; the run loops keep their tables lane-major
+    (:func:`fused_mr_round_lanes`)."""
     _check_round_args(table, n, fanout, rumors, out)
     if table.device.type == "cuda":
-        if inject_bits is not None:
-            inject_bits = tuple(bit_tensor(b, table.device)
-                                for b in inject_bits)
-        return _kernels.fused_mr_round(
-            table, n, fanout, philox.round_key(seed, round_, philox.MR_SALT),
-            int(drop_threshold), rumors, inject_bits=inject_bits,
-            alive_words=alive_words, cut_words=cut_words, out=out, pop=pop)
+        new = from_lanes(fused_mr_round_lanes(
+            to_lanes(table), seed, round_, n, fanout,
+            None if inject_bits is None
+            else lanes_bits(inject_bits, table.device),
+            drop_threshold, to_lanes(alive_words), to_lanes(cut_words),
+            rumors, pop=pop))
+        return new if out is None else out.copy_(new)
     if table.device.type != "cpu":
         raise ValueError(f"no fused round for a {table.device.type} "
                          "tensor; the port runs on cuda or cpu")
     new = fused_mr_round_plain(table, seed, round_, n, fanout, inject_bits,
                                drop_threshold, alive_words, cut_words)
+    return _finish_plain(new, rumors, out, pop)
+
+
+def fused_mr_round_lanes(lanes: torch.Tensor, seed, round_, n: int,
+                         fanout: int = 1, inject_bits=None,
+                         drop_threshold=0, alive_lanes=None, cut_lanes=None,
+                         rumors: int = BITS,
+                         out: Optional[torch.Tensor] = None,
+                         pop: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """One round on a lane-major table ``int32[128, R]`` (operands and
+    injected bits lane-major as in :func:`fused_mr_round_lanes_plain`),
+    what the run loops launch: ``out`` and ``pop`` as in
+    :func:`fused_multirumor_pull_round`.  A CUDA table launches
+    ``csrc/fused_mr_round.cu``, a CPU table runs
+    :func:`fused_mr_round_lanes_plain`."""
+    _check_round_args(lanes, n, fanout, rumors, out, lane_major=True)
+    if lanes.device.type == "cuda":
+        if inject_bits is not None:
+            inject_bits = tuple(bit_tensor(b, lanes.device)
+                                for b in inject_bits)
+        return _kernels.fused_mr_round(
+            lanes, n, fanout, philox.round_key(seed, round_, philox.MR_SALT),
+            int(drop_threshold), rumors, inject_bits=inject_bits,
+            alive_lanes=alive_lanes, cut_lanes=cut_lanes, out=out, pop=pop)
+    if lanes.device.type != "cpu":
+        raise ValueError(f"no fused round for a {lanes.device.type} "
+                         "tensor; the port runs on cuda or cpu")
+    new = fused_mr_round_lanes_plain(lanes, seed, round_, n, fanout,
+                                     inject_bits, drop_threshold,
+                                     alive_lanes, cut_lanes)
     return _finish_plain(new, rumors, out, pop)
 
 
@@ -377,44 +486,29 @@ def fault_masks_word(fault, n: int, origin: int = 0, device=None):
             drop_threshold_for(fault))
 
 
-def fused_mr_cov_fn(n: int, rumors: int, fault=None, alive_words=None):
-    """``table -> coverage`` for a multi-rumor run: alive-weighted over
-    ``alive_words`` exactly when the fault draws deaths."""
-    if fault is None or not fault.node_death_rate:
-        return lambda t: coverage_words(t, n, rumors)
+def loop_coverage_words(n: int, rumors: int, alive_words, start):
+    """``counts -> coverage`` as the reference's compiled loops compute
+    it, where ``counts`` are per-rumor bit counts of a table of the run
+    that starts at ``start``: the minimum over the first ``rumors``.
+    Without deaths ``float32(min) * float32(1 / n)``
+    (:func:`~gossip_tpu_torch.ops.common.f32_mean`: XLA folds the
+    division by the static ``n``), one ulp from the eager
+    :func:`coverage_words` for some counts.  Under deaths the
+    alive-weighted quotient of each count less the bits ``start`` holds
+    at dead nodes: dead nodes receive nothing, so those bits stay as they
+    are for the whole run."""
     if alive_words is None:
-        raise ValueError("a run with deaths needs its alive words")
-    return lambda t: coverage_words_alive(t, alive_words, rumors)
+        return lambda counts: f32_mean(min(counts[:rumors]), n)
+    total = int((to_words(alive_words) & 1).sum())
+    dead = rumor_counts(start & ~alive_words, rumors).tolist()
+    return lambda counts: f32_fraction(
+        min(c - d for c, d in zip(counts[:rumors], dead)), total)
 
 
-def _alive_offsets(table, rumors: int, n: int, alive_words):
-    """``(total, dead)``: the coverage's denominator, and per rumor the
-    bits ``table`` holds at dead nodes.  Dead nodes receive nothing, so
-    those bits stay as they are for the whole run, and a round's
-    alive-weighted counts are the kernel's counters less them."""
-    if alive_words is None:
-        return n, [0] * rumors
-    return (int((to_words(alive_words) & 1).sum()),
-            rumor_counts(table & ~alive_words, rumors).tolist())
-
-
-def _min_fraction(counts, rumors: int, total: int, dead) -> float:
-    """The stop test's coverage from one round's int32[32] counter."""
-    return f32_fraction(min(c - d for c, d in zip(counts[:rumors], dead)),
-                        total)
-
-
-def _advance(state: FusedState, n: int, rumors: int, seed: int,
-             fanout: int, drop_threshold: int, alive_words, spare, pop):
-    """One round of a run loop into ``spare``, its per-rumor counts into
-    ``pop``, and ``2*fanout*n`` messages added in float32."""
-    table = fused_multirumor_pull_round(
-        state.table, seed, state.round, n, fanout,
-        drop_threshold=drop_threshold, alive_words=alive_words,
-        rumors=rumors, out=spare, pop=pop)
-    return FusedState(table=table, round=state.round + 1,
-                      msgs=np.float32(state.msgs
-                                      + np.float32(2.0 * fanout * n)))
+def _msgs_after(msgs, fanout: int, n: int):
+    """A round's ``2*fanout*n`` messages added in float32 (the reference
+    adds a weakly typed float to its float32 total)."""
+    return np.float32(msgs + np.float32(2.0 * fanout * n))
 
 
 def until_fused_multirumor(n: int, rumors: int, seed: int, fanout: int = 1,
@@ -425,57 +519,64 @@ def until_fused_multirumor(n: int, rumors: int, seed: int, fanout: int = 1,
     """Run rounds until the float32 min-over-rumors coverage reaches
     ``target_coverage`` or the round counter reaches ``max_rounds``: the
     exit state of the reference's ``compiled_until_fused_multirumor``.
-    Returns ``(state, coverage)``.  It starts from ``state`` (whose table
-    buffer it reuses) or a fresh state at ``origin``.  Each round's kernel
-    adds its per-rumor counts to that round's int32[32] device counter,
-    which the loop reads once per round.  The first stop test needs the
-    starting table's counts: a fresh state holds every rumor at exactly
-    one node, so its coverage is ``float32(1) / float32(n)``; a given
-    state is counted (:func:`rumor_counts`, milliseconds at 10M nodes).
-    Under deaths the round takes the alive words
-    (:func:`fault_masks_word`) and the stop test is the alive-weighted
-    coverage of the new table, read from the same counter
-    (:func:`_alive_offsets`)."""
+    Returns ``(state, coverage)``.  It starts from ``state`` or a fresh
+    state at ``origin``, transposes the table to two lane-major buffers
+    for the rounds (:func:`fused_mr_round_lanes`) and back at the end.
+    Each round's kernel adds its per-rumor counts to that round's
+    int32[32] device counter, which the loop reads once per round; the
+    stop test is the compiled loop's (:func:`loop_coverage_words`).  The
+    first stop test needs the starting table's counts: a fresh state holds
+    every rumor at exactly one node; a given state is counted
+    (:func:`rumor_counts`, milliseconds at 10M nodes).  Under deaths the
+    round takes the alive words (:func:`fault_masks_word`)."""
     dev = resolve_device(device)
     alive, thr = fault_masks_word(fault, n, origin, dev)
     st = (state if state is not None
           else init_multirumor_state(n, rumors, origin, dev))
-    cov = (f32_fraction(1, n) if state is None and alive is None
-           else fused_mr_cov_fn(n, rumors, fault, alive)(st.table))
-    total, dead = _alive_offsets(st.table, rumors, n, alive)
+    cov_of = loop_coverage_words(n, rumors, alive, st.table)
+    cov = cov_of([1] * rumors if state is None and alive is None
+                 else rumor_counts(st.table, rumors).tolist())
     target = np.float32(target_coverage)
     pops = torch.zeros(max(max_rounds - st.round, 1), BITS,
                        dtype=torch.int32, device=dev)
-    spare = torch.empty_like(st.table)
-    first = st.round
-    while cov < target and st.round < max_rounds:
-        slot = pops[st.round - first]
-        nxt = _advance(st, n, rumors, seed, fanout, thr, alive, spare, slot)
-        spare = st.table
-        st = nxt
-        cov = _min_fraction(slot.tolist(), rumors, total, dead)
-    return st, cov
+    lanes, alive_lanes = to_lanes(st.table), to_lanes(alive)
+    spare = torch.empty_like(lanes)
+    rnd, msgs = st.round, st.msgs
+    while cov < target and rnd < max_rounds:
+        slot = pops[rnd - st.round]
+        lanes, spare = fused_mr_round_lanes(
+            lanes, seed, rnd, n, fanout, drop_threshold=thr,
+            alive_lanes=alive_lanes, rumors=rumors, out=spare,
+            pop=slot), lanes
+        rnd, msgs = rnd + 1, _msgs_after(msgs, fanout, n)
+        cov = cov_of(slot.tolist())
+    return FusedState(table=from_lanes(lanes), round=rnd, msgs=msgs), cov
 
 
 def curve_fused_multirumor(n: int, rumors: int, seed: int, fanout: int = 1,
                            max_rounds: int = 128, origin: int = 0,
                            fault=None, device=None):
     """Run exactly ``max_rounds`` rounds from a fresh state and record
-    the min-over-rumors coverage after each: the reference's
-    ``compiled_curve_fused_multirumor`` scan.  Returns ``(state,
-    [coverage per round])``; the counters are read once, at the end."""
+    the min-over-rumors coverage after each, as the reference's
+    ``compiled_curve_fused_multirumor`` scan computes it
+    (:func:`loop_coverage_words`), on the lane-major buffers of
+    :func:`until_fused_multirumor`.  Returns ``(state, [coverage per
+    round])``; the counters are read once, at the end."""
     dev = resolve_device(device)
     alive, thr = fault_masks_word(fault, n, origin, dev)
     st = init_multirumor_state(n, rumors, origin, dev)
     pops = torch.zeros(max_rounds, BITS, dtype=torch.int32, device=dev)
-    spare = torch.empty_like(st.table)
     # under deaths a rumor may start at a dead node (only the origin is
     # pinned alive), whose bit the kernel's counters include
-    total, dead = _alive_offsets(st.table, rumors, n, alive)
+    cov_of = loop_coverage_words(n, rumors, alive, st.table)
+    lanes, alive_lanes = to_lanes(st.table), to_lanes(alive)
+    spare = torch.empty_like(lanes)
+    msgs = st.msgs
     for r in range(max_rounds):
-        nxt = _advance(st, n, rumors, seed, fanout, thr, alive, spare,
-                       pops[r])
-        spare = st.table
-        st = nxt
-    return st, [_min_fraction(c, rumors, total, dead)
-                for c in pops.cpu().tolist()]
+        lanes, spare = fused_mr_round_lanes(
+            lanes, seed, r, n, fanout, drop_threshold=thr,
+            alive_lanes=alive_lanes, rumors=rumors, out=spare,
+            pop=pops[r]), lanes
+        msgs = _msgs_after(msgs, fanout, n)
+    return (FusedState(table=from_lanes(lanes), round=max_rounds, msgs=msgs),
+            [cov_of(c) for c in pops.cpu().tolist()])

@@ -38,8 +38,8 @@ import torch
 
 from gossip_tpu_torch.ops import _kernels, philox
 from gossip_tpu_torch.ops.common import (bit_tensor, f32_fraction,
-                                         from_words, resolve_device,
-                                         to_words)
+                                         f32_mean, from_words,
+                                         resolve_device, to_words)
 
 LANES = 128
 BITS = 32
@@ -159,14 +159,21 @@ def fault_masks_node_packed(fault, n: int, origin: int = 0, device=None):
             drop_threshold_for(fault))
 
 
-def fused_cov_fn(n: int, fault=None, alive_table=None):
-    """``table -> coverage`` for a fused run: alive-weighted over
-    ``alive_table`` exactly when the fault draws deaths."""
-    if fault is None or not fault.node_death_rate:
-        return lambda t: coverage_node_packed(t, n)
+def loop_coverage(n: int, alive_table, start: torch.Tensor):
+    """``count -> coverage`` as the reference's compiled loops (their
+    while-loop condition and scan body) compute it, where ``count`` is a
+    popcount of a table of the run that starts at ``start``.  Without
+    deaths that is ``float32(count) * float32(1 / n)``
+    (:func:`~gossip_tpu_torch.ops.common.f32_mean`: XLA folds the
+    division by the static ``n``), one ulp from the eager
+    :func:`coverage_node_packed` for some counts; under deaths the
+    alive-weighted quotient of the count less the bits ``start`` holds
+    at dead nodes, which no round changes."""
     if alive_table is None:
-        raise ValueError("a run with deaths needs its alive table")
-    return lambda t: coverage_node_packed_alive(t, alive_table)
+        return lambda count: f32_mean(count, n)
+    total = popcount(alive_table)
+    dead = popcount(start & ~alive_table)
+    return lambda count: f32_fraction(count - dead, total)
 
 
 def phantom_keep(rows: int, n: int, device=None) -> torch.Tensor:
@@ -340,29 +347,29 @@ def until_fused(n: int, seed: int, fanout: int = 1,
     The stop test is read on the host: each round's kernel adds its
     table's popcount to that round's 4-byte device counter, and the
     loop reads it once per round (one device-to-host copy and
-    synchronize per round).  Under deaths the round takes the alive
-    table (:func:`fault_masks_node_packed`) and the stop test is the
-    alive-weighted coverage of the new table, read from the same
-    counter: dead nodes receive nothing, so the bits a carried-over table
-    holds at dead nodes stay as they are, and the alive count is the
-    counter less that constant, over ``popcount(alive)``."""
+    synchronize per round).  Its coverage is the compiled loop's
+    (:func:`loop_coverage`), for the starting table too.  Under deaths
+    the round takes the alive table (:func:`fault_masks_node_packed`)
+    and the stop test is the alive-weighted coverage of the new table,
+    read from the same counter: dead nodes receive nothing, so the bits a
+    carried-over table holds at dead nodes stay as they are, and the
+    alive count is the counter less that constant."""
     dev = resolve_device(device)
     alive, thr = fault_masks_node_packed(fault, n, origin, dev)
     st = state if state is not None else init_fused_state(n, origin, dev)
-    total, dead = ((n, 0) if alive is None else
-                   (popcount(alive), popcount(st.table & ~alive)))
+    cov_of = loop_coverage(n, alive, st.table)
     target = np.float32(target_coverage)
     pops = torch.zeros(max(max_rounds - st.round, 1), dtype=torch.int32,
                        device=dev)
     spare = torch.empty_like(st.table)
     first = st.round
-    cov = fused_cov_fn(n, fault, alive)(st.table)
+    cov = cov_of(popcount(st.table))
     while cov < target and st.round < max_rounds:
         slot = pops[st.round - first:st.round - first + 1]
         nxt = _advance(st, n, seed, fanout, thr, alive, spare, slot)
         spare = st.table
         st = nxt
-        cov = f32_fraction(int(slot.item()) - dead, total)
+        cov = cov_of(int(slot.item()))
     return st, cov
 
 
@@ -385,5 +392,5 @@ def curve_fused(n: int, seed: int, fanout: int = 1, max_rounds: int = 128,
     # a fresh run's table stays inside the alive set (the origin is
     # pinned alive, dead destinations receive nothing), so the round's
     # popcount is the alive-weighted count under deaths too
-    total = n if alive is None else popcount(alive)
-    return st, [f32_fraction(int(c), total) for c in pops.cpu().tolist()]
+    cov_of = loop_coverage(n, alive, st.table)
+    return st, [cov_of(int(c)) for c in pops.cpu().tolist()]

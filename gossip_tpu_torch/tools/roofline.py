@@ -41,6 +41,7 @@ import subprocess
 import sys
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -73,44 +74,74 @@ CHAIN_REPEATS = 3         # timed chains per measurement (median)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 PHILOX_OPS = 40           # 10 rounds of 2 wide products and 2 xor3
-PULL_OPS = 9              # lane 1, bit 2, partner bit 2, coin 2, OR-in 2
-WORD_OPS = 3              # phantom mask 2, popcount 1
-# multi-rumor pull: lane 1, row shift lookup 1, wrapped row 2, address 1,
-# coin 2, masked OR-in 1
-MR_PULL_OPS = 8
-# staged pull: lane 1, address 1, coin 2, masked OR-in 1
-MR_GATHER_PULL_OPS = 5
+# per word: phantom mask 2, popcount 1
+WORD_OPS = 3
 # per word: phantom mask 2; per-rumor counts: 5 transpose stages of a
 # shuffle, a funnel shift, a select and a three-input logic op, then one
 # popcount and one add
 MR_WORD_OPS = 2 + 5 * 4 + 2
+# staged pull: lane 1, address 1, coin 2, masked OR-in 1
+MR_GATHER_PULL_OPS = 5
 # sampler, per draw: a 32-bit remainder by a runtime divisor 20, the
 # self-exclusion compare and add 2, the row step 2, the store 1 (the
 # Philox call, a quarter per draw, is counted apart)
 SAMPLER_DRAW_OPS = 25
 
+
+def philox_pipe_ops(calls: int):
+    """(wide products, three-input xors) that ``calls`` Philox calls with
+    counters (w, q, 0, 0), q < ``calls``, take in one thread, w the
+    thread's word and q the same in every thread: round 1's product of w
+    and its xor with the key serve every call, its product of 0 is 0,
+    round 2's product of q is one per warp (uniform datapath), and round
+    3's product of round 2's first word is shared again; each call adds
+    15 products and 17 xors.  A call with counter (j, f, 1, 0), j the
+    thread's lane, takes what one such call takes (the product of the
+    constant 1 is uniform)."""
+    return 3 + 15 * calls, 2 + 17 * calls
+
+
 # Microkernels, per word, counted from the function and by the pipe that
 # issues each operation: wide products on the FMA pipe, logic ops on the
 # ALU pipe, each pipe at 67e12 / 4 a second, side by side.  A word's 8
-# Philox calls have the counters (w, q, 0, 0), q < 8, and q is the same
-# in every thread: round 1's product of w and its xor with the key serve
-# all 8 calls, its product of 0 is 0, round 2's product of q is one per
-# warp (uniform datapath), and round 3's product of round 2's first word
-# is shared again.  So the 8 calls take 3 + 8 * 15 wide products and
-# 2 + 8 * 17 three-input xors, not 8 * 40 operations.  prng then ORs 32
-# draws and the table word with 16 three-input ORs; prng_gather masks
-# each draw's lane (32) and ORs the 32 reads and the word (16); its
-# shared-memory address is not counted, since the mask or the load's
-# addressing can carry it.  vpu's step is a funnel shift and one logic op
-# (s + k is one per warp).  The compiled code (SASS_PER_WORD) has 124
-# IMAD.WIDE.U32 for prng: these 123 and the global address.
-CAL_PHILOX_PRODUCTS = 3 + 8 * 15
-CAL_PHILOX_XORS = 2 + 8 * 17
+# Philox calls share counters but q (philox_pipe_ops): 3 + 8 * 15 wide
+# products and 2 + 8 * 17 three-input xors, not 8 * 40 operations.  prng
+# then ORs 32 draws and the table word with 16 three-input ORs;
+# prng_gather masks each draw's lane (32) and ORs the 32 reads and the
+# word (16); its shared-memory address is not counted, since the mask or
+# the load's addressing can carry it.  vpu's step is a funnel shift and
+# one logic op (s + k is one per warp).  The compiled code
+# (SASS_PER_WORD) has 132 IMAD.WIDE.U32 for prng: these 123, the global
+# address, and 8 that the compiler does not share between calls.
+CAL_PHILOX_PRODUCTS, CAL_PHILOX_XORS = philox_pipe_ops(8)
 CAL_ALU_OPS = {"cal_prng": CAL_PHILOX_XORS + 16,
                "cal_prng_gather": CAL_PHILOX_XORS + BITS + 16,
                "cal_vpu": 2 * 256}
 CAL_FMA_OPS = {"cal_prng": CAL_PHILOX_PRODUCTS,
                "cal_prng_gather": CAL_PHILOX_PRODUCTS, "cal_vpu": 0}
+
+# The two round kernels, counted the same way: Philox by philox_pipe_ops,
+# and beside it the ALU-pipe instructions of the function.
+# Single rumor, per pull: the lane mask, the rotate amount (c - p), the
+# funnel-shift rotate that moves bit c of the partner word to plane p,
+# and the OR-in under the mask 1 << p (the partner's LDS is not an ALU
+# instruction); per word WORD_OPS.
+PULL_ALU_OPS = 4
+# Multi-rumor, per draw: the lane mask, the staged word's address and the
+# OR-in (the counted rounds draw no drop threshold, so no coin).
+MR_PULL_ALU_OPS = 3
+# Multi-rumor, per word: phantom mask 2; per-rumor counts as the kernel
+# computes them: a thread adds its MR_THREAD_WORDS words a pair at a time
+# into MR_COUNT_BITS bit-sliced counters (one carry-save step, a
+# three-input xor and a majority, then the carry rippled up by an AND and
+# an xor a counter: 10 a pair), and transposes each counter once, at the
+# end (5 warp transpose stages of a funnel shift, a select and a
+# three-input logic op, their shuffles on another unit, then a popcount
+# and a shift-add: 17 a counter, shared by the thread's words).
+MR_THREAD_WORDS = 16
+MR_COUNT_BITS = 5
+MR_WORD_ALU_OPS = (2 + (2 + 2 * (MR_COUNT_BITS - 1)) / 2
+                   + MR_COUNT_BITS * (5 * 3 + 2) / MR_THREAD_WORDS)
 
 # SASS instructions per word (one thread) of each microkernel's timed,
 # straight-line instantiation (the stream, not the injected bits), by the
@@ -120,23 +151,43 @@ CAL_FMA_OPS = {"cal_prng": CAL_PHILOX_PRODUCTS,
 # too).  Counted once, by :func:`sass_counts`, in `cuobjdump -sass` of
 # the built library (_build/calibrate-*.so; nvcc of CUDA 12.8, -O3,
 # sm_90a; NVIDIA H100 80GB HBM3), NOPs and the closing self-branch left
-# out; uniform-datapath instructions (U*: the key schedule, vpu's s + k)
-# are one per warp, not per thread, and are not counted.  Per inner
-# step: vpu 2 (SHF.R.U32.HI and LOP3.LUT; s + k is a UIADD3); prng 124
-# IMAD.WIDE.U32 for the 160 products of 8 Philox calls (see above).
+# out; uniform-datapath instructions (U*: the round keys' loads, vpu's
+# s + k) are one per warp, not per thread, and are not counted.  Per
+# inner step: vpu 2 (SHF.R.U32.HI and LOP3.LUT; s + k is a UIADD3); prng
+# 132 IMAD.WIDE.U32 for the 160 products of 8 Philox calls (see above),
+# 161 LOP3.LUT for the 138 xors and 16 ORs.  Philox takes its round keys
+# from the constant bank (csrc/philox.cuh), as the round kernels do.
 # chip_smoke.py recounts them in the build it runs and fails on a
 # difference, or on an opcode in none of the pipe lists below.
 SASS_PER_WORD = {
-    "cal_prng": {"alu": 157, "fma": 134, "vector": 298},
-    "cal_prng_gather": {"alu": 190, "fma": 166, "vector": 398},
+    "cal_prng": {"alu": 161, "fma": 133, "vector": 302},
+    "cal_prng_gather": {"alu": 194, "fma": 165, "vector": 402},
     "cal_vpu": {"alu": 512, "fma": 2, "vector": 521},
 }
 FMA_PIPE = ("IMAD", "IMUL")
-ALU_PIPE = ("LOP3", "SHF", "LEA", "IADD3", "ISETP", "SEL", "PRMT", "MOV",
-            "POPC", "FLO", "IMNMX", "IABS")
+# (VIADD, Hopper's two-input integer add, is counted with IADD3: its
+# pipe is not documented)
+ALU_PIPE = ("LOP3", "SHF", "LEA", "IADD3", "VIADD", "ISETP", "SEL", "PRMT",
+            "MOV", "POPC", "FLO", "IMNMX", "VIMNMX", "VIADDMNMX", "IABS",
+            "PLOP3", "R2P")
 # memory, barrier, branch and special-register instructions: other units
-OTHER_PIPE = ("LDC", "LDG", "LDS", "STG", "STS", "BAR", "BRA", "EXIT",
-              "S2R", "S2UR", "CS2R")
+OTHER_PIPE = ("LDC", "LDG", "LDS", "STG", "STS", "LDGSTS", "LDGDEPBAR",
+              "DEPBAR", "BAR", "BRA", "EXIT", "S2R", "S2UR", "CS2R", "SHFL",
+              "ATOMS", "ATOMG", "RED", "REDG", "VOTE", "VOTEU", "BSSY",
+              "BSYNC", "WARPSYNC", "MUFU", "I2F", "F2I")
+
+
+class Work(NamedTuple):
+    """One launch's counted work.  The bound takes the busier of the two
+    integer pipes (``alu``, ``fma``) against the bytes; the calibrated
+    floor prices the Philox ``calls`` at the prng microkernel's rate and
+    ``other``, the part of ``alu`` that is not Philox, at the vpu chain's
+    ALU rate."""
+    calls: float
+    alu: float
+    fma: float
+    other: float
+    nbytes: float
 
 
 def _bound(ops: float, nbytes: float):
@@ -147,21 +198,37 @@ def _bound(ops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _bound_of(work):
-    calls, ops, nbytes = work
-    return _bound(calls * PHILOX_OPS + ops, nbytes)
+def _bound_of(work: Work):
+    return _bound(max(work.alu, work.fma), work.nbytes)
 
 
-def round_work(n: int, fanout: int, plane_sharing: int):
-    """(Philox calls, other int32 operations, bytes) of one round of the
-    fused kernel's function: the table read and written once, one call
-    per four draws plus the 128 lane shifts, every pull and the
-    epilogue."""
+def _one_pipe(calls, ops, nbytes) -> Work:
+    """The staged pass's and the sampler's count, as PRs 2-5 made it:
+    every operation on one pipe, PHILOX_OPS a call."""
+    return Work(calls, calls * PHILOX_OPS + ops, 0, ops, nbytes)
+
+
+def _by_pipe(words: int, calls_per_word: int, shift_calls: int,
+             other: float, nbytes: float) -> Work:
+    """A round kernel's count by pipe: ``calls_per_word`` Philox calls a
+    word sharing their counters (:func:`philox_pipe_ops`), ``shift_calls``
+    lane shifts of one call each, ``other`` ALU-pipe instructions."""
+    products, xors = philox_pipe_ops(calls_per_word)
+    s_products, s_xors = philox_pipe_ops(1)
+    return Work(words * calls_per_word + shift_calls,
+                words * xors + shift_calls * s_xors + other,
+                words * products + shift_calls * s_products, other, nbytes)
+
+
+def round_work(n: int, fanout: int, plane_sharing: int) -> Work:
+    """One round of the fused kernel's function: the table read and
+    written once; a word's draws in calls of four; the 128 lane shifts;
+    every pull (PULL_ALU_OPS) and the epilogue (WORD_OPS)."""
     words = FR.n_rows(n) * LANES
     draws = FR.draw_count(fanout, plane_sharing)
-    return (words * draws / 4 + LANES,
-            words * draws * plane_sharing * PULL_OPS + words * WORD_OPS,
-            2 * words * 4 + 4)
+    return _by_pipe(words, draws // 4, LANES,
+                    words * (draws * plane_sharing * PULL_ALU_OPS + WORD_OPS),
+                    2 * words * 4 + 4)
 
 
 def round_bound(n: int, fanout: int, plane_sharing: int):
@@ -169,16 +236,18 @@ def round_bound(n: int, fanout: int, plane_sharing: int):
     return _bound_of(round_work(n, fanout, plane_sharing))
 
 
-def mr_round_work(n: int, fanout: int):
-    """(calls, operations, bytes) of one multi-rumor round through the
-    value kernel: the table read and written once plus the 32 counters;
-    one Philox call per four draws of a word plus the 128 lane shifts of
-    every draw; every pull; the phantom mask and per-rumor counts of
-    every word."""
+def mr_round_work(n: int, fanout: int) -> Work:
+    """One multi-rumor round through the value kernel's function: the
+    table read and written once plus the 32 counters (a partner read
+    again from a staged run is not counted: each input byte once); a
+    word's draws in calls of four (one call a word at fanout 1, counter
+    (w, 0, 0, 0)); the 128 lane shifts of every draw; every pull
+    (MR_PULL_ALU_OPS); the phantom mask and per-rumor counts of every
+    word (MR_WORD_ALU_OPS)."""
     words = MR.mr_rows(n) * LANES
-    return (words * -(-fanout // 4) + LANES * fanout,
-            words * fanout * MR_PULL_OPS + words * MR_WORD_OPS,
-            2 * words * 4 + RUMORS * 4)
+    return _by_pipe(words, -(-fanout // 4), LANES * fanout,
+                    words * (fanout * MR_PULL_ALU_OPS + MR_WORD_ALU_OPS),
+                    2 * words * 4 + RUMORS * 4)
 
 
 def mr_round_bound(n: int, fanout: int):
@@ -186,14 +255,13 @@ def mr_round_bound(n: int, fanout: int):
     return _bound_of(mr_round_work(n, fanout))
 
 
-def mr_gather_work(n: int):
-    """(calls, operations, bytes) of one staged pass that adds the counts
-    (the last, and at fanout 1 the only, pass): tin and rot read and the
-    output written once, one Philox call, one pull and the epilogue per
-    word."""
+def mr_gather_work(n: int) -> Work:
+    """One staged pass that adds the counts (the last, and at fanout 1
+    the only, pass): tin and rot read and the output written once, one
+    Philox call, one pull and the epilogue per word."""
     words = MR.mr_rows(n) * LANES
-    return (words, words * (MR_GATHER_PULL_OPS + MR_WORD_OPS),
-            3 * words * 4 + RUMORS * 4)
+    return _one_pipe(words, words * (MR_GATHER_PULL_OPS + MR_WORD_OPS),
+                     3 * words * 4 + RUMORS * 4)
 
 
 def mr_gather_bound(n: int):
@@ -201,12 +269,11 @@ def mr_gather_bound(n: int):
     return _bound_of(mr_gather_work(n))
 
 
-def sampler_work(n_rows: int, k: int):
-    """(calls, operations, bytes) of one sampler launch: the int32 output
-    written once, and per draw a quarter Philox call plus
-    SAMPLER_DRAW_OPS."""
+def sampler_work(n_rows: int, k: int) -> Work:
+    """One sampler launch: the int32 output written once, and per draw a
+    quarter Philox call plus SAMPLER_DRAW_OPS."""
     draws = n_rows * k
-    return draws / 4, draws * SAMPLER_DRAW_OPS, draws * 4
+    return _one_pipe(draws / 4, draws * SAMPLER_DRAW_OPS, draws * 4)
 
 
 def sampler_bound(n_rows: int, k: int):
@@ -283,10 +350,22 @@ def mr_staged_counts(n: int) -> dict:
 
 # ---------------------------------------------------------- calibration
 
-def _opcode_kernel(mangled: str):
-    for name, tag in (("cal_prng_gather", "cal_prng_gather_kernelILb0E"),
-                      ("cal_prng", "cal_prng_kernelILb0E"),
-                      ("cal_vpu", "cal_vpu_kernel")):
+# (name, a piece of the mangled name) of each counted instantiation, the
+# more specific first: the microkernels' timed ones, and the round
+# kernels' main-path ones (fused_round's fanout 1, plane sharing 1, with
+# no operand and with all three; the lane-major value kernel's fast one)
+CAL_SASS_TAGS = (("cal_prng_gather", "cal_prng_gather_kernelILb0E"),
+                 ("cal_prng", "cal_prng_kernelILb0E"),
+                 ("cal_vpu", "cal_vpu_kernel"))
+ROUND_SASS_TAGS = (
+    ("fused_round_f1_s1", "fused_round_kernelILi1ELi1ELb0ELb0ELb0E"),
+    ("fused_round_f1_s1_drop_alive_cut",
+     "fused_round_kernelILi1ELi1ELb1ELb1ELb1E"),
+    ("fused_mr_round", "fused_mr_round_kernelILb1E"))
+
+
+def _opcode_kernel(mangled: str, tags):
+    for name, tag in tags:
         if tag in mangled:
             return name
     return None
@@ -297,14 +376,17 @@ _SASS_OPCODE = re.compile(
     r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def sass_counts(library=None) -> dict:
-    """``{microkernel: {"alu": a, "fma": f, "vector": v, "opcodes":
-    {...}, "unassigned": [...]}}`` from ``cuobjdump -sass`` of the built
-    calibration library: each timed instantiation's instructions per
-    thread (straight-line code, so each is issued once), NOPs and the
-    closing self-branch left out, uniform-datapath ones apart;
-    ``unassigned`` lists the per-thread opcodes in none of ``ALU_PIPE``,
-    ``FMA_PIPE`` and ``OTHER_PIPE``.  Needs the CUDA toolkit."""
+def sass_counts(library=None, tags=CAL_SASS_TAGS) -> dict:
+    """``{kernel: {"alu": a, "fma": f, "vector": v, "opcodes": {...},
+    "unassigned": [...]}}`` from ``cuobjdump -sass`` of a built library
+    (default: the calibration library) for each instantiation ``tags``
+    names: its static instructions per thread, NOPs and the closing
+    self-branch left out, uniform-datapath ones apart; ``unassigned``
+    lists the per-thread opcodes in none of ``ALU_PIPE``, ``FMA_PIPE``
+    and ``OTHER_PIPE``.  For straight-line code, as the microkernels'
+    timed instantiations are, that is each instruction issued once a
+    word; a round kernel's loop body runs once a word, its prologue once
+    a block.  Needs the CUDA toolkit."""
     lib = library or _kernels.CAL_PRNG.library()
     tool = Path(_kernels._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -313,7 +395,7 @@ def sass_counts(library=None) -> dict:
     for line in sass.splitlines():
         m = _SASS_FUNCTION.match(line)
         if m:
-            name = _opcode_kernel(m.group(1))
+            name = _opcode_kernel(m.group(1), tags)
             current = counts.setdefault(name, Counter()) if name else None
             continue
         m = _SASS_OPCODE.match(line)
@@ -436,12 +518,14 @@ def measure_mr_staged(n: int, rumors: int, device=None,
 
 def measure_mr_value(n: int, rumors: int, device=None,
                      iters: int = 20) -> float:
-    """Measured ms per round of ``fused_multirumor_pull_round``, the call
-    the reference's measurement makes (the value kernel on the card)."""
+    """Measured ms per round of the value route as the run loops launch
+    it (:func:`~gossip_tpu_torch.ops.fused_mr_round.fused_mr_round_lanes`
+    on lane-major buffers: the value kernel on the card)."""
     dev = resolve_device(device)
-    return _time_rounds(lambda i, t, out: MR.fused_multirumor_pull_round(
+    return _time_rounds(lambda i, t, out: MR.fused_mr_round_lanes(
         t, 0, i, n, 1, rumors=rumors, out=out),
-        MR.init_multirumor_state(n, rumors, 0, dev).table, iters, dev)
+        MR.to_lanes(MR.init_multirumor_state(n, rumors, 0, dev).table),
+        iters, dev)
 
 
 # ---------------------------------------------------------------- floors
@@ -476,16 +560,15 @@ def kernel_floors(n: int, cal: dict, hbm_bytes_per_s: float) -> dict:
     bound model counts the sampler's remainder at 20 operations (there
     it may err high)."""
     out = {}
-    for name, (calls, ops, nbytes) in (
-            ("fused_round", round_work(n, 1, 1)),
-            ("fused_mr_round", mr_round_work(n, 1)),
-            ("mr_gather", mr_gather_work(n)),
-            ("sampler", sampler_work(n, 1))):
-        comp = {"prng": calls * 4 / cal["prng_words_per_s"] * 1e3,
-                "vpu": ops / cal["vpu_alu_per_s"] * 1e3,
-                "hbm": nbytes / hbm_bytes_per_s * 1e3}
+    for name, work in (("fused_round", round_work(n, 1, 1)),
+                       ("fused_mr_round", mr_round_work(n, 1)),
+                       ("mr_gather", mr_gather_work(n)),
+                       ("sampler", sampler_work(n, 1))):
+        comp = {"prng": work.calls * 4 / cal["prng_words_per_s"] * 1e3,
+                "vpu": work.other / cal["vpu_alu_per_s"] * 1e3,
+                "hbm": work.nbytes / hbm_bytes_per_s * 1e3}
         by = max(comp, key=comp.get)
-        bound_ms, bound_by = _bound_of((calls, ops, nbytes))
+        bound_ms, bound_by = _bound_of(work)
         out[name] = {"floor_ms": comp[by], "floor_by": by,
                      "floor_components_ms": comp,
                      "bound_ms": bound_ms, "bound_by": bound_by}

@@ -1,8 +1,11 @@
 """Shared by the port's tests: the bit-preserving conversions between the
 JAX package's uint32 arrays and the port's int32 tensors, and the JAX
 package's fused loops (one rumor and several) replayed on the port's
-Philox bits."""
+Philox bits, with their stop tests evaluated under ``jax.jit`` as the
+reference's compiled loops evaluate them (XLA folds the coverage's
+division by the static ``n`` into a product with ``float32(1 / n)``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -28,14 +31,15 @@ def as_u32(t):
 
 def jax_replay(n, seed, fanout, target, max_rounds, drop_prob,
                death_rate=0.0):
-    """The reference loop (compiled_until_fused's while_loop semantics)
-    stepped on the host, each round through the JAX package's round on
-    the port's Philox bits; with ``death_rate`` the reference's alive
-    table (fault seed 0) and alive-weighted coverage.  Returns the table
-    after every round and the final (round, msgs, coverage)."""
+    """The reference loop (compiled_until_fused's while_loop semantics,
+    its condition jitted) stepped on the host, each round through the JAX
+    package's round on the port's Philox bits; with ``death_rate`` the
+    reference's alive table (fault seed 0) and alive-weighted coverage.
+    Returns the table after every round and the final (round, msgs,
+    coverage), the coverage as the loop's condition computed it."""
     fault = FaultConfig(drop_prob=drop_prob, node_death_rate=death_rate)
     alive, thr = J.fault_masks_node_packed(fault, n)
-    cov_fn = J.fused_cov_fn(n, fault)
+    cov_fn = jax.jit(J.fused_cov_fn(n, fault))
     st = J.init_fused_state(n)
     table, msgs = st.table, st.msgs
     tables, cov = [], cov_fn(table)
@@ -57,14 +61,15 @@ def jax_replay(n, seed, fanout, target, max_rounds, drop_prob,
 def jax_mr_replay(n, rumors, seed, fanout, target, max_rounds, drop_prob,
                   death_rate=0.0, origin=0):
     """The reference multi-rumor loop (compiled_until_fused_multirumor's
-    while_loop semantics) stepped on the host, each round through the
-    JAX package's round on the port's multi-rumor Philox bits; with
-    ``death_rate`` the reference's alive words (fault seed 0) and
-    alive-weighted coverage.  Returns the table after every round and the
-    final (round, msgs, coverage)."""
+    while_loop semantics, its condition jitted) stepped on the host, each
+    round through the JAX package's round on the port's multi-rumor
+    Philox bits; with ``death_rate`` the reference's alive words (fault
+    seed 0) and alive-weighted coverage.  Returns the table after every
+    round and the final (round, msgs, coverage), the coverage as the
+    loop's condition computed it."""
     fault = FaultConfig(drop_prob=drop_prob, node_death_rate=death_rate)
     alive, thr = J.fault_masks_word(fault, n, origin)
-    cov_fn = J.fused_mr_cov_fn(n, rumors, fault, origin)
+    cov_fn = jax.jit(J.fused_mr_cov_fn(n, rumors, fault, origin))
     st = J.init_multirumor_state(n, rumors, origin)
     table, msgs = st.table, st.msgs
     tables, cov = [], cov_fn(table)
@@ -81,3 +86,12 @@ def jax_mr_replay(n, rumors, seed, fanout, target, max_rounds, drop_prob,
         rounds += 1
         tables.append(np.asarray(table))
     return tables, rounds, np.float32(msgs), float(cov)
+
+
+def report_coverage(table, n, rumors=1):
+    """The coverage the reference's run report gives a final table of a
+    run without deaths: its eager recount, ``float32(count) /
+    float32(n)`` (``gossip_tpu/backend.py``), not the loop's product."""
+    if rumors == 1:
+        return float(J.coverage_node_packed(jnp.asarray(table), n))
+    return float(J.coverage_words(jnp.asarray(table), n, rumors))

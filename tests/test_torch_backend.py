@@ -32,7 +32,8 @@ from gossip_tpu_torch.config import (FaultConfig, MeshConfig, ProtocolConfig,
                                      RunConfig, TopologyConfig)
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
-from _torch_reference import as_u32, jax_mr_replay, jax_replay
+from _torch_reference import (as_u32, jax_mr_replay, jax_replay,
+                              report_coverage)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4096 * 8 - 37
@@ -63,7 +64,8 @@ def _no_card():
 def test_run_simulation_matches_reference(drop_prob):
     fault = FaultConfig(drop_prob=drop_prob) if drop_prob else None
     rep = run_simulation(PULL, TOPO, RunConfig(seed=4), fault, device="cpu")
-    _, rounds, msgs, cov = jax_replay(N, 4, 1, 0.99, 256, drop_prob)
+    tables, rounds, msgs, _ = jax_replay(N, 4, 1, 0.99, 256, drop_prob)
+    cov = report_coverage(tables[-1], N)
     assert (rep.rounds, rep.coverage, rep.msgs) == (rounds, cov, float(msgs))
     out = rep.to_dict()
     assert set(out) == {f.name for f in dataclasses.fields(JRunReport)}
@@ -80,9 +82,10 @@ def test_multirumor_run_matches_reference(fanout, drop_prob):
     rep = run_simulation(ProtocolConfig(mode="pull", fanout=fanout,
                                         rumors=8),
                          TOPO, RunConfig(seed=4), fault, device="cpu")
-    _, rounds, msgs, cov = jax_mr_replay(N, 8, 4, fanout, 0.99, 256,
-                                         drop_prob)
-    assert (rep.rounds, rep.coverage, rep.msgs) == (rounds, cov, float(msgs))
+    tables, rounds, msgs, cov = jax_mr_replay(N, 8, 4, fanout, 0.99, 256,
+                                              drop_prob)
+    assert (rep.rounds, rep.coverage, rep.msgs) == \
+        (rounds, report_coverage(tables[-1], N, 8), float(msgs))
     meta = rep.to_dict()["meta"]
     assert meta["layout"] == "one 32-rumor word per node"
     assert meta["route"] == "value" and meta["engine"] == "fused-plain"
@@ -124,9 +127,9 @@ def test_cli_runs_several_rumors():
                  "cpu")
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    _, rounds, msgs, cov = jax_mr_replay(N, 8, 0, 1, 0.99, 256, 0.0)
+    tables, rounds, msgs, _ = jax_mr_replay(N, 8, 0, 1, 0.99, 256, 0.0)
     assert (out["rounds"], out["coverage"], out["msgs"]) == \
-        (rounds, cov, float(msgs))
+        (rounds, report_coverage(tables[-1], N, 8), float(msgs))
     assert out["meta"]["layout"] == "one 32-rumor word per node"
 
 

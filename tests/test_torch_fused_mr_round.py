@@ -15,6 +15,7 @@ reference runs with its executable store off (GOSSIP_COMPILE_CACHE="").
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -270,7 +271,8 @@ def test_whole_loop_matches_reference_replay(fanout, drop_prob):
                                          fault=fault, device=CPU)
     np.testing.assert_array_equal(as_u32(st.table), tables[-1])
     assert covs[-1] == cov and st.msgs == msgs
-    assert covs == [float(J.coverage_words(jnp.asarray(t), n, rumors))
+    cov_jit = jax.jit(J.coverage_words, static_argnums=(1, 2))
+    assert covs == [float(cov_jit(jnp.asarray(t), n, rumors))
                     for t in tables]
     # the staged round, stepped by hand, runs the same rounds
     table = MR.init_multirumor_state(n, rumors, 0, CPU).table
@@ -279,6 +281,114 @@ def test_whole_loop_matches_reference_replay(fanout, drop_prob):
                                       drop_threshold=drop_threshold_for(fault),
                                       rumors=rumors)
         np.testing.assert_array_equal(as_u32(table), want)
+
+
+def _first_nodes_words(n, count, rumors):
+    """uint32[mr_rows(n), 128]: every rumor held by nodes 0..count-1."""
+    flat = np.zeros(J.mr_rows(n) * MR.LANES, np.uint32)
+    flat[:count] = (1 << rumors) - 1
+    return flat.reshape(-1, MR.LANES)
+
+
+def test_stop_test_is_the_compiled_product():
+    """At n = 1600 with 1584 nodes holding every rumor the reference's
+    compiled condition reads 0.98999995 < 0.99 and runs another round
+    where the quotient reads 0.99: the port's loop runs on too."""
+    n, count, rumors = 1600, 1584, 4
+    table = _first_nodes_words(n, count, rumors)
+    cond_cov = jax.jit(J.fused_mr_cov_fn(n, rumors, None))(jnp.asarray(table))
+    assert bool(cond_cov < jnp.float32(0.99))
+    assert MR.coverage_words(as_port(table), n, rumors) == \
+        float(np.float32(0.99))
+    st = MR.FusedState(as_port(table), 5, np.float32(0.0))
+    final, cov = MR.until_fused_multirumor(n, rumors, 0, max_rounds=64,
+                                           device=CPU, state=st)
+    assert final.round > 5 and cov >= np.float32(0.99)
+    final, cov = MR.until_fused_multirumor(n, rumors, 0, max_rounds=5,
+                                           device=CPU, state=st)
+    assert final.round == 5 and cov == float(cond_cov)
+
+
+def test_curve_values_are_the_jitted_coverage():
+    """For every count at n = 1000 the loops' coverage equals
+    ``jax.jit(coverage_words)``; the eager quotient differs by an ulp at
+    some counts."""
+    n, rumors = 1000, 3
+    jitted = jax.jit(J.coverage_words, static_argnums=(1, 2))
+    cov_of = MR.loop_coverage_words(n, rumors, None, None)
+    differs = 0
+    for count in range(n + 1):
+        want = float(jitted(jnp.asarray(_first_nodes_words(n, count, rumors)),
+                            n, rumors))
+        assert cov_of([count, count + 1, count]) == want, count
+        differs += want != MR.f32_fraction(count, n)
+    assert differs > 0
+
+
+@pytest.mark.parametrize("faults", ["none", "drop", "alive", "cut", "all"])
+@pytest.mark.parametrize("fanout", [1, 2])
+@pytest.mark.parametrize("n", [128 * 24, 128 * 16 - 29])
+def test_lanes_plain_matches_reference(n, fanout, faults):
+    """The lane-major plain round equals the reference's
+    ``_fused_mr_round_ref`` under injected bits, with the table, the
+    operands and each draw's bits transposed at the test boundary."""
+    rng = np.random.default_rng(23 + n + fanout)
+    table = _table(rng, n, 32, 0.1)
+    sbits, rbits = _bits(rng, J.mr_rows(n), fanout)
+    thr, alive, cut = _faults(rng, n, faults)
+    want = np.asarray(J._fused_mr_round_ref(
+        jnp.asarray(table), n, fanout, (sbits, rbits), thr,
+        _opt(alive, jnp.asarray), _opt(cut, jnp.asarray)))
+
+    def lanes(a):
+        return as_port(a.T)
+    got = MR.fused_mr_round_lanes_plain(
+        lanes(table), 0, 0, n, fanout,
+        (as_port(sbits), as_port(rbits.transpose(0, 2, 1))), thr,
+        _opt(alive, lanes), _opt(cut, lanes))
+    assert not np.array_equal(want, table)
+    np.testing.assert_array_equal(as_u32(got).T, want)
+    # the loops' dispatch runs it on the CPU, counts and all
+    pop = torch.zeros(32, dtype=torch.int32)
+    again = MR.fused_mr_round_lanes(
+        lanes(table), 0, 0, n, fanout,
+        MR.lanes_bits((sbits, rbits), CPU), thr, _opt(alive, lanes),
+        _opt(cut, lanes), pop=pop)
+    assert torch.equal(again, got)
+    np.testing.assert_array_equal(pop.numpy(), MR.rumor_counts(got, 32))
+
+
+@pytest.mark.parametrize("deaths", [0.0, 0.1])
+@pytest.mark.parametrize("fanout", [1, 2])
+def test_lane_major_loops_end_in_the_row_major_table(fanout, deaths):
+    """The loops' lane-major buffers (entry and exit transposes, a state
+    carried over, deaths) end in the table, round and msgs that the
+    row-major round stepped by hand reaches, and the curve loop in the
+    same table."""
+    n, rumors, seed, rounds = 128 * 24 - 37, 8, 6, 7
+    fault = FaultConfig(node_death_rate=deaths, drop_prob=0.05)
+    alive, thr = MR.fault_masks_word(fault, n, device=CPU)
+    rng = np.random.default_rng(31 + fanout)
+    start = MR.word_pack(torch.from_numpy(rng.random((n, rumors)) < 0.01))
+    table, msgs = start, np.float32(1.0)
+    for r in range(2, 2 + rounds):
+        table = MR.fused_mr_round_plain(table, seed, r, n, fanout, None, thr,
+                                        alive)
+        msgs = np.float32(msgs + np.float32(2.0 * fanout * n))
+    final, _ = MR.until_fused_multirumor(
+        n, rumors, seed, fanout, target_coverage=1.0,
+        max_rounds=2 + rounds, fault=fault, device=CPU,
+        state=MR.FusedState(start, 2, np.float32(1.0)))
+    assert (final.round, final.msgs) == (2 + rounds, msgs)
+    assert final.table.shape == start.shape and final.table.is_contiguous()
+    assert torch.equal(final.table, table)
+    curve, _ = MR.curve_fused_multirumor(n, rumors, seed, fanout, rounds,
+                                         fault=fault, device=CPU)
+    table = MR.init_multirumor_state(n, rumors, 0, CPU).table
+    for r in range(rounds):
+        table = MR.fused_mr_round_plain(table, seed, r, n, fanout, None, thr,
+                                        alive)
+    assert torch.equal(curve.table, table)
 
 
 @pytest.mark.parametrize("origin", [0, 5])
@@ -303,13 +413,14 @@ def test_fresh_state_coverage_is_one_node_per_rumor(origin):
 
 
 def test_deaths_run_and_need_alive_words():
-    """Deaths run on the fused route; refused is an alive-weighted
-    coverage without its alive words.  Under the seed-0 draw at rate 0.1
-    node 1 is dead, so rumor 1 (started there) never spreads: both loops
-    keep its coverage at 0, as the reference does."""
+    """Deaths run on the fused route, with the alive words that the
+    loops render.  Under the seed-0 draw at rate 0.1 node 1 is dead, so
+    rumor 1 (started there) never spreads: both loops keep its coverage
+    at 0, as the reference does."""
     fault = FaultConfig(node_death_rate=0.1)
-    with pytest.raises(ValueError, match="alive words"):
-        MR.fused_mr_cov_fn(4096, 4, fault)
+    alive, _ = MR.fault_masks_word(fault, 4096, device=CPU)
+    assert alive is not None
+    assert not int(MR.to_words(alive).reshape(-1)[1]) & 1
     final, cov = MR.until_fused_multirumor(4096, 4, 0, max_rounds=12,
                                            fault=fault, device=CPU)
     assert final.round == 12 and cov == 0.0
@@ -331,7 +442,6 @@ def test_death_stop_test_reads_the_counters(carried):
     n, rumors, target = 3000, 4, 0.9
     fault = FaultConfig(node_death_rate=0.1, drop_prob=0.05)
     alive, thr = MR.fault_masks_word(fault, n, device=CPU)
-    cov_fn = MR.fused_mr_cov_fn(n, rumors, fault, alive)
     if carried:
         rng = np.random.default_rng(7)
         seen = torch.from_numpy(rng.random((n, rumors)) < 0.05)
@@ -344,7 +454,8 @@ def test_death_stop_test_reads_the_counters(carried):
         tables.append(MR.fused_multirumor_pull_round(
             tables[-1], 0, r, n, drop_threshold=thr, alive_words=alive,
             rumors=rumors))
-        covs.append(cov_fn(tables[-1]))
+        # the recount: the eager alive-weighted coverage
+        covs.append(MR.coverage_words_alive(tables[-1], alive, rumors))
     stop = next((i for i, c in enumerate(covs) if c >= np.float32(target)),
                 len(covs) - 1)
     final, cov = MR.until_fused_multirumor(

@@ -11,6 +11,7 @@ whole loop replayed round by round on the port's own Philox bits.  The
 port's stream is also checked for the statistics the TPU stream obeys.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,6 +189,51 @@ def test_whole_loop_matches_reference_replay(drop_prob):
     assert covs[-1] == cov and st.msgs == msgs
 
 
+def _first_nodes(n, count):
+    """uint32[n_rows(n), 128]: the node-packed table of nodes 0..count-1."""
+    bits = np.zeros(J.n_rows(n) * J.NODES_PER_ROW, np.uint8)
+    bits[:count] = 1
+    return np.packbits(bits, bitorder="little").view(np.uint32) \
+        .reshape(-1, FR.LANES)
+
+
+def test_stop_test_is_the_compiled_product():
+    """At n = 1600 with 1584 nodes informed the reference's compiled
+    condition reads float32(1584) * float32(1/1600) = 0.98999995 < 0.99
+    and runs another round, where the quotient reads 0.99 and would stop:
+    the port's loop, from that state, runs one more round too."""
+    n, count = 1600, 1584
+    table = _first_nodes(n, count)
+    cond_cov = jax.jit(J.fused_cov_fn(n, None))(jnp.asarray(table))
+    assert bool(cond_cov < jnp.float32(0.99))
+    assert FR.coverage_node_packed(as_port(table), n) == \
+        float(np.float32(0.99))
+    st = FR.state_from_numpy(table, 5, 0.0, CPU)
+    final, cov = FR.until_fused(n, 0, target_coverage=0.99, max_rounds=64,
+                                device=CPU, state=st)
+    assert final.round > 5 and cov >= np.float32(0.99)
+    # with nothing left to run the loop returns the compiled value
+    final, cov = FR.until_fused(n, 0, target_coverage=0.99, max_rounds=5,
+                                device=CPU,
+                                state=FR.state_from_numpy(table, 5, 0.0, CPU))
+    assert final.round == 5 and cov == float(cond_cov)
+
+
+def test_curve_values_are_the_jitted_coverage():
+    """For every count at n = 1000 the loops' coverage equals
+    ``jax.jit(coverage_node_packed)``, which multiplies by the float32
+    reciprocal; the eager quotient differs by an ulp at some counts."""
+    n = 1000
+    jitted = jax.jit(J.coverage_node_packed, static_argnums=1)
+    cov_of = FR.loop_coverage(n, None, None)
+    differs = 0
+    for count in range(n + 1):
+        want = float(jitted(jnp.asarray(_first_nodes(n, count)), n))
+        assert cov_of(count) == want, count
+        differs += want != FR.f32_fraction(count, n)
+    assert differs > 0
+
+
 @pytest.mark.parametrize("carried", [False, True])
 def test_death_stop_test_reads_the_counter(carried):
     """Under deaths the loop reads the alive-weighted coverage from the
@@ -198,7 +244,6 @@ def test_death_stop_test_reads_the_counter(carried):
     n, target = 4096 * 8 - 37, 0.9
     fault = FaultConfig(node_death_rate=0.1, drop_prob=0.05)
     alive, thr = FR.fault_masks_node_packed(fault, n, device=CPU)
-    cov_fn = FR.fused_cov_fn(n, fault, alive)
     if carried:
         rng = np.random.default_rng(7)
         table = as_port(_table(rng, n))
@@ -211,7 +256,8 @@ def test_death_stop_test_reads_the_counter(carried):
         tables.append(FR.fused_pull_round(tables[-1], 5, r, n,
                                           drop_threshold=thr,
                                           alive_table=alive))
-        covs.append(cov_fn(tables[-1]))
+        # the recount: the eager alive-weighted coverage
+        covs.append(FR.coverage_node_packed_alive(tables[-1], alive))
     stop = next((i for i, c in enumerate(covs) if c >= np.float32(target)),
                 len(covs) - 1)
     final, cov = FR.until_fused(

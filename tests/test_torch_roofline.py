@@ -29,6 +29,8 @@ import torch
 
 from gossip_tpu_torch.ops import _kernels, philox
 from gossip_tpu_torch.ops import calibrate as CAL
+from gossip_tpu_torch.ops import fused_mr_round as MR
+from gossip_tpu_torch.ops import fused_round as FR
 from gossip_tpu_torch.tools import roofline as R
 from gossip_tpu_torch.utils import provenance as P
 from gossip_tpu_torch.utils.timing import timed_chain
@@ -286,11 +288,12 @@ def test_timed_chain_on_cpu():
 
 
 def test_bound_model_values():
-    """The datasheet bounds that chip_smoke.py printed before the model
-    moved here, to the last bit, and each microkernel's."""
+    """The datasheet bounds to the last bit: the two round kernels'
+    counted by pipe, the staged pass's and the sampler's as chip_smoke.py
+    printed them before the model moved here, and each microkernel's."""
     n = 10_000_000
-    assert R.round_bound(n, 1, 1) == (0.011430346507462687, "operations")
-    assert R.mr_round_bound(n, 1) == (0.042987030925373135, "operations")
+    assert R.round_bound(n, 1, 1) == (0.005032356298507463, "operations")
+    assert R.mr_round_bound(n, 1) == (0.023881552238805972, "bytes")
     assert R.mr_gather_bound(n) == (0.04119561170149254, "operations")
     assert R.sampler_bound(n, 1) == (0.020895522388059702, "operations")
     words = 2448 * 128
@@ -306,12 +309,13 @@ def test_bound_model_values():
             / R.INT32_OPS_PER_S * 1e3, "operations")
 
 
-def _philox_word_ops():
-    """(wide products, xors) that a word's 8 Philox calls with counters
-    (w, q, 0, 0) need in each thread: the calls' dataflow as expression
-    trees, each distinct node that depends on the word counted once
-    (the compiler shares the rest), a node of q and the keys alone being
-    one per warp."""
+def _philox_word_ops(counters=tuple(("w", ("q", q), 0, 0)
+                                   for q in range(8))):
+    """(wide products, xors) that a thread's Philox calls with these
+    counters need (default: a word's 8 calls, (w, q, 0, 0)): the calls'
+    dataflow as expression trees, each distinct node that depends on the
+    thread's own word "w" counted once (the compiler shares the rest), a
+    node of q, constants and the keys alone being one per warp."""
     products, xors = set(), set()
 
     def has_w(e):
@@ -333,8 +337,7 @@ def _philox_word_ops():
             xors.add(node)
         return node
 
-    for q in range(8):
-        c0, c1, c2, c3 = "w", ("q", q), 0, 0
+    for c0, c1, c2, c3 in counters:
         for r in range(10):
             k0, k1 = ("k0", r), ("k1", r)
             hi0, lo0 = mulhilo("M0", c0)
@@ -361,14 +364,82 @@ def test_kernel_floors_price_the_bound_counts():
     cal = {"prng_words_per_s": 1e12, "vpu_alu_per_s": 1e13}
     floors = R.kernel_floors(10_000_000, cal, 3e12)
     for name, work in (("fused_round", R.round_work(10**7, 1, 1)),
+                       ("fused_mr_round", R.mr_round_work(10**7, 1)),
                        ("sampler", R.sampler_work(10**7, 1))):
-        calls, ops, nbytes = work
+        calls, _, _, ops, nbytes = work
         comp = {"prng": calls * 4 / 1e12 * 1e3, "vpu": ops / 1e13 * 1e3,
                 "hbm": nbytes / 3e12 * 1e3}
         assert floors[name]["floor_components_ms"] == pytest.approx(comp)
         assert floors[name]["floor_ms"] == max(comp.values())
         assert floors[name]["floor_by"] == max(comp, key=comp.get)
         assert floors[name]["bound_ms"] == R._bound_of(work)[0]
+
+
+# The two round kernels' ALU-pipe work beside Philox, op by op, as the
+# function needs it (csrc/fused_round.cu, csrc/fused_mr_round.cu).
+PULL_OPS = ("lane m = rb & 127", "amount (rb >> 7) - p",
+            "funnel-shift rotate of rot[m] by the amount",
+            "OR-in under 1 << p")
+WORD_OPS = ("phantom compare", "phantom select", "popcount")
+MR_PULL_OPS = ("lane m = rb & 127", "staged address m * rows + r",
+               "OR-in")
+MR_WORD_OPS = ("phantom compare", "phantom select")
+# the per-rumor counts: a thread's 128 / 8 words, added a pair at a time
+# into bit-sliced counters wide enough for 16, each counter then
+# transposed once across the warp and popcounted
+MR_THREAD_WORDS = 128 // 8
+MR_COUNT_BITS = MR_THREAD_WORDS.bit_length()
+MR_PAIR_OPS = (("three-input xor", "majority")
+               + ("carry AND", "carry xor") * (MR_COUNT_BITS - 1))
+MR_COUNTER_OPS = (("funnel shift", "select", "three-input op") * 5
+                  + ("popcount", "shift-add"))
+
+
+@pytest.mark.parametrize("calls", [1, 2, 8, 16])
+def test_philox_pipe_ops_follow_the_dataflow(calls):
+    """``philox_pipe_ops`` is what the dataflow of ``calls`` calls with
+    counters (w, q, 0, 0) needs; a lane shift's call (j, f, 1, 0) needs
+    what one of them needs."""
+    assert R.philox_pipe_ops(calls) == _philox_word_ops(
+        tuple(("w", ("q", q), 0, 0) for q in range(calls)))
+    assert R.philox_pipe_ops(1) == _philox_word_ops(
+        (("w", ("f", calls), 1, 0),))
+
+
+@pytest.mark.parametrize("fanout,sharing", [(1, 1), (2, 1), (1, 2), (2, 2),
+                                            (3, 1)])
+def test_round_kernel_counts_follow_the_function(fanout, sharing):
+    """The redesigned round kernels' counts by pipe: Philox from the
+    dataflow (a word's calls share counters), the 128 lane shifts of every
+    draw, the other ALU work op by op, each input byte read and each
+    output byte written once."""
+    n = 4096 * 24 - 37
+    words = FR.n_rows(n) * 128
+    draws = fanout * 32 // sharing
+    products, xors = _philox_word_ops(
+        tuple(("w", ("q", q), 0, 0) for q in range(draws // 4)))
+    s_products, s_xors = _philox_word_ops((("w", ("f", 0), 1, 0),))
+    other = words * (draws * sharing * len(PULL_OPS) + len(WORD_OPS))
+    assert R.round_work(n, fanout, sharing) == R.Work(
+        words * draws // 4 + 128, words * xors + 128 * s_xors + other,
+        words * products + 128 * s_products, other, 2 * words * 4 + 4)
+    words = MR.mr_rows(n) * 128
+    products, xors = _philox_word_ops(
+        tuple(("w", ("q", q), 0, 0) for q in range(-(-fanout // 4))))
+    per_word = (len(MR_WORD_OPS) + len(MR_PAIR_OPS) / 2
+                + MR_COUNT_BITS * len(MR_COUNTER_OPS) / MR_THREAD_WORDS)
+    other = words * (fanout * len(MR_PULL_OPS) + per_word)
+    assert R.mr_round_work(n, fanout) == R.Work(
+        words * -(-fanout // 4) + 128 * fanout,
+        words * xors + 128 * fanout * s_xors + other,
+        words * products + 128 * fanout * s_products, other,
+        2 * words * 4 + 32 * 4)
+    # the bound is the busier pipe against the bytes
+    for work, bound in ((R.round_work(n, fanout, sharing),
+                         R.round_bound(n, fanout, sharing)),
+                        (R.mr_round_work(n, fanout),
+                         R.mr_round_bound(n, fanout))):
+        assert bound == R._bound(max(work.alu, work.fma), work.nbytes)
 
 
 SASS = """
@@ -386,6 +457,13 @@ SASS = """
 \tFunction : _ZN45_GLOBAL__N__x_12_calibrate_cu_y22cal_prng_gather_kernelILb1EEEvPjPKjjjm
         /*0000*/                   LOP3.LUT R2, R2, R3, RZ, 0xfc, !PT ;
         /*0010*/                   BRA 0x10;
+\tFunction : _ZN45_GLOBAL__N__x_14_fused_round_cu_y18fused_round_kernelILi1ELi1ELb0ELb0ELb0EEEvNS_4ArgsE
+        /*0000*/                   SHF.R.W.U32 R2, R3, R4, R3 ;
+        /*0010*/                   LDS R3, [R5] ;
+        /*0020*/                   SHFL.DOWN PT, R2, R2, 0x10, 0x1f ;
+        /*0030*/                   BRA 0x40;
+        /*0040*/                   EXIT ;
+        /*0050*/                   BRA 0x50;
 """
 
 
@@ -403,6 +481,14 @@ def test_sass_counts_parse(monkeypatch):
         {"alu": 2, "fma": 1, "vector": 6}
     assert got["cal_vpu"]["opcodes"]["UIADD3"] == 1
     assert got["cal_vpu"]["unassigned"] == ["FOO"]
+    # a round kernel's instantiation, by its own tags; a loop's branch
+    # stays, the closing self-branch goes
+    got = R.sass_counts("lib.so", R.ROUND_SASS_TAGS)
+    assert set(got) == {"fused_round_f1_s1"}
+    assert {k: got["fused_round_f1_s1"][k]
+            for k in ("alu", "fma", "vector")} == \
+        {"alu": 1, "fma": 0, "vector": 5}
+    assert got["fused_round_f1_s1"]["unassigned"] == []
 
 
 def test_one_build_per_source(monkeypatch):
