@@ -7,8 +7,8 @@ holds each bitwise against its plain PyTorch version at N = 10M, drives
 the flagship run (single-rumor pull gossip to 99% coverage), the
 multi-rumor run (32 rumors, to 99% min-over-rumors coverage), the
 threefry-keyed XLA engine (with its threefry sampler and with the
-sampling kernel) and the roofline tool through the port's own entry
-points, and measures them.  One JSON line per phase:
+sampling kernel, without and under a fault program) and the roofline
+tool through the port's own entry points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
@@ -72,11 +72,28 @@ points, and measures them.  One JSON line per phase:
    N = 10M, counts set to 0 just before and read just after: one sampler
    launch a round, 25-30 rounds to 99%, and the same table as a replay
    with the plain sampler; its time per round against threefry's;
-14. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
+14. ``churn_path``  the JAX package's ``churn_heal`` fault program
+   (``bench.heal_fault``: two churn events, one of them permanent, a
+   partition at n/2 for rounds [0, 6), a drop ramp) on the XLA engine:
+   ``run_simulation`` at N = 10M and 1M with ``engine='xla'`` and
+   ``'auto'``, which must give the JAX package's rounds, coverage and
+   msgs (``HEAL_10M``, ``HEAL_1M``) on the bit-packed loop, and
+   ``engine='fused'`` refused; the card's final states against the CPU's,
+   bitwise (the packed pull at 1M under the program, the bool push-pull
+   and anti-entropy with period 2 under the four mixed scenario shapes
+   at 10,000 nodes); no node at or above the cut informed before round
+   6 at 10M, and some after it; the kernel-sampler loop at 10M under the
+   program (counts set to 0 just before and read just after: one
+   sampler launch a round, rounds within 2 of threefry's, coverage of
+   the eventual alive set at least 0.99, the same table and msgs as a
+   replay composed from the plain sampler); each loop's ms per round,
+   and one round's parts (partner draw, coin, schedule masks, gather,
+   lost count, coverage read);
+15. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
    N = 10M with ``node_death_rate=0.1`` against their plain replays, the
    stop test's counter-read coverage against a recount, and their ms per
    round;
-15. ``roofline_checks`` and ``roofline``  the three calibration
+16. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
    i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
@@ -125,6 +142,15 @@ ROUTE_ROUNDS = 10         # rounds per timed route batch
 # must print the same on the card.
 XLA_10M = (27, 0.9992427229881287, 540000000.0)
 XLA_1M = (23, 0.9972720146179199, 46000000.0)
+# The same for the packed pull loop under the JAX package's churn_heal
+# fault program (gossip_tpu_torch/bench.heal_fault; its bench.py
+# run_churn_families), through models/si_packed.simulate_until_packed,
+# pull, fanout 1, seed 0, target 0.99, max_rounds 128, jax 0.9.0 on the
+# CPU.  Under a program the run report's coverage is of the eventual alive
+# set (node 2 never recovers).
+HEAL_10M = (31, 0.9948086738586426, 506505408.0)
+HEAL_1M = (27, 0.9948830008506775, 43450920.0)
+N_MIXED = 10_000          # the bool churn runs held card against CPU
 
 
 def emit(phase: str, **fields) -> None:
@@ -852,6 +878,221 @@ def phase_fused_deaths(dev, smi: str):
     emit("fused_deaths", runs=rows, plain_replay_equal=True, card=smi)
 
 
+def _churn_replay(dev, n: int, fault, rounds: int, seed: int = SEED):
+    """The kernel-sampler churn loop's rounds composed by hand on
+    ``dev``: the plain sampler's partners, the threefry coin at the
+    schedule's probability, the cut, the round's alive rows, the gather
+    and the requests.  Returns the final packed table and msgs."""
+    import torch
+    from gossip_tpu_torch.models.si import PULL_DROP_TAG
+    from gossip_tpu_torch.models.si_packed import pull_merge_packed
+    from gossip_tpu_torch.ops import fast_sampling as FS
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.ops import threefry
+    from gossip_tpu_torch.ops.sampling import apply_drop
+
+    sched = NE.build(fault, n, device=dev)
+    base = NE.base_alive_or_ones(fault, n, 0, dev)
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    key = threefry.key(seed, dev)
+    seen = torch.zeros(n, 1, dtype=torch.int32, device=dev)
+    seen[0] = 1
+    msgs = torch.zeros((), dtype=torch.float32, device=dev)
+    for r in range(rounds):
+        alive = NE.alive_rows(sched, base, r)
+        p = FS.sample_targets_plain(FS.round_seed(seed, r), n, n, 1, True,
+                                    device=dev)
+        p = apply_drop(threefry.fold_in(key, r), PULL_DROP_TAG, ids, p,
+                       NE.drop_at(sched, r), n, force=True)
+        p = NE.partition_targets(NE.cut_at(sched, r), ids, p, n)
+        vis = torch.where(alive[:, None], seen, 0)
+        seen = seen | torch.where(alive[:, None],
+                                  pull_merge_packed(vis, p, n), 0)
+        p = torch.where(alive[:, None], p, n)
+        msgs = msgs + 2.0 * (p < n).sum().to(torch.float32)
+    return seen, msgs
+
+
+def phase_churn_path(dev, smi: str, n: int = N, n_small: int = N_SMALL,
+                     n_mixed: int = N_MIXED, want: dict = None):
+    """The nemesis on the XLA engine (the JAX package's ``churn_heal``
+    program, ``bench.heal_fault``):
+    ``run_simulation`` at n and n_small with ``engine='xla'`` and
+    ``'auto'`` against the JAX package's values, ``'fused'`` refused; the
+    card against the CPU, bitwise; the partition's stall at 10M; the
+    kernel-sampler churn loop, counts set to 0 just before and read just
+    after, and its plain replay; the loops' ms per round and the split of
+    one round.  Returns the sampler's launches on the kernel loop."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch import bench
+    from gossip_tpu_torch.backend import run_simulation
+    from gossip_tpu_torch.config import (ProtocolConfig, RunConfig,
+                                         TopologyConfig)
+    from gossip_tpu_torch.models import si_packed as P
+    from gossip_tpu_torch.models.si import PULL_DROP_TAG, PULL_TAG
+    from gossip_tpu_torch.models.state import init_state
+    from gossip_tpu_torch.ops import _kernels, threefry
+    from gossip_tpu_torch.ops import fast_sampling as FS
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.ops.bitpack import coverage_packed
+    from gossip_tpu_torch.ops.sampling import apply_drop, sample_peers
+    from gossip_tpu_torch.runtime.simulator import simulate_until
+    from gossip_tpu_torch.topology import generators as G
+
+    want = {N: HEAL_10M, N_SMALL: HEAL_1M} if want is None else want
+    proto = ProtocolConfig(mode="pull", fanout=1)
+    reports, wall_s, t0 = {}, {}, time.perf_counter()
+    for m in (n, n_small):
+        fault = bench.heal_fault(m)
+        for engine in ("xla", "auto"):
+            for k in _kernels.KERNELS:
+                k.launches = 0
+            rep = run_simulation(
+                proto, TopologyConfig(family="complete", n=m),
+                RunConfig(seed=SEED, target_coverage=0.99, max_rounds=128,
+                          engine=engine), fault, device=dev)
+            launches = {k.name: k.launches for k in _kernels.KERNELS}
+            got = (rep.rounds, rep.coverage, rep.msgs)
+            check(got == want[m] and rep.meta["engine"] == "bit-packed"
+                  and "engine_auto" not in rep.meta
+                  and sum(launches.values()) == 0,
+                  f"churn_heal at n={m}, engine {engine}: {got} "
+                  f"{rep.meta.get('engine')} {launches}, want {want[m]}")
+            reports[f"{m}_{engine}"] = {
+                "rounds": rep.rounds, "coverage": rep.coverage,
+                "msgs": rep.msgs, "engine": rep.meta["engine"],
+                "steady_wall_s": rep.meta["steady_wall_s"]}
+        try:
+            run_simulation(proto, TopologyConfig(family="complete", n=m),
+                           RunConfig(engine="fused"), fault, device=dev)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "does not run churn" in refused,
+              f"engine='fused' ran a churn program at n={m}")
+
+    wall_s["run_simulation"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the card against the CPU, bitwise: the packed pull at n_small under
+    # the program; the bool push-pull and anti-entropy (period 2) under
+    # the four mixed scenario shapes at n_mixed
+    cpu = torch.device("cpu")
+    same = {}
+    heal_small = bench.heal_fault(n_small)
+    run = RunConfig(seed=SEED, target_coverage=0.99, max_rounds=128)
+    card = P.simulate_until_packed(proto, G.complete(n_small), run,
+                                   heal_small, dev)
+    host = P.simulate_until_packed(proto, G.complete(n_small), run,
+                                   heal_small, cpu)
+    same["packed_pull_heal"] = (card[:3] == host[:3] and torch.equal(
+        card[3].seen.cpu(), host[3].seen))
+    wall_s["card_vs_cpu_packed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed = NE.mixed_scenarios(4, n_mixed, drop_prob=0.02, seed=SEED)
+    for mode, period in (("pushpull", 1), ("antientropy", 2)):
+        mp = ProtocolConfig(mode=mode, fanout=1, period=period)
+        mrun = RunConfig(seed=SEED, target_coverage=0.99, max_rounds=48)
+        for i, fault in enumerate(mixed):
+            a = simulate_until(mp, G.complete(n_mixed), mrun, fault, dev)
+            b = simulate_until(mp, G.complete(n_mixed), mrun, fault, cpu)
+            same[f"{mode}_{i}"] = (
+                (a.rounds, a.coverage, a.msgs) == (b.rounds, b.coverage,
+                                                   b.msgs)
+                and torch.equal(a.state.seen.cpu(), b.state.seen))
+    check(all(same.values()), f"churn card vs CPU: {same}")
+
+    wall_s["card_vs_cpu_bool"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the partition stalls the rumor at the cut until it closes (round 6)
+    heal = bench.heal_fault(n)
+    cut = heal.churn.partitions[0][2]
+    step = NE.drop_lost(P.make_packed_round(proto, G.complete(n), heal,
+                                            device=dev), heal.churn)
+    st = P.init_packed_state(run, proto, n, dev)
+    beyond = []
+    for _ in range(bench.HEAL_END + 1):
+        st = step(st)
+        beyond.append(int(torch.count_nonzero(st.seen[cut:])))
+    check(beyond[:bench.HEAL_END] == [0] * bench.HEAL_END and beyond[-1] > 0,
+          f"nodes beyond the cut holding the rumor after each round: "
+          f"{beyond}")
+
+    # the kernel-sampler churn loop, counts from 0, and its plain replay
+    loop, init = P.compiled_until_packed(proto, G.complete(n), run, heal,
+                                         sampler="kernel", device=dev)
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    final = loop(init)
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    rounds = final.round
+    cov = coverage_packed(final.seen, 1, NE.metric_alive(heal, n, 0, dev))
+    check(launches["sampler"] == rounds and sum(launches.values()) == rounds,
+          f"churn sampler path: launches {launches} for {rounds} rounds")
+    check(abs(rounds - want[n][0]) <= 2 and cov >= np.float32(0.99),
+          f"churn sampler path: {rounds} rounds, coverage {cov}")
+    seen, msgs = _churn_replay(dev, n, heal, rounds)
+    check(torch.equal(seen, final.seen) and msgs.item() == final.msgs.item(),
+          "churn sampler path vs its plain replay")
+
+    wall_s["stall_and_kernel_loop"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # time: each loop's ms per round, and the parts of one round
+    loop_ms = {}
+    for sampler in ("threefry", "kernel"):
+        b_rounds, _, _, seconds = bench.run_churn_heal(n, dev, sampler)
+        check(b_rounds == (want[n][0] if sampler == "threefry" else rounds),
+              f"churn bench ({sampler}) ran {b_rounds} rounds")
+        loop_ms[sampler] = {"rounds": b_rounds, "ms": seconds * 1e3,
+                            "ms_per_round": seconds * 1e3 / b_rounds,
+                            "line": bench.measurement_line(
+                                n, b_rounds, seconds, bench.card_info(),
+                                f"bit-packed {sampler}, churn_heal")}
+    sched = NE.build(heal, n, device=dev)
+    base = NE.base_alive_or_ones(heal, n, 0, dev)
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    topo = G.complete(n)
+    st = init_state(run, proto, n, dev)
+    rkey = threefry.fold_in(st.key, CHECK_ROUND)
+    qkey = threefry.fold_in(rkey, PULL_TAG)
+    partners = sample_peers(qkey, ids, topo, 1)
+    dp = NE.drop_at(sched, CHECK_ROUND)
+    alive = NE.alive_rows(sched, base, CHECK_ROUND)
+    eventual = NE.metric_alive(heal, n, 0, dev)
+
+    def masks():
+        a = NE.alive_rows(sched, base, CHECK_ROUND)
+        p = NE.partition_targets(NE.cut_at(sched, CHECK_ROUND), ids,
+                                 partners, n)
+        return torch.where(a[:, None], final.seen, 0), torch.where(
+            a[:, None], p, n)
+
+    split = {
+        "threefry_draw_ms": _median_ms(dev, sample_peers, qkey, ids, topo, 1),
+        "kernel_draw_ms": _median_ms(dev, FS.sample_peers_fast, SEED,
+                                     CHECK_ROUND, n, n, device=dev),
+        "coin_ms": _median_ms(dev, apply_drop, rkey, PULL_DROP_TAG, ids,
+                              partners, dp, n, force=True),
+        "schedule_masks_ms": _median_ms(dev, masks),
+        "gather_ms": _median_ms(dev, P.pull_merge_packed, final.seen,
+                                partners, n),
+        "lost_count_ms": _median_ms(dev, NE.lost_count, partners, partners,
+                                    alive, n),
+        "coverage_read_ms": _median_ms(dev, coverage_packed, final.seen, 1,
+                                       eventual, True)}
+    wall_s["timing"] = time.perf_counter() - t0
+    emit("churn_path", program="churn_heal: events (1,1,4), (2,2,-1); "
+         "partition [0,6) at n//2; ramp 0->0.1 over [0,4); drop 0.02",
+         reports=reports, want={str(k): v for k, v in want.items()},
+         fused_refused=True, card_vs_cpu=same, n_mixed=n_mixed,
+         beyond_cut_after_round=beyond,
+         kernel_sampler={"rounds": rounds, "coverage": cov,
+                         "msgs": final.msgs.item(), "launches": launches,
+                         "plain_replay_equal": True},
+         loops=loop_ms, split=split, phase_wall_s=wall_s, card=smi)
+    return launches["sampler"]
+
+
 def _words(rng, shape, sparsity: int):
     """uint32 words, each bit set at rate 2^-sparsity (the AND of that
     many random words; 0: all bits random), as int32 bits."""
@@ -952,7 +1193,7 @@ def check_roofline_doc(doc: dict, launches: dict):
 
 
 def phase_roofline(dev, smi: str):
-    """Phase 15: the microkernels' checks and times, the SASS recount,
+    """Phase 16: the microkernels' checks and times, the SASS recount,
     then the roofline tool at N = 10M and 100M with its hard checks.
     Returns the microkernels' entries of the ``kernels`` line and the
     10M document's calibrated floors of the round kernels."""
@@ -1121,8 +1362,12 @@ def main() -> int:
 
     sampler = phase_sampler_checks(dev, smi)
     threefry_round_ms = phase_xla_main_path(dev, smi)
-    sampler["launches"] = phase_xla_sampler_path(dev, smi,
-                                                 threefry_round_ms)
+    xla_sampler_launches = phase_xla_sampler_path(dev, smi,
+                                                  threefry_round_ms)
+    churn_launches = phase_churn_path(dev, smi)
+    sampler.update(launches=churn_launches, path="churn_path",
+                   launches_by_path={"xla_sampler_path": xla_sampler_launches,
+                                     "churn_path": churn_launches})
     phase_fused_deaths(dev, smi)
     cal_kernels, floors = phase_roofline(dev, smi)
 

@@ -7,12 +7,16 @@ fused pull route, one hand-written CUDA kernel per round (one rumor,
 ``csrc/fused_round.cu``; up to 32, ``csrc/fused_mr_round.cu`` and the
 staged route's ``csrc/mr_gather.cu``), and the threefry-keyed XLA engine
 (every SI mode and topology, bitwise equal to the JAX package), whose
-packed loop can draw its partners with ``csrc/sampler.cu``.  Its roofline
+packed loop can draw its partners with ``csrc/sampler.cu``; the XLA
+engine also runs the JAX package's fault programs (the nemesis: churn
+events, partition windows, drop ramps).  Its roofline
 tool calibrates the card's rates with the microkernels of
 ``csrc/calibrate.cu`` and prices the round kernels' work with them.
 
 Layout:
   - :mod:`gossip_tpu_torch.config`           the run configuration
+  - :mod:`gossip_tpu_torch.ops.nemesis`      fault programs lowered to
+    schedule tables, and the per-round helpers
   - :mod:`gossip_tpu_torch.ops.philox`       the kernels' random streams
   - :mod:`gossip_tpu_torch.ops.threefry`     ``jax.random``'s threefry
   - :mod:`gossip_tpu_torch.ops.fused_round`  the single-rumor round, its
@@ -36,4 +40,4 @@ Layout:
 """
 
 from gossip_tpu_torch.config import (  # noqa: F401
-    FaultConfig, ProtocolConfig, RunConfig, TopologyConfig)
+    ChurnConfig, FaultConfig, ProtocolConfig, RunConfig, TopologyConfig)

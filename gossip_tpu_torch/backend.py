@@ -14,7 +14,9 @@ on one device (``run_jax`` and ``_run_fused``):
   ``meta.engine = "bit-packed"``), everything else on the bool rounds
   (:mod:`gossip_tpu_torch.runtime.simulator`);
 * ``engine='auto'``: fused where :func:`fused_ineligible_reason` is None,
-  else xla.
+  else xla.  A fault program (``fault.churn``) runs on the xla engine;
+  ``fused`` refuses it, as the reference's single-device fused routing
+  does.
 
 The report carries the reference's ``RunReport`` fields and ``meta``
 keys, plus the device and every kernel's launches.  Whatever the port
@@ -42,6 +44,7 @@ from gossip_tpu_torch.config import (FaultConfig, MeshConfig, ProtocolConfig,
 from gossip_tpu_torch.ops import _kernels
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
+from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.ops.common import resolve_device
 from gossip_tpu_torch.utils.timing import steady_timed, timing_meta
 
@@ -89,8 +92,11 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
                 f"one device (got rumors={proto.rumors}); rumor planes "
                 "across devices wait for the port's multi-GPU slice")
     if fault is not None and fault.churn is not None:
-        return ("engine='fused' routing does not run churn schedules "
-                "single-device")
+        # the reference's words; its plane-sharded fused surfaces wait
+        # for the port's multi-GPU slice
+        return ("engine='fused' routing does not run churn "
+                "schedules single-device; use engine='auto' (XLA "
+                "kernels run the full nemesis scenario catalog)")
     if topo.n >= 1 << 31:
         return (f"n={topo.n}: node ids and the round's popcount counter "
                 "are 32-bit; n must stay below 2^31")
@@ -113,9 +119,6 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
         return ("more than one device, and the sparse and halo "
                 "exchanges, wait for the port's multi-GPU slice (ROADMAP "
                 "queue 1, item 5)")
-    if fault is not None and fault.churn is not None:
-        return ("churn schedules wait for the port's nemesis slice "
-                "(ROADMAP queue 1, item 3)")
     return None
 
 
@@ -247,6 +250,7 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
     reason = _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg)
     if reason is not None:
         raise ValueError(reason)
+    NE.validate_events(fault, topo.n)
     fused_reason = fused_ineligible_reason(proto, topo, run, fault)
     if run.engine == "fused" and fused_reason is not None:
         raise ValueError(fused_reason)

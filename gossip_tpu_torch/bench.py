@@ -10,11 +10,12 @@ with the wall of one steady run (after a warm-up run that also builds
 the kernel) read from CUDA events.  It prints one JSON line with the
 card's name and power limit::
 
-    python -m gossip_tpu_torch.bench [--n N]
+    python -m gossip_tpu_torch.bench [--n N] [--churn-heal SAMPLER]
 
 :func:`run_xla_packed` times the XLA engine's bit-packed pull loop (the
 JAX package's ``run_xla_packed``) for the same line; ``chip_smoke.py``
-prints it.
+prints it.  :func:`run_churn_heal` (``--churn-heal threefry|kernel``)
+times that loop under the JAX package's ``churn_heal`` fault program.
 
 There is no CPU row: without a CUDA device it prints nothing and exits
 non-zero.  There is no ``vs_baseline`` either: the JAX package derives
@@ -81,6 +82,55 @@ def run_xla_packed(n: int = N_FLAGSHIP, device=None,
     return final.round, seconds
 
 
+HEAL_END = 6      # the churn_heal program's partition window closes here
+
+
+def heal_fault(n: int):
+    """The JAX package's ``churn_heal`` program at ``n`` (its
+    ``bench.py:run_churn_families``): node 1 down for rounds [1, 4), node
+    2 down from round 2 for good, a partition at ``n // 2`` for rounds
+    [0, 6), and the drop probability ramped from 0 to 0.1 over rounds
+    [0, 4) and held at 0.1 after (``drop_prob=0.02`` would apply before
+    the ramp, which starts at round 0)."""
+    from gossip_tpu_torch.config import ChurnConfig, FaultConfig
+    return FaultConfig(drop_prob=0.02, seed=0, churn=ChurnConfig(
+        events=((1, 1, 4), (2, 2, -1)),
+        partitions=((0, HEAL_END, n // 2),),
+        ramp=(0, 4, 0.0, 0.1)))
+
+
+def run_churn_heal(n: int = N_FLAGSHIP, device=None,
+                   sampler: str = "threefry"):
+    """(rounds, coverage, msgs, seconds) of the XLA engine's packed pull
+    loop under :func:`heal_fault` at ``n`` (pull, fanout 1, seed 0, to
+    99% of the eventual alive set, at most 128 rounds): one warm-up run,
+    then one timed run of ``compiled_until_packed`` from a fresh state.
+    The JAX package runs this family at 1M on a TPU; 10M is the port's
+    full width.  ``sampler="kernel"`` draws the partners with
+    ``csrc/sampler.cu``."""
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.models.si_packed import (compiled_until_packed,
+                                                   init_packed_state)
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.ops.bitpack import coverage_packed
+    from gossip_tpu_torch.topology import generators as G
+    dev = resolve_device(device)
+    proto = ProtocolConfig(mode="pull", fanout=1, rumors=1)
+    run = RunConfig(target_coverage=TARGET, max_rounds=128, seed=0)
+    fault = heal_fault(n)
+    loop, init = compiled_until_packed(proto, G.complete(n), run, fault,
+                                       sampler=sampler, device=dev)
+    loop(init)
+    final, seconds = steady_timed(dev, loop,
+                                  init_packed_state(run, proto, n, dev))
+    cov = coverage_packed(final.seen, proto.rumors,
+                          NE.metric_alive(fault, n, run.origin, dev))
+    if cov < np.float32(TARGET):
+        raise RuntimeError(f"coverage {cov} below the target after "
+                           f"{final.round} rounds")
+    return final.round, cov, float(final.msgs.item()), seconds
+
+
 def measurement_line(n: int, rounds: int, seconds: float, card: dict,
                      engine: str = "fused-cuda") -> dict:
     """The one-line result, with the card it ran on."""
@@ -97,14 +147,25 @@ def measurement_line(n: int, rounds: int, seconds: float, card: dict,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="gossip_tpu_torch.bench")
     ap.add_argument("--n", type=int, default=N_FLAGSHIP)
+    ap.add_argument("--churn-heal", choices=("threefry", "kernel"),
+                    default=None, metavar="SAMPLER",
+                    help="time the churn_heal program on the XLA engine's "
+                         "packed loop with this sampler instead of the "
+                         "fused flagship")
     a = ap.parse_args(argv)
     try:
         card = card_info()
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    rounds, seconds = run_fused(a.n, "cuda")
-    print(json.dumps(measurement_line(a.n, rounds, seconds, card)))
+    if a.churn_heal:
+        rounds, _, _, seconds = run_churn_heal(a.n, "cuda", a.churn_heal)
+        line = measurement_line(a.n, rounds, seconds, card,
+                                f"bit-packed {a.churn_heal}, churn_heal")
+    else:
+        rounds, seconds = run_fused(a.n, "cuda")
+        line = measurement_line(a.n, rounds, seconds, card)
+    print(json.dumps(line))
     return 0
 
 

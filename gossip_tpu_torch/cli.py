@@ -6,11 +6,14 @@ The port of the JAX package's ``run`` command on one device::
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
         [--fanout F] [--period T] [--seed S] [--origin O] [--target C]
         [--max-rounds M] [--drop-prob P] [--death D] [--curve]
-        [--device cpu]
+        [--churn-event NODE:DIE[:REC]]... [--partition START:END:CUT]...
+        [--drop-ramp START:END:P0:P1] [--device cpu]
 
 ``--mode`` is one of the five SI modes and ``--engine`` one of
 ``auto|xla|fused`` (``backend.run_simulation``).  The topology and the
 fault take ``--seed`` as their seeds too, as the JAX command sets them.
+The three churn flags build a fault program (``ChurnConfig``), which runs
+on the xla engine (``auto`` takes it; ``fused`` refuses it).
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
@@ -22,17 +25,51 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from typing import Optional
 
 from gossip_tpu_torch import config as C
-from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig, RunConfig,
+from gossip_tpu_torch.config import (ChurnConfig, FaultConfig,
+                                     ProtocolConfig, RunConfig,
                                      TopologyConfig)
+
+
+def _parse_churn(a) -> Optional[ChurnConfig]:
+    """``--churn-event`` / ``--partition`` / ``--drop-ramp`` -> a
+    :class:`ChurnConfig`, or None without any (the JAX command's parse;
+    the checks of the fields live in ``ChurnConfig``)."""
+    def fields(s, what, lens):
+        parts = s.split(":")
+        if len(parts) not in lens:
+            raise ValueError(
+                f"--{what} takes {'|'.join(map(str, sorted(lens)))} "
+                f"colon-separated fields, got {s!r}")
+        return parts
+
+    events = []
+    for s in (getattr(a, "churn_event", None) or ()):
+        parts = fields(s, "churn-event", {2, 3})
+        if len(parts) == 2:
+            parts.append("-1")
+        events.append(tuple(int(x) for x in parts))
+    partitions = [tuple(int(x) for x in fields(s, "partition", {3}))
+                  for s in (getattr(a, "partition", None) or ())]
+    ramp = None
+    if getattr(a, "drop_ramp", None):
+        f = fields(a.drop_ramp, "drop-ramp", {4})
+        ramp = (int(f[0]), int(f[1]), float(f[2]), float(f[3]))
+    if not (events or partitions or ramp):
+        return None
+    return ChurnConfig(events=tuple(events), partitions=tuple(partitions),
+                       ramp=ramp)
 
 
 def cmd_run(a) -> int:
     from gossip_tpu_torch.backend import run_simulation
+    churn = _parse_churn(a)
     fault = (FaultConfig(node_death_rate=a.death, drop_prob=a.drop_prob,
-                         seed=a.seed)
-             if a.drop_prob > 0 or a.death > 0 else None)
+                         seed=a.seed, churn=churn)
+             if a.drop_prob > 0 or a.death > 0 or churn is not None
+             else None)
     report = run_simulation(
         ProtocolConfig(mode=a.mode, fanout=a.fanout, rumors=a.rumors,
                        period=a.period),
@@ -75,6 +112,20 @@ def main(argv=None) -> int:
                    help="per-message drop probability per round")
     p.add_argument("--death", type=float, default=0.0,
                    help="fraction of nodes statically dead")
+    p.add_argument("--churn-event", action="append", default=None,
+                   metavar="NODE:DIE[:REC]",
+                   help="scripted crash/recover churn: NODE dies at round "
+                        "DIE and recovers at round REC (omit REC or pass "
+                        "-1 for a permanent crash); repeatable")
+    p.add_argument("--partition", action="append", default=None,
+                   metavar="START:END:CUT",
+                   help="network partition window: for rounds [START, END) "
+                        "every message crossing node-id CUT is lost; "
+                        "repeatable, windows must not overlap")
+    p.add_argument("--drop-ramp", default=None, metavar="START:END:P0:P1",
+                   help="drop-rate ramp: link drop probability moves "
+                        "linearly P0 -> P1 over rounds [START, END), then "
+                        "holds P1")
     p.add_argument("--curve", action="store_true",
                    help="run exactly max_rounds rounds and include the "
                         "per-round coverage curve")

@@ -10,7 +10,7 @@ arguments.  All configs are frozen.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 PUSH, PULL, PUSH_PULL, FLOOD, ANTI_ENTROPY, SWIM, RUMOR = (
     "push", "pull", "pushpull", "flood", "antientropy", "swim", "rumor")
@@ -67,18 +67,136 @@ class ProtocolConfig:
             raise ValueError("rumors must be >= 1")
 
 
+# Ceiling on a schedule's horizon (the length of the nemesis tables):
+# an absurd partition or ramp end is refused instead of building a huge
+# table.  Event rounds share the cap, which keeps them below the
+# tables' NEVER sentinel.
+MAX_CHURN_HORIZON = 100_000
+
+
+@dataclasses.dataclass(frozen=True)
+class ChurnConfig:
+    """A fault program over rounds, lowered by
+    :mod:`gossip_tpu_torch.ops.nemesis` into round-indexed tables:
+
+    * ``events``: ``(node, die_round, recover_round)``; the node is down
+      for rounds ``die_round <= r < recover_round`` (it neither sends,
+      answers nor receives); ``recover_round < 0`` never comes back.  A
+      scripted death of the rumor origin is honored (unlike the random
+      death mask, which pins the origin alive).
+    * ``partitions``: ``(start, end, cut)``; for rounds ``start <= r <
+      end`` every message between a node ``< cut`` and a node ``>= cut``
+      is lost.  Windows must not overlap.
+    * ``ramp``: ``(start, end, from_p, to_p)``; the drop probability is
+      ``FaultConfig.drop_prob`` before ``start``, moves linearly from
+      ``from_p`` to ``to_p`` over ``[start, end)`` and holds ``to_p``
+      after.
+
+    Lists are coerced to tuples (a JSON object delivers lists).  The
+    checks and messages are the JAX package's."""
+
+    events: Tuple[Tuple[int, int, int], ...] = ()
+    partitions: Tuple[Tuple[int, int, int], ...] = ()
+    ramp: Optional[Tuple[int, int, float, float]] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "events", tuple(
+            tuple(int(x) for x in e) for e in self.events))
+        object.__setattr__(self, "partitions", tuple(
+            tuple(int(x) for x in w) for w in self.partitions))
+        if self.ramp is not None:
+            r = tuple(self.ramp)
+            if len(r) != 4:
+                raise ValueError(f"drop ramp {r} must be "
+                                 "(start, end, from_p, to_p)")
+            object.__setattr__(
+                self, "ramp",
+                (int(r[0]), int(r[1]), float(r[2]), float(r[3])))
+        for e in self.events:
+            if len(e) != 3:
+                raise ValueError(f"churn event {e} must be "
+                                 "(node, die_round, recover_round)")
+            node, die, rec = e
+            if node < 0:
+                raise ValueError(f"churn event node {node} must be >= 0")
+            if die < 0:
+                raise ValueError(f"churn event die_round {die} must be "
+                                 ">= 0")
+            if 0 <= rec <= die:
+                raise ValueError(
+                    f"churn event {e}: recover_round must be > die_round "
+                    "(or < 0 for a permanent crash)")
+            if die > MAX_CHURN_HORIZON or rec > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"churn event {e}: rounds exceed the schedule "
+                    f"horizon cap {MAX_CHURN_HORIZON} (rec < 0 already "
+                    "means 'down forever')")
+        nodes = [e[0] for e in self.events]
+        if len(set(nodes)) != len(nodes):
+            raise ValueError("churn events must script each node at most "
+                             "once (one die/recover pair per node)")
+        spans = []
+        for w in self.partitions:
+            if len(w) != 3:
+                raise ValueError(f"partition window {w} must be "
+                                 "(start, end, cut)")
+            start, end, cut = w
+            if start < 0 or end <= start:
+                raise ValueError(f"partition window {w}: need "
+                                 "0 <= start < end")
+            if cut <= 0:
+                raise ValueError(f"partition window {w}: cut must be a "
+                                 "positive node id (both sides non-empty)")
+            if end > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"partition window {w}: end {end} exceeds the "
+                    f"schedule horizon cap {MAX_CHURN_HORIZON}")
+            spans.append((start, end))
+        spans.sort()
+        for (s0, e0), (s1, _) in zip(spans, spans[1:]):
+            if s1 < e0:
+                raise ValueError("partition windows overlap: "
+                                 f"[{s0}, {e0}) and [{s1}, ...)")
+        if self.ramp is not None:
+            start, end, p0, p1 = self.ramp
+            if start < 0 or end <= start:
+                raise ValueError(f"drop ramp {self.ramp}: need "
+                                 "0 <= start < end")
+            if end > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"drop ramp {self.ramp}: end {end} exceeds the "
+                    f"schedule horizon cap {MAX_CHURN_HORIZON}")
+            for p in (p0, p1):
+                if not 0.0 <= p <= 1.0:
+                    raise ValueError(
+                        f"drop ramp probability {p} outside [0, 1]")
+
+    @property
+    def empty(self) -> bool:
+        return not (self.events or self.partitions or self.ramp)
+
+    def horizon(self) -> int:
+        """Rounds after which the tables are constant: every window
+        closed and the ramp at its final value."""
+        ends = [1]
+        ends += [end for _, end, _ in self.partitions]
+        if self.ramp is not None:
+            ends.append(self.ramp[1])
+        return max(ends) + 1
+
+
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
     """In-round fault injection: a static dead set drawn at
-    ``node_death_rate`` from ``seed`` (``models/state.alive_mask``), and
-    a per-pull drop probability.  ``churn`` is any time-varying fault
-    schedule; the port only records whether one was given (every engine
-    refuses it until the nemesis slice)."""
+    ``node_death_rate`` from ``seed`` (``models/state.alive_mask``), a
+    per-message drop probability, and ``churn``, a fault program over
+    rounds (:class:`ChurnConfig`; a dict is coerced, and an empty
+    program is ``None``, which keeps every engine on its static path)."""
 
     node_death_rate: float = 0.0
     drop_prob: float = 0.0
     seed: int = 0
-    churn: object = None
+    churn: Optional[ChurnConfig] = None
 
     def __post_init__(self):
         if not 0.0 <= self.node_death_rate <= 1.0:
@@ -86,6 +204,14 @@ class FaultConfig:
                 f"node_death_rate={self.node_death_rate} outside [0, 1]")
         if not 0.0 <= self.drop_prob <= 1.0:
             raise ValueError(f"drop_prob={self.drop_prob} outside [0, 1]")
+        if isinstance(self.churn, dict):
+            object.__setattr__(self, "churn", ChurnConfig(**self.churn))
+        if self.churn is not None and not isinstance(self.churn,
+                                                     ChurnConfig):
+            raise ValueError(f"churn must be a ChurnConfig, a dict or "
+                             f"None, got {type(self.churn).__name__}")
+        if self.churn is not None and self.churn.empty:
+            object.__setattr__(self, "churn", None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,19 +1,25 @@
 """SI-family rounds of the XLA engine: push, pull, push-pull, flood and
 anti-entropy, on bool state.
 
-The port of the JAX package's ``models/si.py`` (static faults; churn
-schedules wait for the nemesis slice).  One round is a function
+The port of the JAX package's ``models/si.py``.  One round is a function
 ``SimState -> SimState``; its draws are the reference's threefry draws
 (same tags, same per-node keys), so ``seen``, ``round`` and ``msgs`` equal
 the reference's bit for bit.  ``msgs`` is a float32 scalar that grows in
 the reference's order, one float32 add per term.
 
-Faults: ``node_death_rate`` kills a static set (dead nodes neither send,
-answer nor receive); ``drop_prob`` drops each (sender, target) use per
-round.  Anti-entropy with ``period > 1`` exchanges on rounds that are a
-multiple of the period and is quiescent on the others: the port draws
+Static faults: ``node_death_rate`` kills a static set (dead nodes neither
+send, answer nor receive); ``drop_prob`` drops each (sender, target) use
+per round.  Anti-entropy with ``period > 1`` exchanges on rounds that are
+a multiple of the period and is quiescent on the others: the port draws
 nothing on a quiescent round, where the reference draws and masks it
 all, with the same result.
+
+Under a fault program (``fault.churn``, lowered by
+:mod:`gossip_tpu_torch.ops.nemesis`) the step reads the round's
+liveness, drop probability and partition cut from the schedule's tables,
+always draws its drop coins, sends cross-cut targets to the sentinel, and
+returns ``(state, lost)``: ``lost`` is the float32 count of messages the
+coins and the cut destroyed (0 on a quiescent anti-entropy round).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import FaultConfig, ProtocolConfig
 from gossip_tpu_torch.models.state import SimState, alive_mask
+from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.ops import threefry
 from gossip_tpu_torch.ops.common import (f32_fraction, f32_mean,
                                          resolve_device)
@@ -36,14 +43,6 @@ from gossip_tpu_torch.topology.generators import Topology
 # Sub-key tags, so push and pull draws of one round are independent.
 PUSH_TAG, PULL_TAG, PUSH_DROP_TAG, PULL_DROP_TAG, FLOOD_DROP_TAG = (
     1, 2, 3, 4, 5)
-
-CHURN_WAITS = ("churn schedules wait for the port's nemesis slice "
-               "(ROADMAP queue 1, item 3)")
-
-
-def check_static_faults(fault: Optional[FaultConfig]) -> None:
-    if fault is not None and fault.churn is not None:
-        raise ValueError(CHURN_WAITS)
 
 
 def topology_device(topo: Topology, device=None) -> torch.device:
@@ -64,11 +63,29 @@ def f32(x) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def round_schedule(fault: Optional[FaultConfig], n: int, dev,
+                   schedule: Optional[NE.Schedule] = None):
+    """The schedule a step runs under: ``schedule`` if given (any
+    :func:`~gossip_tpu_torch.ops.nemesis.build_or_static` output), else
+    the lowering of ``fault.churn``, else None (the static path)."""
+    if schedule is not None:
+        if schedule.die.shape[0] != n or schedule.die.device != dev:
+            raise ValueError(f"the schedule holds {schedule.die.shape[0]} "
+                             f"rows on {schedule.die.device}, the round "
+                             f"{n} on {dev}")
+        return schedule
+    if NE.get(fault) is not None:
+        return NE.build(fault, n, device=dev)
+    return None
+
+
 def make_si_round(proto: ProtocolConfig, topo: Topology,
                   fault: Optional[FaultConfig] = None, origin: int = 0,
-                  device=None):
-    """The single-device round step ``SimState -> SimState`` on
-    ``device`` (default: the topology's table's, or CUDA)."""
+                  device=None, schedule: Optional[NE.Schedule] = None):
+    """The single-device round step on ``device`` (default: the
+    topology's table's, or CUDA): ``SimState -> SimState``, or under a
+    schedule (``fault.churn``, or ``schedule``) ``SimState -> (SimState,
+    lost)``."""
     n, k = topo.n, proto.fanout
     mode = proto.mode
     if mode == C.SWIM:
@@ -79,41 +96,62 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
                          "models slice (ROADMAP queue 1, item 4)")
     if mode == C.FLOOD and topo.implicit:
         raise ValueError("flood mode needs an explicit neighbor table")
-    check_static_faults(fault)
     dev = topology_device(topo, device)
+    sched = round_schedule(fault, n, dev, schedule)
+    churn = sched is not None
     drop_prob = 0.0 if fault is None else fault.drop_prob
-    alive = alive_mask(fault, n, origin, dev)
+    # the static mask; under a schedule always a tensor, which each
+    # round's down nodes are taken out of
+    base_alive = (NE.base_alive_or_ones(fault, n, origin, dev) if churn
+                  else alive_mask(fault, n, origin, dev))
     ids = torch.arange(n, dtype=torch.int64, device=dev)
+    nbrs_t = None if topo.implicit else topo.nbrs.to(torch.int64)
 
-    def step(state: SimState) -> SimState:
+    def step(state: SimState):
         rkey = threefry.fold_in(state.key, state.round)
         seen = state.seen
+        if churn:
+            alive = NE.alive_rows(sched, base_alive, state.round)
+            dp = NE.drop_at(sched, state.round)
+            cut = NE.cut_at(sched, state.round)
+        else:
+            alive, dp = base_alive, drop_prob
+        lost = torch.zeros((), dtype=torch.float32, device=dev)
         visible = seen if alive is None else seen & alive[:, None]
         delta = torch.zeros_like(seen)
         msgs = state.msgs
 
         if mode in (C.PUSH, C.PUSH_PULL):
             pkey = threefry.fold_in(rkey, PUSH_TAG)
-            targets = sample_peers(pkey, ids, topo, k, proto.exclude_self)
-            targets = apply_drop(rkey, PUSH_DROP_TAG, ids, targets,
-                                 drop_prob, n)
+            targets0 = sample_peers(pkey, ids, topo, k, proto.exclude_self)
+            targets = apply_drop(rkey, PUSH_DROP_TAG, ids, targets0, dp, n,
+                                 force=churn)
+            if churn:
+                targets = NE.partition_targets(cut, ids, targets, n)
             sender_active = visible.any(dim=1)
             valid = (targets < n) & sender_active[:, None]
             delta = delta | push_delta(n, torch.where(valid, targets, n),
                                        visible)
             msgs = msgs + f32(valid.sum())
+            if churn:
+                lost = lost + NE.lost_count(targets0, targets,
+                                            sender_active, n)
 
         exchange = (mode != C.ANTI_ENTROPY or proto.period <= 1
                     or state.round % proto.period == 0)
         if mode in (C.PULL, C.PUSH_PULL, C.ANTI_ENTROPY) and exchange:
             qkey = threefry.fold_in(rkey, PULL_TAG)
-            partners = sample_peers(qkey, ids, topo, k, proto.exclude_self)
-            partners = apply_drop(rkey, PULL_DROP_TAG, ids, partners,
-                                  drop_prob, n)
+            partners0 = sample_peers(qkey, ids, topo, k, proto.exclude_self)
+            partners = apply_drop(rkey, PULL_DROP_TAG, ids, partners0, dp,
+                                  n, force=churn)
+            if churn:
+                partners = NE.partition_targets(cut, ids, partners, n)
             pulled = pull_merge(visible, partners, n)
             if alive is not None:     # dead nodes neither ask nor receive
                 partners = torch.where(alive[:, None], partners, n)
             n_req = f32((partners < n).sum())
+            if churn:
+                lost = lost + NE.lost_count(partners0, partners, alive, n)
             if mode == C.ANTI_ENTROPY:
                 # both directions: request, digest, reverse delta
                 back = push_delta(n, partners, visible)
@@ -124,29 +162,40 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
                 msgs = msgs + 2.0 * n_req     # request + digest response
 
         if mode == C.FLOOD:
-            nbrs = topo.nbrs.to(torch.int64)
-            if drop_prob > 0.0:
+            nbrs = nbrs_t
+            if churn or drop_prob > 0.0:
                 dropped = drop_mask(rkey, FLOOD_DROP_TAG, ids,
-                                    nbrs.shape[1], drop_prob)
+                                    nbrs.shape[1], dp)
                 nbrs = torch.where(dropped, n, nbrs)
-            delta = flood_gather(visible, nbrs, n)
             sender_active = visible.any(dim=1)
+            if churn:
+                nbrs = NE.partition_targets(cut, ids, nbrs, n)
+                # lost edge uses whose sender (the neighbour the gather
+                # reads from) had something to say
+                live = (nbrs_t < n) & sender_active[
+                    torch.clamp(nbrs_t, 0, n - 1)]
+                lost = lost + f32((live & (nbrs >= n)).sum())
+            delta = flood_gather(visible, nbrs, n)
             msgs = msgs + f32(torch.where(sender_active, topo.deg, 0).sum())
 
         if alive is not None:
             delta = delta & alive[:, None]   # dead nodes receive nothing
-        return SimState(seen=seen | delta, round=state.round + 1,
-                        key=state.key, msgs=msgs)
+        out = SimState(seen=seen | delta, round=state.round + 1,
+                       key=state.key, msgs=msgs)
+        return (out, lost) if churn else out
 
     return step
 
 
-def coverage(seen: torch.Tensor,
-             alive: Optional[torch.Tensor] = None) -> float:
+def coverage(seen: torch.Tensor, alive: Optional[torch.Tensor] = None,
+             folded: bool = False) -> float:
     """Min-over-rumors fraction of (alive) nodes holding each rumor, in
     the reference's float32 rounding (:mod:`gossip_tpu_torch.ops.bitpack`
-    module doc)."""
+    module doc); ``folded``: the alive count is a constant of the
+    reference's compiled loop, which multiplies by its reciprocal
+    (:func:`~gossip_tpu_torch.ops.nemesis.folded_denominator`)."""
     if alive is None:
         return f32_mean(int(seen.sum(dim=0).min()), seen.shape[0])
     counts = (seen & alive[:, None]).sum(dim=0)
-    return f32_fraction(int(counts.min()), int(alive.sum()))
+    frac = f32_mean if folded else f32_fraction
+    return frac(int(counts.min()), int(alive.sum()))

@@ -1,6 +1,7 @@
 """Bit-packed pull and anti-entropy rounds: the XLA engine's fast path.
 
-The port of the JAX package's ``models/si_packed.py`` (static faults).
+The port of the JAX package's ``models/si_packed.py``, with its fault
+programs (:mod:`gossip_tpu_torch.models.si` module doc).
 ``seen`` is packed 32 rumors to a word (:mod:`gossip_tpu_torch.ops.bitpack`),
 so a pull moves one word per partner.  The semantics are exactly
 :mod:`gossip_tpu_torch.models.si`'s pull and anti-entropy modes (same
@@ -25,6 +26,7 @@ from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import FaultConfig, ProtocolConfig, RunConfig
 from gossip_tpu_torch.models import si as si_mod
 from gossip_tpu_torch.models.state import SimState, alive_mask, init_state
+from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.ops import threefry
 from gossip_tpu_torch.ops.bitpack import coverage_packed, pack, unpack
 from gossip_tpu_torch.ops.fast_sampling import sample_peers_fast
@@ -58,9 +60,14 @@ def pull_merge_packed(packed_all: torch.Tensor, partners: torch.Tensor,
 def make_packed_round(proto: ProtocolConfig, topo: Topology,
                       fault: Optional[FaultConfig] = None, origin: int = 0,
                       sampler: str = "threefry", sampler_seed: int = 0,
-                      device=None):
-    """Packed pull / anti-entropy round step ``SimState -> SimState`` on
-    ``device`` (default: the topology's table's, or CUDA)."""
+                      device=None, schedule: Optional[NE.Schedule] = None):
+    """Packed pull / anti-entropy round step on ``device`` (default: the
+    topology's table's, or CUDA): ``SimState -> SimState``, or under a
+    schedule (``fault.churn``, or ``schedule``) ``SimState -> (SimState,
+    lost)``, as :func:`gossip_tpu_torch.models.si.make_si_round`.  Under
+    a schedule the kernel sampler draws the partners and the threefry
+    coin, the cut and the alive rows act on them, as the reference's
+    ``sampler="pallas"`` branch does."""
     n, k = topo.n, proto.fanout
     mode = proto.mode
     if mode not in (C.PULL, C.ANTI_ENTROPY):
@@ -73,33 +80,45 @@ def make_packed_round(proto: ProtocolConfig, topo: Topology,
     if sampler == "kernel" and not topo.implicit:
         raise ValueError("the kernel sampler draws on the implicit "
                          "complete graph only")
-    si_mod.check_static_faults(fault)
     dev = si_mod.topology_device(topo, device)
+    sched = si_mod.round_schedule(fault, n, dev, schedule)
+    churn = sched is not None
     drop_prob = 0.0 if fault is None else fault.drop_prob
-    alive = alive_mask(fault, n, origin, dev)
+    base_alive = (NE.base_alive_or_ones(fault, n, origin, dev) if churn
+                  else alive_mask(fault, n, origin, dev))
     ids = torch.arange(n, dtype=torch.int64, device=dev)
     mfac = 3.0 if mode == C.ANTI_ENTROPY else 2.0
+    # the round key is one threefry of a single key: some 150 tiny
+    # launches, skipped where nothing draws from it
+    keyed = sampler == "threefry" or drop_prob > 0.0 or churn
 
-    def step(state: SimState) -> SimState:
+    def step(state: SimState):
         nxt = state._replace(round=state.round + 1)
         if (mode == C.ANTI_ENTROPY and proto.period > 1
                 and state.round % proto.period):
-            return nxt                  # a quiescent round sends nothing
-        # the round key is one threefry of a single key: some 150 tiny
-        # launches, skipped where nothing draws from it
-        rkey = (threefry.fold_in(state.key, state.round)
-                if sampler == "threefry" or drop_prob > 0.0 else None)
+            # a quiescent round sends nothing, so loses nothing
+            return (nxt, torch.zeros((), dtype=torch.float32, device=dev)
+                    ) if churn else nxt
+        rkey = threefry.fold_in(state.key, state.round) if keyed else None
+        if churn:
+            alive = NE.alive_rows(sched, base_alive, state.round)
+            dp = NE.drop_at(sched, state.round)
+        else:
+            alive, dp = base_alive, drop_prob
         packed = state.seen
         visible = packed if alive is None else torch.where(
             alive[:, None], packed, 0)
         if sampler == "kernel":
-            partners = sample_peers_fast(sampler_seed, state.round, n, n, k,
-                                         proto.exclude_self, device=dev)
+            partners0 = sample_peers_fast(sampler_seed, state.round, n, n,
+                                          k, proto.exclude_self, device=dev)
         else:
             qkey = threefry.fold_in(rkey, si_mod.PULL_TAG)
-            partners = sample_peers(qkey, ids, topo, k, proto.exclude_self)
-        partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, ids, partners,
-                              drop_prob, n)
+            partners0 = sample_peers(qkey, ids, topo, k, proto.exclude_self)
+        partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, ids, partners0,
+                              dp, n, force=churn)
+        if churn:
+            partners = NE.partition_targets(NE.cut_at(sched, state.round),
+                                            ids, partners, n)
         pulled = pull_merge_packed(visible, partners, n)
         if alive is not None:
             partners = torch.where(alive[:, None], partners, n)
@@ -110,19 +129,23 @@ def make_packed_round(proto: ProtocolConfig, topo: Topology,
                                               unpack(visible, proto.rumors)))
         if alive is not None:
             pulled = torch.where(alive[:, None], pulled, 0)
-        return nxt._replace(seen=packed | pulled,
-                            msgs=state.msgs + mfac * n_req)
+        out = nxt._replace(seen=packed | pulled,
+                           msgs=state.msgs + mfac * n_req)
+        if churn:
+            return out, NE.lost_count(partners0, partners, alive, n)
+        return out
 
     return step
 
 
 def _until(step, state: SimState, rumors: int, target: float,
-           max_rounds: int, alive) -> SimState:
+           max_rounds: int, alive, folded: bool = False) -> SimState:
     """The reference's while-loop: step while the float32 coverage is
     below the float32 target and the round below ``max_rounds``; the
-    coverage is read on the host once per round."""
+    coverage is read on the host once per round, as the reference's
+    compiled condition computes it (``folded``: ``coverage_packed``)."""
     tgt = np.float32(target)
-    while (coverage_packed(state.seen, rumors, alive) < tgt
+    while (coverage_packed(state.seen, rumors, alive, folded) < tgt
            and state.round < max_rounds):
         state = step(state)
     return state
@@ -132,12 +155,13 @@ def simulate_until_packed(proto: ProtocolConfig, topo: Topology,
                           run: RunConfig,
                           fault: Optional[FaultConfig] = None, device=None):
     """Run the packed round to ``run.target_coverage`` (alive-weighted
-    under deaths) or ``run.max_rounds``.  Returns ``(rounds, coverage,
-    msgs, final_state)``."""
+    under deaths; under a fault program over the eventual alive set) or
+    ``run.max_rounds``.  Returns ``(rounds, coverage, msgs,
+    final_state)``; the coverage is the reference's eager value."""
     loop, init = compiled_until_packed(proto, topo, run, fault,
                                        device=device)
     final = loop(init)
-    alive = alive_mask(fault, topo.n, run.origin, final.seen.device)
+    alive = NE.metric_alive(fault, topo.n, run.origin, final.seen.device)
     return (final.round, coverage_packed(final.seen, proto.rumors, alive),
             float(final.msgs.item()), final)
 
@@ -150,14 +174,16 @@ def compiled_until_packed(proto: ProtocolConfig, topo: Topology,
     ``loop(state)``.  The reference's version also returns its topology
     tables, which its jit takes as arguments; here the step holds them.
     ``sampler="kernel"`` keys the sampling kernel with ``run.seed``."""
-    step = make_packed_round(proto, topo, fault, run.origin, sampler,
-                             run.seed, device)
+    step = NE.drop_lost(make_packed_round(proto, topo, fault, run.origin,
+                                          sampler, run.seed, device),
+                        NE.get(fault))
     dev = si_mod.topology_device(topo, device)
     init = init_packed_state(run, proto, topo.n, dev)
-    alive = alive_mask(fault, topo.n, run.origin, dev)
+    alive = NE.metric_alive(fault, topo.n, run.origin, dev)
+    folded = NE.folded_denominator(fault)
 
     def loop(state: SimState) -> SimState:
         return _until(step, state, proto.rumors, run.target_coverage,
-                      run.max_rounds, alive)
+                      run.max_rounds, alive, folded)
 
     return loop, init

@@ -11,7 +11,10 @@ integers at every size.  Its rounding is the reference's: a plain mean
 is ``float32(count) * float32(1 / n)`` (XLA turns the mean's division by
 the constant ``n`` into a product with its reciprocal,
 :func:`~gossip_tpu_torch.ops.common.f32_mean`), an alive-weighted one
-``float32(count) / float32(n_alive)``.
+``float32(count) / float32(n_alive)``, except inside the reference's
+compiled loops under a fault program without random deaths, where the
+alive count is a constant too and the quotient is again a product
+(``folded``).
 """
 
 from __future__ import annotations
@@ -63,10 +66,13 @@ def rumor_counts_packed(packed: torch.Tensor, rumors: int,
 
 
 def coverage_packed(packed: torch.Tensor, rumors: int,
-                    alive: Optional[torch.Tensor] = None) -> float:
+                    alive: Optional[torch.Tensor] = None,
+                    folded: bool = False) -> float:
     """Min-over-rumors coverage of a packed state, alive-weighted with
-    ``alive``."""
+    ``alive`` (``folded``: as a product with the reciprocal of the alive
+    count, ``models.si.coverage``)."""
     low = min(rumor_counts_packed(packed, rumors, alive))
     if alive is None:
         return f32_mean(low, packed.shape[0])
-    return f32_fraction(low, int(alive.sum()))
+    frac = f32_mean if folded else f32_fraction
+    return frac(low, int(alive.sum()))

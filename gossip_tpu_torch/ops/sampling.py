@@ -23,18 +23,21 @@ def node_keys(round_key: torch.Tensor, global_ids: torch.Tensor):
 
 
 def drop_mask(round_key: torch.Tensor, tag: int, global_ids: torch.Tensor,
-              width: int, drop_prob: float) -> torch.Tensor:
-    """bool[N, width] per-edge-use drop mask, keyed by global node id."""
+              width: int, drop_prob) -> torch.Tensor:
+    """bool[N, width] per-edge-use drop mask, keyed by global node id;
+    ``drop_prob`` a float or a float32 0-d tensor."""
     keys = node_keys(threefry.fold_in(round_key, tag), global_ids)
     return threefry.bernoulli(keys, drop_prob, (width,))
 
 
 def apply_drop(round_key: torch.Tensor, tag: int, global_ids: torch.Tensor,
-               targets: torch.Tensor, drop_prob: float,
-               sentinel: int) -> torch.Tensor:
+               targets: torch.Tensor, drop_prob, sentinel: int,
+               force: bool = False) -> torch.Tensor:
     """Lossy links: dropped targets become the sentinel.  A zero rate
-    draws nothing (the reference's static early-out)."""
-    if drop_prob <= 0.0:
+    draws nothing (the reference's static early-out) unless ``force``:
+    the churn rounds always draw, at the round's probability from the
+    schedule (a float32 0-d tensor; at 0 the mask is all False)."""
+    if not force and drop_prob <= 0.0:
         return targets
     dropped = drop_mask(round_key, tag, global_ids, targets.shape[1],
                         drop_prob)

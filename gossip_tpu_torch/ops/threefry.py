@@ -180,7 +180,14 @@ def uniform(k: torch.Tensor, shape) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def bernoulli(k: torch.Tensor, p: float, shape) -> torch.Tensor:
+def bernoulli(k: torch.Tensor, p, shape) -> torch.Tensor:
     """``jax.random.bernoulli(k, p, shape)`` of a key batch: bool of shape
-    ``(..., *shape)``, ``uniform < float32(p)``."""
-    return uniform(k, shape) < torch.tensor(np.float32(p), device=k.device)
+    ``(..., *shape)``, ``uniform < float32(p)``.  ``p`` is a float or a
+    float32 0-d tensor on the keys' device (a per-round probability read
+    from a schedule table)."""
+    if not isinstance(p, torch.Tensor):
+        p = torch.tensor(np.float32(p), device=k.device)
+    elif p.dtype != torch.float32 or p.dim() != 0:
+        raise ValueError(f"p must be a float32 0-d tensor, got {p.dtype} "
+                         f"of shape {tuple(p.shape)}")
+    return uniform(k, shape) < p

@@ -28,8 +28,9 @@ from gossip_tpu.ops import pallas_round as J
 from gossip_tpu.topology import generators as JG
 from gossip_tpu_torch import bench
 from gossip_tpu_torch.backend import run_simulation
-from gossip_tpu_torch.config import (FaultConfig, MeshConfig, ProtocolConfig,
-                                     RunConfig, TopologyConfig)
+from gossip_tpu_torch.config import (ChurnConfig, FaultConfig, MeshConfig,
+                                     ProtocolConfig, RunConfig,
+                                     TopologyConfig)
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
 from _torch_reference import (as_u32, jax_mr_replay, jax_replay,
@@ -141,7 +142,8 @@ def test_cli_runs_several_rumors():
      "32"),
     (ProtocolConfig(mode="swim"), TOPO, RunConfig(engine="xla"), None,
      "models slice"),
-    (PULL, TOPO, RunConfig(), FaultConfig(churn=object()), "churn"),
+    (PULL, TOPO, RunConfig(),
+     FaultConfig(churn=ChurnConfig(events=((1, 1, 4),))), "churn"),
     (PULL, TOPO, RunConfig(engine="native"), None, "go-native"),
     (PULL, TopologyConfig(n=1 << 31), RunConfig(), None, "2\\^31"),
 ])

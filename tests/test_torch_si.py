@@ -150,6 +150,7 @@ def test_refusals():
             make_si_round(TC.ProtocolConfig(mode=mode), tt, device=CPU)
     with pytest.raises(ValueError, match="neighbor table"):
         make_si_round(TC.ProtocolConfig(mode="flood"), tt, device=CPU)
-    with pytest.raises(ValueError, match="nemesis"):
+    with pytest.raises(ValueError, match="node ids"):
         make_si_round(TC.ProtocolConfig(mode="pull"), tt,
-                      TC.FaultConfig(churn=object()), device=CPU)
+                      TC.FaultConfig(churn=TC.ChurnConfig(
+                          events=((N, 1, 4),))), device=CPU)
