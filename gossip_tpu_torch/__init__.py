@@ -9,7 +9,8 @@ staged route's ``csrc/mr_gather.cu``), and the threefry-keyed XLA engine
 (every SI mode and topology, bitwise equal to the JAX package), whose
 packed loop can draw its partners with ``csrc/sampler.cu``; the XLA
 engine also runs the JAX package's fault programs (the nemesis: churn
-events, partition windows, drop ramps).  Its roofline
+events, partition windows, drop ramps), SWIM failure detection and rumor
+mongering.  Its roofline
 tool calibrates the card's rates with the microkernels of
 ``csrc/calibrate.cu`` and prices the round kernels' work with them.
 
@@ -27,8 +28,10 @@ Layout:
     ``fast_sampling``                        the XLA engine's operations
     and the sampling kernel's wrapper
   - :mod:`gossip_tpu_torch.topology.generators`  the graph families
-  - :mod:`gossip_tpu_torch.models`           state, bool and packed rounds
-  - :mod:`gossip_tpu_torch.runtime.simulator`  the bool rounds' loops
+  - :mod:`gossip_tpu_torch.models`           state, bool and packed rounds,
+    SWIM (``swim``) and rumor mongering (``rumor``)
+  - :mod:`gossip_tpu_torch.runtime.simulator`  the bool rounds' and SWIM's
+    loops
   - :mod:`gossip_tpu_torch.ops._kernels`     build, binding and launch
   - :mod:`gossip_tpu_torch.backend`          ``run_simulation``
   - :mod:`gossip_tpu_torch.cli`              ``python -m gossip_tpu_torch``

@@ -11,8 +11,10 @@ on one device (``run_jax`` and ``_run_fused``):
 * ``engine='xla'``: the threefry-keyed engine, bitwise equal to the JAX
   package's XLA path: pull and anti-entropy without a curve on the
   bit-packed rounds (:mod:`gossip_tpu_torch.models.si_packed`,
-  ``meta.engine = "bit-packed"``), everything else on the bool rounds
-  (:mod:`gossip_tpu_torch.runtime.simulator`);
+  ``meta.engine = "bit-packed"``), the other SI runs on the bool rounds
+  (:mod:`gossip_tpu_torch.runtime.simulator`), SWIM failure detection
+  (:mod:`gossip_tpu_torch.models.swim`) and rumor mongering
+  (:mod:`gossip_tpu_torch.models.rumor`) on their own rounds;
 * ``engine='auto'``: fused where :func:`fused_ineligible_reason` is None,
   else xla.  A fault program (``fault.churn``) runs on the xla engine;
   ``fused`` refuses it, as the reference's single-device fused routing
@@ -111,15 +113,52 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
     if log_cfg is not None or txn_cfg is not None:
         return ("the log and txn payload workloads wait for the port's "
                 "payload slice (ROADMAP queue 1, item 4)")
-    if proto.mode in (C.SWIM, C.RUMOR):
-        return (f"mode {proto.mode!r} waits for the port's models slice "
-                "(ROADMAP queue 1, item 4)")
     if mesh_cfg is not None and (mesh_cfg.n_devices > 1
                                  or mesh_cfg.exchange != "dense"):
         return ("more than one device, and the sparse and halo "
                 "exchanges, wait for the port's multi-GPU slice (ROADMAP "
                 "queue 1, item 5)")
     return None
+
+
+def swim_scenario(proto: ProtocolConfig, n: int,
+                  fault: Optional[FaultConfig]):
+    """``(dead_nodes, fail_round, default_scenario)`` of a SWIM run: the
+    fault's scripted deaths, or without any (no ``dead_nodes``, no churn
+    event) node ``1 % S`` failing at round 2.  The metric's targets must
+    be node ids below ``n`` and, on the fixed window, inside it."""
+    from gossip_tpu_torch.models.swim import detection_targets
+    churn = NE.get(fault)
+    scripted = fault is not None and (
+        bool(fault.dead_nodes) or (churn is not None and churn.events))
+    if scripted:
+        dead, fail_round = fault.dead_nodes, fault.fail_round
+    else:
+        dead, fail_round = (1 % proto.swim_subjects,), 2
+    targets = detection_targets(dead, fault)
+    bad = [d for d in targets if d >= n]
+    if bad:
+        raise ValueError(f"dead_nodes {bad} out of range for n={n}")
+    if not proto.swim_rotate:
+        outside = [d for d in targets if d >= proto.swim_subjects]
+        if outside:
+            raise ValueError(
+                f"dead/churn-dead nodes {outside} are outside the fixed "
+                f"subject window 0..{proto.swim_subjects - 1}; enable "
+                "--swim-rotate for full-membership detection")
+    return dead, fail_round, not scripted
+
+
+def swim_scenario_meta(proto: ProtocolConfig, n: int,
+                       fault: Optional[FaultConfig]):
+    """``(dead_nodes, fail_round, meta)``: :func:`swim_scenario` and the
+    meta keys that name it."""
+    from gossip_tpu_torch.models.swim import detection_targets
+    dead, fail_round, default_scenario = swim_scenario(proto, n, fault)
+    return dead, fail_round, {
+        "metric": "detection_fraction",
+        "dead_subjects": list(detection_targets(dead, fault)),
+        "fail_round": fail_round, "default_scenario": default_scenario}
 
 
 def _device_name(dev: torch.device) -> str:
@@ -192,11 +231,90 @@ def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,
               **timing_meta(build_s, steady, wall)})
 
 
+def _run_swim(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
+              fault: Optional[FaultConfig], want_curve: bool, topo,
+              dev: torch.device):
+    """SWIM on the XLA engine: ``(rounds, detection, msgs, curve, meta,
+    steady_s)`` with the reference's meta keys.  ``rounds`` is the round
+    the detection reached the target, else -1."""
+    from gossip_tpu_torch.models.swim import (effective_diss,
+                                              resolve_epoch_rounds,
+                                              suggested_suspect_rounds)
+    from gossip_tpu_torch.runtime.simulator import (simulate_swim_curve,
+                                                    simulate_swim_until)
+    dead, fail_round, meta = swim_scenario_meta(proto, tc.n, fault)
+    meta.update({"clock": "rounds",
+                 "suggested_suspect_rounds":
+                     suggested_suspect_rounds(tc.n, proto.fanout),
+                 "devices": 1,
+                 # the lowering that ran: pack without a lane width is sort
+                 "swim_diss_effective": effective_diss(proto.swim_diss,
+                                                       run.max_rounds),
+                 "swim_rng": proto.swim_rng})
+    if proto.swim_rotate:
+        meta["subject_window"] = "rotating"
+        meta["epoch_rounds"] = resolve_epoch_rounds(proto, tc.n)
+    kw = dict(dead_nodes=dead, fail_round=fail_round, fault=fault,
+              topo=None if tc.family == C.COMPLETE else topo,
+              seed=run.seed, device=dev)
+    if want_curve:
+        (fracs, final), steady = steady_timed(
+            dev, simulate_swim_curve, proto, tc.n, run.max_rounds, **kw)
+        hit = [i for i, f in enumerate(fracs) if f >= run.target_coverage]
+        rounds = (hit[0] + 1) if hit else -1
+        det = float(fracs[-1])
+        peak = float(max(fracs))
+        curve = [float(f) for f in fracs]
+    else:
+        (r, det, peak, final), steady = steady_timed(
+            dev, simulate_swim_until, proto, tc.n, run.max_rounds,
+            run.target_coverage, **kw)
+        rounds = r if det >= float(np.float32(run.target_coverage)) else -1
+        curve = None
+    if proto.swim_rotate:
+        # the window may have left the dead node's epoch by the end
+        meta["peak_detection"] = peak
+    return rounds, det, float(final.msgs.item()), curve, meta, steady
+
+
+def _run_rumor(proto: ProtocolConfig, run: RunConfig,
+               fault: Optional[FaultConfig], want_curve: bool, topo,
+               dev: torch.device):
+    """Rumor mongering on the XLA engine: ``(rounds, coverage, msgs,
+    curve, meta, steady_s)``; ``rounds`` counts the rounds to extinction
+    (no pair hot), -1 if a pair was still hot at ``max_rounds``."""
+    from gossip_tpu_torch.models.rumor import (hot_fraction,
+                                               simulate_curve_rumor,
+                                               simulate_until_rumor)
+    if want_curve:
+        (covs, hots, msgs, _), steady = steady_timed(
+            dev, simulate_curve_rumor, proto, topo, run, fault, dev)
+        _, cov, msgs_f, curve = _curve_summary(covs, msgs,
+                                               run.target_coverage)
+        extinct = np.nonzero(hots == 0.0)[0]
+        rounds = int(extinct[0]) + 1 if len(extinct) else -1
+        residue = 1.0 - float(covs[-1])
+        hot_left = float(hots[-1])
+    else:
+        (rounds, cov, residue, msgs_f, final), steady = steady_timed(
+            dev, simulate_until_rumor, proto, topo, run, fault, dev)
+        curve = None
+        hot_left = hot_fraction(final.hot)
+        rounds = rounds if hot_left == 0.0 else -1
+    meta = {"clock": "rounds", "devices": 1,
+            "msgs_counts": "transmissions", "rounds_semantics": "extinction",
+            "variant": proto.rumor_variant, "rumor_k": proto.rumor_k,
+            "residue": round(residue, 6), "hot_fraction_final": hot_left,
+            "terminated": hot_left == 0.0}
+    return rounds, cov, msgs_f, curve, meta, steady
+
+
 def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
              fault: Optional[FaultConfig], want_curve: bool,
              dev: torch.device) -> RunReport:
-    """The XLA engine: bit-packed pull / anti-entropy without a curve,
-    the bool rounds otherwise."""
+    """The XLA engine: SWIM and rumor mongering on their own rounds,
+    bit-packed pull / anti-entropy without a curve, the bool rounds
+    otherwise."""
     from gossip_tpu_torch.topology import generators as G
     t0 = time.perf_counter()
     topo = G.build(tc, dev)
@@ -205,7 +323,13 @@ def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
     base = {"clock": "rounds", "devices": 1,
             "msgs_counts": "transmissions"}
     t0 = time.perf_counter()
-    if proto.mode in (C.PULL, C.ANTI_ENTROPY) and not want_curve:
+    if proto.mode == C.SWIM:
+        rounds, cov, msgs, curve, meta, steady = _run_swim(
+            proto, tc, run, fault, want_curve, topo, dev)
+    elif proto.mode == C.RUMOR:
+        rounds, cov, msgs, curve, meta, steady = _run_rumor(
+            proto, run, fault, want_curve, topo, dev)
+    elif proto.mode in (C.PULL, C.ANTI_ENTROPY) and not want_curve:
         from gossip_tpu_torch.models.si_packed import simulate_until_packed
         (rounds, cov, msgs, _), steady = steady_timed(
             dev, simulate_until_packed, proto, topo, run, fault, dev)

@@ -2,18 +2,27 @@
 
 The port of the JAX package's ``run`` command on one device::
 
-    python -m gossip_tpu_torch run --mode pull --n 10000000 --engine xla \\
+    python -m gossip_tpu_torch run --mode pull --n 10000000 [--engine E] \\
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
         [--fanout F] [--period T] [--seed S] [--origin O] [--target C]
-        [--max-rounds M] [--drop-prob P] [--death D] [--curve]
+        [--max-rounds M] [--drop P] [--death D] [--curve]
+        [--rumor-k K] [--rumor-variant feedback|blind]
+        [--swim-subjects S] [--swim-proxies K] [--swim-suspect-rounds T]
+        [--swim-rotate] [--swim-epoch-rounds E]
+        [--swim-diss scatter|sort|pack] [--swim-rng split|packed]
+        [--dead-nodes ID...] [--fail-round R]
         [--churn-event NODE:DIE[:REC]]... [--partition START:END:CUT]...
         [--drop-ramp START:END:P0:P1] [--device cpu]
 
-``--mode`` is one of the five SI modes and ``--engine`` one of
-``auto|xla|fused`` (``backend.run_simulation``).  The topology and the
-fault take ``--seed`` as their seeds too, as the JAX command sets them.
-The three churn flags build a fault program (``ChurnConfig``), which runs
-on the xla engine (``auto`` takes it; ``fused`` refuses it).
+``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
+``--engine`` one of ``auto|xla|fused`` (default ``auto``;
+``backend.run_simulation``).  The flags, their defaults and their parse
+are the JAX command's (``--drop-prob`` is another name for ``--drop``;
+``--swim-suspect-rounds 0`` is ``suggested_suspect_rounds(n, fanout)``
+for SWIM and 4 otherwise).  The topology and the fault take ``--seed``
+as their seeds too, as the JAX command sets them.  The three churn flags
+build a fault program (``ChurnConfig``), which runs on the xla engine
+(``auto`` takes it; ``fused`` refuses it).
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
@@ -66,13 +75,24 @@ def _parse_churn(a) -> Optional[ChurnConfig]:
 def cmd_run(a) -> int:
     from gossip_tpu_torch.backend import run_simulation
     churn = _parse_churn(a)
-    fault = (FaultConfig(node_death_rate=a.death, drop_prob=a.drop_prob,
-                         seed=a.seed, churn=churn)
-             if a.drop_prob > 0 or a.death > 0 or churn is not None
-             else None)
+    fault = None
+    if a.drop > 0 or a.death > 0 or a.dead_nodes or churn is not None:
+        fault = FaultConfig(node_death_rate=a.death, drop_prob=a.drop,
+                            seed=a.seed, dead_nodes=tuple(a.dead_nodes or ()),
+                            fail_round=a.fail_round, churn=churn)
+    t = a.swim_suspect_rounds
+    if not t and a.mode == C.SWIM:
+        from gossip_tpu_torch.models.swim import suggested_suspect_rounds
+        t = suggested_suspect_rounds(a.n, a.fanout)
     report = run_simulation(
         ProtocolConfig(mode=a.mode, fanout=a.fanout, rumors=a.rumors,
-                       period=a.period),
+                       period=a.period, swim_subjects=a.swim_subjects,
+                       swim_proxies=a.swim_proxies,
+                       swim_suspect_rounds=t or 4,
+                       swim_rotate=a.swim_rotate,
+                       swim_epoch_rounds=a.swim_epoch_rounds,
+                       swim_diss=a.swim_diss, swim_rng=a.swim_rng,
+                       rumor_k=a.rumor_k, rumor_variant=a.rumor_variant),
         TopologyConfig(family=a.family, n=a.n, k=a.k, p=a.p,
                        degree_cap=a.degree_cap, seed=a.seed),
         RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
@@ -88,10 +108,15 @@ def main(argv=None) -> int:
         description="gossip simulation on PyTorch and CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="run one simulation")
-    p.add_argument("--mode", required=True, choices=C.SI_MODES)
-    p.add_argument("--n", type=int, required=True)
-    p.add_argument("--engine", required=True, choices=("auto", "xla",
-                                                       "fused"))
+    p.add_argument("--mode", default=C.PUSH, choices=C.MODES)
+    p.add_argument("--rumor-k", type=int, default=2,
+                   help="rumor mongering: remove a rumor after this many "
+                        "unnecessary (feedback) or total (blind) pushes")
+    p.add_argument("--rumor-variant", default="feedback",
+                   choices=C.RUMOR_VARIANTS)
+    p.add_argument("--n", type=int, default=1024)
+    p.add_argument("--engine", default="auto", choices=("auto", "xla",
+                                                        "fused"))
     p.add_argument("--family", default=C.COMPLETE, choices=C.FAMILIES)
     p.add_argument("--k", type=int, default=4,
                    help="ring/WS neighbors; BA attachment edges")
@@ -108,10 +133,31 @@ def main(argv=None) -> int:
     p.add_argument("--origin", type=int, default=0)
     p.add_argument("--target", type=float, default=0.99)
     p.add_argument("--max-rounds", type=int, default=256)
-    p.add_argument("--drop-prob", type=float, default=0.0,
+    p.add_argument("--drop", "--drop-prob", type=float, default=0.0,
                    help="per-message drop probability per round")
     p.add_argument("--death", type=float, default=0.0,
                    help="fraction of nodes statically dead")
+    p.add_argument("--swim-subjects", type=int, default=8)
+    p.add_argument("--swim-proxies", type=int, default=3)
+    p.add_argument("--swim-suspect-rounds", type=int, default=0,
+                   help="0 = use suggested_suspect_rounds(n)")
+    p.add_argument("--swim-rotate", action="store_true",
+                   help="rotate the subject window over all n nodes "
+                        "(full-membership failure detection)")
+    p.add_argument("--swim-epoch-rounds", type=int, default=0,
+                   help="rounds per rotating-window epoch (0 = auto)")
+    p.add_argument("--swim-diss", choices=("scatter", "sort", "pack"),
+                   default="sort",
+                   help="dissemination lowering (equal results)")
+    p.add_argument("--swim-rng", choices=("split", "packed"),
+                   default="split",
+                   help="per-round draws: one threefry chain per quantity "
+                        "(split) or one multi-word draw per node (packed)")
+    p.add_argument("--dead-nodes", nargs="*", type=int, default=None,
+                   metavar="ID",
+                   help="node ids that fail at --fail-round (swim scenario; "
+                        "default: node 1%%S fails at round 2)")
+    p.add_argument("--fail-round", type=int, default=0)
     p.add_argument("--churn-event", action="append", default=None,
                    metavar="NODE:DIE[:REC]",
                    help="scripted crash/recover churn: NODE dies at round "

@@ -19,6 +19,7 @@ SI_MODES = (PUSH, PULL, PUSH_PULL, FLOOD, ANTI_ENTROPY)
 COMPLETE, RING, GRID, ERDOS_RENYI, WATTS_STROGATZ, POWER_LAW = (
     "complete", "ring", "grid", "erdos_renyi", "watts_strogatz", "power_law")
 FAMILIES = (COMPLETE, RING, GRID, ERDOS_RENYI, WATTS_STROGATZ, POWER_LAW)
+RUMOR_VARIANTS = ("feedback", "blind")
 ENGINES = ("auto", "fused", "xla", "native")
 EXCHANGES = ("dense", "sparse", "halo")
 
@@ -50,13 +51,35 @@ class TopologyConfig:
 class ProtocolConfig:
     """Gossip protocol semantics: every node contacts ``fanout`` sampled
     peers per round (never itself when ``exclude_self``); ``rumors``
-    concurrent rumors; anti-entropy exchanges every ``period`` rounds."""
+    concurrent rumors; anti-entropy exchanges every ``period`` rounds.
+
+    SWIM (:mod:`gossip_tpu_torch.models.swim`): ``swim_proxies`` indirect
+    probes, ``swim_suspect_rounds`` before a suspect is confirmed dead,
+    ``swim_subjects`` watched subjects (the window's width), which
+    ``swim_rotate`` moves by its width every ``swim_epoch_rounds``
+    (0: :func:`~gossip_tpu_torch.models.swim.suggested_epoch_rounds`);
+    ``swim_diss`` the dissemination's lowering (``scatter``, ``sort`` or
+    ``pack``, equal results) and ``swim_rng`` its draws (``split``: one
+    threefry chain per quantity; ``packed``: one multi-word draw per
+    node, another stream).  Rumor mongering
+    (:mod:`gossip_tpu_torch.models.rumor`): a hot rumor stops spreading
+    after ``rumor_k`` pushes to nodes that knew it (``feedback``) or
+    after ``rumor_k`` pushes (``blind``)."""
 
     mode: str = PUSH
     fanout: int = 1
     rumors: int = 1
     exclude_self: bool = True
     period: int = 1
+    swim_proxies: int = 3
+    swim_suspect_rounds: int = 4
+    swim_subjects: int = 8
+    swim_rotate: bool = False
+    swim_epoch_rounds: int = 0
+    swim_diss: str = "sort"
+    swim_rng: str = "split"
+    rumor_k: int = 2
+    rumor_variant: str = "feedback"
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -65,6 +88,22 @@ class ProtocolConfig:
             raise ValueError("fanout must be >= 1")
         if self.rumors < 1:
             raise ValueError("rumors must be >= 1")
+        if self.swim_subjects < 1:
+            raise ValueError("swim_subjects must be >= 1")
+        if self.swim_epoch_rounds < 0:
+            raise ValueError("swim_epoch_rounds must be >= 0 (0 = auto)")
+        if self.swim_diss not in ("scatter", "sort", "pack"):
+            raise ValueError(f"unknown swim_diss {self.swim_diss!r}; "
+                             "choose 'scatter', 'sort', or 'pack'")
+        if self.swim_rng not in ("split", "packed"):
+            raise ValueError(f"unknown swim_rng {self.swim_rng!r}; "
+                             "choose 'split' or 'packed'")
+        if self.rumor_k < 1:
+            raise ValueError("rumor_k must be >= 1")
+        if self.rumor_variant not in RUMOR_VARIANTS:
+            raise ValueError(f"unknown rumor_variant "
+                             f"{self.rumor_variant!r}; choose from "
+                             f"{RUMOR_VARIANTS}")
 
 
 # Ceiling on a schedule's horizon (the length of the nemesis tables):
@@ -189,16 +228,26 @@ class ChurnConfig:
 class FaultConfig:
     """In-round fault injection: a static dead set drawn at
     ``node_death_rate`` from ``seed`` (``models/state.alive_mask``), a
-    per-message drop probability, and ``churn``, a fault program over
-    rounds (:class:`ChurnConfig`; a dict is coerced, and an empty
-    program is ``None``, which keeps every engine on its static path)."""
+    per-message drop probability, SWIM's scripted failures (the nodes
+    ``dead_nodes`` fail for good at ``fail_round``), and ``churn``, a
+    fault program over rounds (:class:`ChurnConfig`; a dict is coerced,
+    and an empty program is ``None``, which keeps every engine on its
+    static path)."""
 
     node_death_rate: float = 0.0
     drop_prob: float = 0.0
     seed: int = 0
+    dead_nodes: Tuple[int, ...] = ()
+    fail_round: int = 0
     churn: Optional[ChurnConfig] = None
 
     def __post_init__(self):
+        if not isinstance(self.dead_nodes, tuple):
+            object.__setattr__(self, "dead_nodes", tuple(self.dead_nodes))
+        if any(d < 0 for d in self.dead_nodes):
+            raise ValueError("dead_nodes must be non-negative node ids")
+        if self.fail_round < 0:
+            raise ValueError("fail_round must be >= 0")
         if not 0.0 <= self.node_death_rate <= 1.0:
             raise ValueError(
                 f"node_death_rate={self.node_death_rate} outside [0, 1]")

@@ -50,7 +50,10 @@ def topology_device(topo: Topology, device=None) -> torch.device:
     names one (which must then hold the table)."""
     if topo.nbrs is not None:
         dev = topo.nbrs.device
-        if device is not None and torch.device(device) != dev:
+        want = None if device is None else torch.device(device)
+        # a device without an index ("cuda") names the current one
+        if want is not None and (want.type != dev.type or (
+                want.index is not None and want.index != dev.index)):
             raise ValueError(f"the topology's table is on {dev}, not "
                              f"{device}")
         return dev
@@ -89,11 +92,10 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
     n, k = topo.n, proto.fanout
     mode = proto.mode
     if mode == C.SWIM:
-        raise ValueError("SWIM rounds wait for the port's models slice "
-                         "(ROADMAP queue 1, item 4)")
+        raise ValueError("SWIM rounds are built by models/swim.py")
     if mode == C.RUMOR:
-        raise ValueError("rumor-mongering rounds wait for the port's "
-                         "models slice (ROADMAP queue 1, item 4)")
+        raise ValueError("rumor-mongering rounds are built by "
+                         "models/rumor.py (SIR state, not SI)")
     if mode == C.FLOOD and topo.implicit:
         raise ValueError("flood mode needs an explicit neighbor table")
     dev = topology_device(topo, device)

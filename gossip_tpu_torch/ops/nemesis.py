@@ -299,8 +299,12 @@ def check_supported(fault: Optional[FaultConfig], *, engine: str,
         raise ValueError(f"the {engine} engine does not run churn "
                          "schedules")
     if not partitions and ch.partitions:
-        raise ValueError(f"the {engine} engine cannot honor partition "
-                         "windows")
+        # the reference's words (SWIM is the engine that refuses a cut)
+        raise ValueError(
+            f"the {engine} engine cannot honor partition windows (no "
+            "per-pair messages a node-id cut could destroy — SWIM "
+            "probes ride the complete membership overlay); run the "
+            "dense/sparse/halo/fused exchanges for partition scenarios")
     if not ramp and ch.ramp is not None:
         raise ValueError(f"the {engine} engine cannot follow a drop-rate "
                          "ramp")

@@ -52,8 +52,9 @@ def shift_excluding_self(r: torch.Tensor, gid) -> torch.Tensor:
 
 def table_lookup_or_sentinel(idx: torch.Tensor, rows: torch.Tensor,
                              deg: torch.Tensor, sentinel: int):
-    """Neighbour ``idx`` of each row; degree-0 rows give the sentinel."""
-    t = torch.gather(rows.to(torch.int64), -1, idx)
+    """Neighbour ``idx`` of each row (int64); degree-0 rows give the
+    sentinel.  The gather reads the table in its own dtype."""
+    t = torch.gather(rows, -1, idx).to(torch.int64)
     return torch.where(deg > 0, t, sentinel)
 
 

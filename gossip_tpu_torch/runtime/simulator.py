@@ -1,8 +1,8 @@
 """Run loops of the XLA engine's bool rounds.
 
-The port of the JAX package's ``runtime/simulator.py`` (SI modes, with
-their fault programs; the SWIM and checkpointed loops wait for their
-slices):
+The port of the JAX package's ``runtime/simulator.py`` (the SI modes
+and SWIM, with their fault programs; the checkpointed loops wait for
+their slice):
 
 * :func:`simulate_curve` runs exactly ``run.max_rounds`` rounds and
   records the coverage and the message count after each (the
@@ -14,6 +14,11 @@ slices):
 
 Under a fault program the coverage's denominator is the eventual alive
 set, and the round's ``lost`` count is dropped.
+
+SWIM's loops (:func:`simulate_swim_curve`, :func:`simulate_swim_until`)
+record the detection fraction of the round just run: the share of
+(alive observer, dead subject) pairs confirmed DEAD, a float32 quotient
+in the reference's compiled loops too (its denominator is not folded).
 """
 
 from __future__ import annotations
@@ -22,13 +27,15 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from gossip_tpu_torch.config import FaultConfig, ProtocolConfig, RunConfig
+from gossip_tpu_torch.models import swim as SW
 from gossip_tpu_torch.models.si import (coverage, make_si_round,
                                         topology_device)
 from gossip_tpu_torch.models.state import SimState, init_state
 from gossip_tpu_torch.ops import nemesis as NE
-from gossip_tpu_torch.topology.generators import Topology
+from gossip_tpu_torch.topology.generators import Topology, complete
 
 
 @dataclasses.dataclass
@@ -108,3 +115,72 @@ def simulate_until(proto: ProtocolConfig, topo: Topology, run: RunConfig,
     return UntilResult(rounds=final.round, coverage=coverage(final.seen,
                                                              alive),
                        msgs=float(final.msgs.item()), state=final)
+
+
+def _swim_setup(proto: ProtocolConfig, n: int, rounds: int, dead_nodes,
+                fail_round: int, fault: Optional[FaultConfig],
+                topo: Optional[Topology], seed: int, device):
+    """The SWIM round, a fresh state, and the detection of the round just
+    run as ``state -> (confirmed, pairs)`` 0-d tensors on the device
+    (None without dead subjects: the metric is then 0)."""
+    dead_nodes = tuple(dead_nodes)
+    step = SW.make_swim_round(proto, n, dead_nodes, fail_round, fault, topo,
+                              max_rounds=rounds, device=device)
+    dev = topology_device(complete(n) if topo is None else topo, device)
+    init = SW.init_swim_state(n, proto.swim_subjects, seed, dev)
+    # the metric's targets: the scripted deaths and the program's
+    # permanent ones; its observers: the nodes alive after fail_round
+    dead = SW.detection_targets(dead_nodes, fault)
+    observers = SW.observer_alive(n, dead_nodes, fault, dev)
+    epoch_rounds = SW.resolve_epoch_rounds(proto, n)
+
+    def counts(s):
+        window = SW.subject_window(s.round - 1, proto.swim_subjects, n,
+                                   proto.swim_rotate, epoch_rounds, dev)
+        return SW.detection_counts(s.wire, dead, observers, window)
+
+    return step, init, counts if dead else None
+
+
+def simulate_swim_curve(proto: ProtocolConfig, n: int, rounds: int,
+                        dead_nodes=(), fail_round: int = 0,
+                        fault: Optional[FaultConfig] = None,
+                        topo: Optional[Topology] = None, seed: int = 0,
+                        device=None):
+    """Exactly ``rounds`` SWIM rounds.  Returns the detection fraction
+    after each (float32 numpy, read from the device once at the end) and
+    the final state."""
+    step, state, counts = _swim_setup(proto, n, rounds, dead_nodes,
+                                      fail_round, fault, topo, seed, device)
+    per_round = []
+    for _ in range(rounds):
+        state = step(state)
+        if counts is not None:
+            per_round.append(torch.stack(counts(state)))
+    if counts is None:
+        return np.zeros(rounds, np.float32), state
+    table = torch.stack(per_round).cpu().tolist() if per_round else []
+    return np.asarray([SW.detection_quotient(c, p) for c, p in table],
+                      np.float32), state
+
+
+def simulate_swim_until(proto: ProtocolConfig, n: int, max_rounds: int,
+                        target: float, dead_nodes=(), fail_round: int = 0,
+                        fault: Optional[FaultConfig] = None,
+                        topo: Optional[Topology] = None, seed: int = 0,
+                        device=None):
+    """SWIM rounds until the detection fraction reaches the float32
+    ``target`` or ``max_rounds``, one host read a round.  Returns
+    ``(rounds, detection, peak, final_state)``: ``peak`` is the best
+    detection of the run (a rotating window's headline: the detection
+    falls back once the window has left the dead node's epoch)."""
+    step, state, counts = _swim_setup(proto, n, max_rounds, dead_nodes,
+                                      fail_round, fault, topo, seed, device)
+    tgt = np.float32(target)
+    det = peak = 0.0
+    while det < tgt and state.round < max_rounds:
+        state = step(state)
+        det = (SW.detection_quotient(*counts(state)) if counts is not None
+               else 0.0)
+        peak = max(peak, det)
+    return state.round, det, peak, state

@@ -41,7 +41,7 @@ import subprocess
 import sys
 from collections import Counter
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -431,14 +431,18 @@ def calibrate(rows: int, device=None, iters: int = 20) -> dict:
     elementary ops/s (vpu, the reference's 3 ops a step).  Beside them,
     each microkernel's SASS instructions per second (``SASS_PER_WORD``),
     all of them and those of the ALU and the FMA pipe, and the launches
-    each kernel took."""
+    each kernel took (:func:`timed_chain`'s count of chains, retried ones
+    included, times ``iters``)."""
     dev = resolve_device(device)
     words = rows * LANES
     init = torch.zeros(rows, LANES, dtype=torch.int32, device=dev)
+    chains = []
     t_prng = timed_chain(CAL.prng_chain_step, init, iters, dev,
-                         CHAIN_REPEATS)
-    t_pg = timed_chain(CAL.prng_gather_step, init, iters, dev, CHAIN_REPEATS)
-    t_vpu = timed_chain(CAL.vpu_step, init, iters, dev, CHAIN_REPEATS)
+                         CHAIN_REPEATS, chains=chains)
+    t_pg = timed_chain(CAL.prng_gather_step, init, iters, dev, CHAIN_REPEATS,
+                       chains=chains)
+    t_vpu = timed_chain(CAL.vpu_step, init, iters, dev, CHAIN_REPEATS,
+                        chains=chains)
     # the differential only resolves the gather when the combined kernel
     # is measurably slower than draw-only; below 5% of t_prng the
     # difference is timing noise, or the gather hid under the Philox work
@@ -460,7 +464,7 @@ def calibrate(rows: int, device=None, iters: int = 20) -> dict:
         "t_vpu_ms": t_vpu * 1e3,
         **sass,
         "sass_per_word": SASS_PER_WORD,
-        "launches": {name: (CHAIN_REPEATS + 1) * iters for name in times},
+        "launches": {name: c * iters for name, c in zip(times, chains)},
     }
 
 
@@ -479,30 +483,35 @@ def hbm_rate(table_bytes: int, iters: int = 20, device=None) -> dict:
 
 # ---------------------------------------------------------- actual runs
 
-def _time_rounds(round_fn, table, iters: int, dev,
-                 graph: bool = False) -> float:
+def _time_rounds(round_fn, table, iters: int, dev, graph: bool = False,
+                 chains: Optional[list] = None) -> float:
     """ms per round of ``round_fn(i, table, out)`` chained through two
     buffers.  A round's work does not depend on its table's bits, so the
-    later chains may start from a later round's table."""
+    later chains may start from a later round's table.  ``chains``: as
+    :func:`timed_chain`'s."""
     bufs = (table, torch.empty_like(table))
 
     def step(i, t):
         return round_fn(i, t, bufs[1] if t is bufs[0] else bufs[0])
-    return timed_chain(step, table, iters, dev, CHAIN_REPEATS, graph) * 1e3
+    return timed_chain(step, table, iters, dev, CHAIN_REPEATS, graph,
+                       chains) * 1e3
 
 
 def measure_single(n: int, device=None, iters: int = 20,
-                   plane_sharing: int = 1) -> float:
+                   plane_sharing: int = 1,
+                   chains: Optional[list] = None) -> float:
     """Measured ms per round of the single-rumor kernel at fanout 1
-    (``plane_sharing=2``: half the draw words)."""
+    (``plane_sharing=2``: half the draw words).  ``chains``: as
+    :func:`timed_chain`'s (also for the two ``measure_mr_*``)."""
     dev = resolve_device(device)
     return _time_rounds(lambda i, t, out: FR.fused_pull_round(
         t, 0, i, n, 1, plane_sharing=plane_sharing, out=out),
-        FR.init_fused_state(n, 0, dev).table, iters, dev)
+        FR.init_fused_state(n, 0, dev).table, iters, dev, chains=chains)
 
 
 def measure_mr_staged(n: int, rumors: int, device=None,
-                      iters: int = 20) -> float:
+                      iters: int = 20,
+                      chains: Optional[list] = None) -> float:
     """Measured ms per round of the staged multi-rumor route
     (``fused_mr_round_big``: the torch rotation and shift words, then one
     gather pass), stepped directly: the port's public round always takes
@@ -513,11 +522,12 @@ def measure_mr_staged(n: int, rumors: int, device=None,
     return _time_rounds(lambda i, t, out: MR.fused_mr_round_big(
         t, 0, i, n, 1, rumors=rumors, out=out),
         MR.init_multirumor_state(n, rumors, 0, dev).table, iters, dev,
-        graph=True)
+        graph=True, chains=chains)
 
 
 def measure_mr_value(n: int, rumors: int, device=None,
-                     iters: int = 20) -> float:
+                     iters: int = 20,
+                     chains: Optional[list] = None) -> float:
     """Measured ms per round of the value route as the run loops launch
     it (:func:`~gossip_tpu_torch.ops.fused_mr_round.fused_mr_round_lanes`
     on lane-major buffers: the value kernel on the card)."""
@@ -525,7 +535,7 @@ def measure_mr_value(n: int, rumors: int, device=None,
     return _time_rounds(lambda i, t, out: MR.fused_mr_round_lanes(
         t, 0, i, n, 1, rumors=rumors, out=out),
         MR.to_lanes(MR.init_multirumor_state(n, rumors, 0, dev).table),
-        iters, dev)
+        iters, dev, chains=chains)
 
 
 # ---------------------------------------------------------------- floors
@@ -590,10 +600,16 @@ def roofline(n: int, rumors: int, iters: int, device=None,
     hbm = hbm_rate(mr["table_bytes"], iters, dev)
     hbm4 = hbm_rate(4 * mr["table_bytes"], iters, dev)
 
-    actual_sr_ms = measure_single(n, dev, iters)
-    actual_sr2_ms = measure_single(n, dev, iters, plane_sharing=2)
-    actual_mr_ms = measure_mr_staged(n, rumors, dev, iters)
-    actual_value_ms = measure_mr_value(n, rumors, dev, iters)
+    # the launches each round kernel took, from the chains that ran
+    chains = {"fused_round": [], "mr_gather": [], "fused_mr_round": []}
+    actual_sr_ms = measure_single(n, dev, iters,
+                                  chains=chains["fused_round"])
+    actual_sr2_ms = measure_single(n, dev, iters, plane_sharing=2,
+                                   chains=chains["fused_round"])
+    actual_mr_ms = measure_mr_staged(n, rumors, dev, iters,
+                                     chains=chains["mr_gather"])
+    actual_value_ms = measure_mr_value(n, rumors, dev, iters,
+                                       chains=chains["fused_mr_round"])
 
     mr_floor_fused = mr["hbm_bytes_fused_rot"] / hbm["bytes_per_s"] * 1e3
     mr_floor_mat = (mr["hbm_bytes_materialized_rot"]
@@ -638,6 +654,8 @@ def roofline(n: int, rumors: int, iters: int, device=None,
             "utilization_vs_floor": value_floor / actual_value_ms,
         },
         "kernels": kernels,
+        "round_launches": {name: sum(c) * iters
+                           for name, c in chains.items()},
     }
 
 

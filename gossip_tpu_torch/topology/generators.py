@@ -74,9 +74,14 @@ def _pack(n: int, src: np.ndarray, dst: np.ndarray,
     starts = np.concatenate([[0], np.cumsum(deg)])[:-1]
     col = np.arange(len(src)) - np.repeat(starts, deg)
     if degree_cap is not None and d_max > degree_cap:
-        over = deg > degree_cap
-        pri = np.where(over[src], rng.random(len(src)), col.astype(np.float64))
-        order2 = np.lexsort((pri, src))
+        # rows over the cap keep a random subset: within each, the edges
+        # sorted by a uniform priority (drawn for every edge, as the
+        # reference draws it); the rows under the cap keep their order,
+        # so only the rows over it are sorted
+        over_rows = np.flatnonzero((deg > degree_cap)[src])
+        pri = rng.random(len(src))[over_rows]
+        order2 = np.arange(len(src))
+        order2[over_rows] = over_rows[np.lexsort((pri, src[over_rows]))]
         src, dst = src[order2], dst[order2]
         rank = np.arange(len(src)) - np.repeat(starts, deg)
         keep = rank < degree_cap
@@ -188,24 +193,24 @@ def power_law(n: int, m: int = 2, seed: int = 0,
     srcs = [np.repeat(np.arange(m + 1), m)]
     dsts = [np.concatenate([np.delete(np.arange(m + 1), i)[:m]
                             for i in range(m + 1)])]
-    pool = np.concatenate(srcs + dsts)
-    pool_list = [pool]
-    pool_size = len(pool)
+    seed_pool = np.concatenate(srcs + dsts)
     new = np.arange(m + 1, n)
+    # the endpoint pool, filled in place: each chunk draws from the pool
+    # as it stood before the chunk and then appends its own endpoints
+    pool = np.empty(len(seed_pool) + 2 * m * len(new), seed_pool.dtype)
+    pool[:len(seed_pool)] = seed_pool
+    pool_size = len(seed_pool)
     chunk = max(1024, (n - m - 1) // 64)
     for lo in range(0, len(new), chunk):
         nodes = new[lo:lo + chunk]
-        flat_pool = (np.concatenate(pool_list) if len(pool_list) > 1
-                     else pool_list[0])
-        pool_list = [flat_pool]
-        picks = flat_pool[rng.integers(0, pool_size, size=(len(nodes), m))]
+        picks = pool[rng.integers(0, pool_size, size=(len(nodes), m))]
         s = np.repeat(nodes, m)
         d = picks.reshape(-1)
         srcs.append(s)
         dsts.append(d)
-        addition = np.concatenate([s, d])
-        pool_list.append(addition)
-        pool_size += len(addition)
+        pool[pool_size:pool_size + len(s)] = s
+        pool[pool_size + len(s):pool_size + 2 * len(s)] = d
+        pool_size += 2 * len(s)
     src = np.concatenate(srcs + dsts)
     dst = np.concatenate(dsts + srcs)
     codes = np.unique(src.astype(np.int64) * n + dst)

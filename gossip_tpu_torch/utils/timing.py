@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import statistics
 import time
+from typing import Optional
 
 import torch
 
@@ -17,7 +18,7 @@ SLEEP_CYCLES = 20_000_000  # device sleep that queues a timed chain behind it
 
 
 def timed_chain(step, init, iters: int, device, repeats: int = 3,
-                graph: bool = False) -> float:
+                graph: bool = False, chains: Optional[list] = None) -> float:
     """Seconds per iteration for ``iters`` chained applications
     ``carry = step(i, carry)``, ``i = 0 .. iters-1``, from ``init``: the
     median of ``repeats`` timed chains after one warm-up chain (which
@@ -29,10 +30,16 @@ def timed_chain(step, init, iters: int, device, repeats: int = 3,
     a CUDA graph and times its replays, for a chain of many small
     launches: the capture calls each wrapper once more (its launch
     counter counts that), the replays call none.  On the CPU it is the
-    host clock."""
+    host clock.  ``chains``: a list to which the number of chains that
+    called ``step`` is appended (the warm-up, the capture, each timed
+    chain, and one more for each timing :func:`_behind_sleep` retried),
+    so a caller knows how many launches each wrapper made."""
     device = torch.device(device)
+    called = 0
 
     def chain():
+        nonlocal called
+        called += 1
         carry = init
         for i in range(iters):
             carry = step(i, carry)
@@ -56,6 +63,8 @@ def timed_chain(step, init, iters: int, device, repeats: int = 3,
             run()
             seconds = time.perf_counter() - t0
         samples.append(seconds / iters)
+    if chains is not None:
+        chains.append(called)
     return statistics.median(samples)
 
 

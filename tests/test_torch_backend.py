@@ -140,8 +140,9 @@ def test_cli_runs_several_rumors():
      "complete"),
     (ProtocolConfig(mode="pull", rumors=33), TOPO, RunConfig(), None,
      "32"),
-    (ProtocolConfig(mode="swim"), TOPO, RunConfig(engine="xla"), None,
-     "models slice"),
+    (ProtocolConfig(mode="swim"), TOPO, RunConfig(engine="xla"),
+     FaultConfig(churn=ChurnConfig(partitions=((0, 4, N // 2),))),
+     "cannot honor partition windows"),
     (PULL, TOPO, RunConfig(),
      FaultConfig(churn=ChurnConfig(events=((1, 1, 4),))), "churn"),
     (PULL, TOPO, RunConfig(engine="native"), None, "go-native"),
@@ -166,7 +167,7 @@ def test_later_slices_are_refused(kw, match):
 
 
 @pytest.mark.parametrize("args", [
-    ["--mode", "swim", "--n", "1000", "--engine", "xla"],
+    ["--mode", "swim", "--n", "1000", "--devices", "2"],
     ["--mode", "pull", "--n", "1000", "--engine", "native"],
     ["--mode", "pull", "--n", "1000", "--engine", "xla", "--devices", "2"],
     ["--mode", "pull", "--n", "1000", "--engine", "fused", "--device",

@@ -54,6 +54,8 @@ def test_importing_every_module_loads_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "gossip_tpu_torch.ops.fused_round" in out["imported"]
     assert "gossip_tpu_torch.__main__" in out["imported"]
+    assert "gossip_tpu_torch.models.swim" in out["imported"]
+    assert "gossip_tpu_torch.models.rumor" in out["imported"]
     assert out["forbidden"] == []
 
 

@@ -258,6 +258,14 @@ def test_smoke_document_on_cpu(tmp_path, capsys):
     # one floor for the value round: the one of its kernel
     assert doc["mr_value"]["floor_ms"] == \
         doc["kernels"]["fused_mr_round"]["floor_ms"]
+    # the launches the chains issued: a warm-up and the timed chains each
+    # (on the CPU no timing retries and the staged chain is no graph)
+    chain = (R.CHAIN_REPEATS + 1) * doc["iters"]
+    assert cal["launches"] == {"cal_prng": chain, "cal_prng_gather": chain,
+                               "cal_vpu": chain}
+    assert doc["round_launches"] == {"fused_round": 2 * chain,
+                                     "mr_gather": chain,
+                                     "fused_mr_round": chain}
     validate = _load("validate_artifacts", "tools/validate_artifacts.py")
     assert validate._has_provenance_keys(doc)
     assert doc["provenance"]["torch"] == torch.__version__
@@ -279,8 +287,10 @@ def test_timed_chain_on_cpu():
     def step(i, carry):
         seen.append((i, carry))
         return carry + 1
-    assert timed_chain(step, 10, 3, "cpu", repeats=2) > 0
+    chains = []
+    assert timed_chain(step, 10, 3, "cpu", repeats=2, chains=chains) > 0
     assert seen == [(0, 10), (1, 11), (2, 12)] * 3
+    assert chains == [3]
     # no graph on the CPU: the same chains on the host clock
     seen.clear()
     assert timed_chain(step, 10, 3, "cpu", repeats=2, graph=True) > 0

@@ -146,7 +146,7 @@ def test_loops_match_reference(mode, family, fault):
 def test_refusals():
     _, tt = _topos("complete")
     for mode in ("swim", "rumor"):
-        with pytest.raises(ValueError, match="slice"):
+        with pytest.raises(ValueError, match=f"models/{mode}.py"):
             make_si_round(TC.ProtocolConfig(mode=mode), tt, device=CPU)
     with pytest.raises(ValueError, match="neighbor table"):
         make_si_round(TC.ProtocolConfig(mode="flood"), tt, device=CPU)
