@@ -8,8 +8,9 @@ the flagship run (single-rumor pull gossip to 99% coverage), the
 multi-rumor run (32 rumors, to 99% min-over-rumors coverage), the
 threefry-keyed XLA engine (with its threefry sampler and with the
 sampling kernel, without and under a fault program), SWIM failure
-detection and rumor mongering, and the roofline tool through the port's
-own entry points, and measures them.  One JSON line per phase:
+detection and rumor mongering, the CRDT payloads (with the byzantine
+liar program) and the replicated logs, and the roofline tool through the
+port's own entry points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
@@ -107,11 +108,24 @@ own entry points, and measures them.  One JSON line per phase:
    shapes); each run's ms a round and node-rounds/s, and one SWIM
    round's parts at SW1's shape (draws, each dissemination lowering, the
    detection read);
-16. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
+16. ``crdt_log_path``  the JAX package's ``crdt`` and ``log`` command
+   lines (``CRDT_LOG_CASES``: counters and an OR-set at their documents'
+   sizes, CR4's G-counter at n = 65,536 (two ``int32[n, n]`` states,
+   34.4 GB), a liar program defended and not at 16 nodes and at 65,536,
+   the logs at up to 100,000 nodes) through the port's ``crdt`` and
+   ``log`` commands on the card, each against the JAX package's rounds,
+   convergence, truth and msgs (CR1's curve too), no kernel launched;
+   CR1 and LG1 again through ``python -m gossip_tpu_torch``; the final
+   state of CR1, CR2, CR3, LG2, BZ1d, BZ1u, BZ2u and BZ2d equal to the
+   port's CPU run, every field; CR4 through ``simulate_until_crdt`` with
+   its peak of allocated memory (at most 2.1 states: a round holds the
+   state, its successor and one block); each run's ms a round and
+   node-rounds/s, and one round's parts at CR4's and CR3's shapes;
+17. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
    N = 10M with ``node_death_rate=0.1`` against their plain replays, the
    stop test's counter-read coverage against a recount, and their ms per
    round;
-17. ``roofline_checks`` and ``roofline``  the three calibration
+18. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
    i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
@@ -196,6 +210,50 @@ RUMOR_CASES = {
     "RM3": ("feedback", "heal", (48, 0.9507429003715515, 30120180.0)),
 }
 N_MODELS_SMALL = 10_000   # the SWIM and rumor runs held card against CPU
+# The CRDT payloads and the replicated logs: the JAX package's `crdt` and
+# `log` command lines (its documents' deployments: CR1 and LG2
+# docs/WORKLOADS.md:117 and :224, CR2 README.md:291, CR3
+# docs/WORKLOADS.md:126, CR4 README.md:290 with n cut from 100,000 to
+# 65,536 so that two int32[n, n] states fit the card, BZ1
+# docs/ROBUSTNESS.md:373 with and without --defend, BZ2 CR3's deployment
+# with BZ1's liars, LG1 README.md:300, LG3 docs/WORKLOADS.md:228) and
+# their (rounds, value_conv or log_conv, truth_value or truth, msgs),
+# jax 0.9.0 on the CPU.  Threefry does not depend on the platform, so the
+# port must print the same on the card.
+_BYZ = ["--byz", "3:2:inflate:5", "--byz", "11:0:corrupt:1048576"]
+_BZ1 = ["crdt", "--type", "gcounter", "--n", "16", "--fanout", "3",
+        "--max-rounds", "100", "--churn-event", "4:6:12", *_BYZ]
+_BZ2 = ["crdt", "--type", "orset", "--elements", "256", "--set-remove",
+        "5:3", "--n", "65536", "--fanout", "3", *_BYZ]
+_HEAL = ["--churn-event", "3:2:5", "--drop-ramp", "1:4:0.0:0.3"]
+CRDT_LOG_CASES = {
+    "CR1": (["crdt", "--type", "gcounter", "--n", "4096", "--partition",
+             "0:6:2048", *_HEAL, "--curve"], (24, 1.0, 16381, 705870.0)),
+    "CR2": (["crdt", "--type", "pncounter", "--n", "4096", *_HEAL],
+            (20, 1.0, 3, 243652.0)),
+    "CR3": (["crdt", "--type", "orset", "--elements", "256", "--set-remove",
+             "5:3", "--n", "65536"], (16, 1.0, 255, 4194304.0)),
+    "CR4": (["crdt", "--type", "gcounter", "--n", "65536", "--partition",
+             "0:6:32768"], (21, 1.0, 262139, 4720758.0)),
+    "BZ1d": ([*_BZ1, "--defend"], (26, 1.0, 59, 2460.0)),
+    "BZ1u": (_BZ1, (100, 0.0, 59, 9564.0)),
+    "BZ2u": (_BZ2, (64, 0.0, 255, 25165824.0)),
+    "BZ2d": ([*_BZ2, "--defend"], (64, 0.0, 255, 25165824.0)),
+    "LG1": (["log", "--n", "100000", "--keys", "8", "--partition",
+             "0:6:50000"], (20, 1.0, {"lens": [4] * 8, "committed": [2] * 8,
+                                      "total_entries": 32}, 6799524.0)),
+    "LG2": (["log", "--n", "4096", "--keys", "4", "--capacity", "16",
+             "--partition", "0:8:2048", *_HEAL],
+            (24, 1.0, {"lens": [4, 4, 4, 4], "committed": [2, 2, 0, 2],
+                       "total_entries": 16}, 236676.0)),
+    "LG3": (["log", "--n", "64", "--keys", "2", "--send", "0:0:0:9",
+             "--send", "1:0:1:4", "--commit", "2:0:3:1"],
+            (8, 1.0, {"lens": [2, 0], "committed": [1, 0],
+                      "total_entries": 2}, 2048.0)),
+}
+# the ids whose final state on the card must equal the port's CPU run
+CRDT_LOG_REPLAYS = ("CR1", "CR2", "CR3", "LG2", "BZ1d", "BZ1u", "BZ2u",
+                    "BZ2d")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1154,14 +1212,14 @@ def _swim_fault(kind):
                                          ramp=(0, 4, 0.0, 0.05)))
 
 
-def _port_run(args) -> dict:
-    """The report of ``python -m gossip_tpu_torch run ARGS`` (its last
+def _port_run(args, cmd: str = "run") -> dict:
+    """The report of ``python -m gossip_tpu_torch CMD ARGS`` (its last
     line), run from this checkout."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p)}
-    proc = subprocess.run([sys.executable, "-m", "gossip_tpu_torch", "run",
+    proc = subprocess.run([sys.executable, "-m", "gossip_tpu_torch", cmd,
                            *args], capture_output=True, text=True, cwd=root,
                           env=env, timeout=600)
     check(proc.returncode == 0, f"run {' '.join(args)}: {proc.stderr}")
@@ -1338,6 +1396,174 @@ def phase_swim_rumor_path(dev, smi: str, n_swim: int = N_SWIM, n: int = N,
          runs=runs, command_line={k: (v["rounds"], v["coverage"], v["msgs"])
                                   for k, v in cli.items()},
          card_vs_cpu=same, n_small=n_small, swim_round_split=split,
+         phase_wall_s=wall_s, card=smi)
+
+
+def _payload_key(rep: dict):
+    """(rounds, convergence, truth, msgs) of a crdt or log report."""
+    if rep["mode"] == "crdt":
+        return (rep["rounds"], rep["value_conv"], rep["truth_value"],
+                rep["msgs"])
+    return rep["rounds"], rep["log_conv"], rep["truth"], rep["msgs"]
+
+
+def _crdt_round_split(dev, n: int, kind: str = "gcounter", **cfg) -> dict:
+    """One CRDT round's parts at n nodes under CR4's program (the cut at
+    n / 2 for rounds [0, 6)), eight rounds in: the whole round, the
+    partner draw, the drop coin (drawn every round under a program), the
+    round's own blocked exchange (``step.exchange``, with the program's
+    alive row, as the round calls it) and the converged count with its
+    host read."""
+    import torch
+    from gossip_tpu_torch.config import (ChurnConfig, CrdtConfig,
+                                         FaultConfig, ProtocolConfig,
+                                         RunConfig)
+    from gossip_tpu_torch.models import crdt as CM
+    from gossip_tpu_torch.models.si import PULL_DROP_TAG, PULL_TAG
+    from gossip_tpu_torch.ops import crdt as CR
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.ops import threefry
+    from gossip_tpu_torch.ops.sampling import drop_mask, sample_peers
+    from gossip_tpu_torch.topology import generators as G
+
+    cfg = CrdtConfig(kind=kind, **cfg)
+    fault = FaultConfig(churn=ChurnConfig(partitions=((0, 6, n // 2),)))
+    topo = G.complete(n)
+    step = CM.make_crdt_round(cfg, ProtocolConfig(mode="pull", fanout=2),
+                              topo, fault, device=dev)
+    state = CM.init_crdt_state(RunConfig(), cfg, n, dev)
+    for _ in range(8):
+        state, _ = step(state, donate=True)
+    truth = CR.ground_truth(cfg, CR.inject_args(cfg, n, dev), fault, n, 0,
+                            dev)
+    eventual = CR.eventual_alive_crdt(fault, n, 0, dev)
+    ids = torch.arange(n, device=dev)
+    rkey = threefry.fold_in(state.base_key, state.round)
+    # past the cut, with no drop: the round's final partners are the draw
+    partners = sample_peers(threefry.fold_in(rkey, PULL_TAG), ids, topo, 2)
+    alive = NE.base_alive_or_ones(fault, n, 0, dev)
+    return {
+        "n": n, "kind": kind,
+        "block_rows": CR.block_rows_for(CR.state_width(cfg, n), 2),
+        "round_ms": _median_ms(dev, lambda: step(state)[0].round),
+        "partner_draw_ms": _median_ms(
+            dev, sample_peers, threefry.fold_in(rkey, PULL_TAG), ids, topo,
+            2),
+        "coin_ms": _median_ms(dev, drop_mask, rkey, PULL_DROP_TAG, ids, 2,
+                              0.0),
+        "exchange_ms": _median_ms(
+            dev, lambda: step.exchange(state.val, partners, state.round,
+                                       alive).shape),
+        "converged_count_ms": _median_ms(
+            dev, lambda: int(CR.converged_count(state.val, truth,
+                                                eventual)))}
+
+
+def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
+                        command_ids=("CR1", "LG1")):
+    """The CRDT payloads (with the byzantine liar program) and the
+    replicated logs through the port's ``crdt`` and ``log`` command lines
+    (``cli.run_payload``: the command's parse, run and report in this
+    process), every id of ``CRDT_LOG_CASES`` against the JAX package's
+    rounds, convergence, truth and msgs (CR1's curve too), no kernel
+    launched and nothing on the CPU; ``command_ids`` again through
+    ``python -m gossip_tpu_torch``; the ``replays`` run again on the
+    CPU, every final state field equal to the card's; CR4 through
+    ``simulate_until_crdt`` with its peak of allocated memory; each run's
+    ms a round and node-rounds/s."""
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.ops import _kernels
+
+    cases = CRDT_LOG_CASES if cases is None else cases
+    cpu = torch.device("cpu")
+    wall_s, runs, same = {}, {}, {}
+    on_card = dev.type == "cuda"
+    for name, (args, want) in cases.items():
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.empty_cache()
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        rep, result = cli.run_payload([*args, "--device", dev.type])
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        got = _payload_key(rep)
+        check(got == want and sum(launches.values()) == 0
+              and (rep["device"] != "cpu") == on_card,
+              f"{name}: {got} on {rep['device']}, {launches}, want {want}")
+        if name == "CR1":
+            check(rep["curve"] == [0.0] * 16 + [
+                0.004638671875, 0.1904296875, 0.649169921875,
+                0.927001953125, 0.991943359375, 0.998046875,
+                0.999755859375] + [1.0] * 41, f"CR1 curve {rep['curve']}")
+        steady = rep["steady_wall_s"]
+        rounds = 64 if name == "CR1" else rep["rounds"]   # the curve's 64
+        runs[name] = {"rounds": rep["rounds"], "result": list(got[1:]),
+                      "launches": launches, "steady_wall_s": steady,
+                      "ms_per_round": steady * 1e3 / rounds,
+                      "node_rounds_per_s": rep["n"] * rounds / steady,
+                      "peak_mem_bytes": rep["peak_mem_bytes"]}
+        if name in replays:
+            _, res_cpu = cli.run_payload([*args, "--device", "cpu"])
+            a, b = result[-2], res_cpu[-2]
+            same[name] = bool(
+                torch.equal(a.val.cpu(), b.val) and a.round == b.round
+                and torch.equal(a.base_key.cpu(), b.base_key)
+                and torch.equal(a.msgs.cpu(), b.msgs))
+        del result
+        wall_s[name] = time.perf_counter() - t0
+    check(all(same.values()), f"CRDT / log card vs CPU: {same}")
+    cr4 = None
+    if "CR4" in cases:
+        from gossip_tpu_torch.config import (ChurnConfig, CrdtConfig,
+                                             FaultConfig, ProtocolConfig,
+                                             RunConfig)
+        from gossip_tpu_torch.models.crdt import simulate_until_crdt
+        from gossip_tpu_torch.topology import generators as G
+        from gossip_tpu_torch.utils.timing import steady_timed
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n = 65536
+        out, steady = steady_timed(
+            dev, simulate_until_crdt, CrdtConfig(kind="gcounter"),
+            ProtocolConfig(mode="pull", fanout=2), G.complete(n),
+            RunConfig(target_coverage=1.0, max_rounds=64),
+            FaultConfig(churn=ChurnConfig(partitions=((0, 6, n // 2),))),
+            device=dev)
+        check((out[0], out[1], out[4], out[2]) == CRDT_LOG_CASES["CR4"][1],
+              f"CR4 through simulate_until_crdt: {out[:3]} {out[4]}")
+        state_bytes = out[3].val.numel() * 4
+        del out
+        peak = torch.cuda.max_memory_allocated(dev)
+        cr4 = {"rounds": 21, "steady_wall_s": steady,
+               "ms_per_round": steady * 1e3 / 21, "peak_mem_bytes": peak,
+               "state_bytes": state_bytes,
+               "peak_over_two_states": peak / (2 * state_bytes)}
+        # a round holds the state, its successor and one block
+        for got in (peak, runs["CR4"]["peak_mem_bytes"]):
+            check(got <= 2.1 * state_bytes,
+                  f"CR4 peak {got} B over two states of {state_bytes} B")
+        wall_s["cr4_direct"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = {}
+    if on_card:
+        torch.cuda.empty_cache()
+        split["CR4"] = _crdt_round_split(dev, 65536)
+        split["CR3"] = _crdt_round_split(dev, 65536, "orset", elements=256)
+        torch.cuda.empty_cache()
+    wall_s["round_split"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in command_ids:
+        args, want = cases[name]
+        out = _port_run(args[1:], cmd=args[0])
+        check(_payload_key(out) == want
+              and (out["device"] != "cpu") == on_card,
+              f"{name} command line: {_payload_key(out)} on "
+              f"{out['device']}, want {want}")
+    wall_s["command_line"] = time.perf_counter() - t0
+    emit("crdt_log_path", runs=runs, card_vs_cpu=same, cr4_direct=cr4,
+         round_split=split, command_line=list(command_ids),
          phase_wall_s=wall_s, card=smi)
 
 
@@ -1620,6 +1846,7 @@ def main() -> int:
                                                   threefry_round_ms)
     churn_launches = phase_churn_path(dev, smi)
     phase_swim_rumor_path(dev, smi)
+    phase_crdt_log_path(dev, smi)
     sampler.update(launches=churn_launches, path="churn_path",
                    launches_by_path={"xla_sampler_path": xla_sampler_launches,
                                      "churn_path": churn_launches})

@@ -20,6 +20,10 @@ on one device (``run_jax`` and ``_run_fused``):
   ``fused`` refuses it, as the reference's single-device fused routing
   does.
 
+A ``log_cfg`` runs the replicated-log workload
+(:func:`run_log_workload`, the reference's ``run_log_workload``) on the
+xla engine; the txn workload waits for the registers slice.
+
 The report carries the reference's ``RunReport`` fields and ``meta``
 keys, plus the device and every kernel's launches.  Whatever the port
 does not run yet is refused with a ``ValueError`` that names the slice it
@@ -110,9 +114,12 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
     if run.engine == "native":
         return ("engine='native' is the JAX package's go-native event "
                 "core; the port's engines are auto|xla|fused")
-    if log_cfg is not None or txn_cfg is not None:
-        return ("the log and txn payload workloads wait for the port's "
-                "payload slice (ROADMAP queue 1, item 4)")
+    if log_cfg is not None and txn_cfg is not None:
+        return ("a request carries at most one payload workload; pick "
+                "'log' or 'txn'")
+    if txn_cfg is not None:
+        return ("the txn workload (LWW registers) waits for the port's "
+                "registers slice (ROADMAP queue 1, item 4)")
     if mesh_cfg is not None and (mesh_cfg.n_devices > 1
                                  or mesh_cfg.exchange != "dense"):
         return ("more than one device, and the sparse and halo "
@@ -360,6 +367,42 @@ def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
                      wall_s=round(wall, 4), curve=curve, meta=meta)
 
 
+def run_log_workload(proto: ProtocolConfig, tc: TopologyConfig,
+                     run: RunConfig, log_cfg, fault: Optional[FaultConfig],
+                     want_curve: bool, dev: torch.device) -> RunReport:
+    """The replicated-log workload (:mod:`gossip_tpu_torch.models.log`)
+    on the XLA engine: ``coverage`` is the final ``log_conv``, and
+    ``meta.truth`` the acked-appends truth."""
+    from gossip_tpu_torch.models.log import (check_log_mode,
+                                             simulate_curve_log,
+                                             simulate_until_log)
+    from gossip_tpu_torch.topology import generators as G
+    check_log_mode(proto)
+    if run.engine not in ("auto", "xla"):
+        raise ValueError(f"engine={run.engine!r} cannot run the log "
+                         "workload (XLA pull kernels only)")
+    topo = G.build(tc, dev)
+    t0 = time.perf_counter()
+    if want_curve:
+        (conv, msgs, _, truth), steady = steady_timed(
+            dev, simulate_curve_log, log_cfg, proto, topo, run, fault, dev)
+        rounds, lc, msgs_f, curve = _curve_summary(conv, msgs,
+                                                   run.target_coverage)
+    else:
+        (rounds, lc, msgs_f, _, truth), steady = steady_timed(
+            dev, simulate_until_log, log_cfg, proto, topo, run, fault, dev)
+        curve = None
+    wall = time.perf_counter() - t0
+    return RunReport(
+        backend=f"torch-{dev.type}", mode="log", n=tc.n, rounds=rounds,
+        coverage=lc, msgs=msgs_f, wall_s=round(wall, 4), curve=curve,
+        meta={"clock": "rounds", "devices": 1,
+              "msgs_counts": "transmissions", "engine": "log-xla",
+              "workload": "log", "truth": truth,
+              "device": _device_name(dev),
+              **timing_meta(0.0, steady, wall)})
+
+
 def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
                    run: RunConfig, fault: Optional[FaultConfig] = None,
                    want_curve: bool = False, device=None,
@@ -375,6 +418,9 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
     if reason is not None:
         raise ValueError(reason)
     NE.validate_events(fault, topo.n)
+    if log_cfg is not None:
+        return run_log_workload(proto, topo, run, log_cfg, fault,
+                                want_curve, resolve_device(device))
     fused_reason = fused_ineligible_reason(proto, topo, run, fault)
     if run.engine == "fused" and fused_reason is not None:
         raise ValueError(fused_reason)

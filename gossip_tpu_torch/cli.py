@@ -1,6 +1,7 @@
-"""Command line of the port: ``python -m gossip_tpu_torch run ...``.
+"""Command line of the port: ``python -m gossip_tpu_torch run|crdt|log``.
 
-The port of the JAX package's ``run`` command on one device::
+The port of the JAX package's ``run``, ``crdt`` and ``log`` commands on
+one device::
 
     python -m gossip_tpu_torch run --mode pull --n 10000000 [--engine E] \\
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
@@ -13,6 +14,17 @@ The port of the JAX package's ``run`` command on one device::
         [--dead-nodes ID...] [--fail-round R]
         [--churn-event NODE:DIE[:REC]]... [--partition START:END:CUT]...
         [--drop-ramp START:END:P0:P1] [--device cpu]
+    python -m gossip_tpu_torch crdt --type gcounter|pncounter|gset|orset \\
+        [--n N] [--fanout F] [--family F] [--k K] [--p P] [--target C]
+        [--max-rounds M] [--seed S] [--origin O] [--drop P] [--death D]
+        [--add NODE:ROUND:AMOUNT]... [--set-add ELEM:ROUND]...
+        [--set-remove ELEM:ROUND]... [--elements E] [churn flags]
+        [--byz NODE:ROUND:KIND[:ARG]]... [--byz-quorum Q] [--defend]
+        [--curve] [--save-curve PATH] [--device cpu]
+    python -m gossip_tpu_torch log [--n N] [--keys K] [--capacity C] \\
+        [--send NODE:KEY:ROUND:VALUE]... [--commit NODE:KEY:ROUND:UPTO]...
+        [the crdt command's topology, run and churn flags] [--curve]
+        [--save-curve PATH] [--device cpu]
 
 ``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
 ``--engine`` one of ``auto|xla|fused`` (default ``auto``;
@@ -27,6 +39,15 @@ It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
 the run needs a CUDA device.
+
+``crdt`` and ``log`` (:mod:`gossip_tpu_torch.models.crdt`,
+:mod:`gossip_tpu_torch.models.log`) take the JAX commands' flags and
+print their reports' fields in their order (``backend`` and ``engine``
+the port's names), then the device, the steady wall and, on a card, the
+peak of allocated device memory.  ``--devices`` above 1 is refused (the
+multi-GPU slice).  The JAX commands' ``--compile-cache`` /
+``--no-compile-cache`` configure its XLA executable store, which the
+port does not have: they are not taken, and ``compile_cache`` is null.
 """
 
 from __future__ import annotations
@@ -37,9 +58,9 @@ import sys
 from typing import Optional
 
 from gossip_tpu_torch import config as C
-from gossip_tpu_torch.config import (ChurnConfig, FaultConfig,
-                                     ProtocolConfig, RunConfig,
-                                     TopologyConfig)
+from gossip_tpu_torch.config import (ByzConfig, ChurnConfig, CrdtConfig,
+                                     FaultConfig, LogConfig, ProtocolConfig,
+                                     RunConfig, TopologyConfig)
 
 
 def _parse_churn(a) -> Optional[ChurnConfig]:
@@ -72,6 +93,206 @@ def _parse_churn(a) -> Optional[ChurnConfig]:
                        ramp=ramp)
 
 
+def _parse_byz(a):
+    """``--byz NODE:ROUND:KIND[:ARG]`` (and ``--byz-quorum``) -> a
+    :class:`ByzConfig`, or None (the JAX command's parse; the checks of
+    the fields live in ``ByzConfig``)."""
+    specs = getattr(a, "byz", None) or ()
+    if not specs:
+        return None
+    liars = []
+    for s in specs:
+        p = s.split(":")
+        if len(p) not in (3, 4):
+            raise ValueError("--byz takes NODE:ROUND:KIND[:ARG] "
+                             f"colon-separated fields, got {s!r}")
+        liars.append((int(p[0]), int(p[1]), p[2],
+                      int(p[3]) if len(p) == 4 else 0))
+    return ByzConfig(liars=tuple(liars), quorum=getattr(a, "byz_quorum", 2))
+
+
+def _colon_ints(specs, what: str, arity: int) -> tuple:
+    """Repeatable ``A:B:...`` flags -> tuples of ints."""
+    out = []
+    for s in specs or ():
+        p = s.split(":")
+        if len(p) != arity:
+            raise ValueError(f"--{what} takes {arity} colon-separated "
+                             f"fields, got {s!r}")
+        out.append(tuple(int(x) for x in p))
+    return tuple(out)
+
+
+def _payload_setup(a, byz=None):
+    """(proto, topo, run, fault, device) of a payload command."""
+    from gossip_tpu_torch.ops.common import resolve_device
+    from gossip_tpu_torch.topology import generators as G
+    if a.devices > 1:
+        raise ValueError(
+            f"--devices {a.devices}: the node mesh waits for the port's "
+            "multi-GPU slice (ROADMAP queue 1, item 5); run --devices 1")
+    churn = _parse_churn(a)
+    fault = None
+    if a.drop > 0 or a.death > 0 or churn is not None or byz is not None:
+        fault = FaultConfig(node_death_rate=a.death, drop_prob=a.drop,
+                            seed=a.seed, churn=churn, byz=byz)
+    dev = resolve_device(a.device)
+    topo = G.build(TopologyConfig(family=a.family, n=a.n, k=a.k, p=a.p,
+                                  seed=a.seed), dev)
+    run = RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
+                    seed=a.seed, origin=a.origin)
+    return ProtocolConfig(mode=C.PULL, fanout=a.fanout), topo, run, fault, dev
+
+
+def _summary(a, want_curve, result):
+    """(rounds, convergence, msgs) of a payload loop's result: the until
+    loop's, or the curve's first round at the target (-1 if never) and
+    its last values."""
+    if not want_curve:
+        return result[0], result[1], result[2]
+    conv, msgs = result[0], result[1]
+    hit = [i for i, c in enumerate(conv) if c >= a.target]
+    return (hit[0] + 1) if hit else -1, float(conv[-1]), float(msgs[-1])
+
+
+def _timed(dev, fn, *args, **kwargs):
+    """(result, wall seconds, the port's report keys) of one payload
+    loop: the device, the steady wall and, on a card, the peak of
+    allocated memory."""
+    import time
+
+    import torch
+
+    from gossip_tpu_torch.utils.timing import steady_timed
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    result, steady = steady_timed(dev, fn, *args, **kwargs)
+    wall = time.perf_counter() - t0
+    return result, wall, {
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "steady_wall_s": round(steady, 4),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None)}
+
+
+def _finish(a, out, result, want_curve, extra):
+    """``--save-curve`` (the reference's JSONL, the report as its meta),
+    ``--curve``, then the port's keys: ``(report, loop result)``."""
+    conv = result[0] if want_curve else ()
+    if a.save_curve:
+        from gossip_tpu_torch.utils.metrics import dump_curve_jsonl
+        dump_curve_jsonl(a.save_curve, [float(c) for c in conv],
+                         meta=dict(out))
+    if a.curve:
+        out["curve"] = [float(c) for c in conv]
+    out.update(extra)
+    return out, result
+
+
+def run_crdt(a):
+    """A CRDT payload run (the JAX command's ``crdt``): value convergence
+    judged integer-exact against the ground-truth merge on the
+    eventual-alive set.  Returns ``(report, loop result)``."""
+    from gossip_tpu_torch.models import crdt as M
+    cfg = CrdtConfig(kind=a.type, elements=a.elements,
+                     adds=_colon_ints(a.add, "add", 3),
+                     set_adds=_colon_ints(a.set_add, "set-add", 2),
+                     set_removes=_colon_ints(a.set_remove, "set-remove", 2))
+    byz = _parse_byz(a)
+    proto, topo, run, fault, dev = _payload_setup(a, byz)
+    want_curve = a.curve or bool(a.save_curve)
+    fn = M.simulate_curve_crdt if want_curve else M.simulate_until_crdt
+    result, wall, extra = _timed(dev, fn, cfg, proto, topo, run, fault,
+                                 defend=a.defend, device=dev)
+    rounds, vc, msgs = _summary(a, want_curve, result)
+    out = {"backend": f"torch-{dev.type}", "mode": "crdt", "type": a.type,
+           "n": a.n, "rounds": rounds, "value_conv": vc,
+           "converged": vc >= a.target, "truth_value": result[-1],
+           "msgs": msgs, "wall_s": round(wall, 4), "devices": a.devices,
+           "engine": "crdt-xla", "compile_cache": None}
+    if fault is not None and fault.churn is not None:
+        out["fault_program"] = True
+    if byz is not None:
+        out["byz_program"] = True
+        out["defended"] = bool(a.defend)
+    return _finish(a, out, result, want_curve, extra)
+
+
+def run_log(a):
+    """A replicated-log run (the JAX command's ``log``): convergence
+    judged integer-exact against the acked-appends truth on the
+    eventual-alive set.  Returns ``(report, loop result)``."""
+    from gossip_tpu_torch.models import log as M
+    cfg = LogConfig(keys=a.keys, capacity=a.capacity,
+                    sends=_colon_ints(a.send, "send", 4),
+                    commits=_colon_ints(a.commit, "commit", 4))
+    proto, topo, run, fault, dev = _payload_setup(a)
+    want_curve = a.curve or bool(a.save_curve)
+    fn = M.simulate_curve_log if want_curve else M.simulate_until_log
+    result, wall, extra = _timed(dev, fn, cfg, proto, topo, run, fault,
+                                 device=dev)
+    rounds, lc, msgs = _summary(a, want_curve, result)
+    out = {"backend": f"torch-{dev.type}", "mode": "log", "n": a.n,
+           "keys": a.keys, "capacity": a.capacity, "rounds": rounds,
+           "log_conv": lc, "converged": lc >= a.target,
+           "truth": result[-1], "msgs": msgs, "wall_s": round(wall, 4),
+           "devices": a.devices, "engine": "log-xla", "compile_cache": None}
+    if fault is not None and fault.churn is not None:
+        out["fault_program"] = True
+    return _finish(a, out, result, want_curve, extra)
+
+
+def _add_payload_flags(p, conv: str) -> None:
+    """The flags the JAX package's ``crdt`` and ``log`` commands share."""
+    p.add_argument("--n", type=int, default=1024)
+    p.add_argument("--fanout", type=int, default=2)
+    p.add_argument("--family", default=C.COMPLETE, choices=C.FAMILIES)
+    p.add_argument("--k", type=int, default=4)
+    p.add_argument("--p", type=float, default=0.01)
+    p.add_argument("--target", type=float, default=1.0,
+                   help=f"{conv} target (default 1.0: every eventual-alive "
+                        "node equals the ground truth exactly)")
+    p.add_argument("--max-rounds", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--origin", type=int, default=0)
+    p.add_argument("--devices", type=int, default=1,
+                   help="node-dim mesh size (more than 1 waits for the "
+                        "multi-GPU slice)")
+    p.add_argument("--drop", type=float, default=0.0)
+    p.add_argument("--death", type=float, default=0.0)
+
+
+def _add_tail_flags(p, conv: str) -> None:
+    """Churn, curve, cache and device flags of the payload commands."""
+    p.add_argument("--churn-event", action="append", default=None,
+                   metavar="NODE:DIE[:REC]",
+                   help="nemesis crash/recover churn (repeatable)")
+    p.add_argument("--partition", action="append", default=None,
+                   metavar="START:END:CUT",
+                   help="nemesis partition window (repeatable)")
+    p.add_argument("--drop-ramp", default=None, metavar="START:END:P0:P1",
+                   help="nemesis drop-rate ramp")
+    p.add_argument("--curve", action="store_true",
+                   help=f"include the per-round {conv} curve")
+    p.add_argument("--save-curve", default=None, metavar="PATH",
+                   help=f"write the {conv} curve as JSONL")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="cpu runs on the CPU (default: cuda, which must "
+                        "be present)")
+
+
+def run_payload(argv):
+    """``(report, loop result)`` of a ``crdt`` or ``log`` command line,
+    parsed, run and reported as :func:`main` does, without printing; the
+    result holds the loop's final state."""
+    a = build_parser().parse_args(argv)
+    if a.cmd not in ("crdt", "log"):
+        raise ValueError(f"{a.cmd!r} is not a payload command")
+    return a.fn(a)
+
+
 def cmd_run(a) -> int:
     from gossip_tpu_torch.backend import run_simulation
     churn = _parse_churn(a)
@@ -102,7 +323,8 @@ def cmd_run(a) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The command line's parser; each command sets ``fn``."""
     ap = argparse.ArgumentParser(
         prog="gossip_tpu_torch",
         description="gossip simulation on PyTorch and CUDA")
@@ -179,8 +401,65 @@ def main(argv=None) -> int:
                    help="cpu runs the plain versions (default: cuda, which "
                         "must be present)")
     p.set_defaults(fn=cmd_run)
-    a = ap.parse_args(argv)
+
+    p = sub.add_parser("crdt", help="run a commutative-merge CRDT payload "
+                       "(counters, sets) on the pull exchange")
+    p.add_argument("--type", default=C.GCOUNTER,
+                   choices=(C.GCOUNTER, C.PNCOUNTER, C.GSET, C.ORSET))
+    _add_payload_flags(p, "value-convergence")
+    p.add_argument("--add", action="append", default=None,
+                   metavar="NODE:ROUND:AMOUNT",
+                   help="scripted counter add (repeatable; default "
+                        "program: node j adds 1 + j%%7 at round 0)")
+    p.add_argument("--set-add", action="append", default=None,
+                   metavar="ELEM:ROUND",
+                   help="scripted set add at the element's owner node "
+                        "(repeatable; default: every element at round 0)")
+    p.add_argument("--set-remove", action="append", default=None,
+                   metavar="ELEM:ROUND",
+                   help="scripted orset remove (tombstone; repeatable)")
+    p.add_argument("--elements", type=int, default=64,
+                   help="set element universe size E")
+    p.add_argument("--byz", action="append", default=None,
+                   metavar="NODE:ROUND:KIND[:ARG]",
+                   help="scripted byzantine liar: from ROUND on, NODE "
+                        "serves forged state of KIND (corrupt | replay | "
+                        "equivocate | inflate); repeatable")
+    p.add_argument("--byz-quorum", type=int, default=2,
+                   help="independent-witness count q for defended set "
+                        "bit admission (1-3; needs fanout >= q)")
+    p.add_argument("--defend", action="store_true",
+                   help="the defended admission (owner-column guards, "
+                        "quorum echo); off = the undefended control arm")
+    _add_tail_flags(p, "value-convergence")
+    p.set_defaults(fn=run_crdt)
+
+    p = sub.add_parser("log", help="run a replicated kafka-style log on "
+                       "the pull exchange")
+    _add_payload_flags(p, "log-convergence")
+    p.add_argument("--keys", type=int, default=4,
+                   help="number of per-key logs K")
+    p.add_argument("--capacity", type=int, default=16,
+                   help="ring slots per key C")
+    p.add_argument("--send", action="append", default=None,
+                   metavar="NODE:KEY:ROUND:VALUE",
+                   help="scripted append (repeatable; default program: 4 "
+                        "sends per key, rounds 0-3)")
+    p.add_argument("--commit", action="append", default=None,
+                   metavar="NODE:KEY:ROUND:UPTO",
+                   help="scripted commit (repeatable; default: one commit "
+                        "per key at round 4)")
+    _add_tail_flags(p, "log-convergence")
+    p.set_defaults(fn=run_log)
+    return ap
+
+
+def main(argv=None) -> int:
+    a = build_parser().parse_args(argv)
     try:
+        if a.cmd in ("crdt", "log"):
+            print(json.dumps(a.fn(a)[0]))
+            return 0
         return a.fn(a)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

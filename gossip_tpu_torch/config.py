@@ -224,6 +224,356 @@ class ChurnConfig:
         return max(ends) + 1
 
 
+# Byzantine liar actions (ops/nemesis byz lowering).  Every kind is a
+# SERVE-side transform of the state row a liar hands to pulling peers:
+BYZ_CORRUPT = "corrupt"        # flip payload words it forwards (xor arg)
+BYZ_REPLAY = "replay"          # serve a stale snapshot of its own planes
+BYZ_EQUIVOCATE = "equivocate"  # different state per partner (keyed by id)
+BYZ_INFLATE = "inflate"        # write columns/keys it does not own
+
+BYZ_KINDS = (BYZ_CORRUPT, BYZ_REPLAY, BYZ_EQUIVOCATE, BYZ_INFLATE)
+
+
+@dataclasses.dataclass(frozen=True)
+class ByzConfig:
+    """A scripted *byzantine program*: nodes that lie, the adversarial
+    half of the nemesis (:mod:`gossip_tpu_torch.ops.nemesis`).
+
+    Where :class:`ChurnConfig` scripts fail-stop faults (a down node is
+    silent), this scripts liars: ``liars`` are ``(node, round, kind,
+    arg)`` quadruples; from ``round`` on, ``node`` serves every pull
+    with a transformed state row (:data:`BYZ_KINDS`).  The program
+    lowers to per-node tables on the device
+    (:func:`~gossip_tpu_torch.ops.nemesis.build_byz`), and the
+    transforms are rendered on the receiver's side, so a liar's own
+    state stays honest: the lie is on the wire (a faulty replica can
+    say anything but cannot rewrite what it already gossiped).
+
+    A liar corrupts only components it does NOT own: its own
+    column, element or key writes are its own to make and cannot be
+    told from honest writes, so honest convergence is judged on
+    honest-owned components only.
+
+    ``quorum`` is the echo threshold q of the defended packed-set
+    admission: a bit not served by its owner directly is admitted only
+    when seen from >= q distinct partners in one round (so f < q
+    non-colluding forgers are tolerated).
+
+    One action per node (the ChurnConfig one-event rule); an empty
+    program is normalized to ``None`` by :class:`FaultConfig`.  The
+    checks and messages are the JAX package's.
+    """
+
+    liars: Tuple[Tuple[int, int, str, int], ...] = ()
+    quorum: int = 2
+
+    def __post_init__(self):
+        object.__setattr__(self, "liars", tuple(
+            (int(a[0]), int(a[1]), str(a[2]), int(a[3]) if len(a) > 3
+             else 0)
+            for a in (tuple(x) for x in self.liars)))
+        for a in self.liars:
+            if len(a) != 4:
+                raise ValueError(f"byz liar {a} must be "
+                                 "(node, round, kind[, arg])")
+            node, rnd, kind, arg = a
+            if node < 0:
+                raise ValueError(f"byz liar node {node} must be >= 0")
+            if rnd < 0 or rnd > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"byz liar round {rnd} outside "
+                    f"[0, {MAX_CHURN_HORIZON}] (the schedule horizon "
+                    "cap, shared with ChurnConfig)")
+            if kind not in BYZ_KINDS:
+                raise ValueError(f"unknown byz kind {kind!r}; choose "
+                                 f"from {BYZ_KINDS}")
+            if arg < 0:
+                raise ValueError(f"byz liar {a}: arg must be >= 0 (an "
+                                 "xor/inflation pattern, not a sign)")
+        nodes = [a[0] for a in self.liars]
+        if len(set(nodes)) != len(nodes):
+            raise ValueError("byz program must script each node at "
+                             "most once (one standing lie per node — "
+                             "the ChurnConfig one-event rule)")
+        if not 1 <= self.quorum <= 3:
+            raise ValueError(
+                f"quorum={self.quorum} outside [1, 3]: the defended "
+                "set kernels count echoes with a carry-save chain of "
+                "depth 3 (ops/crdt.pull_merge_crdt_byz); a larger "
+                "quorum needs a deeper chain, added when an engine "
+                "needs it")
+
+    @property
+    def empty(self) -> bool:
+        return not self.liars
+
+
+# CRDT payload kinds (ops/crdt.py).  The Gossip Glomers sibling
+# workloads of the reference's broadcast: same epidemic exchange, a
+# commutative-merge payload instead of the infected bit.
+GCOUNTER = "gcounter"      # grow-only counter: per-node shards, merge=max
+PNCOUNTER = "pncounter"    # inc/dec counter: P and N shard planes
+GSET = "gset"              # grow-only set: packed add bit-planes, merge=OR
+ORSET = "orset"            # add/remove set: add + tombstone planes, merge=OR
+VCLOCK = "vclock"          # per-node vector clocks, merge=elementwise max
+
+CRDT_KINDS = (GCOUNTER, PNCOUNTER, GSET, ORSET, VCLOCK)
+CRDT_COUNTER_KINDS = (GCOUNTER, PNCOUNTER)
+CRDT_SET_KINDS = (GSET, ORSET)
+
+
+@dataclasses.dataclass(frozen=True)
+class CrdtConfig:
+    """A commutative-merge payload workload (ops/crdt.py, models/crdt.py).
+
+    The injections are a *program over rounds*, exactly like the nemesis
+    schedule: counter ``adds`` are ``(node, round, amount)`` triples
+    (node adds ``amount`` to its own shard at ``round``; for
+    ``pncounter`` a negative amount lands in the N plane, for
+    ``gcounter`` amounts must be positive), set ``set_adds`` /
+    ``set_removes`` are ``(element, round)`` pairs injected at the
+    element's owner node ``(origin + element) % n`` (the rumor-origin
+    convention).  Empty ``adds`` on a counter kind means the default
+    program: node ``j`` adds ``1 + j % 7`` at round 0 (closed form, so
+    no O(N) config is ever materialized); empty ``set_adds`` means
+    every element is added at round 0 at its owner.
+
+    Ground truth is the merge of all *applied* injections — an
+    injection is applied iff its owner is alive at the injection round
+    AND eventually alive under the fault program (ops/crdt.ground
+    truth doc: the batched analog of the Maelstrom counter checker
+    counting only ACKED adds — a node destined for permanent death
+    contributes nothing, which is what makes exact value convergence
+    on the eventual-alive set a guaranteed invariant).
+    """
+
+    kind: str = GCOUNTER
+    adds: Tuple[Tuple[int, int, int], ...] = ()
+    set_adds: Tuple[Tuple[int, int], ...] = ()
+    set_removes: Tuple[Tuple[int, int], ...] = ()
+    elements: int = 64          # set element universe E (W = ceil(E/32))
+
+    def __post_init__(self):
+        object.__setattr__(self, "adds", tuple(
+            tuple(int(x) for x in a) for a in self.adds))
+        object.__setattr__(self, "set_adds", tuple(
+            tuple(int(x) for x in a) for a in self.set_adds))
+        object.__setattr__(self, "set_removes", tuple(
+            tuple(int(x) for x in a) for a in self.set_removes))
+        if self.kind not in CRDT_KINDS:
+            raise ValueError(f"unknown CRDT kind {self.kind!r}; choose "
+                             f"from {CRDT_KINDS}")
+        if self.elements < 1:
+            raise ValueError("elements must be >= 1")
+        if self.kind in CRDT_SET_KINDS:
+            if self.adds:
+                raise ValueError(f"{self.kind} takes set_adds/"
+                                 "set_removes, not counter adds")
+        else:
+            if self.set_adds or self.set_removes:
+                raise ValueError(f"{self.kind} takes counter adds, not "
+                                 "set_adds/set_removes")
+        if self.kind == VCLOCK and self.adds:
+            # vclock carries no injection program at all (owner ticks
+            # only) — silently dropping a scripted one would violate
+            # the reject-loudly policy every other kind mismatch obeys
+            raise ValueError("vclock takes no injection program (the "
+                             "owner tick is the only local event); "
+                             "drop the adds")
+        if self.kind == GSET and self.set_removes:
+            raise ValueError("gset is grow-only; removes need kind="
+                             "'orset'")
+        for a in self.adds:
+            if len(a) != 3:
+                raise ValueError(f"counter add {a} must be "
+                                 "(node, round, amount)")
+            node, rnd, amt = a
+            if node < 0:
+                raise ValueError(f"add node {node} must be >= 0")
+            if rnd < 0 or rnd > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"add round {rnd} outside [0, {MAX_CHURN_HORIZON}] "
+                    "(the schedule horizon cap, shared with ChurnConfig)")
+            if self.kind == GCOUNTER and amt <= 0:
+                raise ValueError(
+                    f"gcounter add {a}: amounts must be positive "
+                    "(grow-only; use pncounter for decrements)")
+            if self.kind == PNCOUNTER and amt == 0:
+                raise ValueError(f"pncounter add {a}: amount must be "
+                                 "nonzero")
+        for name, pairs in (("set_add", self.set_adds),
+                            ("set_remove", self.set_removes)):
+            for p in pairs:
+                if len(p) != 2:
+                    raise ValueError(f"{name} {p} must be "
+                                     "(element, round)")
+                elem, rnd = p
+                if not 0 <= elem < self.elements:
+                    raise ValueError(
+                        f"{name} element {elem} outside the universe "
+                        f"[0, {self.elements})")
+                if rnd < 0 or rnd > MAX_CHURN_HORIZON:
+                    raise ValueError(
+                        f"{name} round {rnd} outside "
+                        f"[0, {MAX_CHURN_HORIZON}]")
+        seen_elems = [e for e, _ in self.set_adds]
+        if len(set(seen_elems)) != len(seen_elems):
+            raise ValueError("set_adds must script each element at most "
+                             "once (the packed-plane OR-set models one "
+                             "unique add tag per element — "
+                             "docs/WORKLOADS.md)")
+        seen_rems = [e for e, _ in self.set_removes]
+        if len(set(seen_rems)) != len(seen_rems):
+            raise ValueError("set_removes must script each element at "
+                             "most once")
+        # A remove at-or-before its element's add would make the
+        # packed tombstone plane remove-wins where the documented
+        # contract is add-wins == 2P (the remove must happen-after the
+        # observed add tag) — reject the silent semantic fork.  An
+        # unscripted add means the default program's round 0; a remove
+        # of a never-added element is a harmless no-op and allowed.
+        add_round = {e: r for e, r in self.set_adds}
+        for e, rr in self.set_removes:
+            ra = add_round.get(e, 0 if not self.set_adds else None)
+            if ra is not None and rr <= ra:
+                raise ValueError(
+                    f"set_remove ({e}, {rr}) fires at or before the "
+                    f"element's add (round {ra}): a remove must "
+                    "happen-after the add it tombstones, or add-wins "
+                    "and 2P semantics diverge (docs/WORKLOADS.md)")
+
+    def horizon(self) -> int:
+        """Rounds after which no further injection fires (the zero-row
+        steady state of the lowered injection tables)."""
+        rounds = [0]
+        rounds += [r for _, r, _ in self.adds]
+        rounds += [r for _, r in self.set_adds]
+        rounds += [r for _, r in self.set_removes]
+        return max(rounds) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LogConfig:
+    """A replicated kafka-style log workload (ops/logs.py,
+    models/log.py) — the last Gossip Glomers sibling of the
+    reference's broadcast: ordered per-key offset payloads with
+    committed offsets, gossiped as fixed-capacity ring buffers whose
+    merge is elementwise max over owner-indexed slot planes.
+
+    ``sends`` are ``(node, key, round, value)`` — node appends
+    ``value`` to key's log at ``round``; ``commits`` are ``(node, key,
+    round, upto)`` — node commits key's offsets below
+    ``min(upto, acked_len(key))`` at ``round``.  Both are *programs
+    over rounds* lowered to runtime operands (the nemesis/CRDT
+    pattern); empty means the closed-form default programs
+    (ops/logs.log_sends / log_commits — no O(K) config object).
+
+    Contracts the validation enforces loudly:
+
+    * values >= 1 (0 is the empty-slot sentinel — a 0 value would be
+      invisible to the merge);
+    * at most ``capacity`` sends per key (the ring position is
+      ``offset % capacity``; more sends would wrap onto an unconsumed
+      slot and silently alias two offsets);
+    * per-key script order is round-nondecreasing (offsets are
+      assigned in script order — ops/logs.send_offsets — so this is
+      what makes offset order equal time order, the ORDERED half of
+      the kafka invariants);
+    * commit ``upto`` >= 1 (committing nothing is the default state).
+    """
+
+    keys: int = 4               # K: number of per-key logs
+    capacity: int = 16          # C: ring slots per key
+    sends: Tuple[Tuple[int, int, int, int], ...] = ()
+    commits: Tuple[Tuple[int, int, int, int], ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "sends", tuple(
+            tuple(int(x) for x in s) for s in self.sends))
+        object.__setattr__(self, "commits", tuple(
+            tuple(int(x) for x in c) for c in self.commits))
+        if self.keys < 1:
+            raise ValueError("keys must be >= 1")
+        if self.capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        per_key_rounds: dict = {}
+        for s in self.sends:
+            if len(s) != 4:
+                raise ValueError(f"log send {s} must be "
+                                 "(node, key, round, value)")
+            node, key, rnd, val = s
+            if node < 0:
+                raise ValueError(f"send node {node} must be >= 0")
+            if not 0 <= key < self.keys:
+                raise ValueError(f"send key {key} outside "
+                                 f"[0, {self.keys})")
+            if rnd < 0 or rnd > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"send round {rnd} outside [0, {MAX_CHURN_HORIZON}]"
+                    " (the schedule horizon cap, shared with "
+                    "ChurnConfig)")
+            if val < 1:
+                raise ValueError(
+                    f"send {s}: values must be >= 1 (0 is the "
+                    "empty-slot sentinel the merge identity rides)")
+            rounds = per_key_rounds.setdefault(key, [])
+            if rounds and rnd < rounds[-1]:
+                raise ValueError(
+                    f"send {s}: key {key}'s sends must be scripted in "
+                    "round-nondecreasing order — offsets are assigned "
+                    "in script order, so out-of-order rounds would "
+                    "break offset-order == time-order (the kafka "
+                    "ordered-append contract, ops/logs module doc)")
+            rounds.append(rnd)
+        for key, rounds in per_key_rounds.items():
+            if len(rounds) > self.capacity:
+                raise ValueError(
+                    f"key {key} scripts {len(rounds)} sends but "
+                    f"capacity is {self.capacity}: the ring would wrap "
+                    "onto an unconsumed slot and alias two offsets — "
+                    "raise capacity or split the program")
+        # the DEFAULT send program appends 4 entries per key
+        # (ops/logs.log_sends) — it must obey the same no-wrap
+        # contract, or an unscripted tiny-capacity config would alias
+        # slots silently where a scripted one errors loudly
+        if not self.sends and self.capacity < 4:
+            raise ValueError(
+                f"capacity={self.capacity} cannot hold the default "
+                "send program (4 sends per key — ops/logs.log_sends): "
+                "the ring would wrap and alias offsets; raise "
+                "capacity to >= 4 or script the sends")
+        for c in self.commits:
+            if len(c) != 4:
+                raise ValueError(f"log commit {c} must be "
+                                 "(node, key, round, upto)")
+            node, key, rnd, upto = c
+            if node < 0:
+                raise ValueError(f"commit node {node} must be >= 0")
+            if not 0 <= key < self.keys:
+                raise ValueError(f"commit key {key} outside "
+                                 f"[0, {self.keys})")
+            if rnd < 0 or rnd > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"commit round {rnd} outside "
+                    f"[0, {MAX_CHURN_HORIZON}]")
+            if upto < 1:
+                raise ValueError(f"commit {c}: upto must be >= 1 "
+                                 "(nothing-committed is the default "
+                                 "state, not a scripted op)")
+
+    def horizon(self) -> int:
+        """Rounds after which no further send/commit fires (the
+        zero-row steady state of the lowered injection tables).  The
+        DEFAULT programs end at rounds 3 (sends) / 4 (commits —
+        ops/logs.log_sends / log_commits), so an empty config still
+        needs max_rounds > 4."""
+        rounds = [3 if not self.sends else 0,
+                  4 if not self.commits else 0]
+        rounds += [r for _, _, r, _ in self.sends]
+        rounds += [r for _, _, r, _ in self.commits]
+        return max(rounds) + 1
+
+
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
     """In-round fault injection: a static dead set drawn at
@@ -232,7 +582,9 @@ class FaultConfig:
     ``dead_nodes`` fail for good at ``fail_round``), and ``churn``, a
     fault program over rounds (:class:`ChurnConfig`; a dict is coerced,
     and an empty program is ``None``, which keeps every engine on its
-    static path)."""
+    static path), and ``byz``, a program of liars (:class:`ByzConfig`,
+    coerced and normalized the same way), which only the CRDT exchange
+    runs."""
 
     node_death_rate: float = 0.0
     drop_prob: float = 0.0
@@ -240,6 +592,7 @@ class FaultConfig:
     dead_nodes: Tuple[int, ...] = ()
     fail_round: int = 0
     churn: Optional[ChurnConfig] = None
+    byz: Optional[ByzConfig] = None
 
     def __post_init__(self):
         if not isinstance(self.dead_nodes, tuple):
@@ -261,6 +614,10 @@ class FaultConfig:
                              f"None, got {type(self.churn).__name__}")
         if self.churn is not None and self.churn.empty:
             object.__setattr__(self, "churn", None)
+        if isinstance(self.byz, dict):
+            object.__setattr__(self, "byz", ByzConfig(**self.byz))
+        if self.byz is not None and self.byz.empty:
+            object.__setattr__(self, "byz", None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -71,6 +71,7 @@ def make_rumor_round(proto: ProtocolConfig, topo: Topology,
                          f"(got {proto.mode!r})")
     n, k, kk = topo.n, proto.fanout, proto.rumor_k
     feedback = proto.rumor_variant == "feedback"
+    NE.check_supported(fault, engine="rumor")
     dev = topology_device(topo, device)
     sched = round_schedule(fault, n, dev)
     churn = sched is not None

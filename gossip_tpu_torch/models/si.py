@@ -98,6 +98,7 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
                          "models/rumor.py (SIR state, not SI)")
     if mode == C.FLOOD and topo.implicit:
         raise ValueError("flood mode needs an explicit neighbor table")
+    NE.check_supported(fault, engine="si-xla")
     dev = topology_device(topo, device)
     sched = round_schedule(fault, n, dev, schedule)
     churn = sched is not None

@@ -80,6 +80,7 @@ def make_packed_round(proto: ProtocolConfig, topo: Topology,
     if sampler == "kernel" and not topo.implicit:
         raise ValueError("the kernel sampler draws on the implicit "
                          "complete graph only")
+    NE.check_supported(fault, engine="si-packed")
     dev = si_mod.topology_device(topo, device)
     sched = si_mod.round_schedule(fault, n, dev, schedule)
     churn = sched is not None

@@ -479,8 +479,10 @@ def fused_mr_round_lanes(lanes: torch.Tensor, seed, round_, n: int,
 def fault_masks_word(fault, n: int, origin: int = 0, device=None):
     """(alive_words or None, drop_threshold): the one-word-per-node
     rendering of the static dead set (``models/state.alive_mask``) and
-    the 20-bit drop threshold."""
+    the 20-bit drop threshold.  A liar program is refused."""
     from gossip_tpu_torch.models.state import alive_mask
+    from gossip_tpu_torch.ops.nemesis import check_supported
+    check_supported(fault, engine="fused")
     alive = alive_mask(fault, n, origin, resolve_device(device))
     return (None if alive is None else render_alive_words(alive, n),
             drop_threshold_for(fault))

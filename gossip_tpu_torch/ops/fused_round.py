@@ -152,8 +152,10 @@ def fault_masks_node_packed(fault, n: int, origin: int = 0, device=None):
     """(alive_table or None, drop_threshold): the node-packed rendering
     of the static dead set (``models/state.alive_mask``, the threefry
     draw ``bernoulli(key(seed ^ 0x5157))`` with the origin pinned
-    alive) and the 20-bit drop threshold."""
+    alive) and the 20-bit drop threshold.  A liar program is refused."""
     from gossip_tpu_torch.models.state import alive_mask
+    from gossip_tpu_torch.ops.nemesis import check_supported
+    check_supported(fault, engine="fused")
     alive = alive_mask(fault, n, origin, resolve_device(device))
     return (None if alive is None else node_pack(alive),
             drop_threshold_for(fault))

@@ -27,6 +27,12 @@ static path's coin (same tags, same per-node keys) at probability
 ``drop_tbl[r]``, and a round at probability 0 draws an all-False mask.
 The coverage denominator is the eventual alive set (:func:`eventual_alive`):
 a node that recovers stays in it.
+
+The byzantine half: a :class:`~gossip_tpu_torch.config.ByzConfig` (liars
+that serve forged state) is lowered by :func:`build_byz` into a
+:class:`ByzSchedule` of per-node tables, which only the CRDT exchange
+reads (:func:`~gossip_tpu_torch.ops.crdt.pull_merge_crdt_byz`); every
+other engine refuses a liar program through :func:`check_supported`.
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gossip_tpu_torch.config import ChurnConfig, FaultConfig
+from gossip_tpu_torch.config import (BYZ_CORRUPT, BYZ_EQUIVOCATE,
+                                     BYZ_INFLATE, BYZ_REPLAY, ByzConfig,
+                                     ChurnConfig, FaultConfig)
 from gossip_tpu_torch.ops.common import resolve_device
 
 # "Never": far beyond any run, safely below int32 overflow under +1.
@@ -50,6 +58,12 @@ def get(fault: Optional[FaultConfig]) -> Optional[ChurnConfig]:
     """The fault program of ``fault``, or None (an empty one is None
     already: ``FaultConfig`` normalizes it)."""
     return fault.churn if fault is not None else None
+
+
+def get_byz(fault: Optional[FaultConfig]) -> Optional[ByzConfig]:
+    """The liar program of ``fault``, or None (an empty one is None
+    already: ``FaultConfig`` normalizes it)."""
+    return fault.byz if fault is not None else None
 
 
 class Schedule(NamedTuple):
@@ -278,8 +292,8 @@ def drop_lost(step, ch: Optional[ChurnConfig]):
     if ch is None:
         return step
 
-    def wrapped(*args):
-        out, _lost = step(*args)
+    def wrapped(*args, **kwargs):
+        out, _lost = step(*args, **kwargs)
         return out
 
     return wrapped
@@ -287,11 +301,22 @@ def drop_lost(step, ch: Optional[ChurnConfig]):
 
 def check_supported(fault: Optional[FaultConfig], *, engine: str,
                     partitions: bool = True, ramp: bool = True,
-                    events: bool = True) -> None:
+                    events: bool = True, byz: bool = False) -> None:
     """Refuse, loudly, the parts of a program an engine cannot run:
-    ``events=False`` for an engine with no churn support at all,
-    ``partitions=False`` or ``ramp=False`` for one that cannot cut
-    messages or follow a per-round drop probability."""
+    ``byz=False`` (the default) for an engine that cannot run a liar
+    program (only the CRDT pull exchange renders the liars' transforms
+    and the defenses), checked first, so a liar program without a
+    schedule is refused too; ``events=False`` for an engine with no
+    churn support at all, ``partitions=False`` or ``ramp=False`` for one
+    that cannot cut messages or follow a per-round drop probability."""
+    if get_byz(fault) is not None and not byz:
+        # the reference's words
+        raise ValueError(
+            f"the {engine} engine cannot run a byzantine liar program "
+            "(no receiver-side transform/defense hooks in its "
+            "exchange); run the crdt-pull or register-pull payloads — "
+            "docs/ROBUSTNESS.md \"Byzantine adversaries\" capability "
+            "rows")
     ch = get(fault)
     if ch is None:
         return
@@ -308,6 +333,86 @@ def check_supported(fault: Optional[FaultConfig], *, engine: str,
     if not ramp and ch.ramp is not None:
         raise ValueError(f"the {engine} engine cannot follow a drop-rate "
                          "ramp")
+
+
+# -- the byzantine program (scripted liars) ----------------------------
+
+# Integer liar-kind codes of the lowered tables (0 = honest); the
+# config-string -> code map is the one translation.
+BYZ_HONEST = 0
+BYZ_CODES = {BYZ_CORRUPT: 1, BYZ_REPLAY: 2, BYZ_EQUIVOCATE: 3,
+             BYZ_INFLATE: 4}
+
+
+class ByzSchedule(NamedTuple):
+    """A lowered liar program: per-node ``kind`` codes
+    (:data:`BYZ_CODES`, 0 honest), the ``start`` round of each lie
+    (:data:`NEVER` on honest rows) and each liar's transform ``arg``,
+    int32[n_pad] tensors on one device, and the defended set
+    admission's ``quorum`` (a host int)."""
+
+    kind: torch.Tensor       # int32[n_pad]
+    start: torch.Tensor      # int32[n_pad]
+    arg: torch.Tensor        # int32[n_pad]
+    quorum: int
+
+
+def validate_liars(fault: FaultConfig, n: int) -> None:
+    """Scripted liars must name real node ids (a liar past ``n`` would
+    corrupt nobody)."""
+    bz = get_byz(fault)
+    if bz is None:
+        return
+    bad = [a for a in bz.liars if a[0] >= n]
+    if bad:
+        raise ValueError(f"byz liars reference node ids >= n={n}: "
+                         f"{bad}")
+
+
+def build_byz(fault: FaultConfig, n: int, n_pad: Optional[int] = None,
+              device=None) -> ByzSchedule:
+    """Lower ``fault.byz`` to a :class:`ByzSchedule` on ``device``
+    (default CUDA), built in numpy and copied once; padding rows are
+    honest."""
+    bz = get_byz(fault)
+    if bz is None:
+        raise ValueError("build_byz() needs a FaultConfig with a byz "
+                         "program (gate on nemesis.get_byz(fault) "
+                         "first)")
+    validate_liars(fault, n)
+    dev = resolve_device(device)
+    n_pad = n if n_pad is None else n_pad
+    kind = np.zeros((n_pad,), np.int32)
+    start = np.full((n_pad,), NEVER, np.int32)
+    arg = np.zeros((n_pad,), np.int32)
+    for node, rnd, k, a in bz.liars:
+        kind[node] = BYZ_CODES[k]
+        start[node] = rnd
+        arg[node] = a
+    return ByzSchedule(kind=torch.from_numpy(kind).to(dev),
+                       start=torch.from_numpy(start).to(dev),
+                       arg=torch.from_numpy(arg).to(dev),
+                       quorum=int(bz.quorum))
+
+
+def honest_mask(fault: Optional[FaultConfig], n: int,
+                device=None) -> torch.Tensor:
+    """bool[n]: True where the node is not a scripted liar."""
+    mask = np.ones((n,), bool)
+    bz = get_byz(fault)
+    if bz is not None:
+        for node, _, _, _ in bz.liars:
+            if node < n:
+                mask[node] = False
+    return torch.from_numpy(mask).to(resolve_device(device))
+
+
+def byz_active(byz: ByzSchedule, nodes: torch.Tensor,
+               round_: int) -> torch.Tensor:
+    """bool[...]: whether each of ``nodes`` lies at ``round_`` (a kind
+    and its start round reached).  Callers AND in liveness: a liar that
+    is down serves nothing."""
+    return (byz.kind[nodes] != BYZ_HONEST) & (byz.start[nodes] <= int(round_))
 
 
 def mixed_scenarios(k: int, n: int, *, salt: int = 0,

@@ -5,6 +5,8 @@ Philox bits, with their stop tests evaluated under ``jax.jit`` as the
 reference's compiled loops evaluate them (XLA folds the coverage's
 division by the static ``n`` into a product with ``float32(1 / n)``)."""
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import torch
 
 from gossip_tpu.ops import pallas_round as J
 from gossip_tpu_torch.config import FaultConfig
+from gossip_tpu_torch.ops import crdt as CR
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
 
@@ -95,3 +98,50 @@ def report_coverage(table, n, rumors=1):
     if rumors == 1:
         return float(J.coverage_node_packed(jnp.asarray(table), n))
     return float(J.coverage_words(jnp.asarray(table), n, rumors))
+
+
+def config_pair(cls_name, **kw):
+    """The same config in both packages (``cls_name`` in
+    ``gossip_tpu.config`` and ``gossip_tpu_torch.config``)."""
+    from gossip_tpu import config as JC
+    from gossip_tpu_torch import config as TC
+    return getattr(JC, cls_name)(**kw), getattr(TC, cls_name)(**kw)
+
+
+def fault_pair(churn=None, byz=None, **kw):
+    """The same ``FaultConfig`` in both packages; ``churn`` and ``byz``
+    are keyword dicts of ``ChurnConfig`` and ``ByzConfig``.  None for
+    ``None``."""
+    if churn is None and byz is None and not kw:
+        return None, None
+    from gossip_tpu import config as JC
+    from gossip_tpu_torch import config as TC
+    out = []
+    for M in (JC, TC):
+        out.append(M.FaultConfig(
+            churn=None if churn is None else M.ChurnConfig(**churn),
+            byz=None if byz is None else M.ByzConfig(**byz), **kw))
+    return tuple(out)
+
+
+def forced_blocks(rows: int):
+    """Force the payload rounds' exchange and converged count to blocks
+    of ``rows`` rows (the byte budget picks far larger ones at a test's
+    size); the rounds take their block size when they are made."""
+    return mock.patch.object(CR, "block_rows_for", lambda width, k: rows)
+
+
+def payload_state_equal(js, ts) -> bool:
+    """A CRDT or log state of the reference (``val``, ``round``,
+    ``base_key``, ``msgs``) and of the port, bitwise."""
+    from gossip_tpu_torch.ops import threefry
+    jv = np.asarray(js.val)
+    tv = ts.val.cpu().numpy()
+    if jv.dtype == np.uint32:
+        tv = tv.view(np.uint32)
+    return bool(
+        jv.dtype == tv.dtype and np.array_equal(jv, tv)
+        and int(js.round) == ts.round
+        and np.array_equal(threefry.key_to_words(ts.base_key),
+                           np.asarray(jax.random.key_data(js.base_key)))
+        and np.float32(js.msgs) == np.float32(ts.msgs.item()))

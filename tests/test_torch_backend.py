@@ -28,8 +28,8 @@ from gossip_tpu.ops import pallas_round as J
 from gossip_tpu.topology import generators as JG
 from gossip_tpu_torch import bench
 from gossip_tpu_torch.backend import run_simulation
-from gossip_tpu_torch.config import (ChurnConfig, FaultConfig, MeshConfig,
-                                     ProtocolConfig, RunConfig,
+from gossip_tpu_torch.config import (ChurnConfig, FaultConfig, LogConfig,
+                                     MeshConfig, ProtocolConfig, RunConfig,
                                      TopologyConfig)
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
@@ -156,8 +156,8 @@ def test_refusals_are_loud(proto, topo, run, fault, match):
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_cfg=MeshConfig(n_devices=2)), "multi-GPU"),
     (dict(mesh_cfg=MeshConfig(exchange="sparse")), "multi-GPU"),
-    (dict(log_cfg=object()), "payload slice"),
-    (dict(txn_cfg=object()), "payload slice"),
+    (dict(log_cfg=LogConfig(), txn_cfg=object()), "at most one payload"),
+    (dict(txn_cfg=object()), "registers slice"),
 ])
 def test_later_slices_are_refused(kw, match):
     for engine in ("xla", "auto", "fused"):
