@@ -9,8 +9,9 @@ multi-rumor run (32 rumors, to 99% min-over-rumors coverage), the
 threefry-keyed XLA engine (with its threefry sampler and with the
 sampling kernel, without and under a fault program), SWIM failure
 detection and rumor mongering, the CRDT payloads (with the byzantine
-liar program) and the replicated logs, and the roofline tool through the
-port's own entry points, and measures them.  One JSON line per phase:
+liar program), the replicated logs and the LWW registers' txn workload,
+and the roofline tool through the port's own entry points, and measures
+them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
@@ -121,11 +122,25 @@ port's own entry points, and measures them.  One JSON line per phase:
    its peak of allocated memory (at most 2.1 states: a round holds the
    state, its successor and one block); each run's ms a round and
    node-rounds/s, and one round's parts at CR4's and CR3's shapes;
-17. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
+17. ``txn_path``  the JAX package's ``txn`` command lines (``TXN_CASES``:
+   its documents' deployments, the liar program defended and not with
+   every liar kind, ``inflate`` past int32 among them, and the defaults
+   and TX2's program at N = 10M, two ``int32[10M, 16]`` states) through
+   the port's ``txn`` command on the card, each against the JAX
+   package's rounds, txn_conv, truth and msgs (TX1's and TX3's curves
+   too), no kernel launched; the final state of the ten small ids equal
+   to the port's CPU run, every field; TX1 and TX10M again through
+   ``python -m gossip_tpu_torch txn``; TX10M through
+   ``simulate_until_txn`` with its peak of allocated memory beside the
+   state's bytes and a bare partner draw's peak; each run's ms a round
+   and node-rounds/s, and one round's parts at TX10M's and TX10Mh's
+   deployments (partner draw, coin, the round's own exchange, the
+   converged count);
+18. ``fused_deaths``  one single-rumor and one 32-rumor fused run at
    N = 10M with ``node_death_rate=0.1`` against their plain replays, the
    stop test's counter-read coverage against a recount, and their ms per
    round;
-18. ``roofline_checks`` and ``roofline``  the three calibration
+19. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
    i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
@@ -254,6 +269,67 @@ CRDT_LOG_CASES = {
 # the ids whose final state on the card must equal the port's CPU run
 CRDT_LOG_REPLAYS = ("CR1", "CR2", "CR3", "LG2", "BZ1d", "BZ1u", "BZ2u",
                     "BZ2d")
+# the curves the runs must print
+PAYLOAD_CURVES = {
+    "CR1": [0.0] * 16 + [0.004638671875, 0.1904296875, 0.649169921875,
+                         0.927001953125, 0.991943359375, 0.998046875,
+                         0.999755859375] + [1.0] * 41,
+    "TX1": [0.0] * 14 + [5e-05, 0.00329, 0.06239, 0.41504, 0.87444,
+                         0.99807] + [1.0] * 44,
+    "TX3": [0.0] * 10 + [0.0009765625, 0.0146484375, 0.1201171875,
+                         0.541015625, 0.935546875] + [1.0] * 49,
+}
+# The LWW registers: the JAX package's `txn` command lines (TX1
+# README.md:340, TX2 docs/WORKLOADS.md:392, TX3 docs/WORKLOADS.md:397,
+# TX4 README.md:342, TXB1 README.md:353 with and without --defend, TXB2
+# BZ1's program of docs/ROBUSTNESS.md:373 on registers, TXB3 the other
+# liar kinds with inflate past int32, TX10M the defaults of
+# docs/WORKLOADS.md:404 at the north star's N on one device, TX10Mh
+# TX2's program at N = 10M with the cut at n / 2) and their (rounds,
+# txn_conv, truth, msgs), jax 0.9.0 on the CPU.
+_T8 = {"values": [71, 62, 68, 12, 0, 0, 0, 1],
+       "ts_round": [7, 5, 4, 7, -1, -1, -1, 2],
+       "ts_owner": [0, 5, 10, 15, -1, -1, -1, 35], "written_keys": 5}
+_T6 = {"values": [71, 62, 58, 12, 0, 76], "ts_round": [7, 5, 3, 7, -1, 2],
+       "ts_owner": [0, 5, 10, 15, -1, 9], "written_keys": 5}
+_TXB = ["txn", "--n", "16", "--keys", "6", "--fanout", "3", "--max-rounds",
+        "100"]
+_TXB23 = [*_TXB, "--churn-event", "4:6:12"]
+_TX2 = ["--partition", "0:8:2048", *_HEAL]
+TXN_CASES = {
+    "TX1": (["txn", "--n", "100000", "--keys", "8", "--partition",
+             "0:6:50000", "--curve"], (21, 1.0, _T8, 24399524.0)),
+    "TX2": (["txn", "--n", "4096", "--keys", "8", *_TX2],
+            (23, 1.0, _T8, 225172.0)),
+    "TX3": (["txn", "--n", "1024", "--zipf-alpha", "1.4", "--hot-key", "0.5",
+             "--load", "diurnal", "--curve"],
+            (16, 1.0, {"values": [71, 62, 1, 0, 0, 0, 87, 0],
+                       "ts_round": [6, 5, 7, -1, -1, -1, 2, -1],
+                       "ts_owner": [1, 5, 10, -1, -1, -1, 30, -1],
+                       "written_keys": 4}, 262144.0)),
+    "TX4": (["txn", "--n", "16", "--keys", "2", "--write", "3:0:1:9",
+             "--write", "5:0:1:7"],
+            (4, 1.0, {"values": [7, 0], "ts_round": [1, -1],
+                      "ts_owner": [5, -1], "written_keys": 1}, 256.0)),
+    "TXB1d": ([*_TXB, "--byz", "11:0:corrupt:1048576", "--defend"],
+              (32, 1.0, _T6, 3072.0)),
+    "TXB1u": ([*_TXB, "--byz", "11:0:corrupt:1048576"],
+              (100, 0.0, _T6, 9600.0)),
+    "TXB2d": ([*_TXB23, *_BYZ, "--defend"], (32, 1.0, _T6, 3036.0)),
+    "TXB2u": ([*_TXB23, *_BYZ], (100, 0.0, _T6, 9564.0)),
+    "TXB3u": ([*_TXB23, "--byz", "3:2:inflate:200000000", "--byz",
+               "7:1:equivocate", "--byz", "9:0:replay"],
+              (100, 0.0, _T6, 9564.0)),
+    "TXB3d": ([*_TXB23, "--byz", "3:2:inflate:200000000", "--byz",
+               "7:1:equivocate", "--byz", "9:0:replay", "--defend"],
+              (100, 0.0625, _T6, 9564.0)),
+    "TX10M": (["txn", "--n", str(N), "--keys", "8"],
+              (24, 1.0, _T8, 960000000.0)),
+    "TX10Mh": (["txn", "--n", str(N), "--keys", "8", "--partition",
+                f"0:8:{N // 2}", *_HEAL], (33, 1.0, _T8, 829985856.0)),
+}
+TXN_REPLAYS = ("TX1", "TX2", "TX3", "TX4", "TXB1d", "TXB1u", "TXB2d",
+               "TXB2u", "TXB3u", "TXB3d")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1400,11 +1476,60 @@ def phase_swim_rumor_path(dev, smi: str, n_swim: int = N_SWIM, n: int = N,
 
 
 def _payload_key(rep: dict):
-    """(rounds, convergence, truth, msgs) of a crdt or log report."""
+    """(rounds, convergence, truth, msgs) of a crdt, log or txn report."""
     if rep["mode"] == "crdt":
         return (rep["rounds"], rep["value_conv"], rep["truth_value"],
                 rep["msgs"])
-    return rep["rounds"], rep["log_conv"], rep["truth"], rep["msgs"]
+    conv = "log_conv" if rep["mode"] == "log" else "txn_conv"
+    return rep["rounds"], rep[conv], rep["truth"], rep["msgs"]
+
+
+def _payload_runs(dev, cases, replays):
+    """Every id of ``cases`` through ``cli.run_payload`` on ``dev``, each
+    against the JAX package's (rounds, convergence, truth, msgs) and its
+    curve in ``PAYLOAD_CURVES``, no kernel launched and (on a card)
+    nothing on the CPU; the ``replays`` run again on the CPU, every final
+    state field equal.  Returns ``(runs, card_vs_cpu, wall_s)``: each
+    run's ms a round and node-rounds/s (a curve's over its rounds)."""
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.ops import _kernels
+
+    wall_s, runs, same = {}, {}, {}
+    on_card = dev.type == "cuda"
+    for name, (args, want) in cases.items():
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.empty_cache()
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        rep, result = cli.run_payload([*args, "--device", dev.type])
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        got = _payload_key(rep)
+        check(got == want and sum(launches.values()) == 0
+              and (rep["device"] != "cpu") == on_card,
+              f"{name}: {got} on {rep['device']}, {launches}, want {want}")
+        if name in PAYLOAD_CURVES:
+            check(rep["curve"] == PAYLOAD_CURVES[name],
+                  f"{name} curve {rep['curve']}")
+        steady = rep["steady_wall_s"]
+        rounds = len(rep["curve"]) if "curve" in rep else rep["rounds"]
+        runs[name] = {"rounds": rep["rounds"], "result": list(got[1:]),
+                      "launches": launches, "steady_wall_s": steady,
+                      "ms_per_round": steady * 1e3 / rounds,
+                      "node_rounds_per_s": rep["n"] * rounds / steady,
+                      "peak_mem_bytes": rep["peak_mem_bytes"]}
+        if name in replays:
+            _, res_cpu = cli.run_payload([*args, "--device", "cpu"])
+            a, b = result[-2], res_cpu[-2]
+            same[name] = bool(
+                torch.equal(a.val.cpu(), b.val) and a.round == b.round
+                and torch.equal(a.base_key.cpu(), b.base_key)
+                and torch.equal(a.msgs.cpu(), b.msgs))
+        del result
+        wall_s[name] = time.perf_counter() - t0
+    check(all(same.values()), f"payload card vs CPU: {same}")
+    return runs, same, wall_s
 
 
 def _crdt_round_split(dev, n: int, kind: str = "gcounter", **cfg) -> dict:
@@ -1472,47 +1597,10 @@ def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
     ``simulate_until_crdt`` with its peak of allocated memory; each run's
     ms a round and node-rounds/s."""
     import torch
-    from gossip_tpu_torch import cli
-    from gossip_tpu_torch.ops import _kernels
 
     cases = CRDT_LOG_CASES if cases is None else cases
-    cpu = torch.device("cpu")
-    wall_s, runs, same = {}, {}, {}
     on_card = dev.type == "cuda"
-    for name, (args, want) in cases.items():
-        t0 = time.perf_counter()
-        if on_card:
-            torch.cuda.empty_cache()
-        for k in _kernels.KERNELS:
-            k.launches = 0
-        rep, result = cli.run_payload([*args, "--device", dev.type])
-        launches = {k.name: k.launches for k in _kernels.KERNELS}
-        got = _payload_key(rep)
-        check(got == want and sum(launches.values()) == 0
-              and (rep["device"] != "cpu") == on_card,
-              f"{name}: {got} on {rep['device']}, {launches}, want {want}")
-        if name == "CR1":
-            check(rep["curve"] == [0.0] * 16 + [
-                0.004638671875, 0.1904296875, 0.649169921875,
-                0.927001953125, 0.991943359375, 0.998046875,
-                0.999755859375] + [1.0] * 41, f"CR1 curve {rep['curve']}")
-        steady = rep["steady_wall_s"]
-        rounds = 64 if name == "CR1" else rep["rounds"]   # the curve's 64
-        runs[name] = {"rounds": rep["rounds"], "result": list(got[1:]),
-                      "launches": launches, "steady_wall_s": steady,
-                      "ms_per_round": steady * 1e3 / rounds,
-                      "node_rounds_per_s": rep["n"] * rounds / steady,
-                      "peak_mem_bytes": rep["peak_mem_bytes"]}
-        if name in replays:
-            _, res_cpu = cli.run_payload([*args, "--device", "cpu"])
-            a, b = result[-2], res_cpu[-2]
-            same[name] = bool(
-                torch.equal(a.val.cpu(), b.val) and a.round == b.round
-                and torch.equal(a.base_key.cpu(), b.base_key)
-                and torch.equal(a.msgs.cpu(), b.msgs))
-        del result
-        wall_s[name] = time.perf_counter() - t0
-    check(all(same.values()), f"CRDT / log card vs CPU: {same}")
+    runs, same, wall_s = _payload_runs(dev, cases, replays)
     cr4 = None
     if "CR4" in cases:
         from gossip_tpu_torch.config import (ChurnConfig, CrdtConfig,
@@ -1563,6 +1651,159 @@ def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
               f"{out['device']}, want {want}")
     wall_s["command_line"] = time.perf_counter() - t0
     emit("crdt_log_path", runs=runs, card_vs_cpu=same, cr4_direct=cr4,
+         round_split=split, command_line=list(command_ids),
+         phase_wall_s=wall_s, card=smi)
+
+
+def _txn_fault(n: int, heal: bool):
+    """TX10Mh's program at n (a cut at n / 2 for rounds [0, 8), node 3
+    down for rounds [2, 5), the drop rate ramped 0 -> 0.3 over [1, 4)),
+    or None for TX10M."""
+    from gossip_tpu_torch.config import ChurnConfig, FaultConfig
+    if not heal:
+        return None
+    return FaultConfig(churn=ChurnConfig(
+        events=((3, 2, 5),), partitions=((0, 8, n // 2),),
+        ramp=(1, 4, 0.0, 0.3)))
+
+
+def _txn_round_split(dev, n: int, heal: bool) -> dict:
+    """One register round's parts at n nodes (TX10M's deployment, or
+    TX10Mh's with ``heal``), eight rounds in, past the writes and the
+    cut: the whole round, the partner draw, the drop coin (drawn every
+    round under a program), the round's own blocked exchange
+    (``step.exchange``, with the program's alive row) and the converged
+    count with its host read."""
+    import torch
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig, TxnConfig
+    from gossip_tpu_torch.models import register as RM
+    from gossip_tpu_torch.models.si import PULL_DROP_TAG, PULL_TAG
+    from gossip_tpu_torch.ops import crdt as CR
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.ops import registers as RG
+    from gossip_tpu_torch.ops import threefry
+    from gossip_tpu_torch.ops.sampling import drop_mask, sample_peers
+    from gossip_tpu_torch.topology import generators as G
+
+    cfg, fault, topo = TxnConfig(keys=8), _txn_fault(n, heal), G.complete(n)
+    raw = RM.make_register_round(cfg, ProtocolConfig(mode="pull", fanout=2),
+                                 topo, fault, device=dev)
+    step = NE.drop_lost(raw, NE.get(fault))
+    state = RM.init_reg_state(RunConfig(), cfg, n, dev)
+    for _ in range(8):
+        state = step(state, donate=True)
+    truth = RG.ground_truth(cfg, RG.inject_args(cfg, n, dev), fault, n, 0)
+    eventual = RG.eventual_alive_crdt(fault, n, 0, dev)
+    ids = torch.arange(n, device=dev)
+    rkey = threefry.fold_in(state.base_key, state.round)
+    partners = sample_peers(threefry.fold_in(rkey, PULL_TAG), ids, topo, 2)
+    alive = NE.base_alive_or_ones(fault, n, 0, dev) if heal else None
+    split = {
+        "n": n, "program": "TX10Mh" if heal else "TX10M",
+        "block_rows": CR.block_rows_for(RG.state_width(cfg), 2),
+        "round_ms": _median_ms(dev, lambda: step(state).round),
+        "partner_draw_ms": _median_ms(
+            dev, sample_peers, threefry.fold_in(rkey, PULL_TAG), ids, topo,
+            2),
+        "exchange_ms": _median_ms(
+            dev, lambda: raw.exchange(state.val, partners, state.round,
+                                      alive).shape),
+        "converged_count_ms": _median_ms(
+            dev, lambda: int(CR.converged_count(state.val, truth,
+                                                eventual)))}
+    if heal:
+        split["coin_ms"] = _median_ms(dev, drop_mask, rkey, PULL_DROP_TAG,
+                                      ids, 2, 0.3)
+    return split
+
+
+def _draw_peak(dev, n: int) -> int:
+    """Bytes one bare partner draw at n nodes (fanout 2, the complete
+    graph) allocates at its peak above what was allocated before it."""
+    import torch
+    from gossip_tpu_torch.models.si import PULL_TAG
+    from gossip_tpu_torch.ops import threefry
+    from gossip_tpu_torch.ops.sampling import sample_peers
+    from gossip_tpu_torch.topology import generators as G
+    ids = torch.arange(n, device=dev)
+    key = threefry.fold_in(threefry.fold_in(threefry.key(SEED, dev), 3),
+                           PULL_TAG)
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    partners = sample_peers(key, ids, G.complete(n), 2)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    del partners
+    return peak
+
+
+def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
+                   command_ids=("TX1", "TX10M"), n: int = N):
+    """The LWW registers and the txn workload (with the liar program and
+    the owner/clamp defense) through the port's ``txn`` command line
+    (``cli.run_payload``), every id of ``TXN_CASES`` against the JAX
+    package's rounds, txn_conv, truth and msgs (TX1's and TX3's curves
+    too), no kernel launched and nothing on the CPU; the ``replays`` run
+    again on the CPU, every final state field equal to the card's;
+    ``command_ids`` again through ``python -m gossip_tpu_torch txn``;
+    TX10M through ``simulate_until_txn`` with its peak of allocated
+    memory beside the state's bytes and a bare partner draw's peak; one
+    round's parts at TX10M's and TX10Mh's deployments; each run's ms a
+    round and node-rounds/s."""
+    import torch
+
+    cases = TXN_CASES if cases is None else cases
+    on_card = dev.type == "cuda"
+    runs, same, wall_s = _payload_runs(dev, cases, replays)
+    memory = None
+    if on_card and "TX10M" in cases:
+        from gossip_tpu_torch.config import (ProtocolConfig, RunConfig,
+                                             TxnConfig)
+        from gossip_tpu_torch.models.register import simulate_until_txn
+        from gossip_tpu_torch.topology import generators as G
+        from gossip_tpu_torch.utils.timing import steady_timed
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, steady = steady_timed(
+            dev, simulate_until_txn, TxnConfig(keys=8),
+            ProtocolConfig(mode="pull", fanout=2), G.complete(n),
+            RunConfig(target_coverage=1.0, max_rounds=64), None, device=dev)
+        want = TXN_CASES["TX10M"][1]
+        check((out[0], out[1], out[4], out[2]) == want,
+              f"TX10M through simulate_until_txn: {out[:3]} {out[4]}")
+        state_bytes = out[3].val.numel() * 4
+        del out
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        draw = _draw_peak(dev, n)
+        memory = {"rounds": want[0], "steady_wall_s": steady,
+                  "ms_per_round": steady * 1e3 / want[0],
+                  "peak_mem_bytes": peak, "state_bytes": state_bytes,
+                  "draw_peak_bytes": draw,
+                  "peak_over_two_states": peak / (2 * state_bytes),
+                  "peak_beyond_two_states_over_draw":
+                      (peak - 2 * state_bytes) / draw}
+        wall_s["tx10m_direct"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = {}
+    if on_card:
+        torch.cuda.empty_cache()
+        split["TX10M"] = _txn_round_split(dev, n, False)
+        split["TX10Mh"] = _txn_round_split(dev, n, True)
+        torch.cuda.empty_cache()
+    wall_s["round_split"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in command_ids:
+        args, want = cases[name]
+        out = _port_run(args[1:], cmd=args[0])
+        check(_payload_key(out) == want
+              and (out["device"] != "cpu") == on_card,
+              f"{name} command line: {_payload_key(out)} on "
+              f"{out['device']}, want {want}")
+    wall_s["command_line"] = time.perf_counter() - t0
+    emit("txn_path", runs=runs, card_vs_cpu=same, tx10m_memory=memory,
          round_split=split, command_line=list(command_ids),
          phase_wall_s=wall_s, card=smi)
 
@@ -1847,6 +2088,7 @@ def main() -> int:
     churn_launches = phase_churn_path(dev, smi)
     phase_swim_rumor_path(dev, smi)
     phase_crdt_log_path(dev, smi)
+    phase_txn_path(dev, smi)
     sampler.update(launches=churn_launches, path="churn_path",
                    launches_by_path={"xla_sampler_path": xla_sampler_launches,
                                      "churn_path": churn_launches})

@@ -10,8 +10,8 @@ staged route's ``csrc/mr_gather.cu``), and the threefry-keyed XLA engine
 packed loop can draw its partners with ``csrc/sampler.cu``; the XLA
 engine also runs the JAX package's fault programs (the nemesis: churn
 events, partition windows, drop ramps), SWIM failure detection, rumor
-mongering, the CRDT payloads (with the byzantine liar program) and the
-replicated logs.  Its roofline
+mongering, the CRDT payloads (with the byzantine liar program), the
+replicated logs and the LWW registers' txn workload.  Its roofline
 tool calibrates the card's rates with the microkernels of
 ``csrc/calibrate.cu`` and prices the round kernels' work with them.
 
@@ -19,8 +19,9 @@ Layout:
   - :mod:`gossip_tpu_torch.config`           the run configuration
   - :mod:`gossip_tpu_torch.ops.nemesis`      fault programs lowered to
     schedule tables, the per-round helpers, and the liar tables
-  - :mod:`gossip_tpu_torch.ops.crdt`, ``logs``  the payloads' merges,
-    injections, ground truth, and the liar transforms and defenses
+  - :mod:`gossip_tpu_torch.ops.crdt`, ``logs``, ``registers``  the
+    payloads' merges, injections, ground truth, and the liar transforms
+    and defenses
   - :mod:`gossip_tpu_torch.ops.philox`       the kernels' random streams
   - :mod:`gossip_tpu_torch.ops.threefry`     ``jax.random``'s threefry
   - :mod:`gossip_tpu_torch.ops.fused_round`  the single-rumor round, its
@@ -32,8 +33,8 @@ Layout:
     and the sampling kernel's wrapper
   - :mod:`gossip_tpu_torch.topology.generators`  the graph families
   - :mod:`gossip_tpu_torch.models`           state, bool and packed rounds,
-    SWIM (``swim``), rumor mongering (``rumor``), the CRDT and log
-    rounds and loops (``crdt``, ``log``)
+    SWIM (``swim``), rumor mongering (``rumor``), the CRDT, log and
+    register rounds and loops (``crdt``, ``log``, ``register``)
   - :mod:`gossip_tpu_torch.runtime.simulator`  the bool rounds' and SWIM's
     loops
   - :mod:`gossip_tpu_torch.ops._kernels`     build, binding and launch

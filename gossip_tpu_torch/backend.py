@@ -21,8 +21,9 @@ on one device (``run_jax`` and ``_run_fused``):
   does.
 
 A ``log_cfg`` runs the replicated-log workload
-(:func:`run_log_workload`, the reference's ``run_log_workload``) on the
-xla engine; the txn workload waits for the registers slice.
+(:func:`run_log_workload`, the reference's ``run_log_workload``) and a
+``txn_cfg`` the LWW-register transactions (:func:`run_txn_workload`) on
+the xla engine.
 
 The report carries the reference's ``RunReport`` fields and ``meta``
 keys, plus the device and every kernel's launches.  Whatever the port
@@ -117,9 +118,11 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
     if log_cfg is not None and txn_cfg is not None:
         return ("a request carries at most one payload workload; pick "
                 "'log' or 'txn'")
-    if txn_cfg is not None:
-        return ("the txn workload (LWW registers) waits for the port's "
-                "registers slice (ROADMAP queue 1, item 4)")
+    if txn_cfg is not None and mesh_cfg is not None:
+        # the reference's words
+        return ("the txn workload over RPC is single-process "
+                "single-device; shard the node mesh via the library API "
+                "(parallel/sharded_register)")
     if mesh_cfg is not None and (mesh_cfg.n_devices > 1
                                  or mesh_cfg.exchange != "dense"):
         return ("more than one device, and the sparse and halo "
@@ -367,40 +370,64 @@ def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
                      wall_s=round(wall, 4), curve=curve, meta=meta)
 
 
+def _run_payload_workload(mode: str, model, proto: ProtocolConfig,
+                          tc: TopologyConfig, run: RunConfig, cfg,
+                          fault: Optional[FaultConfig], want_curve: bool,
+                          dev: torch.device) -> RunReport:
+    """A payload workload on the XLA engine through ``model``'s
+    ``check_<mode>_mode``, ``simulate_curve_<mode>`` and
+    ``simulate_until_<mode>``: ``coverage`` is the final convergence,
+    ``meta.truth`` the loop's truth summary."""
+    from gossip_tpu_torch.topology import generators as G
+    getattr(model, f"check_{mode}_mode")(proto)
+    if run.engine not in ("auto", "xla"):
+        raise ValueError(f"engine={run.engine!r} cannot run the {mode} "
+                         "workload (XLA pull kernels only)")
+    topo = G.build(tc, dev)
+    t0 = time.perf_counter()
+    if want_curve:
+        (conv, msgs, _, truth), steady = steady_timed(
+            dev, getattr(model, f"simulate_curve_{mode}"), cfg, proto, topo,
+            run, fault, device=dev)
+        rounds, cv, msgs_f, curve = _curve_summary(conv, msgs,
+                                                   run.target_coverage)
+    else:
+        (rounds, cv, msgs_f, _, truth), steady = steady_timed(
+            dev, getattr(model, f"simulate_until_{mode}"), cfg, proto, topo,
+            run, fault, device=dev)
+        curve = None
+    wall = time.perf_counter() - t0
+    return RunReport(
+        backend=f"torch-{dev.type}", mode=mode, n=tc.n, rounds=rounds,
+        coverage=cv, msgs=msgs_f, wall_s=round(wall, 4), curve=curve,
+        meta={"clock": "rounds", "devices": 1,
+              "msgs_counts": "transmissions", "engine": f"{mode}-xla",
+              "workload": mode, "truth": truth,
+              "device": _device_name(dev),
+              **timing_meta(0.0, steady, wall)})
+
+
 def run_log_workload(proto: ProtocolConfig, tc: TopologyConfig,
                      run: RunConfig, log_cfg, fault: Optional[FaultConfig],
                      want_curve: bool, dev: torch.device) -> RunReport:
     """The replicated-log workload (:mod:`gossip_tpu_torch.models.log`)
     on the XLA engine: ``coverage`` is the final ``log_conv``, and
     ``meta.truth`` the acked-appends truth."""
-    from gossip_tpu_torch.models.log import (check_log_mode,
-                                             simulate_curve_log,
-                                             simulate_until_log)
-    from gossip_tpu_torch.topology import generators as G
-    check_log_mode(proto)
-    if run.engine not in ("auto", "xla"):
-        raise ValueError(f"engine={run.engine!r} cannot run the log "
-                         "workload (XLA pull kernels only)")
-    topo = G.build(tc, dev)
-    t0 = time.perf_counter()
-    if want_curve:
-        (conv, msgs, _, truth), steady = steady_timed(
-            dev, simulate_curve_log, log_cfg, proto, topo, run, fault, dev)
-        rounds, lc, msgs_f, curve = _curve_summary(conv, msgs,
-                                                   run.target_coverage)
-    else:
-        (rounds, lc, msgs_f, _, truth), steady = steady_timed(
-            dev, simulate_until_log, log_cfg, proto, topo, run, fault, dev)
-        curve = None
-    wall = time.perf_counter() - t0
-    return RunReport(
-        backend=f"torch-{dev.type}", mode="log", n=tc.n, rounds=rounds,
-        coverage=lc, msgs=msgs_f, wall_s=round(wall, 4), curve=curve,
-        meta={"clock": "rounds", "devices": 1,
-              "msgs_counts": "transmissions", "engine": "log-xla",
-              "workload": "log", "truth": truth,
-              "device": _device_name(dev),
-              **timing_meta(0.0, steady, wall)})
+    from gossip_tpu_torch.models import log
+    return _run_payload_workload("log", log, proto, tc, run, log_cfg, fault,
+                                 want_curve, dev)
+
+
+def run_txn_workload(proto: ProtocolConfig, tc: TopologyConfig,
+                     run: RunConfig, txn_cfg, fault: Optional[FaultConfig],
+                     want_curve: bool, dev: torch.device) -> RunReport:
+    """The LWW-register transaction workload
+    (:mod:`gossip_tpu_torch.models.register`) on the XLA engine:
+    ``coverage`` is the final ``txn_conv``, and ``meta.truth`` the
+    acked-writes LWW truth.  Without ``defend``, as the reference's."""
+    from gossip_tpu_torch.models import register
+    return _run_payload_workload("txn", register, proto, tc, run, txn_cfg,
+                                 fault, want_curve, dev)
 
 
 def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
@@ -418,6 +445,9 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
     if reason is not None:
         raise ValueError(reason)
     NE.validate_events(fault, topo.n)
+    if txn_cfg is not None:
+        return run_txn_workload(proto, topo, run, txn_cfg, fault,
+                                want_curve, resolve_device(device))
     if log_cfg is not None:
         return run_log_workload(proto, topo, run, log_cfg, fault,
                                 want_curve, resolve_device(device))

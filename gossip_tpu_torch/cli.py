@@ -1,7 +1,8 @@
-"""Command line of the port: ``python -m gossip_tpu_torch run|crdt|log``.
+"""Command line of the port: ``python -m gossip_tpu_torch
+run|crdt|log|txn``.
 
-The port of the JAX package's ``run``, ``crdt`` and ``log`` commands on
-one device::
+The port of the JAX package's ``run``, ``crdt``, ``log`` and ``txn``
+commands on one device::
 
     python -m gossip_tpu_torch run --mode pull --n 10000000 [--engine E] \\
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
@@ -25,6 +26,11 @@ one device::
         [--send NODE:KEY:ROUND:VALUE]... [--commit NODE:KEY:ROUND:UPTO]...
         [the crdt command's topology, run and churn flags] [--curve]
         [--save-curve PATH] [--device cpu]
+    python -m gossip_tpu_torch txn [--n N] [--keys K] [--txns T] \\
+        [--zipf-alpha A] [--hot-key H] [--load uniform|diurnal]
+        [--spread S] [--write NODE:KEY:ROUND:VALUE]...
+        [the crdt command's topology, run, churn and byz flags]
+        [--curve] [--save-curve PATH] [--device cpu]
 
 ``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
 ``--engine`` one of ``auto|xla|fused`` (default ``auto``;
@@ -40,8 +46,9 @@ other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
 the run needs a CUDA device.
 
-``crdt`` and ``log`` (:mod:`gossip_tpu_torch.models.crdt`,
-:mod:`gossip_tpu_torch.models.log`) take the JAX commands' flags and
+``crdt``, ``log`` and ``txn`` (:mod:`gossip_tpu_torch.models.crdt`,
+:mod:`gossip_tpu_torch.models.log`,
+:mod:`gossip_tpu_torch.models.register`) take the JAX commands' flags and
 print their reports' fields in their order (``backend`` and ``engine``
 the port's names), then the device, the steady wall and, on a card, the
 peak of allocated device memory.  ``--devices`` above 1 is refused (the
@@ -60,7 +67,10 @@ from typing import Optional
 from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import (ByzConfig, ChurnConfig, CrdtConfig,
                                      FaultConfig, LogConfig, ProtocolConfig,
-                                     RunConfig, TopologyConfig)
+                                     RunConfig, TopologyConfig, TxnConfig)
+
+
+PAYLOAD_COMMANDS = ("crdt", "log", "txn")
 
 
 def _parse_churn(a) -> Optional[ChurnConfig]:
@@ -244,8 +254,37 @@ def run_log(a):
     return _finish(a, out, result, want_curve, extra)
 
 
+def run_txn(a):
+    """An LWW-register transaction run (the JAX command's ``txn``):
+    convergence judged integer-exact against the acked-writes LWW truth
+    on the eventual-alive set.  Returns ``(report, loop result)``."""
+    from gossip_tpu_torch.models import register as M
+    cfg = TxnConfig(keys=a.keys, txns=a.txns, zipf_alpha=a.zipf_alpha,
+                    hot_key=a.hot_key, load=a.load, spread_rounds=a.spread,
+                    writes=_colon_ints(a.write, "write", 4))
+    byz = _parse_byz(a)
+    proto, topo, run, fault, dev = _payload_setup(a, byz)
+    want_curve = a.curve or bool(a.save_curve)
+    fn = M.simulate_curve_txn if want_curve else M.simulate_until_txn
+    result, wall, extra = _timed(dev, fn, cfg, proto, topo, run, fault,
+                                 defend=a.defend, device=dev)
+    rounds, tcv, msgs = _summary(a, want_curve, result)
+    out = {"backend": f"torch-{dev.type}", "mode": "txn", "n": a.n,
+           "keys": a.keys, "rounds": rounds, "txn_conv": tcv,
+           "converged": tcv >= a.target, "truth": result[-1],
+           "msgs": msgs, "wall_s": round(wall, 4), "devices": a.devices,
+           "engine": "txn-xla", "zipf_alpha": a.zipf_alpha,
+           "hot_key": a.hot_key, "load": a.load, "compile_cache": None}
+    if fault is not None and fault.churn is not None:
+        out["fault_program"] = True
+    if byz is not None:
+        out["byz_program"] = True
+        out["defended"] = bool(a.defend)
+    return _finish(a, out, result, want_curve, extra)
+
+
 def _add_payload_flags(p, conv: str) -> None:
-    """The flags the JAX package's ``crdt`` and ``log`` commands share."""
+    """The flags the JAX package's payload commands share."""
     p.add_argument("--n", type=int, default=1024)
     p.add_argument("--fanout", type=int, default=2)
     p.add_argument("--family", default=C.COMPLETE, choices=C.FAMILIES)
@@ -262,6 +301,22 @@ def _add_payload_flags(p, conv: str) -> None:
                         "multi-GPU slice)")
     p.add_argument("--drop", type=float, default=0.0)
     p.add_argument("--death", type=float, default=0.0)
+
+
+def _add_byz_flags(p) -> None:
+    """The liar-program flags of the ``crdt`` and ``txn`` commands."""
+    p.add_argument("--byz", action="append", default=None,
+                   metavar="NODE:ROUND:KIND[:ARG]",
+                   help="scripted byzantine liar: from ROUND on, NODE "
+                        "serves forged state of KIND (corrupt | replay | "
+                        "equivocate | inflate); repeatable")
+    p.add_argument("--byz-quorum", type=int, default=2,
+                   help="independent-witness count q for defended set "
+                        "bit admission (1-3; needs fanout >= q)")
+    p.add_argument("--defend", action="store_true",
+                   help="the defended admission (owner-column guards, "
+                        "quorum echo, owner-provenance timestamps); off = "
+                        "the undefended control arm")
 
 
 def _add_tail_flags(p, conv: str) -> None:
@@ -284,11 +339,11 @@ def _add_tail_flags(p, conv: str) -> None:
 
 
 def run_payload(argv):
-    """``(report, loop result)`` of a ``crdt`` or ``log`` command line,
-    parsed, run and reported as :func:`main` does, without printing; the
-    result holds the loop's final state."""
+    """``(report, loop result)`` of a ``crdt``, ``log`` or ``txn``
+    command line, parsed, run and reported as :func:`main` does, without
+    printing; the result holds the loop's final state."""
     a = build_parser().parse_args(argv)
-    if a.cmd not in ("crdt", "log"):
+    if a.cmd not in PAYLOAD_COMMANDS:
         raise ValueError(f"{a.cmd!r} is not a payload command")
     return a.fn(a)
 
@@ -420,17 +475,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="scripted orset remove (tombstone; repeatable)")
     p.add_argument("--elements", type=int, default=64,
                    help="set element universe size E")
-    p.add_argument("--byz", action="append", default=None,
-                   metavar="NODE:ROUND:KIND[:ARG]",
-                   help="scripted byzantine liar: from ROUND on, NODE "
-                        "serves forged state of KIND (corrupt | replay | "
-                        "equivocate | inflate); repeatable")
-    p.add_argument("--byz-quorum", type=int, default=2,
-                   help="independent-witness count q for defended set "
-                        "bit admission (1-3; needs fanout >= q)")
-    p.add_argument("--defend", action="store_true",
-                   help="the defended admission (owner-column guards, "
-                        "quorum echo); off = the undefended control arm")
+    _add_byz_flags(p)
     _add_tail_flags(p, "value-convergence")
     p.set_defaults(fn=run_crdt)
 
@@ -451,13 +496,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "per key at round 4)")
     _add_tail_flags(p, "log-convergence")
     p.set_defaults(fn=run_log)
+
+    p = sub.add_parser("txn", help="run totally-available transactions "
+                       "over LWW registers (the Maelstrom txn-rw-register "
+                       "shape) on the pull exchange")
+    _add_payload_flags(p, "txn-convergence")
+    p.add_argument("--keys", type=int, default=8,
+                   help="register universe K")
+    p.add_argument("--txns", type=int, default=16,
+                   help="default-program write count T (the skewed "
+                        "closed-form traffic generator)")
+    p.add_argument("--zipf-alpha", type=float, default=1.1,
+                   help="key-popularity skew (> 0; 1.0 = classic zipf)")
+    p.add_argument("--hot-key", type=float, default=0.0,
+                   help="hot-key storm: probability mass redirected onto "
+                        "key 0 during the middle third of the program")
+    p.add_argument("--load", default="uniform", choices=C.TXN_LOADS,
+                   help="writes-over-rounds shape: uniform, or diurnal "
+                        "(1 + sin density, one peak mid-window)")
+    p.add_argument("--spread", type=int, default=8,
+                   help="rounds the default write program spans")
+    p.add_argument("--write", action="append", default=None,
+                   metavar="NODE:KEY:ROUND:VALUE",
+                   help="scripted write (repeatable; values >= 1; at most "
+                        "one write per (key, round, node); overrides the "
+                        "default program)")
+    _add_byz_flags(p)
+    _add_tail_flags(p, "txn-convergence")
+    p.set_defaults(fn=run_txn)
     return ap
 
 
 def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
     try:
-        if a.cmd in ("crdt", "log"):
+        if a.cmd in PAYLOAD_COMMANDS:
             print(json.dumps(a.fn(a)[0]))
             return 0
         return a.fn(a)

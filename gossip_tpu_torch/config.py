@@ -574,6 +574,110 @@ class LogConfig:
         return max(rounds) + 1
 
 
+# Txn traffic load shapes (ops/registers.txn_writes): how the default
+# skewed write program spreads over rounds.
+TXN_LOADS = ("uniform", "diurnal")
+
+
+@dataclasses.dataclass(frozen=True)
+class TxnConfig:
+    """A totally-available transaction workload over last-writer-wins
+    registers (ops/registers.py, models/register.py): the Maelstrom
+    ``txn-rw-register`` shape batched, K per-key registers gossiped on
+    the pull exchange, each a ``(value, timestamp)`` pair whose
+    timestamp packs the lexicographic ``(round, owner)`` key into one
+    int32, so the merge is an exact lattice join.
+
+    ``writes`` script the write micro-ops as a program over rounds,
+    ``(node, key, round, value)`` quadruples lowered to device tensors
+    like the CRDT and log injections.  Empty means the skewed default
+    program (ops/registers.txn_writes): a closed form, with no RNG, of
+    ``txns`` writes whose key popularity is zipfian(``zipf_alpha``)
+    over ``keys``, redirected onto key 0 with probability ``hot_key``
+    during the middle third of the program (a hot-key storm), spread
+    over ``spread_rounds`` rounds by the ``load`` curve (``uniform``, or
+    ``diurnal``: density ``1 + sin`` peaking mid-window).
+
+    Contracts validated loudly, in the JAX package's words:
+
+    * values >= 1 (0 is the never-written sentinel of the value plane);
+    * at most one write per ``(key, round, node)``: two writes sharing
+      one packed timestamp would fork the LWW winner silently (the
+      unique-timestamp contract; the default program is collision-free
+      by construction and re-checked at lowering);
+    * zipf_alpha > 0, 0 <= hot_key <= 1, spread_rounds >= 1.
+
+    Ground truth is LWW over the applied writes: a write applies iff its
+    owner is alive at the write round and eventually alive under the
+    fault program (the acked-adds rule of the CRDT and log payloads).
+    """
+
+    keys: int = 8               # K: register universe
+    txns: int = 16              # T: default-program write count
+    zipf_alpha: float = 1.1     # key-popularity skew (> 0)
+    hot_key: float = 0.0        # storm mass onto key 0, middle third
+    load: str = "uniform"       # writes-over-rounds shape (TXN_LOADS)
+    spread_rounds: int = 8      # rounds the default program spans
+    writes: Tuple[Tuple[int, int, int, int], ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "writes", tuple(
+            tuple(int(x) for x in w) for w in self.writes))
+        if self.keys < 1:
+            raise ValueError("keys must be >= 1")
+        if self.txns < 1:
+            raise ValueError("txns must be >= 1")
+        if self.zipf_alpha <= 0:
+            raise ValueError(
+                f"zipf_alpha={self.zipf_alpha} must be > 0 (1.0 is "
+                "classic zipf; larger is more skewed)")
+        if not 0.0 <= self.hot_key <= 1.0:
+            raise ValueError(
+                f"hot_key={self.hot_key} outside [0, 1] (the storm "
+                "probability mass redirected onto key 0)")
+        if self.load not in TXN_LOADS:
+            raise ValueError(f"unknown load {self.load!r}; choose "
+                             f"from {TXN_LOADS}")
+        if self.spread_rounds < 1:
+            raise ValueError("spread_rounds must be >= 1")
+        seen = set()
+        for w in self.writes:
+            if len(w) != 4:
+                raise ValueError(f"txn write {w} must be "
+                                 "(node, key, round, value)")
+            node, key, rnd, val = w
+            if node < 0:
+                raise ValueError(f"write node {node} must be >= 0")
+            if not 0 <= key < self.keys:
+                raise ValueError(f"write key {key} outside "
+                                 f"[0, {self.keys})")
+            if rnd < 0 or rnd > MAX_CHURN_HORIZON:
+                raise ValueError(
+                    f"write round {rnd} outside [0, {MAX_CHURN_HORIZON}]"
+                    " (the schedule horizon cap, shared with "
+                    "ChurnConfig)")
+            if val < 1:
+                raise ValueError(
+                    f"write {w}: values must be >= 1 (0 is the "
+                    "never-written sentinel of the value plane)")
+            trip = (key, rnd, node)
+            if trip in seen:
+                raise ValueError(
+                    f"write {w}: duplicate (key, round, node) — the "
+                    "(round, owner) timestamp is what makes LWW "
+                    "deterministic, and two writes sharing one "
+                    "timestamp would fork the winner silently "
+                    "(docs/WORKLOADS.md \"Transactions\")")
+            seen.add(trip)
+
+    def horizon(self) -> int:
+        """Rounds after which no further write fires; the default
+        program spans ``spread_rounds`` rounds."""
+        if self.writes:
+            return max(r for _, _, r, _ in self.writes) + 1
+        return self.spread_rounds
+
+
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
     """In-round fault injection: a static dead set drawn at
@@ -583,8 +687,8 @@ class FaultConfig:
     fault program over rounds (:class:`ChurnConfig`; a dict is coerced,
     and an empty program is ``None``, which keeps every engine on its
     static path), and ``byz``, a program of liars (:class:`ByzConfig`,
-    coerced and normalized the same way), which only the CRDT exchange
-    runs."""
+    coerced and normalized the same way), which only the CRDT and the
+    LWW-register exchanges run."""
 
     node_death_rate: float = 0.0
     drop_prob: float = 0.0

@@ -156,12 +156,12 @@ def make_crdt_round(cfg: CrdtConfig, proto: ProtocolConfig, topo: Topology,
             **set_tables)
 
     return make_pull_round(
-        kind, proto, topo, fault, origin, dev, inject,
-        CR.injection_rounds(*CR.inject_round_operands(cfg, inj)), pull,
-        width)
+        functools.partial(CR.merge, kind), proto, topo, fault, origin, dev,
+        inject, CR.injection_rounds(*CR.inject_round_operands(cfg, inj)),
+        pull, width)
 
 
-def make_pull_round(kind: str, proto: ProtocolConfig, topo: Topology,
+def make_pull_round(join, proto: ProtocolConfig, topo: Topology,
                     fault: Optional[FaultConfig], origin: int, dev,
                     inject, inject_rounds, pull, width: int):
     """The pull round the payloads share (module doc), as ``step(state,
@@ -169,9 +169,11 @@ def make_pull_round(kind: str, proto: ProtocolConfig, topo: Topology,
     into ``val`` in place (called on the rounds in ``inject_rounds``
     only, on a copy unless ``donate``); ``pull(val, partners_block, a,
     b, r, alive)`` merges the partners of destination rows ``[a, b)``;
-    ``kind`` picks the join; ``width`` is the state's column count, which
-    sizes the blocks.  The state is any of the payloads' states
-    (``val``, ``round``, ``base_key``, ``msgs``).
+    ``join(a, b, out=None)`` is the payload's join (max, OR or the LWW
+    join) of a receiver's row with what it pulled (the all-zero row when
+    it is down); ``width`` is the state's column count, which sizes the
+    blocks.  The state is any of the payloads' states (``val``,
+    ``round``, ``base_key``, ``msgs``).
 
     ``step.exchange(val, partners, r, alive)`` is the step's own blocked
     exchange, the successor ``val`` from the final partners and the
@@ -193,7 +195,7 @@ def make_pull_round(kind: str, proto: ProtocolConfig, topo: Topology,
             pulled = pull(val, partners[a:b], a, b, r, alive)
             if alive is not None:     # a node that is down receives nothing
                 pulled.masked_fill_(~alive[a:b, None], 0)
-            CR.merge(kind, val[a:b], pulled, out=new[a:b])
+            join(val[a:b], pulled, out=new[a:b])
         return new
 
     def step(state, donate: bool = False):

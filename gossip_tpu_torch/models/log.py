@@ -11,7 +11,7 @@ its partners' rows (a partner that is down serves nothing), and a node
 that is down neither asks nor receives; ``msgs`` grows by
 ``2 * float32(requests)``.  A node that is down keeps its log.  Every
 field of :class:`LogState` equals the reference's bit for bit.  Liar
-programs are refused: only the CRDT exchange runs them.
+programs are refused: only the CRDT and register exchanges run them.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def make_log_round(cfg: LogConfig, proto: ProtocolConfig, topo: Topology,
         return LG.pull_merge_log(val, partners, n, serve=alive)
 
     return make_pull_round(
-        C.GCOUNTER, proto, topo, fault, origin, dev, inject,
+        CR.merge_max, proto, topo, fault, origin, dev, inject,
         CR.injection_rounds(inj[2], inj[6]), pull, LG.state_width(cfg))
 
 

@@ -46,6 +46,7 @@ are exact, so the blocking changes no bit.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -149,20 +150,28 @@ def _gather(rows_all, partners, sentinel, serve):
     return valid, safe, got
 
 
-def pull_merge_crdt(kind: str, rows_all: torch.Tensor,
-                    partners: torch.Tensor, sentinel: int,
-                    serve: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The merge of each node's ``k`` sampled peers' rows -> ``[Nl, S]``;
-    an invalid partner gives the merge identity 0.  ``serve`` (bool[n])
-    folds the visibility mask into the gather: a partner that is down
-    gives 0 too, as a gather from the reference's masked rows does.
-    One partner at a time, so the working set is two ``[Nl, S]`` rows."""
+def pull_join(join, rows_all: torch.Tensor, partners: torch.Tensor,
+              sentinel: int, serve: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """The ``join(a, b, out=None)`` of each node's ``k`` sampled peers'
+    rows -> ``[Nl, S]``; an invalid partner gives the all-zero row.
+    ``serve`` (bool[n]) folds the visibility mask into the gather: a
+    partner that is down gives 0 too, as a gather from the reference's
+    masked rows does.  One partner at a time, so the working set is two
+    ``[Nl, S]`` rows."""
     _, safe, ok = _partners(partners, sentinel, serve)
     out = _partner_rows(rows_all, safe[:, 0], ok[:, 0])
     for j in range(1, partners.shape[1]):
-        merge(kind, out, _partner_rows(rows_all, safe[:, j], ok[:, j]),
-              out=out)
+        join(out, _partner_rows(rows_all, safe[:, j], ok[:, j]), out=out)
     return out
+
+
+def pull_merge_crdt(kind: str, rows_all: torch.Tensor,
+                    partners: torch.Tensor, sentinel: int,
+                    serve: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`pull_join` with the kind's merge (0 is its identity)."""
+    return pull_join(functools.partial(merge, kind), rows_all, partners,
+                     sentinel, serve)
 
 
 # -- the byzantine exchange --------------------------------------------

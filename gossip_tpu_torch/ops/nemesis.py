@@ -30,9 +30,11 @@ a node that recovers stays in it.
 
 The byzantine half: a :class:`~gossip_tpu_torch.config.ByzConfig` (liars
 that serve forged state) is lowered by :func:`build_byz` into a
-:class:`ByzSchedule` of per-node tables, which only the CRDT exchange
-reads (:func:`~gossip_tpu_torch.ops.crdt.pull_merge_crdt_byz`); every
-other engine refuses a liar program through :func:`check_supported`.
+:class:`ByzSchedule` of per-node tables, which only the CRDT and the
+LWW-register exchanges read
+(:func:`~gossip_tpu_torch.ops.crdt.pull_merge_crdt_byz`,
+:func:`~gossip_tpu_torch.ops.registers.pull_merge_reg_byz`); every other
+engine refuses a liar program through :func:`check_supported`.
 """
 
 from __future__ import annotations
@@ -304,11 +306,12 @@ def check_supported(fault: Optional[FaultConfig], *, engine: str,
                     events: bool = True, byz: bool = False) -> None:
     """Refuse, loudly, the parts of a program an engine cannot run:
     ``byz=False`` (the default) for an engine that cannot run a liar
-    program (only the CRDT pull exchange renders the liars' transforms
-    and the defenses), checked first, so a liar program without a
-    schedule is refused too; ``events=False`` for an engine with no
-    churn support at all, ``partitions=False`` or ``ramp=False`` for one
-    that cannot cut messages or follow a per-round drop probability."""
+    program (only the CRDT and the LWW-register pull exchanges render
+    the liars' transforms and the defenses), checked first, so a liar
+    program without a schedule is refused too; ``events=False`` for an
+    engine with no churn support at all, ``partitions=False`` or
+    ``ramp=False`` for one that cannot cut messages or follow a
+    per-round drop probability."""
     if get_byz(fault) is not None and not byz:
         # the reference's words
         raise ValueError(

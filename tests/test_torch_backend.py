@@ -157,7 +157,8 @@ def test_refusals_are_loud(proto, topo, run, fault, match):
     (dict(mesh_cfg=MeshConfig(n_devices=2)), "multi-GPU"),
     (dict(mesh_cfg=MeshConfig(exchange="sparse")), "multi-GPU"),
     (dict(log_cfg=LogConfig(), txn_cfg=object()), "at most one payload"),
-    (dict(txn_cfg=object()), "registers slice"),
+    (dict(txn_cfg=object(), mesh_cfg=MeshConfig()),
+     "single-process single-device"),
 ])
 def test_later_slices_are_refused(kw, match):
     for engine in ("xla", "auto", "fused"):

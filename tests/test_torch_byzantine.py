@@ -372,8 +372,8 @@ def _refusal_calls():
 
 @pytest.mark.parametrize("engine", list(_refusal_calls()))
 def test_engines_without_liar_transforms_reject_byz_loudly(engine):
-    """Every engine but the CRDT exchange refuses a liar program, even
-    without a churn schedule, in the reference's words."""
+    """Every engine but the CRDT and register exchanges refuses a liar
+    program, even without a churn schedule, in the reference's words."""
     with pytest.raises(ValueError, match="byzantine liar program") as mine:
         _refusal_calls()[engine]()
     with pytest.raises(ValueError) as ref:
