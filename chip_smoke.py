@@ -10,8 +10,9 @@ threefry-keyed XLA engine (with its threefry sampler and with the
 sampling kernel, without and under a fault program), SWIM failure
 detection and rumor mongering, the CRDT payloads (with the byzantine
 liar program), the replicated logs and the LWW registers' txn workload,
-and the roofline tool through the port's own entry points, and measures
-them.  One JSON line per phase:
+the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
+card under gloo), and the roofline tool through the port's own entry
+points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
@@ -140,7 +141,19 @@ them.  One JSON line per phase:
    N = 10M with ``node_death_rate=0.1`` against their plain replays, the
    stop test's counter-read coverage against a recount, and their ms per
    round;
-19. ``roofline_checks`` and ``roofline``  the three calibration
+19. ``mesh_k1`` and ``mesh_path``  the node-sharded drivers
+   (``gossip_tpu_torch.parallel``): at K = 1 under NCCL through the
+   library API, the packed and the dense while-loop at N = 10M, which
+   must print ``XLA_10M`` and end in the single-device state; at K = 2
+   ranks sharing this card under gloo, ``python -m gossip_tpu_torch run
+   --devices 2 --share-card`` for BASELINE.json's configuration 5 (10M x
+   32 rumors, the packed loop) and the dense curve at 10M (30 rounds),
+   which must print the JAX package's values on its 2-device mesh
+   (``MESH_CFG5``, ``MESH_CURVE``), and the same runs through the
+   library API, whose final states must equal the single-device port
+   runs'; each run's ms a round, its all_gather's ms a round and every
+   rank's peak allocated memory, with the single-device runs' ms a round;
+20. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
    i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
@@ -200,6 +213,27 @@ XLA_1M = (23, 0.9972720146179199, 46000000.0)
 HEAL_10M = (31, 0.9948086738586426, 506505408.0)
 HEAL_1M = (27, 0.9948830008506775, 43450920.0)
 N_MIXED = 10_000          # the bool churn runs held card against CPU
+# (rounds, coverage, msgs) of the JAX package's sharded drivers on its
+# 2-device CPU mesh, jax 0.9.0: `python -m gossip_tpu run --devices 2
+# --mode pull --rumors 32 --n 10000000 --engine xla` (BASELINE.json's
+# configuration 5 on the packed sharded while-loop, meta.engine
+# 'bit-packed'), and `python -m gossip_tpu run --devices 2 --mode pull
+# --n 10000000 --engine xla --curve --max-rounds 30` (the dense sharded
+# scan) with its curve.  At K = 1 the sharded loop prints XLA_10M.
+MESH_CFG5 = (30, 0.9967684745788574, 600000000.0)
+MESH_CURVE_ROUNDS = 30
+MESH_CURVE = (27, 1.0, 600000000.0)
+MESH_CURVE_VALUES = [
+    1.0000000116860974e-07, 2.0000000233721948e-07, 4.0000000467443897e-07,
+    9.000000318337698e-07, 1.500000053056283e-06, 2.7999999474559445e-06,
+    5.8999999055231456e-06, 1.3300000318849925e-05, 2.769999991869554e-05,
+    5.539999983739108e-05, 0.00011130000348202884, 0.00021919999562669545,
+    0.0004346999921835959, 0.0008762000361457467, 0.0017433000029996037,
+    0.003514900105074048, 0.0070189000107347965, 0.013964700512588024,
+    0.027675800025463104, 0.0545882023870945, 0.10630229860544205,
+    0.20125950872898102, 0.362029105424881, 0.593006432056427,
+    0.8343884944915771, 0.9725527167320251, 0.9992427229881287,
+    0.999998927116394, 1.0, 1.0]
 # (rounds, coverage, msgs) of the JAX package's SWIM and rumor runs, jax
 # 0.9.0 on the CPU, through its run_simulation('jax-tpu', ...) with
 # engine 'auto' (its `run` command lines below).  SW1 is BASELINE.json's
@@ -1808,6 +1842,133 @@ def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
          phase_wall_s=wall_s, card=smi)
 
 
+def _mesh_rank(n: int, group):
+    """One rank of the library-API mesh runs at ``n`` nodes: configuration
+    5 (32 rumors) on the packed sharded loop and the dense sharded curve
+    (one rumor), each with this rank's final rows."""
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.parallel import sharded as SH
+    from gossip_tpu_torch.parallel import sharded_packed as SP
+    from gossip_tpu_torch.topology import generators as G
+    topo = G.complete(n)
+    packed = SP.simulate_until_packed_sharded(
+        ProtocolConfig(mode="pull", rumors=RUMORS), topo,
+        RunConfig(seed=SEED, target_coverage=0.99, engine="xla"), group)
+    curve = SH.simulate_curve_sharded(
+        ProtocolConfig(mode="pull"), topo,
+        RunConfig(seed=SEED, max_rounds=MESH_CURVE_ROUNDS, engine="xla"),
+        group)
+    return packed, curve
+
+
+def _mesh_numbers(rep: dict, rounds: int) -> dict:
+    """ms a round, the all_gather's ms a round and every rank's peak
+    allocated memory of a sharded run's report."""
+    meta = rep["meta"]
+    return {"ms_per_round": meta["steady_wall_s"] * 1e3 / rounds,
+            "all_gather_ms_per_round":
+                meta["collective_ms"]["all_gather"]["ms"] / rounds,
+            "collective_ms": meta["collective_ms"],
+            "rank_peak_mem_bytes": meta["rank_peak_mem_bytes"],
+            "process_group": meta["process_group"]}
+
+
+def phase_mesh_path(dev, smi: str):
+    """The node-sharded drivers on the card: (a) K = 1 under NCCL through
+    the library API, packed and dense, at N = 10M, which must print
+    ``XLA_10M`` and end in the single-device port's state; (b) K = 2
+    ranks on this one card under gloo through ``python -m
+    gossip_tpu_torch run --devices 2 --share-card``: configuration 5
+    (10M x 32) and the dense 10M curve, which must print the JAX
+    package's values (``MESH_CFG5``, ``MESH_CURVE``), and the same two
+    runs through the library API, whose final states must equal the
+    single-device port runs'; (c) each run's ms a round, its all_gather's
+    ms a round and every rank's peak allocated memory."""
+    import torch
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.models.si_packed import simulate_until_packed
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded as SH
+    from gossip_tpu_torch.parallel import sharded_packed as SP
+    from gossip_tpu_torch.runtime.simulator import simulate_curve
+    from gossip_tpu_torch.topology import generators as G
+    from gossip_tpu_torch.utils.timing import steady_timed
+
+    t_phase = time.perf_counter()
+    topo = G.complete(N)
+    pull = ProtocolConfig(mode="pull", fanout=1)
+    run = RunConfig(seed=SEED, target_coverage=0.99, engine="xla")
+    one = _xla_packed(N, dev)[3].seen
+    k1 = {}
+    with GR.local(dev) as g:
+        check(g.backend == "nccl" and g.size == 1, f"K = 1 group {g}")
+        for name, fn in (("packed", SP.simulate_until_packed_sharded),
+                         ("dense", SH.simulate_until_sharded)):
+            g.collective_ms(reset=True)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res, steady = steady_timed(dev, fn, pull, topo, run, g)
+            coll = g.collective_ms()
+            seen = res[3].seen
+            same = (torch.equal(seen, one) if name == "packed"
+                    else torch.equal(seen[:, 0], (one[:, 0] & 1).bool()))
+            check(res[:3] == XLA_10M and same,
+                  f"K = 1 {name}: {res[:3]}, want {XLA_10M}; state equal "
+                  f"{same}")
+            k1[name] = {"result": list(res[:3]), "state_equals_single":
+                        same, "ms_per_round": steady * 1e3 / res[0],
+                        "all_gather_ms_per_round":
+                            coll["all_gather"]["ms"] / res[0],
+                        "collective_ms": coll,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated(
+                            dev)}
+    emit("mesh_k1", process_group="nccl", runs=k1, want=XLA_10M, card=smi)
+
+    base = ["--devices", "2", "--share-card", "--mode", "pull", "--n",
+            str(N), "--engine", "xla"]
+    cfg5 = _port_run(base + ["--rumors", str(RUMORS)])
+    got = (cfg5["rounds"], cfg5["coverage"], cfg5["msgs"])
+    check(got == MESH_CFG5 and cfg5["meta"]["engine"] == "bit-packed"
+          and cfg5["meta"]["devices"] == 2
+          and cfg5["meta"]["process_group"] == "gloo",
+          f"configuration 5 at K = 2: {got} {cfg5['meta']}, want "
+          f"{MESH_CFG5}")
+    curve = _port_run(base + ["--curve", "--max-rounds",
+                              str(MESH_CURVE_ROUNDS)])
+    got_c = (curve["rounds"], curve["coverage"], curve["msgs"])
+    check(got_c == MESH_CURVE and curve["curve"] == MESH_CURVE_VALUES
+          and "engine" not in curve["meta"],
+          f"dense curve at K = 2: {got_c}, want {MESH_CURVE}")
+
+    ranks = GR.launch(_mesh_rank, 2, N, device=dev, shared_card=True)
+    single5, s5 = steady_timed(
+        dev, simulate_until_packed, ProtocolConfig(mode="pull",
+                                                    rumors=RUMORS),
+        topo, run, None, dev)
+    words = torch.cat([r[0][3].seen for r in ranks])[:N]
+    same5 = torch.equal(words, single5[3].seen.cpu())
+    check(ranks[0][0][:3] == MESH_CFG5 and same5,
+          f"library configuration 5: {ranks[0][0][:3]}, state equal {same5}")
+    single_c, sc = steady_timed(dev, simulate_curve, pull, topo, RunConfig(
+        seed=SEED, max_rounds=MESH_CURVE_ROUNDS, engine="xla"), None, dev)
+    seen = torch.cat([r[1][2].seen for r in ranks])[:N]
+    same_c = torch.equal(seen, single_c.state.seen.cpu())
+    check(ranks[0][1][0].tolist() == MESH_CURVE_VALUES and same_c,
+          f"library dense curve: state equal {same_c}")
+    emit("mesh_path",
+         cfg5={"command": base + ["--rumors", str(RUMORS)],
+               "result": list(got), "want": MESH_CFG5,
+               **_mesh_numbers(cfg5, cfg5["rounds"])},
+         curve={"command": base + ["--curve", "--max-rounds",
+                                   str(MESH_CURVE_ROUNDS)],
+                "result": list(got_c), "want": MESH_CURVE,
+                **_mesh_numbers(curve, MESH_CURVE_ROUNDS)},
+         single_device_ms_per_round={
+             "cfg5": s5 * 1e3 / single5[0],
+             "curve": sc * 1e3 / MESH_CURVE_ROUNDS},
+         states_equal_single_device={"cfg5": same5, "curve": same_c},
+         phase_s=time.perf_counter() - t_phase, card=smi)
+
+
 def _words(rng, shape, sparsity: int):
     """uint32 words, each bit set at rate 2^-sparsity (the AND of that
     many random words; 0: all bits random), as int32 bits."""
@@ -2093,6 +2254,7 @@ def main() -> int:
                    launches_by_path={"xla_sampler_path": xla_sampler_launches,
                                      "churn_path": churn_launches})
     phase_fused_deaths(dev, smi)
+    phase_mesh_path(dev, smi)
     cal_kernels, floors = phase_roofline(dev, smi)
 
     kernels = [{

@@ -1,7 +1,7 @@
-"""``run_simulation``: the port's backend, single device.
+"""``run_simulation``: the port's backend.
 
-The port of the JAX package's ``backend.run_simulation`` for the SI modes
-on one device (``run_jax`` and ``_run_fused``):
+The port of the JAX package's ``backend.run_simulation`` (``run_jax`` and
+``_run_fused``).  On one device:
 
 * ``engine='fused'``: pull gossip on the implicit complete graph, one CUDA
   kernel launch per round: one rumor on the node-packed bitmap
@@ -20,13 +20,26 @@ on one device (``run_jax`` and ``_run_fused``):
   ``fused`` refuses it, as the reference's single-device fused routing
   does.
 
+With ``mesh_cfg.n_devices = K > 1`` the SI modes run on the node-sharded
+drivers over ``torch.distributed`` (:mod:`gossip_tpu_torch.parallel`, the
+reference's ``n_dev > 1`` branch): bit-packed for pull and anti-entropy
+without a curve, dense otherwise, on ``engine='xla'`` or ``'auto'``.  The
+process group is NCCL with a card a rank, gloo on the CPU or on one card
+shared by the ranks (``mesh_cfg.shared_card``); more ranks than cards are
+refused.  SWIM, rumor mongering and the payloads over K devices (ROADMAP
+queue 1 item 5b), the sparse and halo exchanges (5c) and the fused
+engine's rumor-plane sharding (5d) are refused, each naming its item.
+
 A ``log_cfg`` runs the replicated-log workload
 (:func:`run_log_workload`, the reference's ``run_log_workload``) and a
 ``txn_cfg`` the LWW-register transactions (:func:`run_txn_workload`) on
 the xla engine.
 
 The report carries the reference's ``RunReport`` fields and ``meta``
-keys, plus the device and every kernel's launches.  Whatever the port
+keys, plus the device, every kernel's launches and, for the SI modes,
+the exact count behind the coverage
+(``coverage_count`` over ``coverage_total``, the float32 rule of
+:mod:`gossip_tpu_torch.ops.common`).  Whatever the port
 does not run yet is refused with a ``ValueError`` that names the slice it
 waits for, never run some other way.
 
@@ -52,7 +65,7 @@ from gossip_tpu_torch.ops import _kernels
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
 from gossip_tpu_torch.ops import nemesis as NE
-from gossip_tpu_torch.ops.common import resolve_device
+from gossip_tpu_torch.ops.common import resolve_device, to_words
 from gossip_tpu_torch.utils.timing import steady_timed, timing_meta
 
 
@@ -97,10 +110,11 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
     if proto.rumors > FR.BITS:
         return (f"engine='fused' packs <= {FR.BITS} rumors per word on "
                 f"one device (got rumors={proto.rumors}); rumor planes "
-                "across devices wait for the port's multi-GPU slice")
+                "across devices wait for the port's multi-GPU fused planes "
+                "(ROADMAP queue 1, item 5d)")
     if fault is not None and fault.churn is not None:
         # the reference's words; its plane-sharded fused surfaces wait
-        # for the port's multi-GPU slice
+        # for ROADMAP queue 1, item 5d
         return ("engine='fused' routing does not run churn "
                 "schedules single-device; use engine='auto' (XLA "
                 "kernels run the full nemesis scenario catalog)")
@@ -123,11 +137,33 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
         return ("the txn workload over RPC is single-process "
                 "single-device; shard the node mesh via the library API "
                 "(parallel/sharded_register)")
-    if mesh_cfg is not None and (mesh_cfg.n_devices > 1
-                                 or mesh_cfg.exchange != "dense"):
-        return ("more than one device, and the sparse and halo "
-                "exchanges, wait for the port's multi-GPU slice (ROADMAP "
-                "queue 1, item 5)")
+    n_dev = 1 if mesh_cfg is None else mesh_cfg.n_devices
+    exchange = "dense" if mesh_cfg is None else mesh_cfg.exchange
+    if exchange != "dense":
+        # the reference's words, then the item the exchange waits for
+        if n_dev == 1:
+            return (f"exchange={exchange!r} is a cross-shard pattern; it "
+                    "needs n_devices > 1 (single-device runs have no "
+                    "exchange)")
+        if proto.mode in (C.SWIM, C.RUMOR):
+            return (f"exchange={exchange!r} is not implemented for "
+                    f"{proto.mode}; swim and rumor shard via the dense "
+                    "kernels (pmax / psum_scatter + all_gather)")
+        return (f"exchange={exchange!r} waits for the port's multi-GPU "
+                "sparse and halo exchanges (ROADMAP queue 1, item 5c); the "
+                "port runs exchange='dense'")
+    if n_dev > 1:
+        if run.engine == "fused":
+            return ("engine='fused' with more than one device is the "
+                    "reference's rumor-plane sharded route, which waits "
+                    "for the port's multi-GPU fused planes (ROADMAP queue "
+                    "1, item 5d); use engine='xla' or 'auto' for the "
+                    "node-sharded drivers")
+        if proto.mode in (C.SWIM, C.RUMOR) or log_cfg is not None:
+            what = "the log workload" if log_cfg is not None else proto.mode
+            return (f"{what} over more than one device waits for the "
+                    "port's multi-GPU model and payload drivers (ROADMAP "
+                    "queue 1, item 5b)")
     return None
 
 
@@ -224,6 +260,17 @@ def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,
         host_reads = final.round
     wall = time.perf_counter() - t0
     launches1 = _launch_counts()
+    # the exact count behind the coverage (_count_meta), alive nodes only
+    if multi:
+        alive, _ = MR.fault_masks_word(fault, n, run.origin, dev)
+        table = final.table if alive is None else final.table & alive
+        count = int(MR.rumor_counts(table, proto.rumors).min())
+        total = n if alive is None else int((to_words(alive) & 1).sum())
+    else:
+        alive, _ = FR.fault_masks_node_packed(fault, n, run.origin, dev)
+        count = FR.popcount(final.table if alive is None
+                            else final.table & alive)
+        total = n if alive is None else FR.popcount(alive)
     return RunReport(
         backend=f"torch-{dev.type}", mode=proto.mode, n=n, rounds=rounds,
         coverage=cov, msgs=msgs, wall_s=round(wall, 4), curve=curve,
@@ -238,6 +285,7 @@ def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,
               "launches": {k: launches1[k] - launches0[k]
                            for k in launches1},
               "host_reads": host_reads,
+              "coverage_count": count, "coverage_total": total,
               **timing_meta(build_s, steady, wall)})
 
 
@@ -319,6 +367,22 @@ def _run_rumor(proto: ProtocolConfig, run: RunConfig,
     return rounds, cov, msgs_f, curve, meta, steady
 
 
+def _count_meta(seen, proto: ProtocolConfig, fault: Optional[FaultConfig],
+                run: RunConfig, packed: bool = False) -> Dict[str, int]:
+    """The exact count behind the report's coverage: the holders of the
+    least-held rumor (``coverage_count``) over the nodes counted
+    (``coverage_total``), the float32 rule's inputs
+    (:mod:`gossip_tpu_torch.ops.common`)."""
+    alive = NE.metric_alive(fault, seen.shape[0], run.origin, seen.device)
+    if packed:
+        from gossip_tpu_torch.ops.bitpack import coverage_count_packed
+        count, total = coverage_count_packed(seen, proto.rumors, alive)
+    else:
+        from gossip_tpu_torch.models.si import coverage_count
+        count, total = coverage_count(seen, alive)
+    return {"coverage_count": count, "coverage_total": total}
+
+
 def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
              fault: Optional[FaultConfig], want_curve: bool,
              dev: torch.device) -> RunReport:
@@ -341,23 +405,24 @@ def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
             proto, run, fault, want_curve, topo, dev)
     elif proto.mode in (C.PULL, C.ANTI_ENTROPY) and not want_curve:
         from gossip_tpu_torch.models.si_packed import simulate_until_packed
-        (rounds, cov, msgs, _), steady = steady_timed(
+        (rounds, cov, msgs, final), steady = steady_timed(
             dev, simulate_until_packed, proto, topo, run, fault, dev)
         curve = None
-        meta = {**base, "engine": "bit-packed"}
+        meta = {**base, "engine": "bit-packed",
+                **_count_meta(final.seen, proto, fault, run, packed=True)}
     elif want_curve:
         from gossip_tpu_torch.runtime.simulator import simulate_curve
         res, steady = steady_timed(dev, simulate_curve, proto, topo, run,
                                    fault, dev)
         rounds, cov = res.rounds_to_target, res.final_coverage
         msgs, curve = float(res.msgs[-1]), [float(c) for c in res.coverage]
-        meta = dict(base)
+        meta = {**base, **_count_meta(res.state.seen, proto, fault, run)}
     else:
         from gossip_tpu_torch.runtime.simulator import simulate_until
         res, steady = steady_timed(dev, simulate_until, proto, topo, run,
                                    fault, dev)
         rounds, cov, msgs, curve = res.rounds, res.coverage, res.msgs, None
-        meta = dict(base)
+        meta = {**base, **_count_meta(res.state.seen, proto, fault, run)}
     wall = time.perf_counter() - t0
     launches1 = _launch_counts()
     meta.update({"device": _device_name(dev),
@@ -368,6 +433,86 @@ def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
     return RunReport(backend=f"torch-{dev.type}", mode=proto.mode, n=tc.n,
                      rounds=rounds, coverage=cov, msgs=msgs,
                      wall_s=round(wall, 4), curve=curve, meta=meta)
+
+
+def sharded_report(proto: ProtocolConfig, tc: TopologyConfig,
+                   run: RunConfig, fault: Optional[FaultConfig],
+                   want_curve: bool, group) -> RunReport:
+    """One rank's run of the node-sharded drivers: the bit-packed
+    while-loop for pull and anti-entropy without a curve, the dense
+    drivers otherwise (the reference's ``n_dev > 1`` routing).  Every
+    rank returns the same report; ``meta`` adds the process group's
+    backend, each collective's device time, and every rank's peak
+    allocated memory on a card."""
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded as SH
+    from gossip_tpu_torch.parallel import sharded_packed as SP
+    from gossip_tpu_torch.topology import generators as G
+    dev = group.device
+    t0 = time.perf_counter()
+    topo = G.build(tc, dev)
+    topo_build_s = time.perf_counter() - t0
+    packed = proto.mode in (C.PULL, C.ANTI_ENTROPY) and not want_curve
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    group.collective_ms(reset=True)
+    meta = {"clock": "rounds", "devices": group.size,
+            "msgs_counts": "transmissions"}
+    t0 = time.perf_counter()
+    if packed:
+        (rounds, cov, msgs, final), steady = steady_timed(
+            dev, SP.simulate_until_packed_sharded, proto, topo, run, group,
+            fault)
+        curve = None
+        meta["engine"] = "bit-packed"
+    elif want_curve:
+        (covs, msgs_t, final), steady = steady_timed(
+            dev, SH.simulate_curve_sharded, proto, topo, run, group, fault)
+        rounds, cov, msgs, curve = _curve_summary(covs, msgs_t,
+                                                  run.target_coverage)
+    else:
+        (rounds, cov, msgs, final), steady = steady_timed(
+            dev, SH.simulate_until_sharded, proto, topo, run, group, fault)
+        curve = None
+    wall = time.perf_counter() - t0
+    counter = SH.Coverage(fault, tc.n, run.origin, group,
+                          proto.rumors if packed else None)
+    rounds_run = max(final.round, 1)
+    collectives = {name: {**c, "ms_per_round": c["ms"] / rounds_run}
+                   for name, c in group.collective_ms().items()}
+    meta.update({"process_group": group.backend,
+                 "device": _device_name(dev),
+                 "coverage_count": counter.count(final.seen),
+                 "coverage_total": counter.total,
+                 "collective_ms": collectives,
+                 "rank_peak_mem_bytes": GR.peak_memory(group),
+                 **timing_meta(0.0, steady, wall),
+                 "topo_build_s": round(topo_build_s, 4)})
+    return RunReport(backend=f"torch-{dev.type}", mode=proto.mode, n=tc.n,
+                     rounds=rounds, coverage=cov, msgs=msgs,
+                     wall_s=round(wall, 4), curve=curve, meta=meta)
+
+
+def run_sharded(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
+                fault: Optional[FaultConfig], mesh_cfg: MeshConfig,
+                want_curve: bool = False, device=None) -> RunReport:
+    """The node-sharded run on ``mesh_cfg.n_devices`` ranks: inside a
+    process group that is up (``torchrun``) as this rank; otherwise it
+    spawns the ranks (:func:`~gossip_tpu_torch.parallel.group.launch`) and
+    returns rank 0's report."""
+    import torch.distributed as dist
+
+    from gossip_tpu_torch.parallel import group as GR
+    k = mesh_cfg.n_devices
+    if dist.is_available() and dist.is_initialized():
+        group = GR.current(device)
+        if group.size != k:
+            raise ValueError(f"the process group has {group.size} ranks; "
+                             f"the mesh asks for {k}")
+        return sharded_report(proto, tc, run, fault, want_curve,
+                              group=group)
+    return GR.launch(sharded_report, k, proto, tc, run, fault, want_curve,
+                     device=device, shared_card=mesh_cfg.shared_card)[0]
 
 
 def _run_payload_workload(mode: str, model, proto: ProtocolConfig,
@@ -435,12 +580,13 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
                    want_curve: bool = False, device=None,
                    mesh_cfg: Optional[MeshConfig] = None,
                    log_cfg=None, txn_cfg=None) -> RunReport:
-    """Run one simulation on one device with ``run.engine`` (module doc).
-    ``meta`` names what ran: ``engine`` (``fused-cuda`` / ``fused-plain``
-    for the fused route, ``bit-packed`` for the packed XLA rounds, absent
-    for the bool rounds, as in the reference), ``engine_auto`` when
-    ``auto`` picked the fused route, every kernel's launches, and the
-    wall's parts."""
+    """Run one simulation with ``run.engine`` (module doc): on one
+    device, or with ``mesh_cfg.n_devices > 1`` on the node-sharded
+    drivers (:func:`run_sharded`).  ``meta`` names what ran: ``engine``
+    (``fused-cuda`` / ``fused-plain`` for the fused route, ``bit-packed``
+    for the packed XLA rounds, absent for the bool rounds, as in the
+    reference), ``engine_auto`` when ``auto`` picked the fused route,
+    every kernel's launches, and the wall's parts."""
     reason = _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg)
     if reason is not None:
         raise ValueError(reason)
@@ -451,6 +597,9 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
     if log_cfg is not None:
         return run_log_workload(proto, topo, run, log_cfg, fault,
                                 want_curve, resolve_device(device))
+    if mesh_cfg is not None and mesh_cfg.n_devices > 1:
+        return run_sharded(proto, topo, run, fault, mesh_cfg, want_curve,
+                           device)
     fused_reason = fused_ineligible_reason(proto, topo, run, fault)
     if run.engine == "fused" and fused_reason is not None:
         raise ValueError(fused_reason)

@@ -14,7 +14,8 @@ commands on one device::
         [--swim-diss scatter|sort|pack] [--swim-rng split|packed]
         [--dead-nodes ID...] [--fail-round R]
         [--churn-event NODE:DIE[:REC]]... [--partition START:END:CUT]...
-        [--drop-ramp START:END:P0:P1] [--device cpu]
+        [--drop-ramp START:END:P0:P1] [--save-curve PATH]
+        [--devices K [--exchange dense] [--share-card]] [--device cpu]
     python -m gossip_tpu_torch crdt --type gcounter|pncounter|gset|orset \\
         [--n N] [--fanout F] [--family F] [--k K] [--p P] [--target C]
         [--max-rounds M] [--seed S] [--origin O] [--drop P] [--death D]
@@ -40,7 +41,11 @@ are the JAX command's (``--drop-prob`` is another name for ``--drop``;
 for SWIM and 4 otherwise).  The topology and the fault take ``--seed``
 as their seeds too, as the JAX command sets them.  The three churn flags
 build a fault program (``ChurnConfig``), which runs on the xla engine
-(``auto`` takes it; ``fused`` refuses it).
+(``auto`` takes it; ``fused`` refuses it).  ``--devices K`` above 1 runs
+the SI modes on K ranks of the node-sharded drivers
+(``backend.run_sharded``): NCCL with a card a rank, gloo with ``--device
+cpu`` or ``--share-card`` (K ranks on one card).  ``--save-curve PATH``
+writes the curve as the reference's JSONL, the report as its meta line.
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
@@ -52,9 +57,10 @@ the run needs a CUDA device.
 print their reports' fields in their order (``backend`` and ``engine``
 the port's names), then the device, the steady wall and, on a card, the
 peak of allocated device memory.  ``--devices`` above 1 is refused (the
-multi-GPU slice).  The JAX commands' ``--compile-cache`` /
-``--no-compile-cache`` configure its XLA executable store, which the
-port does not have: they are not taken, and ``compile_cache`` is null.
+sharded payload drivers, ROADMAP queue 1 item 5b).  The JAX commands'
+``--compile-cache`` / ``--no-compile-cache`` configure its XLA
+executable store, which the port does not have: they are not taken,
+and ``compile_cache`` is null.
 """
 
 from __future__ import annotations
@@ -66,8 +72,9 @@ from typing import Optional
 
 from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import (ByzConfig, ChurnConfig, CrdtConfig,
-                                     FaultConfig, LogConfig, ProtocolConfig,
-                                     RunConfig, TopologyConfig, TxnConfig)
+                                     FaultConfig, LogConfig, MeshConfig,
+                                     ProtocolConfig, RunConfig,
+                                     TopologyConfig, TxnConfig)
 
 
 PAYLOAD_COMMANDS = ("crdt", "log", "txn")
@@ -139,8 +146,8 @@ def _payload_setup(a, byz=None):
     from gossip_tpu_torch.topology import generators as G
     if a.devices > 1:
         raise ValueError(
-            f"--devices {a.devices}: the node mesh waits for the port's "
-            "multi-GPU slice (ROADMAP queue 1, item 5); run --devices 1")
+            f"--devices {a.devices}: the multi-GPU payload drivers wait "
+            "for ROADMAP queue 1, item 5b; run --devices 1")
     churn = _parse_churn(a)
     fault = None
     if a.drop > 0 or a.death > 0 or churn is not None or byz is not None:
@@ -298,7 +305,7 @@ def _add_payload_flags(p, conv: str) -> None:
     p.add_argument("--origin", type=int, default=0)
     p.add_argument("--devices", type=int, default=1,
                    help="node-dim mesh size (more than 1 waits for the "
-                        "multi-GPU slice)")
+                        "sharded payload drivers, ROADMAP queue 1 item 5b)")
     p.add_argument("--drop", type=float, default=0.0)
     p.add_argument("--death", type=float, default=0.0)
 
@@ -356,6 +363,9 @@ def cmd_run(a) -> int:
         fault = FaultConfig(node_death_rate=a.death, drop_prob=a.drop,
                             seed=a.seed, dead_nodes=tuple(a.dead_nodes or ()),
                             fail_round=a.fail_round, churn=churn)
+    mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
+                       shared_card=a.share_card) if a.devices > 1 else None)
+    want_curve = a.curve or bool(a.save_curve)
     t = a.swim_suspect_rounds
     if not t and a.mode == C.SWIM:
         from gossip_tpu_torch.models.swim import suggested_suspect_rounds
@@ -373,8 +383,15 @@ def cmd_run(a) -> int:
                        degree_cap=a.degree_cap, seed=a.seed),
         RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
                   seed=a.seed, origin=a.origin, engine=a.engine),
-        fault, want_curve=a.curve, device=a.device)
-    print(json.dumps(report.to_dict()))
+        fault, want_curve=want_curve, device=a.device, mesh_cfg=mesh)
+    out = report.to_dict()
+    if a.save_curve:
+        from gossip_tpu_torch.utils.metrics import dump_curve_jsonl
+        meta = dict(out)
+        dump_curve_jsonl(a.save_curve, meta.pop("curve"), meta=meta)
+        if not a.curve:          # the curve went to the file
+            out["curve"] = None
+    print(json.dumps(out))
     return 0
 
 
@@ -452,6 +469,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--curve", action="store_true",
                    help="run exactly max_rounds rounds and include the "
                         "per-round coverage curve")
+    p.add_argument("--save-curve", default=None, metavar="PATH",
+                   help="write the coverage curve as JSONL (implies --curve)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="mesh size for node-dim sharding (one rank a "
+                        "device: NCCL with a card a rank, gloo with "
+                        "--device cpu)")
+    p.add_argument("--exchange", default="dense",
+                   choices=("dense", "sparse", "halo"),
+                   help="cross-shard pattern: dense all_gather (any), "
+                        "sparse all_to_all (complete topology, "
+                        "pull/antientropy, O(messages)), halo ppermute "
+                        "(band-limited topologies, O(band)); the port "
+                        "runs dense")
+    p.add_argument("--share-card", action="store_true",
+                   help="run the --devices ranks on one card under gloo "
+                        "(a test mode: NCCL takes one card a rank)")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cpu runs the plain versions (default: cuda, which "
                         "must be present)")

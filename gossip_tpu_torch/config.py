@@ -750,13 +750,21 @@ class RunConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh for node sharding.  The port runs one device; a mesh
-    of more, or another exchange, is refused until the multi-GPU slice."""
+    """The node mesh: ``n_devices`` ranks, each holding a contiguous
+    block of the (padded) node rows (:mod:`gossip_tpu_torch.parallel`).
+    ``exchange``: the cross-shard pattern; the port runs ``dense`` (the
+    all_gather / reduce-scatter of whole digest tables) and refuses
+    ``sparse`` and ``halo`` at run time.  ``shared_card``: run the ranks
+    on one card under gloo (a test mode; otherwise each rank takes a card
+    of its own and more ranks than cards are refused)."""
 
     n_devices: int = 1
     exchange: str = "dense"
+    shared_card: bool = False
 
     def __post_init__(self):
+        if self.n_devices < 1:
+            raise ValueError(f"n_devices must be >= 1, got {self.n_devices}")
         if self.exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {self.exchange!r}; "
                              f"choose from {EXCHANGES}")

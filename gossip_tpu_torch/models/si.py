@@ -190,6 +190,16 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
     return step
 
 
+def coverage_count(seen: torch.Tensor,
+                   alive: Optional[torch.Tensor] = None):
+    """``(count, total)``: the exact holders of the least-held rumor
+    (alive nodes only, with ``alive``) and the nodes counted."""
+    if alive is None:
+        return int(seen.sum(dim=0).min()), seen.shape[0]
+    return (int((seen & alive[:, None]).sum(dim=0).min()),
+            int(alive.sum()))
+
+
 def coverage(seen: torch.Tensor, alive: Optional[torch.Tensor] = None,
              folded: bool = False) -> float:
     """Min-over-rumors fraction of (alive) nodes holding each rumor, in
@@ -197,8 +207,6 @@ def coverage(seen: torch.Tensor, alive: Optional[torch.Tensor] = None,
     module doc); ``folded``: the alive count is a constant of the
     reference's compiled loop, which multiplies by its reciprocal
     (:func:`~gossip_tpu_torch.ops.nemesis.folded_denominator`)."""
-    if alive is None:
-        return f32_mean(int(seen.sum(dim=0).min()), seen.shape[0])
-    counts = (seen & alive[:, None]).sum(dim=0)
-    frac = f32_mean if folded else f32_fraction
-    return frac(int(counts.min()), int(alive.sum()))
+    count, total = coverage_count(seen, alive)
+    frac = f32_mean if alive is None or folded else f32_fraction
+    return frac(count, total)

@@ -6,8 +6,11 @@ reference's uint32 bits.  Padding bits past the rumor count stay zero and
 every consumer masks by the real count.
 
 Coverage is a float32 fraction of an integer count.  The reference sums
-float32 bits, which is exact below 2^24 nodes; the port counts in
-integers at every size.  Its rounding is the reference's: a plain mean
+float32 bits, which is exact up to 2^24 nodes; the port counts in
+integers at every size (a declared deviation: past 2^24 nodes the
+coverage is within one ulp of the reference's sum, the stop round within
+one; :mod:`gossip_tpu_torch.ops.common`).  Its rounding is the
+reference's: a plain mean
 is ``float32(count) * float32(1 / n)`` (XLA turns the mean's division by
 the constant ``n`` into a product with its reciprocal,
 :func:`~gossip_tpu_torch.ops.common.f32_mean`), an alive-weighted one
@@ -52,17 +55,33 @@ def unpack(packed: torch.Tensor, rumors: int) -> torch.Tensor:
     return bits.reshape(n, w * WORD)[:, :rumors].to(torch.bool)
 
 
-def rumor_counts_packed(packed: torch.Tensor, rumors: int,
-                        alive: Optional[torch.Tensor] = None) -> list:
-    """Nodes holding each rumor (alive nodes only, with ``alive``), as
-    exact integers."""
+def rumor_count_tensor(packed: torch.Tensor, rumors: int,
+                       alive: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """int64[rumors] on the words' device: the nodes holding each rumor
+    (alive nodes only, with ``alive``), exact."""
     words = packed if alive is None else torch.where(
         alive[:, None], packed, torch.zeros((), dtype=packed.dtype,
                                             device=packed.device))
     masks = np.left_shift(np.uint32(1), np.arange(WORD, dtype=np.uint32)
                           ).view(np.int32)
-    return [int(torch.count_nonzero(words[:, r // WORD] & int(masks[r % WORD])))
-            for r in range(rumors)]
+    return torch.stack([torch.count_nonzero(words[:, r // WORD]
+                                            & int(masks[r % WORD]))
+                        for r in range(rumors)])
+
+
+def rumor_counts_packed(packed: torch.Tensor, rumors: int,
+                        alive: Optional[torch.Tensor] = None) -> list:
+    """:func:`rumor_count_tensor` as a list of ints (one host read)."""
+    return rumor_count_tensor(packed, rumors, alive).tolist()
+
+
+def coverage_count_packed(packed: torch.Tensor, rumors: int,
+                          alive: Optional[torch.Tensor] = None):
+    """``(count, total)``: the exact holders of the least-held rumor
+    (alive nodes only, with ``alive``) and the nodes counted."""
+    low = min(rumor_counts_packed(packed, rumors, alive))
+    return low, packed.shape[0] if alive is None else int(alive.sum())
 
 
 def coverage_packed(packed: torch.Tensor, rumors: int,
@@ -71,8 +90,6 @@ def coverage_packed(packed: torch.Tensor, rumors: int,
     """Min-over-rumors coverage of a packed state, alive-weighted with
     ``alive`` (``folded``: as a product with the reciprocal of the alive
     count, ``models.si.coverage``)."""
-    low = min(rumor_counts_packed(packed, rumors, alive))
-    if alive is None:
-        return f32_mean(low, packed.shape[0])
-    frac = f32_mean if folded else f32_fraction
-    return frac(low, int(alive.sum()))
+    low, total = coverage_count_packed(packed, rumors, alive)
+    frac = f32_mean if alive is None or folded else f32_fraction
+    return frac(low, total)

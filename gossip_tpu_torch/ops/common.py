@@ -1,6 +1,27 @@
 """Decisions every engine of the port shares: which device an entry
 point runs on, how a 32-bit word is held, and the float32 arithmetic
-that turns a count into the reference's coverage."""
+that turns a count into the reference's coverage.
+
+Declared deviation: float32 sums past 2^24.  The reference adds float32
+values for its coverage (``jnp.mean`` or ``.sum()`` of float32 bits, in
+``models/si.coverage`` and ``ops/bitpack.coverage_packed``) and for the
+sharded drivers' ``msgs`` and ``lost`` (a float32 ``psum`` of the
+shards' partials).  The port counts nodes in integers at every size and
+rounds the count to float32 once; it does not copy XLA's reduction
+order, which is one backend's, not the reference's behaviour.  So:
+
+* up to 2^24 nodes every float32 sum is exact, and the port's coverage,
+  stop round and ``msgs`` are bitwise the reference's;
+* past 2^24 nodes the port's coverage is held to the reference's within
+  the float32 rounding of the count (one ulp of the sum), and its stop
+  round within one round.  The run report carries the exact count
+  beside the fraction (``meta.coverage_count`` over
+  ``meta.coverage_total``);
+* the sharded ``msgs`` and ``lost`` add the ranks' float32 partials in
+  rank order (:func:`rank_order_sum`), as XLA's CPU ``psum`` does; that
+  is bitwise the reference's whenever the round's total is exact in
+  float32, and within one rounding a round past it.
+"""
 
 from __future__ import annotations
 
@@ -53,3 +74,13 @@ def f32_mean(count: int, n: int) -> float:
     reciprocal of ``n``), and so any division by a static ``n`` inside
     ``jax.jit``, such as the reference's compiled loops' coverage."""
     return float(np.float32(count) * (np.float32(1) / np.float32(n)))
+
+
+def rank_order_sum(parts: torch.Tensor) -> torch.Tensor:
+    """The sum over the leading axis of ``parts`` (one row per rank),
+    added in rank order in float32: ``((p0 + p1) + p2) + ...``.  Every
+    rank that holds the same rows holds the same sum."""
+    acc = parts[0]
+    for i in range(1, parts.shape[0]):
+        acc = acc + parts[i]
+    return acc

@@ -1,0 +1,113 @@
+"""Node-dimension sharding of the bit-packed pull and anti-entropy rounds.
+
+The port of the JAX package's ``parallel/sharded_packed.py``: the twin of
+:mod:`gossip_tpu_torch.models.si_packed` over a
+:class:`~gossip_tpu_torch.parallel.group.Group`.  Each rank holds its
+``int32[nl, W]`` rows of packed words.  The round's one collective is the
+all_gather of the packed visible table (``n_pad x W`` words: 40 MB a round
+at N = 10M with 32 rumors), 8 times fewer bytes than the bool table's;
+anti-entropy adds its reverse delta, a reduce-scatter of unpacked
+``int32[n_pad, R]`` counts, on exchange rounds only.  Draws, liveness,
+the fault program, the counters and the coverage rule are those of
+:mod:`gossip_tpu_torch.parallel.sharded`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from gossip_tpu_torch import config as C
+from gossip_tpu_torch.config import FaultConfig, ProtocolConfig, RunConfig
+from gossip_tpu_torch.models import si as si_mod
+from gossip_tpu_torch.models.si_packed import pull_merge_packed
+from gossip_tpu_torch.models.state import SimState
+from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops import threefry
+from gossip_tpu_torch.ops.bitpack import pack, unpack
+from gossip_tpu_torch.ops.propagate import push_counts
+from gossip_tpu_torch.ops.sampling import apply_drop
+from gossip_tpu_torch.parallel.group import Group
+from gossip_tpu_torch.parallel.sharded import (Coverage, _Rows,
+                                               init_sharded_state, run_until)
+from gossip_tpu_torch.topology.generators import Topology
+
+
+def make_sharded_packed_round(proto: ProtocolConfig, topo: Topology,
+                              group: Group,
+                              fault: Optional[FaultConfig] = None,
+                              origin: int = 0):
+    """This rank's packed pull / anti-entropy step on ``state.seen`` of
+    shape ``[nl, W]`` (:func:`init_sharded_packed_state`): ``SimState ->
+    SimState``, or under a fault program ``SimState -> (SimState, lost)``
+    (:func:`~gossip_tpu_torch.parallel.sharded.make_sharded_si_round`)."""
+    n, k = topo.n, proto.fanout
+    mode = proto.mode
+    if mode not in (C.PULL, C.ANTI_ENTROPY):
+        raise ValueError("packed rounds support pull/antientropy only")
+    NE.check_supported(fault, engine="si-packed")
+    rows = _Rows(topo, group, fault, origin)
+    churn = rows.sched is not None
+    n_pad, gids = rows.n_pad, rows.gids
+    dev = group.device
+    mfac = 3.0 if mode == C.ANTI_ENTROPY else 2.0
+
+    def step(state: SimState):
+        nxt = state._replace(round=state.round + 1)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if (mode == C.ANTI_ENTROPY and proto.period > 1
+                and state.round % proto.period):
+            # a quiescent round sends nothing, so it adds and loses nothing
+            return (nxt, zero) if churn else nxt
+        rkey = threefry.fold_in(state.key, state.round)
+        alive_l, dp, cut = rows.at(state.round)
+        packed = state.seen
+        visible = torch.where(alive_l[:, None], packed, 0)
+        packed_all = group.all_gather(visible)
+        qkey = threefry.fold_in(rkey, si_mod.PULL_TAG)
+        partners0 = rows.sample(qkey, topo, k, proto.exclude_self)
+        partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, gids, partners0,
+                              dp, n, force=churn)
+        if churn:
+            partners = NE.partition_targets(cut, gids, partners, n)
+        pulled = pull_merge_packed(packed_all, partners, n)
+        partners = torch.where(alive_l[:, None], partners, n)
+        n_req = si_mod.f32((partners < n).sum())
+        lost = (NE.lost_count(partners0, partners, alive_l, n) if churn
+                else zero)
+        if mode == C.ANTI_ENTROPY:
+            # the reverse delta scatters bool contributions, adds them
+            # across ranks (OR = count > 0) and packs them again
+            back = push_counts(n_pad, torch.where(partners < n, partners,
+                                                  n_pad),
+                               unpack(visible, proto.rumors))
+            pulled = pulled | pack(group.reduce_scatter_sum(back) > 0)
+        pulled = torch.where(alive_l[:, None], pulled, 0)
+        total, lost_all = group.combine_f32(torch.stack([mfac * n_req,
+                                                         lost]))
+        out = nxt._replace(seen=packed | pulled, msgs=state.msgs + total)
+        return (out, lost_all) if churn else out
+
+    return step
+
+
+def init_sharded_packed_state(run: RunConfig, proto: ProtocolConfig,
+                              topo: Topology, group: Group) -> SimState:
+    """:func:`~gossip_tpu_torch.parallel.sharded.init_sharded_state` with
+    this rank's rows packed to ``int32[nl, ceil(R / 32)]``."""
+    st = init_sharded_state(run, proto, topo, group)
+    return st._replace(seen=pack(st.seen))
+
+
+def simulate_until_packed_sharded(proto: ProtocolConfig, topo: Topology,
+                                  run: RunConfig, group: Group,
+                                  fault: Optional[FaultConfig] = None):
+    """The packed sharded while-loop to ``run.target_coverage`` or
+    ``run.max_rounds``.  Returns ``(rounds, coverage, msgs,
+    final_state)``; ``final_state`` holds this rank's words."""
+    step = NE.drop_lost(make_sharded_packed_round(proto, topo, group, fault,
+                                                  run.origin), NE.get(fault))
+    state = init_sharded_packed_state(run, proto, topo, group)
+    cov = Coverage(fault, topo.n, run.origin, group, proto.rumors)
+    return run_until(step, state, cov, run)

@@ -1,0 +1,105 @@
+"""Which collectives the node mesh's process groups carry, and what the
+mesh's largest all_gather costs.
+
+    python -m gossip_tpu_torch.tools.collectives [--device cpu]
+
+It launches three groups through :func:`gossip_tpu_torch.parallel.group.launch`
+on one card: one rank under NCCL, two ranks sharing the card under gloo,
+and one rank under gloo (with ``--device cpu``: one and two gloo ranks
+on the CPU).  Each rank runs every collective the sharded drivers use,
+on CUDA tensors of the dtypes they send (int32 words, bool bytes, int64
+counts, float32 partials), and records each result or the error it
+raised; then it times ``all_gather`` of 10M int32 words (40 MB, the
+packed table of ``BASELINE.json`` configuration 5) split over the ranks:
+a warm-up, then five calls on the host clock between synchronisations.
+It prints one JSON line a group, after the card's name and power limit
+as ``nvidia-smi`` gives them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from gossip_tpu_torch.parallel import group as GR
+
+WORDS = 10_000_000          # the 40 MB table of 10M int32 words
+REPS = 5
+
+
+def _try(fn):
+    try:
+        out = fn()
+        return out.tolist() if isinstance(out, torch.Tensor) else out
+    except Exception as e:        # noqa: BLE001 - reported, not raised
+        return f"{type(e).__name__}: {e}"[:300]
+
+
+def probe_rank(group) -> dict:
+    """One rank's results: each collective's output (or its error) and
+    the 40 MB all_gather's ms."""
+    dev = group.device
+    r = group.rank
+    x = torch.arange(8, dtype=torch.int32, device=dev) + 100 * r
+    out = {
+        "all_gather_int32": _try(lambda: group.all_gather(x)),
+        "all_gather_bool": _try(lambda: group.all_gather(x % 2 == 0)),
+        "reduce_scatter_int32": _try(lambda: group.reduce_scatter_sum(
+            torch.full((8 * group.size,), r + 1, dtype=torch.int32,
+                       device=dev))),
+        "all_reduce_int64": _try(lambda: group.all_reduce_sum(
+            torch.full((4,), r + 1, dtype=torch.int64, device=dev))),
+        "combine_float32": _try(lambda: group.combine_f32(
+            torch.tensor([r + 0.5, 1.0], device=dev))),
+    }
+    src = torch.ones(WORDS // group.size, dtype=torch.int32, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    group.all_gather(src)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        group.all_gather(src)
+    sync()
+    out["all_gather_40MB_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="gossip_tpu_torch.tools.collectives")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    a = ap.parse_args(argv)
+    if a.device == "cuda" and not torch.cuda.is_available():
+        print("collectives: needs a CUDA device (--device cpu for the "
+              "CPU's gloo groups)", file=sys.stderr)
+        return 1
+    if a.device == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "--id=0"], capture_output=True,
+            text=True, check=True).stdout.strip(), flush=True)
+        groups = ((1, False), (2, True), (1, True))
+    else:
+        groups = ((1, False), (2, False))
+    for size, shared in groups:
+        backend, _ = GR.plan(size, a.device, shared)
+        t0 = time.perf_counter()
+        ranks = GR.launch(probe_rank, size, device=a.device,
+                          shared_card=shared)
+        print(json.dumps({"ranks": size, "backend": backend,
+                          "device": a.device,
+                          "launch_s": time.perf_counter() - t0,
+                          "results": ranks}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,8 @@
 """Curve files: one JSON object per round.
 
 The port's copy of the JAX package's ``utils/metrics.dump_curve_jsonl``,
-which the ``crdt`` and ``log`` commands' ``--save-curve`` writes, in the
-same format.
+which the ``run``, ``crdt``, ``log`` and ``txn`` commands'
+``--save-curve`` writes, in the same format.
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ from gossip_tpu_torch.backend import run_simulation
 from gossip_tpu_torch.config import (ChurnConfig, FaultConfig, LogConfig,
                                      MeshConfig, ProtocolConfig, RunConfig,
                                      TopologyConfig)
+from gossip_tpu_torch.parallel import group as GR
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import fused_round as FR
 from _torch_reference import (as_u32, jax_mr_replay, jax_replay,
@@ -154,8 +155,10 @@ def test_refusals_are_loud(proto, topo, run, fault, match):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh_cfg=MeshConfig(n_devices=2)), "multi-GPU"),
-    (dict(mesh_cfg=MeshConfig(exchange="sparse")), "multi-GPU"),
+    (dict(mesh_cfg=MeshConfig(n_devices=2, exchange="sparse")),
+     "multi-GPU.*item 5c"),
+    (dict(mesh_cfg=MeshConfig(exchange="sparse")),
+     "needs n_devices > 1"),
     (dict(log_cfg=LogConfig(), txn_cfg=object()), "at most one payload"),
     (dict(txn_cfg=object(), mesh_cfg=MeshConfig()),
      "single-process single-device"),
@@ -170,7 +173,8 @@ def test_later_slices_are_refused(kw, match):
 @pytest.mark.parametrize("args", [
     ["--mode", "swim", "--n", "1000", "--devices", "2"],
     ["--mode", "pull", "--n", "1000", "--engine", "native"],
-    ["--mode", "pull", "--n", "1000", "--engine", "xla", "--devices", "2"],
+    ["--mode", "pull", "--n", "1000", "--engine", "xla", "--devices", "2",
+     "--exchange", "halo", "--device", "cpu"],
     ["--mode", "pull", "--n", "1000", "--engine", "fused", "--device",
      "tpu"],
 ])
@@ -336,3 +340,110 @@ def test_bench_line_and_no_cpu_row(tmp_path):
                           env={k: v for k, v in os.environ.items()
                                if k != "PYTHONPATH"})
     assert proc.returncode != 0 and not proc.stdout
+
+
+# -- the node mesh --------------------------------------------------------
+
+def test_cli_runs_devices_on_gloo():
+    """``run --devices 2 --device cpu`` end to end: two spawned gloo ranks
+    of the packed sharded driver print the JAX package's values for the
+    same command on its 2-device mesh."""
+    flags = ["--mode", "pull", "--n", "3001", "--rumors", "3", "--engine",
+             "xla", "--seed", "4", "--drop", "0.05"]
+    proc = _port("-m", "gossip_tpu_torch", "run", "--devices", "2",
+                 "--device", "cpu", *flags)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref = jrun_simulation(
+        "jax-tpu", JC.ProtocolConfig(mode="pull", rumors=3),
+        JC.TopologyConfig(n=3001, seed=4),
+        JC.RunConfig(seed=4, engine="xla"),
+        JC.FaultConfig(drop_prob=0.05, seed=4), JC.MeshConfig(n_devices=2))
+    assert (out["rounds"], out["coverage"], out["msgs"]) == \
+        (ref.rounds, ref.coverage, ref.msgs)
+    meta = out["meta"]
+    assert (meta["devices"], meta["engine"], meta["process_group"]) == \
+        (2, "bit-packed", "gloo")
+    assert meta["coverage_total"] == 3001
+    assert meta["collective_ms"]["all_gather"]["calls"] >= out["rounds"]
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_run_simulation_on_a_mesh(k):
+    """``run_simulation(mesh_cfg=MeshConfig(n_devices=K))`` spawns K gloo
+    ranks of the dense driver (push-pull with a curve) and returns the
+    reference's report values."""
+    kw = dict(mode="pushpull", fanout=2, rumors=2)
+    port = run_simulation(ProtocolConfig(**kw), TopologyConfig(n=1001),
+                          RunConfig(seed=7, max_rounds=14, engine="auto"),
+                          want_curve=True, device="cpu",
+                          mesh_cfg=MeshConfig(n_devices=k))
+    ref = jrun_simulation("jax-tpu", JC.ProtocolConfig(**kw),
+                          JC.TopologyConfig(n=1001),
+                          JC.RunConfig(seed=7, max_rounds=14, engine="auto"),
+                          None, JC.MeshConfig(n_devices=k), want_curve=True)
+    assert (port.rounds, port.coverage, port.msgs, port.curve) == \
+        (ref.rounds, ref.coverage, ref.msgs, ref.curve)
+    assert port.meta["devices"] == ref.meta["devices"] == k
+    assert "engine" not in port.meta
+
+
+@pytest.mark.parametrize("proto,kw,match", [
+    (ProtocolConfig(mode="swim"), {}, "item 5b"),
+    (ProtocolConfig(mode="rumor"), {}, "item 5b"),
+    (PULL, dict(log_cfg=LogConfig()), "item 5b"),
+    (PULL, dict(run=RunConfig(engine="fused")), "item 5d"),
+    (PULL, dict(exchange="halo"), "item 5c"),
+])
+def test_mesh_refusals_name_their_item(proto, kw, match):
+    """What the mesh does not run yet is refused with the ROADMAP item
+    it waits for, before any rank is spawned."""
+    mesh = MeshConfig(n_devices=2, exchange=kw.pop("exchange", "dense"))
+    run = kw.pop("run", RunConfig(engine="xla"))
+    with pytest.raises(ValueError, match=match):
+        run_simulation(proto, TopologyConfig(n=256), run, device="cpu",
+                       mesh_cfg=mesh, **kw)
+
+
+def test_more_ranks_than_cards_are_refused(monkeypatch):
+    """On CUDA each rank takes a card of its own (NCCL): more ranks than
+    cards are refused in the reference's words, unless the ranks share
+    one card under gloo; the CPU takes any number of gloo ranks."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="requested 2 devices, only 1 "
+                                         "available"):
+        GR.plan(2, "cuda")
+    with pytest.raises(ValueError, match="requested 4 devices, only 1 "
+                                         "available"):
+        run_simulation(PULL, TopologyConfig(n=256), RunConfig(engine="xla"),
+                       mesh_cfg=MeshConfig(n_devices=4))
+    assert GR.plan(1, "cuda") == ("nccl", [torch.device("cuda", 0)])
+    assert GR.plan(2, "cuda", shared_card=True) == \
+        ("gloo", [torch.device("cuda", 0)] * 2)
+    assert GR.plan(3, "cpu") == ("gloo", [torch.device("cpu")] * 3)
+    with pytest.raises(ValueError, match="n_devices must be >= 1"):
+        MeshConfig(n_devices=0)
+
+
+def test_cli_save_curve(tmp_path):
+    """``run --save-curve PATH`` writes the reference's JSONL (the report
+    as its meta line, one row a round) and, without ``--curve``, prints
+    no curve."""
+    path = tmp_path / "curve.jsonl"
+    proc = _port("-m", "gossip_tpu_torch", "run", "--mode", "push", "--n",
+                 "500", "--engine", "xla", "--max-rounds", "9",
+                 "--save-curve", str(path), "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["curve"] is None
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert rows[0]["meta"]["rounds"] == out["rounds"]
+    assert "curve" not in rows[0]["meta"]
+    ref = jrun_simulation("jax-tpu", JC.ProtocolConfig(mode="push"),
+                          JC.TopologyConfig(n=500),
+                          JC.RunConfig(max_rounds=9, engine="xla"),
+                          want_curve=True)
+    assert [r["coverage"] for r in rows[1:]] == ref.curve
+    assert [r["round"] for r in rows[1:]] == list(range(1, 10))

@@ -57,7 +57,9 @@ def test_importing_every_module_loads_no_jax():
     assert "gossip_tpu_torch.models.swim" in out["imported"]
     assert "gossip_tpu_torch.models.rumor" in out["imported"]
     for name in ("ops.crdt", "models.crdt", "ops.logs", "models.log",
-                 "ops.registers", "models.register", "utils.metrics"):
+                 "ops.registers", "models.register", "utils.metrics",
+                 "parallel", "parallel.group", "parallel.sharded",
+                 "parallel.sharded_packed"):
         assert f"gossip_tpu_torch.{name}" in out["imported"]
     assert out["forbidden"] == []
 
