@@ -11,7 +11,8 @@ sampling kernel, without and under a fault program), SWIM failure
 detection and rumor mongering, the CRDT payloads (with the byzantine
 liar program), the replicated logs and the LWW registers' txn workload,
 the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
-card under gloo), and the roofline tool through the port's own entry
+card under gloo), SWIM, rumor and the payloads among them, and the
+roofline tool through the port's own entry
 points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
@@ -153,6 +154,17 @@ points, and measures them.  One JSON line per phase:
    library API, whose final states must equal the single-device port
    runs'; each run's ms a round, its all_gather's ms a round and every
    rank's peak allocated memory, with the single-device runs' ms a round;
+   then ``mesh_models``, the sharded SWIM, rumor and payload drivers:
+   K = 2 ranks on this card through ``--devices 2 --share-card`` for
+   SW1, RM1, CR3, LG1 and TX1 (TX1's curve too), each printing the JAX
+   package's values on its 2-device mesh (``MESH_*``); TX10M, BZ2d, SW1
+   and RM1 through the library API in one spawn, each rank's SHA-256 of
+   its padded final rows equal to the single-device state's window (the
+   earlier phases' runs); CR4 and TX10M at K = 1 under NCCL, CR4's peak
+   allocated memory at most 4.1 states; each run's ms a round, each
+   collective's ms a round by name and every rank's peak, beside the
+   single-device run's ms a round, no kernel launched, and the largest
+   G-counter n the gather design allows;
 20. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
@@ -364,6 +376,32 @@ TXN_CASES = {
 }
 TXN_REPLAYS = ("TX1", "TX2", "TX3", "TX4", "TXB1d", "TXB1u", "TXB2d",
                "TXB2u", "TXB3u", "TXB3d")
+# (rounds, coverage or convergence, [truth,] msgs) of the JAX package's
+# sharded drivers on its 2-device CPU mesh, jax 0.9.0:
+# XLA_FLAGS=--xla_force_host_platform_device_count=2 JAX_PLATFORMS=cpu
+# python -m gossip_tpu <command> --devices 2 with, for
+#   MESH_SW1: run --mode swim --n 1000000 --family power_law --k 3
+#     --degree-cap 256 --fanout 2 --swim-subjects 8 --swim-proxies 3
+#     --swim-suspect-rounds 24 --max-rounds 80 (msgs differ from SW1's:
+#     the mesh adds the two shards' float32 partials);
+#   MESH_RM1: run --mode rumor --n 10000000 --fanout 1 --rumor-k 2
+#     --max-rounds 128;
+#   MESH_CR3: crdt --type orset --elements 256 --set-remove 5:3 --n 65536;
+#   MESH_BZ2D: BZ2d's command (crdt --type orset --elements 256
+#     --set-remove 5:3 --n 65536 --fanout 3 --byz 3:2:inflate:5 --byz
+#     11:0:corrupt:1048576 --defend);
+#   MESH_LG1: log --n 100000 --keys 8 --partition 0:6:50000;
+#   MESH_TX1: txn --n 100000 --keys 8 --partition 0:6:50000 --curve (its
+#     curve is PAYLOAD_CURVES["TX1"]);
+#   MESH_TX10M: txn --n 10000000 --keys 8.
+MESH_SW1 = (31, 0.9953849911689758, 163843728.0)
+MESH_RM1 = (41, 0.9518542885780334, 30345156.0)
+MESH_CR3 = (16, 1.0, 255, 4194304.0)
+MESH_BZ2D = (64, 0.0, 255, 25165824.0)
+MESH_LG1 = (20, 1.0, {"lens": [4] * 8, "committed": [2] * 8,
+                      "total_entries": 32}, 6799524.0)
+MESH_TX1 = (21, 1.0, _T8, 24399524.0)
+MESH_TX10M = (24, 1.0, _T8, 960000000.0)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1507,6 +1545,31 @@ def phase_swim_rumor_path(dev, smi: str, n_swim: int = N_SWIM, n: int = N,
                                   for k, v in cli.items()},
          card_vs_cpu=same, n_small=n_small, swim_round_split=split,
          phase_wall_s=wall_s, card=smi)
+    return runs
+
+
+def state_digests(state, fields, k: int):
+    """SHA-256 of each of ``k`` row windows of ``state``'s ``fields``, the
+    rows padded with zeros to a multiple of ``k`` (the node mesh's
+    windows: a rank's padded rows)."""
+    import hashlib
+
+    import torch
+    n = getattr(state, fields[0]).shape[0]
+    n_pad = -(-n // k) * k
+    nl = n_pad // k
+    out = []
+    for r in range(k):
+        h = hashlib.sha256()
+        for f in fields:
+            t = getattr(state, f)
+            if n_pad != n:
+                t = torch.cat([t, t.new_zeros((n_pad - n,)
+                                              + tuple(t.shape[1:]))])
+            h.update(t[r * nl:(r + 1) * nl].contiguous().cpu().view(
+                torch.uint8).numpy().data)
+        out.append(h.hexdigest())
+    return out
 
 
 def _payload_key(rep: dict):
@@ -1518,13 +1581,15 @@ def _payload_key(rep: dict):
     return rep["rounds"], rep[conv], rep["truth"], rep["msgs"]
 
 
-def _payload_runs(dev, cases, replays):
+def _payload_runs(dev, cases, replays, digest_ids=()):
     """Every id of ``cases`` through ``cli.run_payload`` on ``dev``, each
     against the JAX package's (rounds, convergence, truth, msgs) and its
     curve in ``PAYLOAD_CURVES``, no kernel launched and (on a card)
     nothing on the CPU; the ``replays`` run again on the CPU, every final
     state field equal.  Returns ``(runs, card_vs_cpu, wall_s)``: each
-    run's ms a round and node-rounds/s (a curve's over its rounds)."""
+    run's ms a round and node-rounds/s (a curve's over its rounds), and
+    for the ``digest_ids`` the final state's digests at K = 2
+    (``state_digests``), which the mesh phase holds its runs to."""
     import torch
     from gossip_tpu_torch import cli
     from gossip_tpu_torch.ops import _kernels
@@ -1553,6 +1618,8 @@ def _payload_runs(dev, cases, replays):
                       "ms_per_round": steady * 1e3 / rounds,
                       "node_rounds_per_s": rep["n"] * rounds / steady,
                       "peak_mem_bytes": rep["peak_mem_bytes"]}
+        if name in digest_ids:
+            runs[name]["digests"] = state_digests(result[-2], ("val",), 2)
         if name in replays:
             _, res_cpu = cli.run_payload([*args, "--device", "cpu"])
             a, b = result[-2], res_cpu[-2]
@@ -1634,7 +1701,7 @@ def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
 
     cases = CRDT_LOG_CASES if cases is None else cases
     on_card = dev.type == "cuda"
-    runs, same, wall_s = _payload_runs(dev, cases, replays)
+    runs, same, wall_s = _payload_runs(dev, cases, replays, ("BZ2d",))
     cr4 = None
     if "CR4" in cases:
         from gossip_tpu_torch.config import (ChurnConfig, CrdtConfig,
@@ -1687,6 +1754,7 @@ def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
     emit("crdt_log_path", runs=runs, card_vs_cpu=same, cr4_direct=cr4,
          round_split=split, command_line=list(command_ids),
          phase_wall_s=wall_s, card=smi)
+    return runs, cr4
 
 
 def _txn_fault(n: int, heal: bool):
@@ -1808,8 +1876,10 @@ def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
         check((out[0], out[1], out[4], out[2]) == want,
               f"TX10M through simulate_until_txn: {out[:3]} {out[4]}")
         state_bytes = out[3].val.numel() * 4
-        del out
         peak = torch.cuda.max_memory_allocated(dev)
+        digests = {f"digests_k{k}": state_digests(out[3], ("val",), k)
+                   for k in (1, 2)}
+        del out
         torch.cuda.empty_cache()
         draw = _draw_peak(dev, n)
         memory = {"rounds": want[0], "steady_wall_s": steady,
@@ -1818,7 +1888,7 @@ def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
                   "draw_peak_bytes": draw,
                   "peak_over_two_states": peak / (2 * state_bytes),
                   "peak_beyond_two_states_over_draw":
-                      (peak - 2 * state_bytes) / draw}
+                      (peak - 2 * state_bytes) / draw, **digests}
         wall_s["tx10m_direct"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     split = {}
@@ -1840,6 +1910,7 @@ def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
     emit("txn_path", runs=runs, card_vs_cpu=same, tx10m_memory=memory,
          round_split=split, command_line=list(command_ids),
          phase_wall_s=wall_s, card=smi)
+    return runs, memory
 
 
 def _mesh_rank(n: int, group):
@@ -1966,6 +2037,272 @@ def phase_mesh_path(dev, smi: str):
              "cfg5": s5 * 1e3 / single5[0],
              "curve": sc * 1e3 / MESH_CURVE_ROUNDS},
          states_equal_single_device={"cfg5": same5, "curve": same_c},
+         phase_s=time.perf_counter() - t_phase, card=smi)
+
+
+SWIM_FIELDS, RUMOR_FIELDS = ("wire", "timer"), ("seen", "hot", "cnt")
+
+
+def _swim_args(n_swim: int):
+    return ["--mode", "swim", "--n", str(n_swim), "--family", "power_law",
+            "--k", "3", "--degree-cap", "256", "--fanout", "2",
+            "--swim-subjects", "8", "--swim-proxies", "3",
+            "--swim-suspect-rounds", "24", "--max-rounds", "80"]
+
+
+def _timed_group(group, fn, *args, **kwargs):
+    """``(result, numbers)`` of one library-API run on this rank: its
+    steady seconds, each collective's calls and ms, and every rank's
+    peak allocated memory."""
+    import torch
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.utils.timing import steady_timed
+    dev = group.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    group.collective_ms(reset=True)
+    out, steady = steady_timed(dev, fn, *args, group=group, **kwargs)
+    coll = group.collective_ms()
+    return out, {"steady_s": steady, "collective_ms": coll,
+                 "rank_peak_mem_bytes": GR.peak_memory(group)}
+
+
+def _mesh_models_rank(n: int, n_swim: int, group):
+    """One rank of the library-API runs of the model and payload drivers
+    at K ranks: TX10M, BZ2d, SW1 and RM1, each with its result, this
+    rank's SHA-256 of its padded final rows (never the rows: a 10M-node
+    state stays on the card) and its numbers."""
+    from gossip_tpu_torch.config import (ByzConfig, CrdtConfig, FaultConfig,
+                                         ProtocolConfig, RunConfig,
+                                         TopologyConfig, TxnConfig)
+    from gossip_tpu_torch.parallel import sharded_crdt as SC
+    from gossip_tpu_torch.parallel import sharded_register as SRG
+    from gossip_tpu_torch.parallel import sharded_rumor as SRU
+    from gossip_tpu_torch.runtime import simulator as TS
+    from gossip_tpu_torch.topology import generators as G
+    out = {}
+    res, nums = _timed_group(
+        group, SRG.simulate_until_txn_sharded, TxnConfig(keys=8),
+        ProtocolConfig(mode="pull", fanout=2), G.complete(n),
+        RunConfig(target_coverage=1.0, max_rounds=64))
+    out["TX10M"] = ((res[0], res[1], res[4], res[2]),
+                    state_digests(res[3], ("val",), 1)[0], nums)
+    del res
+    liars = ((3, 2, "inflate", 5), (11, 0, "corrupt", 1048576))
+    res, nums = _timed_group(
+        group, SC.simulate_until_crdt_sharded,
+        CrdtConfig(kind="orset", elements=256, set_removes=((5, 3),)),
+        ProtocolConfig(mode="pull", fanout=3), G.complete(65536),
+        RunConfig(target_coverage=1.0, max_rounds=64),
+        fault=FaultConfig(byz=ByzConfig(liars=liars)), defend=True)
+    out["BZ2d"] = ((res[0], res[1], res[4], res[2]),
+                   state_digests(res[3], ("val",), 1)[0], nums)
+    topo = G.build(TopologyConfig(family="power_law", n=n_swim, k=3,
+                                  degree_cap=256), group.device)
+    res, nums = _timed_group(
+        group, TS.simulate_swim_until, _swim_proto(), n_swim, 80, 0.99,
+        dead_nodes=(1,), fail_round=2, topo=topo, seed=SEED)
+    out["SW1"] = ((res[0], res[1], float(res[3].msgs)),
+                  state_digests(res[3], SWIM_FIELDS, 1)[0], nums)
+    res, nums = _timed_group(
+        group, SRU.simulate_until_rumor_sharded,
+        ProtocolConfig(mode="rumor", fanout=1, rumor_k=2), G.complete(n),
+        RunConfig(max_rounds=128))
+    out["RM1"] = ((res[0], res[1], res[3]),
+                  state_digests(res[4], RUMOR_FIELDS, 1)[0], nums)
+    return out
+
+
+def _mesh_run_numbers(meta: dict, rounds: int) -> dict:
+    """ms a round, each collective's ms a round and every rank's peak
+    allocated memory of a mesh run's report keys."""
+    return {"rounds_run": rounds,
+            "ms_per_round": meta["steady_wall_s"] * 1e3 / rounds,
+            "collective_ms_per_round": {
+                k: c["ms"] / rounds for k, c in meta["collective_ms"].items()},
+            "rank_peak_mem_bytes": meta["rank_peak_mem_bytes"],
+            "process_group": meta["process_group"]}
+
+
+def phase_mesh_models(dev, smi: str, single_runs: dict,
+                      n: int = N, n_swim: int = N_SWIM):
+    """The node-sharded SWIM, rumor and payload drivers on the card:
+    (a) K = 2 ranks sharing it under gloo through the port's command
+    lines (``--devices 2 --share-card``): SW1, RM1, CR3, LG1 and TX1,
+    each against the JAX package's values on its 2-device mesh
+    (``MESH_*``, TX1's curve too); (b) K = 2 through the library API in
+    one spawn: TX10M, BZ2d, SW1 and RM1, each against the same values
+    and each rank's digest of its padded final rows against the
+    single-device port run's (TX10M's and BZ2d's from the earlier
+    phases, in ``single_runs``; SW1's and RM1's run here); (c) K = 1 under NCCL: CR4 (the
+    65,536-node G-counter, its peak allocated memory at most 4.1 states)
+    and TX10M, against the single-device values and, for TX10M, state.
+    Each run's ms a round, each collective's ms a round and every rank's
+    peak allocated memory, beside the single-device run's ms a round."""
+    import torch
+    from gossip_tpu_torch.config import (ChurnConfig, CrdtConfig,
+                                         FaultConfig, ProtocolConfig,
+                                         RunConfig, TopologyConfig,
+                                         TxnConfig)
+    from gossip_tpu_torch.models import rumor as RM
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded_crdt as SC
+    from gossip_tpu_torch.parallel import sharded_register as SRG
+    from gossip_tpu_torch.runtime import simulator as TS
+    from gossip_tpu_torch.topology import generators as G
+    from gossip_tpu_torch.utils.timing import steady_timed
+
+    t_phase, wall_s = time.perf_counter(), {}
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.empty_cache()
+
+    # (a) the command lines, two ranks on this card
+    share = ["--devices", "2", "--share-card"]
+    commands = {
+        "SW1": (["run", *_swim_args(n_swim)], MESH_SW1),
+        "RM1": (["run", "--mode", "rumor", "--n", str(n), "--fanout", "1",
+                 "--rumor-k", "2", "--max-rounds", "128"], MESH_RM1),
+        "CR3": (CRDT_LOG_CASES["CR3"][0], MESH_CR3),
+        "LG1": (CRDT_LOG_CASES["LG1"][0], MESH_LG1),
+        "TX1": (TXN_CASES["TX1"][0], MESH_TX1),
+    }
+    cli_runs = {}
+    for name, (args, want) in commands.items():
+        t0 = time.perf_counter()
+        out = _port_run([*args[1:], *share], cmd=args[0])
+        if args[0] == "run":
+            got = (out["rounds"], out["coverage"], out["msgs"])
+            meta, rounds = out["meta"], out["rounds"]
+        else:
+            got, meta = _payload_key(out), out
+            rounds = len(out["curve"]) if "curve" in out else out["rounds"]
+        ok = (got == want and meta["devices"] == 2
+              and meta["process_group"] == "gloo")
+        if args[0] != "run":
+            ok = ok and out["engine"] == f"{args[0]}-sharded"
+        check(ok, f"{name} at K = 2: {got}, want {want}; {meta}")
+        if name in PAYLOAD_CURVES:
+            check(out["curve"] == PAYLOAD_CURVES[name],
+                  f"{name} curve at K = 2: {out['curve']}")
+        cli_runs[name] = {"command": [*args, *share], "result": list(got),
+                          **_mesh_run_numbers(meta, rounds),
+                          "single_device_ms_per_round":
+                              single_runs.get(name, {}).get("ms_per_round")}
+        wall_s[f"cli_{name}"] = time.perf_counter() - t0
+
+    # (b) the library API, one spawn of two ranks on this card
+    t0 = time.perf_counter()
+    ranks = GR.launch(_mesh_models_rank, 2, n, n_swim, device=dev,
+                      shared_card=True)
+    wall_s["library_spawn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swim_topo = G.build(TopologyConfig(family="power_law", n=n_swim, k=3,
+                                       degree_cap=256), dev)
+    digests = {"TX10M": single_runs["TX10M_direct"]["digests_k2"],
+               "BZ2d": single_runs["BZ2d"]["digests"]}
+    (r, det, _, sw), s_sw = steady_timed(
+        dev, TS.simulate_swim_until, _swim_proto(), n_swim, 80, 0.99,
+        dead_nodes=(1,), fail_round=2, topo=swim_topo, seed=SEED,
+        device=dev)
+    digests["SW1"] = state_digests(sw, SWIM_FIELDS, 2)
+    del sw, swim_topo
+    rm, s_rm = steady_timed(dev, RM.simulate_until_rumor, ProtocolConfig(
+        mode="rumor", fanout=1, rumor_k=2), G.complete(n),
+        RunConfig(max_rounds=128), None, dev)
+    digests["RM1"] = state_digests(rm[4], RUMOR_FIELDS, 2)
+    del rm
+    wall_s["single_device_sw1_rm1"] = time.perf_counter() - t0
+    single_ms = {"SW1": s_sw * 1e3 / r, "RM1": s_rm * 1e3 / MESH_RM1[0]}
+    wants = {"TX10M": MESH_TX10M, "BZ2d": MESH_BZ2D, "SW1": MESH_SW1,
+             "RM1": MESH_RM1}
+    library = {}
+    for name, want in wants.items():
+        got = ranks[0][name][0]
+        got_d = [rk[name][1] for rk in ranks]
+        check(tuple(got) == tuple(want) and got_d == digests[name],
+              f"{name} library K = 2: {got}, want {want}; digests "
+              f"{got_d} vs single {digests[name]}")
+        nums = ranks[0][name][2]
+        rounds = got[0]
+        library[name] = {
+            "result": list(got), "digests_equal_single": True,
+            "ms_per_round": nums["steady_s"] * 1e3 / rounds,
+            "collective_ms_per_round": {
+                k: c["ms"] / rounds for k, c in nums["collective_ms"].items()},
+            "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+            "single_device_ms_per_round": single_ms.get(name) or
+            single_runs.get(name, {}).get("ms_per_round")}
+
+    # (c) K = 1 under NCCL: CR4 and TX10M
+    t0 = time.perf_counter()
+    k1 = {}
+    with GR.local(dev) as g:
+        check(g.backend == "nccl" and g.size == 1, f"K = 1 group {g}")
+        m = 65536
+        cr4, nums = _timed_group(
+            g, SC.simulate_until_crdt_sharded, CrdtConfig(kind="gcounter"),
+            ProtocolConfig(mode="pull", fanout=2), G.complete(m),
+            RunConfig(target_coverage=1.0, max_rounds=64),
+            fault=FaultConfig(churn=ChurnConfig(
+                partitions=((0, 6, m // 2),))))
+        got = (cr4[0], cr4[1], cr4[4], cr4[2])
+        state_bytes = cr4[3].val.numel() * 4
+        del cr4
+        peak = nums["rank_peak_mem_bytes"][0]
+        check(got == CRDT_LOG_CASES["CR4"][1] and peak <= 4.1 * state_bytes,
+              f"CR4 at K = 1: {got}, peak {peak} B over a state of "
+              f"{state_bytes} B")
+        k1["CR4"] = {"result": list(got), "state_bytes": state_bytes,
+                     "peak_over_state": peak / state_bytes,
+                     "ms_per_round": nums["steady_s"] * 1e3 / got[0],
+                     "collective_ms_per_round": {
+                         k: c["ms"] / got[0]
+                         for k, c in nums["collective_ms"].items()},
+                     "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+                     "single_device_ms_per_round":
+                         single_runs.get("CR4", {}).get("ms_per_round")}
+        tx, nums = _timed_group(
+            g, SRG.simulate_until_txn_sharded, TxnConfig(keys=8),
+            ProtocolConfig(mode="pull", fanout=2), G.complete(n),
+            RunConfig(target_coverage=1.0, max_rounds=64))
+        got = (tx[0], tx[1], tx[4], tx[2])
+        same = (state_digests(tx[3], ("val",), 1)
+                == single_runs["TX10M_direct"]["digests_k1"])
+        state_bytes = tx[3].val.numel() * 4
+        del tx
+        check(got == TXN_CASES["TX10M"][1] and same,
+              f"TX10M at K = 1: {got}, state equal {same}")
+        k1["TX10M"] = {"result": list(got), "state_bytes": state_bytes,
+                       "state_equals_single": True,
+                       "peak_over_state":
+                           nums["rank_peak_mem_bytes"][0] / state_bytes,
+                       "ms_per_round": nums["steady_s"] * 1e3 / got[0],
+                       "collective_ms_per_round": {
+                           k: c["ms"] / got[0]
+                           for k, c in nums["collective_ms"].items()},
+                       "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+                       "single_device_ms_per_round":
+                           single_runs.get("TX10M", {}).get(
+                               "ms_per_round")}
+    wall_s["k1_nccl"] = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    check(sum(launches.values()) == 0, f"mesh models launched {launches}")
+    # the largest G-counter n: a rank of the gather design holds its rows,
+    # the gathered table and its rows' successor, 4 n^2 (1 + 2 / K) bytes
+    # (measured at K = 1: CR4's peak over its state); the single-device
+    # loop holds the state and its successor
+    card = torch.cuda.get_device_properties(dev).total_memory
+    ratios = {"single_device_loop": (single_runs.get("CR4_direct") or {})
+              .get("peak_over_two_states", 1.05) * 2,
+              "k1_measured": k1["CR4"]["peak_over_state"]}
+    ratios.update({f"k{k}_model": 1 + 2 / k for k in (2, 4, 8)})
+    n_max = {name: int((card / (4 * r)) ** 0.5) for name, r in ratios.items()}
+    emit("mesh_models", cli_k2=cli_runs, library_k2=library, k1_nccl=k1,
+         gcounter_n_max={"card_bytes": card, "peak_over_state": ratios,
+                         "n": n_max},
+         launches=launches, phase_wall_s=wall_s,
          phase_s=time.perf_counter() - t_phase, card=smi)
 
 
@@ -2247,14 +2584,17 @@ def main() -> int:
     xla_sampler_launches = phase_xla_sampler_path(dev, smi,
                                                   threefry_round_ms)
     churn_launches = phase_churn_path(dev, smi)
-    phase_swim_rumor_path(dev, smi)
-    phase_crdt_log_path(dev, smi)
-    phase_txn_path(dev, smi)
+    single_runs = dict(phase_swim_rumor_path(dev, smi))
+    crdt_runs, cr4_single = phase_crdt_log_path(dev, smi)
+    single_runs.update(crdt_runs, CR4_direct=cr4_single)
+    txn_runs, tx10m_single = phase_txn_path(dev, smi)
+    single_runs.update(txn_runs, TX10M_direct=tx10m_single)
     sampler.update(launches=churn_launches, path="churn_path",
                    launches_by_path={"xla_sampler_path": xla_sampler_launches,
                                      "churn_path": churn_launches})
     phase_fused_deaths(dev, smi)
     phase_mesh_path(dev, smi)
+    phase_mesh_models(dev, smi, single_runs)
     cal_kernels, floors = phase_roofline(dev, smi)
 
     kernels = [{

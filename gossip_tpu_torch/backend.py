@@ -20,20 +20,25 @@ The port of the JAX package's ``backend.run_simulation`` (``run_jax`` and
   ``fused`` refuses it, as the reference's single-device fused routing
   does.
 
-With ``mesh_cfg.n_devices = K > 1`` the SI modes run on the node-sharded
-drivers over ``torch.distributed`` (:mod:`gossip_tpu_torch.parallel`, the
-reference's ``n_dev > 1`` branch): bit-packed for pull and anti-entropy
-without a curve, dense otherwise, on ``engine='xla'`` or ``'auto'``.  The
-process group is NCCL with a card a rank, gloo on the CPU or on one card
-shared by the ranks (``mesh_cfg.shared_card``); more ranks than cards are
-refused.  SWIM, rumor mongering and the payloads over K devices (ROADMAP
-queue 1 item 5b), the sparse and halo exchanges (5c) and the fused
+With ``mesh_cfg.n_devices = K > 1`` the SI modes, SWIM and rumor
+mongering run on the node-sharded drivers over ``torch.distributed``
+(:mod:`gossip_tpu_torch.parallel`, the reference's ``n_dev > 1``
+branch): bit-packed for pull and anti-entropy without a curve, dense
+otherwise, SWIM and rumor mongering on their own sharded rounds, on
+``engine='xla'`` or ``'auto'``.  The process group is NCCL with a card a
+rank, gloo on the CPU or on one card shared by the ranks
+(``mesh_cfg.shared_card``); more ranks than cards are refused.  The
+sparse and halo exchanges (ROADMAP queue 1 item 5c) and the fused
 engine's rumor-plane sharding (5d) are refused, each naming its item.
 
 A ``log_cfg`` runs the replicated-log workload
 (:func:`run_log_workload`, the reference's ``run_log_workload``) and a
 ``txn_cfg`` the LWW-register transactions (:func:`run_txn_workload`) on
-the xla engine.
+the xla engine, on one device: with a ``mesh_cfg`` they are refused in
+the reference's words (the payloads shard through the library API,
+:mod:`gossip_tpu_torch.parallel.sharded_log` and
+:mod:`~gossip_tpu_torch.parallel.sharded_register`, and the ``log`` and
+``txn`` commands' ``--devices``).
 
 The report carries the reference's ``RunReport`` fields and ``meta``
 keys, plus the device, every kernel's launches and, for the SI modes,
@@ -132,11 +137,17 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
     if log_cfg is not None and txn_cfg is not None:
         return ("a request carries at most one payload workload; pick "
                 "'log' or 'txn'")
+    # the reference's words: the payloads shard through the library API
+    # (parallel/sharded_crdt, sharded_log, sharded_register) and the
+    # payload commands' --devices
     if txn_cfg is not None and mesh_cfg is not None:
-        # the reference's words
         return ("the txn workload over RPC is single-process "
                 "single-device; shard the node mesh via the library API "
                 "(parallel/sharded_register)")
+    if log_cfg is not None and mesh_cfg is not None:
+        return ("the log workload over RPC is single-process "
+                "single-device; shard the node mesh via the library API "
+                "(parallel/sharded_log)")
     n_dev = 1 if mesh_cfg is None else mesh_cfg.n_devices
     exchange = "dense" if mesh_cfg is None else mesh_cfg.exchange
     if exchange != "dense":
@@ -152,18 +163,11 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
         return (f"exchange={exchange!r} waits for the port's multi-GPU "
                 "sparse and halo exchanges (ROADMAP queue 1, item 5c); the "
                 "port runs exchange='dense'")
-    if n_dev > 1:
-        if run.engine == "fused":
-            return ("engine='fused' with more than one device is the "
-                    "reference's rumor-plane sharded route, which waits "
-                    "for the port's multi-GPU fused planes (ROADMAP queue "
-                    "1, item 5d); use engine='xla' or 'auto' for the "
-                    "node-sharded drivers")
-        if proto.mode in (C.SWIM, C.RUMOR) or log_cfg is not None:
-            what = "the log workload" if log_cfg is not None else proto.mode
-            return (f"{what} over more than one device waits for the "
-                    "port's multi-GPU model and payload drivers (ROADMAP "
-                    "queue 1, item 5b)")
+    if n_dev > 1 and run.engine == "fused":
+        return ("engine='fused' with more than one device is the "
+                "reference's rumor-plane sharded route, which waits for the "
+                "port's multi-GPU fused planes (ROADMAP queue 1, item 5d); "
+                "use engine='xla' or 'auto' for the node-sharded drivers")
     return None
 
 
@@ -291,10 +295,11 @@ def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,
 
 def _run_swim(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
               fault: Optional[FaultConfig], want_curve: bool, topo,
-              dev: torch.device):
+              dev: torch.device, group=None):
     """SWIM on the XLA engine: ``(rounds, detection, msgs, curve, meta,
-    steady_s)`` with the reference's meta keys.  ``rounds`` is the round
-    the detection reached the target, else -1."""
+    steady_s, rounds_run)`` with the reference's meta keys.  ``rounds`` is
+    the round the detection reached the target, else -1.  With a ``group``: this
+    rank's run of the sharded round."""
     from gossip_tpu_torch.models.swim import (effective_diss,
                                               resolve_epoch_rounds,
                                               suggested_suspect_rounds)
@@ -304,7 +309,7 @@ def _run_swim(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
     meta.update({"clock": "rounds",
                  "suggested_suspect_rounds":
                      suggested_suspect_rounds(tc.n, proto.fanout),
-                 "devices": 1,
+                 "devices": 1 if group is None else group.size,
                  # the lowering that ran: pack without a lane width is sort
                  "swim_diss_effective": effective_diss(proto.swim_diss,
                                                        run.max_rounds),
@@ -314,7 +319,7 @@ def _run_swim(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
         meta["epoch_rounds"] = resolve_epoch_rounds(proto, tc.n)
     kw = dict(dead_nodes=dead, fail_round=fail_round, fault=fault,
               topo=None if tc.family == C.COMPLETE else topo,
-              seed=run.seed, device=dev)
+              seed=run.seed, device=dev, group=group)
     if want_curve:
         (fracs, final), steady = steady_timed(
             dev, simulate_swim_curve, proto, tc.n, run.max_rounds, **kw)
@@ -332,21 +337,33 @@ def _run_swim(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
     if proto.swim_rotate:
         # the window may have left the dead node's epoch by the end
         meta["peak_detection"] = peak
-    return rounds, det, float(final.msgs.item()), curve, meta, steady
+    return (rounds, det, float(final.msgs.item()), curve, meta, steady,
+            final.round)
 
 
 def _run_rumor(proto: ProtocolConfig, run: RunConfig,
                fault: Optional[FaultConfig], want_curve: bool, topo,
-               dev: torch.device):
+               dev: torch.device, group=None):
     """Rumor mongering on the XLA engine: ``(rounds, coverage, msgs,
-    curve, meta, steady_s)``; ``rounds`` counts the rounds to extinction
-    (no pair hot), -1 if a pair was still hot at ``max_rounds``."""
+    curve, meta, steady_s, rounds_run)``; ``rounds`` counts the rounds to
+    extinction (no pair hot), -1 if a pair was still hot at
+    ``max_rounds``.  With a ``group``: this rank's run of the sharded
+    round."""
     from gossip_tpu_torch.models.rumor import (hot_fraction,
                                                simulate_curve_rumor,
                                                simulate_until_rumor)
+    from gossip_tpu_torch.ops.common import f32_mean
+    from gossip_tpu_torch.parallel import sharded_rumor as SR
+    if group is None:
+        args = (proto, topo, run, fault, dev)
+        curve_fn, until_fn = simulate_curve_rumor, simulate_until_rumor
+    else:
+        args = (proto, topo, run, group, fault)
+        curve_fn = SR.simulate_curve_rumor_sharded
+        until_fn = SR.simulate_until_rumor_sharded
     if want_curve:
-        (covs, hots, msgs, _), steady = steady_timed(
-            dev, simulate_curve_rumor, proto, topo, run, fault, dev)
+        (covs, hots, msgs, final), steady = steady_timed(dev, curve_fn,
+                                                         *args)
         _, cov, msgs_f, curve = _curve_summary(covs, msgs,
                                                run.target_coverage)
         extinct = np.nonzero(hots == 0.0)[0]
@@ -355,16 +372,21 @@ def _run_rumor(proto: ProtocolConfig, run: RunConfig,
         hot_left = float(hots[-1])
     else:
         (rounds, cov, residue, msgs_f, final), steady = steady_timed(
-            dev, simulate_until_rumor, proto, topo, run, fault, dev)
+            dev, until_fn, *args)
         curve = None
-        hot_left = hot_fraction(final.hot)
+        if group is None:
+            hot_left = hot_fraction(final.hot)
+        else:
+            # the real rows' share (padding rows never hold a hot pair)
+            held = group.all_reduce_sum(final.hot.any(dim=1).sum())
+            hot_left = f32_mean(int(held), topo.n)
         rounds = rounds if hot_left == 0.0 else -1
-    meta = {"clock": "rounds", "devices": 1,
+    meta = {"clock": "rounds", "devices": 1 if group is None else group.size,
             "msgs_counts": "transmissions", "rounds_semantics": "extinction",
             "variant": proto.rumor_variant, "rumor_k": proto.rumor_k,
             "residue": round(residue, 6), "hot_fraction_final": hot_left,
             "terminated": hot_left == 0.0}
-    return rounds, cov, msgs_f, curve, meta, steady
+    return rounds, cov, msgs_f, curve, meta, steady, final.round
 
 
 def _count_meta(seen, proto: ProtocolConfig, fault: Optional[FaultConfig],
@@ -398,10 +420,10 @@ def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
             "msgs_counts": "transmissions"}
     t0 = time.perf_counter()
     if proto.mode == C.SWIM:
-        rounds, cov, msgs, curve, meta, steady = _run_swim(
+        rounds, cov, msgs, curve, meta, steady, _ = _run_swim(
             proto, tc, run, fault, want_curve, topo, dev)
     elif proto.mode == C.RUMOR:
-        rounds, cov, msgs, curve, meta, steady = _run_rumor(
+        rounds, cov, msgs, curve, meta, steady, _ = _run_rumor(
             proto, run, fault, want_curve, topo, dev)
     elif proto.mode in (C.PULL, C.ANTI_ENTROPY) and not want_curve:
         from gossip_tpu_torch.models.si_packed import simulate_until_packed
@@ -459,7 +481,14 @@ def sharded_report(proto: ProtocolConfig, tc: TopologyConfig,
     meta = {"clock": "rounds", "devices": group.size,
             "msgs_counts": "transmissions"}
     t0 = time.perf_counter()
-    if packed:
+    final = None
+    if proto.mode == C.SWIM:
+        rounds, cov, msgs, curve, meta, steady, rounds_run = _run_swim(
+            proto, tc, run, fault, want_curve, topo, dev, group)
+    elif proto.mode == C.RUMOR:
+        rounds, cov, msgs, curve, meta, steady, rounds_run = _run_rumor(
+            proto, run, fault, want_curve, topo, dev, group)
+    elif packed:
         (rounds, cov, msgs, final), steady = steady_timed(
             dev, SP.simulate_until_packed_sharded, proto, topo, run, group,
             fault)
@@ -475,15 +504,17 @@ def sharded_report(proto: ProtocolConfig, tc: TopologyConfig,
             dev, SH.simulate_until_sharded, proto, topo, run, group, fault)
         curve = None
     wall = time.perf_counter() - t0
-    counter = SH.Coverage(fault, tc.n, run.origin, group,
-                          proto.rumors if packed else None)
-    rounds_run = max(final.round, 1)
-    collectives = {name: {**c, "ms_per_round": c["ms"] / rounds_run}
+    if final is not None:
+        counter = SH.Coverage(fault, tc.n, run.origin, group,
+                              proto.rumors if packed else None)
+        meta.update({"coverage_count": counter.count(final.seen),
+                     "coverage_total": counter.total})
+        rounds_run = final.round
+    collectives = {name: {**c, "ms_per_round": c["ms"] / max(rounds_run,
+                                                              1)}
                    for name, c in group.collective_ms().items()}
     meta.update({"process_group": group.backend,
                  "device": _device_name(dev),
-                 "coverage_count": counter.count(final.seen),
-                 "coverage_total": counter.total,
                  "collective_ms": collectives,
                  "rank_peak_mem_bytes": GR.peak_memory(group),
                  **timing_meta(0.0, steady, wall),

@@ -22,16 +22,18 @@ commands on one device::
         [--add NODE:ROUND:AMOUNT]... [--set-add ELEM:ROUND]...
         [--set-remove ELEM:ROUND]... [--elements E] [churn flags]
         [--byz NODE:ROUND:KIND[:ARG]]... [--byz-quorum Q] [--defend]
-        [--curve] [--save-curve PATH] [--device cpu]
+        [--curve] [--save-curve PATH] [--devices K [--share-card]]
+        [--device cpu]
     python -m gossip_tpu_torch log [--n N] [--keys K] [--capacity C] \\
         [--send NODE:KEY:ROUND:VALUE]... [--commit NODE:KEY:ROUND:UPTO]...
         [the crdt command's topology, run and churn flags] [--curve]
-        [--save-curve PATH] [--device cpu]
+        [--save-curve PATH] [--devices K [--share-card]] [--device cpu]
     python -m gossip_tpu_torch txn [--n N] [--keys K] [--txns T] \\
         [--zipf-alpha A] [--hot-key H] [--load uniform|diurnal]
         [--spread S] [--write NODE:KEY:ROUND:VALUE]...
         [the crdt command's topology, run, churn and byz flags]
-        [--curve] [--save-curve PATH] [--device cpu]
+        [--curve] [--save-curve PATH] [--devices K [--share-card]]
+        [--device cpu]
 
 ``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
 ``--engine`` one of ``auto|xla|fused`` (default ``auto``;
@@ -44,7 +46,8 @@ build a fault program (``ChurnConfig``), which runs on the xla engine
 (``auto`` takes it; ``fused`` refuses it).  ``--devices K`` above 1 runs
 the SI modes on K ranks of the node-sharded drivers
 (``backend.run_sharded``): NCCL with a card a rank, gloo with ``--device
-cpu`` or ``--share-card`` (K ranks on one card).  ``--save-curve PATH``
+cpu`` or ``--share-card`` (K ranks on one card); SWIM and rumor
+mongering on their own sharded rounds.  ``--save-curve PATH``
 writes the curve as the reference's JSONL, the report as its meta line.
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
@@ -54,10 +57,16 @@ the run needs a CUDA device.
 ``crdt``, ``log`` and ``txn`` (:mod:`gossip_tpu_torch.models.crdt`,
 :mod:`gossip_tpu_torch.models.log`,
 :mod:`gossip_tpu_torch.models.register`) take the JAX commands' flags and
-print their reports' fields in their order (``backend`` and ``engine``
-the port's names), then the device, the steady wall and, on a card, the
-peak of allocated device memory.  ``--devices`` above 1 is refused (the
-sharded payload drivers, ROADMAP queue 1 item 5b).  The JAX commands'
+print their reports' fields in their order (``backend`` the port's
+name; ``engine`` the reference's: ``crdt-xla`` on one device,
+``crdt-sharded`` on the mesh, and so on), then the device, the steady
+wall and, on a card, the peak of allocated device memory.  ``--devices
+K`` above 1 runs K ranks of the node-sharded payload drivers
+(:mod:`gossip_tpu_torch.parallel.sharded_crdt`, ``sharded_log``,
+``sharded_register``), as ``run`` does: NCCL with a card a rank, gloo
+with ``--device cpu`` or ``--share-card``, or inside a ``torchrun``
+group as the launched rank; the report adds the process group, each
+collective's time and every rank's peak memory.  The JAX commands'
 ``--compile-cache`` / ``--no-compile-cache`` configure its XLA
 executable store, which the port does not have: they are not taken,
 and ``compile_cache`` is null.
@@ -141,24 +150,95 @@ def _colon_ints(specs, what: str, arity: int) -> tuple:
 
 
 def _payload_setup(a, byz=None):
-    """(proto, topo, run, fault, device) of a payload command."""
-    from gossip_tpu_torch.ops.common import resolve_device
-    from gossip_tpu_torch.topology import generators as G
-    if a.devices > 1:
-        raise ValueError(
-            f"--devices {a.devices}: the multi-GPU payload drivers wait "
-            "for ROADMAP queue 1, item 5b; run --devices 1")
+    """(proto, topology config, run, fault) of a payload command."""
     churn = _parse_churn(a)
     fault = None
     if a.drop > 0 or a.death > 0 or churn is not None or byz is not None:
         fault = FaultConfig(node_death_rate=a.death, drop_prob=a.drop,
                             seed=a.seed, churn=churn, byz=byz)
-    dev = resolve_device(a.device)
-    topo = G.build(TopologyConfig(family=a.family, n=a.n, k=a.k, p=a.p,
-                                  seed=a.seed), dev)
+    tc = TopologyConfig(family=a.family, n=a.n, k=a.k, p=a.p, seed=a.seed)
     run = RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
                     seed=a.seed, origin=a.origin)
-    return ProtocolConfig(mode=C.PULL, fanout=a.fanout), topo, run, fault, dev
+    return ProtocolConfig(mode=C.PULL, fanout=a.fanout), tc, run, fault
+
+
+def _loop(mode: str, sharded: bool, want_curve: bool):
+    """The payload's curve or until loop, on one device or sharded."""
+    if sharded:
+        from gossip_tpu_torch.parallel import (sharded_crdt, sharded_log,
+                                               sharded_register)
+        mod = {"crdt": sharded_crdt, "log": sharded_log,
+               "txn": sharded_register}[mode]
+    else:
+        from gossip_tpu_torch.models import crdt, log, register
+        mod = {"crdt": crdt, "log": log, "txn": register}[mode]
+    kind = "curve" if want_curve else "until"
+    return getattr(mod, f"simulate_{kind}_{mode}"
+                   + ("_sharded" if sharded else ""))
+
+
+def _payload_rank(mode, cfg, proto, tc, run, fault, want_curve, kw,
+                  keep_state, group):
+    """One rank of a sharded payload command: ``(loop result, wall,
+    the port's report keys)``, the final state dropped unless
+    ``keep_state`` (it stays this rank's rows)."""
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.topology import generators as G
+    dev = group.device
+    topo = G.build(tc, dev)
+    group.collective_ms(reset=True)
+    result, wall, extra = _timed(dev, _loop(mode, True, want_curve), cfg,
+                                 proto, topo, run, group, fault, **kw)
+    rounds = run.max_rounds if want_curve else result[0]
+    extra.update({
+        "process_group": group.backend,
+        "collective_ms": {k: {**c, "ms_per_round": c["ms"] / max(rounds, 1)}
+                          for k, c in group.collective_ms().items()},
+        "rank_peak_mem_bytes": GR.peak_memory(group)})
+    if not keep_state:
+        result = tuple(None if hasattr(x, "val") else x for x in result)
+    return result, wall, extra
+
+
+def _payload_loop(a, mode: str, cfg, fault_byz=None, keep_state=True,
+                  **kw):
+    """Run a payload command's loop: on one device, or with ``--devices
+    K`` above 1 on K ranks of the sharded drivers (NCCL with a card a
+    rank, gloo with ``--device cpu`` or ``--share-card``; inside a
+    process group that is up, as this rank).  Returns ``(fault,
+    want_curve, result, wall, the port's report keys)``; a sharded
+    result's final state is every rank's rows in rank order, padded,
+    kept only with ``keep_state``."""
+    from gossip_tpu_torch.ops.common import resolve_device
+    from gossip_tpu_torch.topology import generators as G
+    proto, tc, run, fault = _payload_setup(a, fault_byz)
+    want_curve = a.curve or bool(a.save_curve)
+    if a.devices <= 1:
+        dev = resolve_device(a.device)
+        result, wall, extra = _timed(dev, _loop(mode, False, want_curve),
+                                     cfg, proto, G.build(tc, dev), run,
+                                     fault, device=dev, **kw)
+        return fault, want_curve, result, wall, extra
+    import torch.distributed as dist
+
+    from gossip_tpu_torch.parallel import group as GR
+    args = (mode, cfg, proto, tc, run, fault, want_curve, kw, keep_state)
+    if dist.is_available() and dist.is_initialized():
+        group = GR.current(a.device)
+        if group.size != a.devices:
+            raise ValueError(f"the process group has {group.size} ranks; "
+                             f"--devices asks for {a.devices}")
+        ranks = [_payload_rank(*args, group=group)]
+    else:
+        ranks = GR.launch(_payload_rank, a.devices, *args, device=a.device,
+                          shared_card=a.share_card)
+    result, wall, extra = ranks[0]
+    if keep_state and len(ranks) == a.devices:
+        import torch
+        i = next(j for j, x in enumerate(result) if hasattr(x, "val"))
+        val = torch.cat([r[0][i].val for r in ranks])
+        result = result[:i] + (result[i]._replace(val=val),) + result[i + 1:]
+    return fault, want_curve, result, wall, extra
 
 
 def _summary(a, want_curve, result):
@@ -208,27 +288,32 @@ def _finish(a, out, result, want_curve, extra):
     return out, result
 
 
-def run_crdt(a):
+def _engine(a, mode: str) -> str:
+    """The reference's ``engine`` of a payload report."""
+    return f"{mode}-sharded" if a.devices > 1 else f"{mode}-xla"
+
+
+def _backend_device(extra) -> str:
+    return "cpu" if extra["device"] == "cpu" else "cuda"
+
+
+def run_crdt(a, keep_state: bool = True):
     """A CRDT payload run (the JAX command's ``crdt``): value convergence
     judged integer-exact against the ground-truth merge on the
     eventual-alive set.  Returns ``(report, loop result)``."""
-    from gossip_tpu_torch.models import crdt as M
     cfg = CrdtConfig(kind=a.type, elements=a.elements,
                      adds=_colon_ints(a.add, "add", 3),
                      set_adds=_colon_ints(a.set_add, "set-add", 2),
                      set_removes=_colon_ints(a.set_remove, "set-remove", 2))
     byz = _parse_byz(a)
-    proto, topo, run, fault, dev = _payload_setup(a, byz)
-    want_curve = a.curve or bool(a.save_curve)
-    fn = M.simulate_curve_crdt if want_curve else M.simulate_until_crdt
-    result, wall, extra = _timed(dev, fn, cfg, proto, topo, run, fault,
-                                 defend=a.defend, device=dev)
+    fault, want_curve, result, wall, extra = _payload_loop(
+        a, "crdt", cfg, byz, keep_state, defend=a.defend)
     rounds, vc, msgs = _summary(a, want_curve, result)
-    out = {"backend": f"torch-{dev.type}", "mode": "crdt", "type": a.type,
-           "n": a.n, "rounds": rounds, "value_conv": vc,
+    out = {"backend": f"torch-{_backend_device(extra)}", "mode": "crdt",
+           "type": a.type, "n": a.n, "rounds": rounds, "value_conv": vc,
            "converged": vc >= a.target, "truth_value": result[-1],
            "msgs": msgs, "wall_s": round(wall, 4), "devices": a.devices,
-           "engine": "crdt-xla", "compile_cache": None}
+           "engine": _engine(a, "crdt"), "compile_cache": None}
     if fault is not None and fault.churn is not None:
         out["fault_program"] = True
     if byz is not None:
@@ -237,50 +322,43 @@ def run_crdt(a):
     return _finish(a, out, result, want_curve, extra)
 
 
-def run_log(a):
+def run_log(a, keep_state: bool = True):
     """A replicated-log run (the JAX command's ``log``): convergence
     judged integer-exact against the acked-appends truth on the
     eventual-alive set.  Returns ``(report, loop result)``."""
-    from gossip_tpu_torch.models import log as M
     cfg = LogConfig(keys=a.keys, capacity=a.capacity,
                     sends=_colon_ints(a.send, "send", 4),
                     commits=_colon_ints(a.commit, "commit", 4))
-    proto, topo, run, fault, dev = _payload_setup(a)
-    want_curve = a.curve or bool(a.save_curve)
-    fn = M.simulate_curve_log if want_curve else M.simulate_until_log
-    result, wall, extra = _timed(dev, fn, cfg, proto, topo, run, fault,
-                                 device=dev)
+    fault, want_curve, result, wall, extra = _payload_loop(
+        a, "log", cfg, None, keep_state)
     rounds, lc, msgs = _summary(a, want_curve, result)
-    out = {"backend": f"torch-{dev.type}", "mode": "log", "n": a.n,
-           "keys": a.keys, "capacity": a.capacity, "rounds": rounds,
-           "log_conv": lc, "converged": lc >= a.target,
+    out = {"backend": f"torch-{_backend_device(extra)}", "mode": "log",
+           "n": a.n, "keys": a.keys, "capacity": a.capacity,
+           "rounds": rounds, "log_conv": lc, "converged": lc >= a.target,
            "truth": result[-1], "msgs": msgs, "wall_s": round(wall, 4),
-           "devices": a.devices, "engine": "log-xla", "compile_cache": None}
+           "devices": a.devices, "engine": _engine(a, "log"),
+           "compile_cache": None}
     if fault is not None and fault.churn is not None:
         out["fault_program"] = True
     return _finish(a, out, result, want_curve, extra)
 
 
-def run_txn(a):
+def run_txn(a, keep_state: bool = True):
     """An LWW-register transaction run (the JAX command's ``txn``):
     convergence judged integer-exact against the acked-writes LWW truth
     on the eventual-alive set.  Returns ``(report, loop result)``."""
-    from gossip_tpu_torch.models import register as M
     cfg = TxnConfig(keys=a.keys, txns=a.txns, zipf_alpha=a.zipf_alpha,
                     hot_key=a.hot_key, load=a.load, spread_rounds=a.spread,
                     writes=_colon_ints(a.write, "write", 4))
     byz = _parse_byz(a)
-    proto, topo, run, fault, dev = _payload_setup(a, byz)
-    want_curve = a.curve or bool(a.save_curve)
-    fn = M.simulate_curve_txn if want_curve else M.simulate_until_txn
-    result, wall, extra = _timed(dev, fn, cfg, proto, topo, run, fault,
-                                 defend=a.defend, device=dev)
+    fault, want_curve, result, wall, extra = _payload_loop(
+        a, "txn", cfg, byz, keep_state, defend=a.defend)
     rounds, tcv, msgs = _summary(a, want_curve, result)
-    out = {"backend": f"torch-{dev.type}", "mode": "txn", "n": a.n,
-           "keys": a.keys, "rounds": rounds, "txn_conv": tcv,
+    out = {"backend": f"torch-{_backend_device(extra)}", "mode": "txn",
+           "n": a.n, "keys": a.keys, "rounds": rounds, "txn_conv": tcv,
            "converged": tcv >= a.target, "truth": result[-1],
            "msgs": msgs, "wall_s": round(wall, 4), "devices": a.devices,
-           "engine": "txn-xla", "zipf_alpha": a.zipf_alpha,
+           "engine": _engine(a, "txn"), "zipf_alpha": a.zipf_alpha,
            "hot_key": a.hot_key, "load": a.load, "compile_cache": None}
     if fault is not None and fault.churn is not None:
         out["fault_program"] = True
@@ -304,8 +382,11 @@ def _add_payload_flags(p, conv: str) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--origin", type=int, default=0)
     p.add_argument("--devices", type=int, default=1,
-                   help="node-dim mesh size (more than 1 waits for the "
-                        "sharded payload drivers, ROADMAP queue 1 item 5b)")
+                   help="node-dim mesh size (one rank a device: NCCL with a "
+                        "card a rank, gloo with --device cpu)")
+    p.add_argument("--share-card", action="store_true",
+                   help="run the --devices ranks on one card under gloo "
+                        "(a test mode: NCCL takes one card a rank)")
     p.add_argument("--drop", type=float, default=0.0)
     p.add_argument("--death", type=float, default=0.0)
 
@@ -348,7 +429,8 @@ def _add_tail_flags(p, conv: str) -> None:
 def run_payload(argv):
     """``(report, loop result)`` of a ``crdt``, ``log`` or ``txn``
     command line, parsed, run and reported as :func:`main` does, without
-    printing; the result holds the loop's final state."""
+    printing; the result holds the loop's final state (with ``--devices``
+    above 1, every rank's rows in rank order, padded)."""
     a = build_parser().parse_args(argv)
     if a.cmd not in PAYLOAD_COMMANDS:
         raise ValueError(f"{a.cmd!r} is not a payload command")
@@ -564,7 +646,7 @@ def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
     try:
         if a.cmd in PAYLOAD_COMMANDS:
-            print(json.dumps(a.fn(a)[0]))
+            print(json.dumps(a.fn(a, keep_state=False)[0]))
             return 0
         return a.fn(a)
     except ValueError as e:

@@ -21,7 +21,10 @@ back.  Every field of :class:`CrdtState` equals the reference's bit for
 bit.  The exchange works on blocks of destination rows
 (:func:`~gossip_tpu_torch.ops.crdt.block_rows_for`), so a round holds the
 state, its successor and one block.  Pull only: state-based merge is
-the digest pull.
+the digest pull.  The three payloads (CRDTs, logs, registers) share the
+round as a :class:`Payload`; the node-sharded round
+(:mod:`gossip_tpu_torch.parallel.sharded_crdt`) shares its
+:func:`blocked_exchange`, with the gathered table as the source.
 """
 
 from __future__ import annotations
@@ -111,6 +114,67 @@ def check_byz_defendable(cfg, fault, fanout: int, defend: bool) -> None:
             "the quorum — raise --fanout or lower ByzConfig.quorum")
 
 
+class Payload(NamedTuple):
+    """What a payload brings to the shared pull round: ``join(a, b,
+    out=None)``, its join (max, OR or the LWW join) of a receiver's row
+    with what it pulled (the all-zero row when it is down);
+    ``inject(val, r, lo)``, which merges round ``r``'s applied
+    injections into ``val`` (the rows of the global ids ``[lo, lo +
+    len(val))``) in place, called on the rounds in ``inject_rounds``
+    only; ``pull(src, partners, gids, r, serve)``, the merge of the
+    partners' rows of ``src`` for the destination rows of the global ids
+    ``gids`` (``serve``: bool over ``src``'s rows, who serves, or None);
+    and ``width``, the state's column count, which sizes the blocks."""
+
+    join: object
+    inject: object
+    inject_rounds: frozenset
+    pull: object
+    width: int
+
+
+def crdt_payload(cfg: CrdtConfig, proto: ProtocolConfig, topo: Topology,
+                 fault: Optional[FaultConfig], origin: int, defend: bool,
+                 dev) -> Payload:
+    """The CRDT kinds' :class:`Payload` (the checks of
+    :func:`make_crdt_round`, which the sharded round shares)."""
+    check_crdt_mode(proto)
+    n, k = topo.n, proto.fanout
+    if cfg.kind == C.VCLOCK:
+        raise ValueError("vclock has no exchange driver (merge kernel "
+                         "+ tick only — ops/crdt); run gcounter/"
+                         "pncounter/gset/orset")
+    NE.check_supported(fault, engine="crdt-pull", byz=True)
+    check_byz_defendable(cfg, fault, k, defend)
+    kind = cfg.kind
+    width = CR.state_width(cfg, n)
+    bz = NE.get_byz(fault)
+    inj = CR.inject_args(cfg, n, dev)
+    alive_fn = CR.alive_at_fn(fault, n, origin, dev)
+    eventual = CR.eventual_alive_crdt(fault, n, origin, dev)
+    if bz is not None:
+        byzt = NE.build_byz(fault, n, device=dev)
+        set_tables = {} if kind not in C.CRDT_SET_KINDS else dict(
+            own_words=CR.set_owner_words(cfg.elements, n, origin, dev),
+            universe=CR._set_universe(cfg.elements, width, dev))
+
+    def inject(val, r, lo):
+        return CR.apply_injections(cfg, val, inj, r, n, origin, alive_fn,
+                                   eventual, lo)
+
+    def pull(src, partners, gids, r, serve):
+        if bz is None:
+            return CR.pull_merge_crdt(kind, src, partners, n, serve=serve)
+        return CR.pull_merge_crdt_byz(
+            cfg, src, partners, n, byz=byzt, round_=r, gids=gids, n=n,
+            origin=origin, alive_fn=alive_fn, defend=defend, serve=serve,
+            **set_tables)
+
+    return Payload(functools.partial(CR.merge, kind), inject,
+                   CR.injection_rounds(*CR.inject_round_operands(cfg, inj)),
+                   pull, width)
+
+
 def make_crdt_round(cfg: CrdtConfig, proto: ProtocolConfig, topo: Topology,
                     fault: Optional[FaultConfig] = None, origin: int = 0,
                     defend: bool = False, device=None):
@@ -121,66 +185,47 @@ def make_crdt_round(cfg: CrdtConfig, proto: ProtocolConfig, topo: Topology,
     ``state.val`` in place (the loops pass it; a caller that keeps the
     old state does not).  ``step.exchange``: the round's exchange alone
     (:func:`make_pull_round`)."""
-    check_crdt_mode(proto)
-    n, k = topo.n, proto.fanout
-    if cfg.kind == C.VCLOCK:
-        raise ValueError("vclock has no exchange driver (merge kernel "
-                         "+ tick only — ops/crdt); run gcounter/"
-                         "pncounter/gset/orset")
-    NE.check_supported(fault, engine="crdt-pull", byz=True)
-    check_byz_defendable(cfg, fault, k, defend)
     dev = topology_device(topo, device)
-    kind = cfg.kind
-    width = CR.state_width(cfg, n)
-    bz = NE.get_byz(fault)
-    inj = CR.inject_args(cfg, n, dev)
-    alive_fn = CR.alive_at_fn(fault, n, origin, dev)
-    eventual = CR.eventual_alive_crdt(fault, n, origin, dev)
-    ids = torch.arange(n, dtype=torch.int64, device=dev)
-    if bz is not None:
-        byzt = NE.build_byz(fault, n, device=dev)
-        set_tables = {} if kind not in C.CRDT_SET_KINDS else dict(
-            own_words=CR.set_owner_words(cfg.elements, n, origin, dev),
-            universe=CR._set_universe(cfg.elements, width, dev))
-
-    def inject(val, r):
-        return CR.apply_injections(cfg, val, inj, r, n, origin, alive_fn,
-                                   eventual)
-
-    def pull(val, partners, a, b, r, alive):
-        if bz is None:
-            return CR.pull_merge_crdt(kind, val, partners, n, serve=alive)
-        return CR.pull_merge_crdt_byz(
-            cfg, val, partners, n, byz=byzt, round_=r, gids=ids[a:b], n=n,
-            origin=origin, alive_fn=alive_fn, defend=defend, serve=alive,
-            **set_tables)
-
     return make_pull_round(
-        functools.partial(CR.merge, kind), proto, topo, fault, origin, dev,
-        inject, CR.injection_rounds(*CR.inject_round_operands(cfg, inj)),
-        pull, width)
+        crdt_payload(cfg, proto, topo, fault, origin, defend, dev), proto,
+        topo, fault, origin, dev)
 
 
-def make_pull_round(join, proto: ProtocolConfig, topo: Topology,
-                    fault: Optional[FaultConfig], origin: int, dev,
-                    inject, inject_rounds, pull, width: int):
-    """The pull round the payloads share (module doc), as ``step(state,
-    donate=False)``: ``inject(val, r)`` merges round ``r``'s injections
-    into ``val`` in place (called on the rounds in ``inject_rounds``
-    only, on a copy unless ``donate``); ``pull(val, partners_block, a,
-    b, r, alive)`` merges the partners of destination rows ``[a, b)``;
-    ``join(a, b, out=None)`` is the payload's join (max, OR or the LWW
-    join) of a receiver's row with what it pulled (the all-zero row when
-    it is down); ``width`` is the state's column count, which sizes the
-    blocks.  The state is any of the payloads' states (``val``,
-    ``round``, ``base_key``, ``msgs``).
+def blocked_exchange(payload: Payload, rows_per: int, src, dst, partners,
+                     gids, r, alive, serve):
+    """The exchange of a round: the successor of the destination rows
+    ``dst`` (the global ids ``gids``), each joined with what it pulls
+    from the source table ``src`` through ``partners`` (the final
+    partners, one row a destination), on blocks of ``rows_per``
+    destination rows (module doc).  ``alive`` (bool over the
+    destinations, or None) zeroes what a node that is down receives;
+    ``serve`` (bool over ``src``'s rows, or None) says who serves."""
+    new = torch.empty_like(dst)
+    nl = dst.shape[0]
+    for a in range(0, nl, rows_per):
+        b = min(nl, a + rows_per)
+        pulled = payload.pull(src, partners[a:b], gids[a:b], r, serve)
+        if alive is not None:     # a node that is down receives nothing
+            pulled.masked_fill_(~alive[a:b, None], 0)
+        payload.join(dst[a:b], pulled, out=new[a:b])
+    return new
+
+
+def make_pull_round(payload: Payload, proto: ProtocolConfig, topo: Topology,
+                    fault: Optional[FaultConfig], origin: int, dev):
+    """The single-device pull round the payloads share (module doc), as
+    ``step(state, donate=False)``: the round's injections go into a copy
+    of ``state.val`` (into ``state.val`` itself with ``donate``), then
+    the :func:`blocked_exchange` over the whole state.  The state is any
+    of the payloads' states (``val``, ``round``, ``base_key``,
+    ``msgs``).
 
     ``step.exchange(val, partners, r, alive)`` is the step's own blocked
     exchange, the successor ``val`` from the final partners and the
     round's ``alive`` row (None: no liveness mask), so it can be timed
     alone."""
     n, k = topo.n, proto.fanout
-    rows_per = CR.block_rows_for(width, k)
+    rows_per = CR.block_rows_for(payload.width, k)
     sched = round_schedule(fault, n, dev)
     churn = sched is not None
     drop_prob = 0.0 if fault is None else fault.drop_prob
@@ -189,14 +234,9 @@ def make_pull_round(join, proto: ProtocolConfig, topo: Topology,
     ids = torch.arange(n, dtype=torch.int64, device=dev)
 
     def exchange(val, partners, r, alive):
-        new = torch.empty_like(val)
-        for a in range(0, n, rows_per):
-            b = min(n, a + rows_per)
-            pulled = pull(val, partners[a:b], a, b, r, alive)
-            if alive is not None:     # a node that is down receives nothing
-                pulled.masked_fill_(~alive[a:b, None], 0)
-            join(val[a:b], pulled, out=new[a:b])
-        return new
+        # one table: the source is the state, and who is up serves
+        return blocked_exchange(payload, rows_per, val, val, partners, ids,
+                                r, alive, alive)
 
     def step(state, donate: bool = False):
         r = state.round
@@ -208,8 +248,8 @@ def make_pull_round(join, proto: ProtocolConfig, topo: Topology,
         else:
             alive, dp = static_alive, drop_prob
         val = state.val
-        if r in inject_rounds:
-            val = inject(val if donate else val.clone(), r)
+        if r in payload.inject_rounds:
+            val = payload.inject(val if donate else val.clone(), r, 0)
         partners0 = sample_peers(threefry.fold_in(rkey, PULL_TAG), ids,
                                  topo, k, proto.exclude_self)
         partners = apply_drop(rkey, PULL_DROP_TAG, ids, partners0, dp, n,
@@ -229,32 +269,43 @@ def make_pull_round(join, proto: ProtocolConfig, topo: Topology,
     return step
 
 
-def run_curve(step, init, truth, eventual, rounds: int):
+def run_curve(step, init, truth, eventual, rounds: int, group=None):
     """Exactly ``rounds`` rounds from ``init()``: ``(converged counts
     int64[T], msgs float32[T], final state)``, read from the device once
     at the end.  The loops make their first state themselves, so no
     caller's frame keeps it alive: a round holds only the state and its
-    successor."""
+    successor.  With a ``group`` the state is a rank's rows, ``eventual``
+    their share of the eventual-alive set, and the counts are summed
+    over the ranks once, at the end."""
     state = init()
     counts, msgs = [], []
     for _ in range(rounds):
         state = step(state, donate=True)
         counts.append(CR.converged_count(state.val, truth, eventual))
         msgs.append(state.msgs)
-    return (torch.stack(counts).cpu().numpy().astype(np.int64),
+    counts = torch.stack(counts)
+    if group is not None:
+        counts = group.all_reduce_sum(counts)
+    return (counts.cpu().numpy().astype(np.int64),
             torch.stack(msgs).cpu().numpy().astype(np.float32), state)
 
 
-def run_until(step, init, truth, eventual, target: int, max_rounds: int):
+def run_until(step, init, truth, eventual, target: int, max_rounds: int,
+              group=None):
     """Rounds from ``init()`` until the converged count reaches
     ``target`` or ``max_rounds``, one host read a round: ``(final state,
-    count)``."""
+    count)``.  With a ``group``: as :func:`run_curve`, the count summed
+    over the ranks every round."""
+    def count(val):
+        c = CR.converged_count(val, truth, eventual)
+        return int(c if group is None else group.all_reduce_sum(c))
+
     state = init()
-    count = int(CR.converged_count(state.val, truth, eventual))
-    while count < target and state.round < max_rounds:
+    total = count(state.val)
+    while total < target and state.round < max_rounds:
         state = step(state, donate=True)
-        count = int(CR.converged_count(state.val, truth, eventual))
-    return state, count
+        total = count(state.val)
+    return state, total
 
 
 def _conv_target_count(run: RunConfig, eventual_total: int) -> int:

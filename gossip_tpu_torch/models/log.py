@@ -24,7 +24,7 @@ import torch
 from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import (FaultConfig, LogConfig, ProtocolConfig,
                                      RunConfig)
-from gossip_tpu_torch.models.crdt import (_conv_target_count,
+from gossip_tpu_torch.models.crdt import (Payload, _conv_target_count,
                                           make_pull_round, run_curve,
                                           run_until)
 from gossip_tpu_torch.models.si import topology_device
@@ -78,6 +78,26 @@ def check_log_mode(proto: ProtocolConfig) -> None:
             "collective XLA does not have, the models/crdt precedent)")
 
 
+def log_payload(cfg: LogConfig, proto: ProtocolConfig, topo: Topology,
+                fault: Optional[FaultConfig], origin: int, dev) -> Payload:
+    """The log's :class:`~gossip_tpu_torch.models.crdt.Payload` (the
+    checks of :func:`make_log_round`, which the sharded round shares)."""
+    check_log_mode(proto)
+    n = topo.n
+    NE.check_supported(fault, engine="log-pull")
+    inj = LG.inject_args(cfg, n, dev)
+
+    def inject(val, r, lo):
+        return LG.apply_injections(cfg, val, inj, r, n, origin, fault, lo)
+
+    def pull(src, partners, gids, r, serve):
+        return LG.pull_merge_log(src, partners, n, serve=serve)
+
+    return Payload(CR.merge_max, inject,
+                   CR.injection_rounds(inj[2], inj[6]), pull,
+                   LG.state_width(cfg))
+
+
 def make_log_round(cfg: LogConfig, proto: ProtocolConfig, topo: Topology,
                    fault: Optional[FaultConfig] = None, origin: int = 0,
                    device=None):
@@ -85,21 +105,9 @@ def make_log_round(cfg: LogConfig, proto: ProtocolConfig, topo: Topology,
     donate=False)`` returns the next :class:`LogState`, or under a fault
     program ``(state, lost)`` (``donate``: as
     :func:`~gossip_tpu_torch.models.crdt.make_crdt_round`)."""
-    check_log_mode(proto)
-    n = topo.n
-    NE.check_supported(fault, engine="log-pull")
     dev = topology_device(topo, device)
-    inj = LG.inject_args(cfg, n, dev)
-
-    def inject(val, r):
-        return LG.apply_injections(cfg, val, inj, r, n, origin, fault)
-
-    def pull(val, partners, a, b, r, alive):
-        return LG.pull_merge_log(val, partners, n, serve=alive)
-
-    return make_pull_round(
-        CR.merge_max, proto, topo, fault, origin, dev, inject,
-        CR.injection_rounds(inj[2], inj[6]), pull, LG.state_width(cfg))
+    return make_pull_round(log_payload(cfg, proto, topo, fault, origin, dev),
+                           proto, topo, fault, origin, dev)
 
 
 def _setup(cfg, proto, topo, run, fault, device):

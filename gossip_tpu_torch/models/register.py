@@ -28,7 +28,7 @@ import torch
 from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig, RunConfig,
                                      TxnConfig)
-from gossip_tpu_torch.models.crdt import (_conv_target_count,
+from gossip_tpu_torch.models.crdt import (Payload, _conv_target_count,
                                           check_byz_defendable,
                                           make_pull_round, run_curve,
                                           run_until)
@@ -84,6 +84,36 @@ def check_txn_mode(proto: ProtocolConfig) -> None:
             "models/crdt and models/log precedent)")
 
 
+def register_payload(cfg: TxnConfig, proto: ProtocolConfig, topo: Topology,
+                     fault: Optional[FaultConfig], origin: int, defend: bool,
+                     dev) -> Payload:
+    """The registers' :class:`~gossip_tpu_torch.models.crdt.Payload` (the
+    checks of :func:`make_register_round`, which the sharded round
+    shares)."""
+    check_txn_mode(proto)
+    n, k = topo.n, proto.fanout
+    NE.check_supported(fault, engine="txn-pull", byz=True)
+    check_byz_defendable(None, fault, k, defend)
+    inj = RG.inject_args(cfg, n, dev)
+    bz = NE.get_byz(fault)
+    if bz is not None:
+        byzt = NE.build_byz(fault, n, device=dev)
+        alive_fn = RG.alive_at_fn(fault, n, origin, dev)
+
+    def inject(val, r, lo):
+        return RG.apply_injections(cfg, val, inj, r, n, origin, fault, lo)
+
+    def pull(src, partners, gids, r, serve):
+        if bz is None:
+            return RG.pull_merge_reg(src, partners, n, serve=serve)
+        return RG.pull_merge_reg_byz(
+            src, partners, n, byz=byzt, round_=r, gids=gids, n=n,
+            alive_fn=alive_fn, defend=defend, serve=serve)
+
+    return Payload(RG.merge_lww, inject, RG.injection_rounds(inj[2]), pull,
+                   RG.state_width(cfg))
+
+
 def make_register_round(cfg: TxnConfig, proto: ProtocolConfig,
                         topo: Topology, fault: Optional[FaultConfig] = None,
                         origin: int = 0, defend: bool = False, device=None):
@@ -93,31 +123,10 @@ def make_register_round(cfg: TxnConfig, proto: ProtocolConfig,
     :func:`~gossip_tpu_torch.models.crdt.make_crdt_round`).  Events,
     partition windows, drop ramps and liars run; ``defend=True`` needs a
     liar program.  ``step.exchange``: the round's exchange alone."""
-    check_txn_mode(proto)
-    n, k = topo.n, proto.fanout
-    NE.check_supported(fault, engine="txn-pull", byz=True)
-    check_byz_defendable(None, fault, k, defend)
     dev = topology_device(topo, device)
-    inj = RG.inject_args(cfg, n, dev)
-    bz = NE.get_byz(fault)
-    if bz is not None:
-        byzt = NE.build_byz(fault, n, device=dev)
-        alive_fn = RG.alive_at_fn(fault, n, origin, dev)
-        ids = torch.arange(n, dtype=torch.int64, device=dev)
-
-    def inject(val, r):
-        return RG.apply_injections(cfg, val, inj, r, n, origin, fault)
-
-    def pull(val, partners, a, b, r, alive):
-        if bz is None:
-            return RG.pull_merge_reg(val, partners, n, serve=alive)
-        return RG.pull_merge_reg_byz(
-            val, partners, n, byz=byzt, round_=r, gids=ids[a:b], n=n,
-            alive_fn=alive_fn, defend=defend, serve=alive)
-
-    return make_pull_round(RG.merge_lww, proto, topo, fault, origin, dev,
-                           inject, RG.injection_rounds(inj[2]), pull,
-                           RG.state_width(cfg))
+    return make_pull_round(
+        register_payload(cfg, proto, topo, fault, origin, defend, dev),
+        proto, topo, fault, origin, dev)
 
 
 def _setup(cfg, proto, topo, run, fault, defend, device):

@@ -469,33 +469,42 @@ def _counter_row(kind, inj, fire, n) -> torch.Tensor:
 
 def apply_injections(cfg: CrdtConfig, val: torch.Tensor, inj: tuple,
                      round_, n: int, origin: int, alive_fn,
-                     eventual: torch.Tensor) -> torch.Tensor:
+                     eventual: torch.Tensor, lo: int = 0) -> torch.Tensor:
     """``val`` with this round's applied injections merged in, IN PLACE:
     counters add into each column's owner row, sets OR into the element
     owner's row (the reference's ``inject_rows`` merged into the state,
-    without its dense ``[N, S]`` rows)."""
+    without its dense ``[N, S]`` rows).  ``val`` holds the rows of the
+    global ids ``[lo, lo + len(val))``: the whole state from ``lo = 0``,
+    or a rank's window of a sharded one, where an injection whose owner
+    lies outside the window is not this rank's."""
     r = int(round_)
     if cfg.kind == VCLOCK:
         raise ValueError("vclock rows tick via vclock_tick, not "
                          "injections")
     dev = val.device
+    hi = lo + val.shape[0]
     if cfg.kind in CRDT_COUNTER_KINDS:
         col, rnd, _ = inj
         fire = (rnd == r) & _applied_mask(rnd, col % n, alive_fn, eventual)
         row = _counter_row(cfg.kind, inj, fire, n)
         cols = torch.arange(row.shape[0], device=dev)
-        val.index_put_((cols % n, cols), row, accumulate=True)
+        owner = cols % n
+        mine = (owner >= lo) & (owner < hi)
+        val.index_put_((owner[mine] - lo, cols[mine]), row[mine],
+                       accumulate=True)
         return val
     owners = (origin + torch.arange(cfg.elements, device=dev)) % n
     w = n_words(cfg.elements)
     elems = torch.arange(cfg.elements, device=dev)
+    mine = (owners >= lo) & (owners < hi)
     for off, (elem, rnd) in ((0, inj[:2]), (w, inj[2:])):
         fire = (rnd == r) & _applied_mask(rnd, owners[elem], alive_fn,
                                           eventual)
         bits = _fired_bits(cfg.elements, elem, fire)
-        words = torch.zeros((n, w), dtype=torch.int64, device=dev)
-        words.index_put_((owners, elems // 32),
-                         bits.to(torch.int64) << (elems % 32),
+        words = torch.zeros((val.shape[0], w), dtype=torch.int64,
+                            device=dev)
+        words.index_put_((owners[mine] - lo, elems[mine] // 32),
+                         bits[mine].to(torch.int64) << (elems[mine] % 32),
                          accumulate=True)
         val[:, off:off + w] |= from_words(words)
     return val

@@ -168,18 +168,23 @@ def _fired(cfg, inj, round_, n, origin, fault):
 
 
 def apply_injections(cfg: LogConfig, val: torch.Tensor, inj: tuple,
-                     round_, n: int, origin: int, fault) -> torch.Tensor:
+                     round_, n: int, origin: int, fault,
+                     lo: int = 0) -> torch.Tensor:
     """``val`` with this round's applied sends and commits max-merged
     into the appenders' and committers' rows, IN PLACE (the reference's
-    ``inject_rows`` merged into the state, without its dense rows)."""
+    ``inject_rows`` merged into the state, without its dense rows).
+    ``val`` holds the rows of the global ids ``[lo, lo + len(val))``
+    (:func:`~gossip_tpu_torch.ops.crdt.apply_injections`)."""
     s_node, slot, s_val, fire_s, c_node, c_col, cval, fire_c = _fired(
         cfg, inj, round_, n, origin, fault)
-    s = val.shape[1]
+    nl, s = val.shape
     flat = val.view(-1)
     for rows, cols, vals, fire in ((s_node, slot, s_val, fire_s),
                                    (c_node, c_col, cval, fire_c)):
-        ok = fire & (cols >= 0) & (cols < s)
-        idx = rows.to(torch.int64) * s + torch.clamp(cols, 0, s - 1)
+        rows = rows.to(torch.int64) - lo
+        ok = fire & (cols >= 0) & (cols < s) & (rows >= 0) & (rows < nl)
+        idx = (torch.clamp(rows, 0, nl - 1) * s
+               + torch.clamp(cols, 0, s - 1))
         flat.scatter_reduce_(0, idx, torch.where(ok, vals, 0), "amax")
     return val
 

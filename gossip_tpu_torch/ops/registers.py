@@ -344,7 +344,8 @@ def ground_truth(cfg: TxnConfig, inj: tuple, fault, n: int,
 
 
 def apply_injections(cfg: TxnConfig, val: torch.Tensor, inj: tuple,
-                     round_, n: int, origin: int, fault) -> torch.Tensor:
+                     round_, n: int, origin: int, fault,
+                     lo: int = 0) -> torch.Tensor:
     """``val`` with this round's applied writes LWW-joined into their
     owners' entries, IN PLACE: the reference's ``inject_rows`` joined
     into the state by ``merge_lww``, without its dense rows.  Each write
@@ -353,11 +354,13 @@ def apply_injections(cfg: TxnConfig, val: torch.Tensor, inj: tuple,
     touches are unchanged, exact because a reachable state's entries are
     never below (0, 0), the join's zero row.  A node writes a key at
     most once a round (the unique-timestamp contract), so the entries
-    are distinct."""
+    are distinct.  ``val`` holds the rows of the global ids ``[lo, lo +
+    len(val))`` (:func:`~gossip_tpu_torch.ops.crdt.apply_injections`)."""
     w_node, w_key, w_round, w_val = inj
     applied, ts, _ = _write_plan(cfg, inj, fault, n, origin)
-    fire = (w_round == int(round_)) & applied
-    rows = w_node[fire].to(torch.int64)
+    fire = ((w_round == int(round_)) & applied & (w_node >= lo)
+            & (w_node < lo + val.shape[0]))
+    rows = w_node[fire].to(torch.int64) - lo
     vcol = w_key[fire].to(torch.int64)
     tcol = vcol + cfg.keys
     pair = torch.stack([val[rows, vcol], val[rows, tcol]], dim=-1)

@@ -26,7 +26,8 @@ the drivers use.
   refuses ``uint32``) and bytes: :meth:`Group.all_gather` is the
   reference's ``all_gather(tiled=True)``, :meth:`Group.reduce_scatter_sum`
   its ``psum_scatter``, :meth:`Group.all_reduce_sum` an integer ``psum``,
-  and :meth:`Group.combine_f32` its float32 ``psum`` of ``msgs`` and
+  :meth:`Group.all_reduce_max` its ``pmax`` (SWIM's wire merge), and
+  :meth:`Group.combine_f32` its float32 ``psum`` of ``msgs`` and
   ``lost``: the K partials gathered and added in rank order
   (:func:`~gossip_tpu_torch.ops.common.rank_order_sum`, the float32 rule
   of :mod:`gossip_tpu_torch.ops.common`).  Each collective's device time
@@ -152,6 +153,14 @@ class Group:
         """The integer sum over ranks of ``x``, on every rank."""
         out = x.clone()
         self._run("all_reduce", lambda: dist.all_reduce(out))
+        return out
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over ranks of ``x``, on every rank (the
+        reference's ``pmax``)."""
+        out = x.contiguous().clone()
+        self._run("all_reduce_max",
+                  lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX))
         return out
 
     def combine_f32(self, x: torch.Tensor) -> torch.Tensor:

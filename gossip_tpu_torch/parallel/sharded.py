@@ -105,8 +105,9 @@ class _Rows:
                 NE.base_alive_or_ones(fault, n, origin, dev), self.n_pad,
                 False)
         else:
-            self.static_alive = sharded_alive(fault, n, self.n_pad, origin,
-                                              dev)[sl]
+            self.static_full = sharded_alive(fault, n, self.n_pad, origin,
+                                             dev)
+            self.static_alive = self.static_full[sl]
         if topo.implicit:
             self.nbrs = self.deg = None
         else:
@@ -117,8 +118,15 @@ class _Rows:
         """``(alive_l, drop_prob, cut)`` of ``round_``."""
         if self.sched is None:
             return self.static_alive, self.drop_prob, None
-        return (NE.alive_rows(self.sched, self.base_pad, round_)[self.sl],
+        return (self.alive_full(round_)[self.sl],
                 NE.drop_at(self.sched, round_), NE.cut_at(self.sched, round_))
+
+    def alive_full(self, round_: int) -> torch.Tensor:
+        """bool[n_pad]: every node's liveness in ``round_`` (replicated on
+        every rank, padding rows dead)."""
+        if self.sched is None:
+            return self.static_full
+        return NE.alive_rows(self.sched, self.base_pad, round_)
 
     def sample(self, key, topo: Topology, k: int, exclude_self: bool):
         """int64[nl, k] peers of this rank's rows, keyed by global id."""

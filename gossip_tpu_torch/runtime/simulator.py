@@ -19,6 +19,8 @@ SWIM's loops (:func:`simulate_swim_curve`, :func:`simulate_swim_until`)
 record the detection fraction of the round just run: the share of
 (alive observer, dead subject) pairs confirmed DEAD, a float32 quotient
 in the reference's compiled loops too (its denominator is not folded).
+With a ``group`` (the reference's ``mesh=``) they run the node-sharded
+round, and the detection's integer counts are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -119,19 +121,32 @@ def simulate_until(proto: ProtocolConfig, topo: Topology, run: RunConfig,
 
 def _swim_setup(proto: ProtocolConfig, n: int, rounds: int, dead_nodes,
                 fail_round: int, fault: Optional[FaultConfig],
-                topo: Optional[Topology], seed: int, device):
+                topo: Optional[Topology], seed: int, device, group=None):
     """The SWIM round, a fresh state, and the detection of the round just
     run as ``state -> (confirmed, pairs)`` 0-d tensors on the device
-    (None without dead subjects: the metric is then 0)."""
+    (None without dead subjects: the metric is then 0).  With a
+    ``group`` the round is the sharded one
+    (:mod:`gossip_tpu_torch.parallel.sharded_swim`), and the counts are
+    this rank's share, which the loops sum over the ranks."""
     dead_nodes = tuple(dead_nodes)
-    step = SW.make_swim_round(proto, n, dead_nodes, fail_round, fault, topo,
-                              max_rounds=rounds, device=device)
-    dev = topology_device(complete(n) if topo is None else topo, device)
-    init = SW.init_swim_state(n, proto.swim_subjects, seed, dev)
+    if group is None:
+        step = SW.make_swim_round(proto, n, dead_nodes, fail_round, fault,
+                                  topo, max_rounds=rounds, device=device)
+        dev = topology_device(complete(n) if topo is None else topo, device)
+        init = SW.init_swim_state(n, proto.swim_subjects, seed, dev)
+        # the metric's observers: the nodes alive after fail_round
+        observers = SW.observer_alive(n, dead_nodes, fault, dev)
+    else:
+        from gossip_tpu_torch.parallel import sharded_swim as SS
+        dev = group.device
+        step = SS.make_sharded_swim_round(proto, n, group, dead_nodes,
+                                          fail_round, fault, topo,
+                                          max_rounds=rounds)
+        init = SS.init_sharded_swim_state(n, proto, group, seed)
+        observers = SS.observer_rows(n, dead_nodes, fault, group)
     # the metric's targets: the scripted deaths and the program's
-    # permanent ones; its observers: the nodes alive after fail_round
+    # permanent ones
     dead = SW.detection_targets(dead_nodes, fault)
-    observers = SW.observer_alive(n, dead_nodes, fault, dev)
     epoch_rounds = SW.resolve_epoch_rounds(proto, n)
 
     def counts(s):
@@ -146,12 +161,15 @@ def simulate_swim_curve(proto: ProtocolConfig, n: int, rounds: int,
                         dead_nodes=(), fail_round: int = 0,
                         fault: Optional[FaultConfig] = None,
                         topo: Optional[Topology] = None, seed: int = 0,
-                        device=None):
+                        device=None, group=None):
     """Exactly ``rounds`` SWIM rounds.  Returns the detection fraction
     after each (float32 numpy, read from the device once at the end) and
-    the final state."""
+    the final state.  With a ``group`` (the reference's ``mesh``) the
+    sharded round runs, the state is this rank's rows, and the counts
+    are summed over the ranks once, at the end."""
     step, state, counts = _swim_setup(proto, n, rounds, dead_nodes,
-                                      fail_round, fault, topo, seed, device)
+                                      fail_round, fault, topo, seed, device,
+                                      group)
     per_round = []
     for _ in range(rounds):
         state = step(state)
@@ -159,7 +177,10 @@ def simulate_swim_curve(proto: ProtocolConfig, n: int, rounds: int,
             per_round.append(torch.stack(counts(state)))
     if counts is None:
         return np.zeros(rounds, np.float32), state
-    table = torch.stack(per_round).cpu().tolist() if per_round else []
+    table = torch.stack(per_round) if per_round else None
+    if table is not None and group is not None:
+        table = group.all_reduce_sum(table)
+    table = table.cpu().tolist() if table is not None else []
     return np.asarray([SW.detection_quotient(c, p) for c, p in table],
                       np.float32), state
 
@@ -168,19 +189,28 @@ def simulate_swim_until(proto: ProtocolConfig, n: int, max_rounds: int,
                         target: float, dead_nodes=(), fail_round: int = 0,
                         fault: Optional[FaultConfig] = None,
                         topo: Optional[Topology] = None, seed: int = 0,
-                        device=None):
+                        device=None, group=None):
     """SWIM rounds until the detection fraction reaches the float32
     ``target`` or ``max_rounds``, one host read a round.  Returns
     ``(rounds, detection, peak, final_state)``: ``peak`` is the best
     detection of the run (a rotating window's headline: the detection
-    falls back once the window has left the dead node's epoch)."""
+    falls back once the window has left the dead node's epoch).  With a
+    ``group``: as :func:`simulate_swim_curve`, the counts summed over the
+    ranks every round."""
     step, state, counts = _swim_setup(proto, n, max_rounds, dead_nodes,
-                                      fail_round, fault, topo, seed, device)
+                                      fail_round, fault, topo, seed, device,
+                                      group)
+
+    def detection(s):
+        c = torch.stack(counts(s))
+        if group is not None:
+            c = group.all_reduce_sum(c)
+        return SW.detection_quotient(*c.tolist())
+
     tgt = np.float32(target)
     det = peak = 0.0
     while det < tgt and state.round < max_rounds:
         state = step(state)
-        det = (SW.detection_quotient(*counts(state)) if counts is not None
-               else 0.0)
+        det = detection(state) if counts is not None else 0.0
         peak = max(peak, det)
     return state.round, det, peak, state

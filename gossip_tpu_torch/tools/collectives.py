@@ -8,7 +8,8 @@ on one card: one rank under NCCL, two ranks sharing the card under gloo,
 and one rank under gloo (with ``--device cpu``: one and two gloo ranks
 on the CPU).  Each rank runs every collective the sharded drivers use,
 on CUDA tensors of the dtypes they send (int32 words, bool bytes, int64
-counts, float32 partials), and records each result or the error it
+counts, float32 partials, SWIM's int32 wires through the ``max``
+all-reduce), and records each result or the error it
 raised; then it times ``all_gather`` of 10M int32 words (40 MB, the
 packed table of ``BASELINE.json`` configuration 5) split over the ranks:
 a warm-up, then five calls on the host clock between synchronisations.
@@ -54,6 +55,8 @@ def probe_rank(group) -> dict:
                        device=dev))),
         "all_reduce_int64": _try(lambda: group.all_reduce_sum(
             torch.full((4,), r + 1, dtype=torch.int64, device=dev))),
+        "all_reduce_max_int32": _try(lambda: group.all_reduce_max(
+            x.reshape(2, 4))),
         "combine_float32": _try(lambda: group.combine_f32(
             torch.tensor([r + 0.5, 1.0], device=dev))),
     }

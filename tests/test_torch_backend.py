@@ -171,7 +171,8 @@ def test_later_slices_are_refused(kw, match):
 
 
 @pytest.mark.parametrize("args", [
-    ["--mode", "swim", "--n", "1000", "--devices", "2"],
+    ["--mode", "swim", "--n", "1000", "--devices", "2", "--exchange",
+     "sparse", "--device", "cpu"],
     ["--mode", "pull", "--n", "1000", "--engine", "native"],
     ["--mode", "pull", "--n", "1000", "--engine", "xla", "--devices", "2",
      "--exchange", "halo", "--device", "cpu"],
@@ -389,20 +390,71 @@ def test_run_simulation_on_a_mesh(k):
 
 
 @pytest.mark.parametrize("proto,kw,match", [
-    (ProtocolConfig(mode="swim"), {}, "item 5b"),
-    (ProtocolConfig(mode="rumor"), {}, "item 5b"),
-    (PULL, dict(log_cfg=LogConfig()), "item 5b"),
+    (ProtocolConfig(mode="swim"), {}, None),
+    (ProtocolConfig(mode="rumor"), {}, None),
+    (PULL, dict(log_cfg=LogConfig()), "single-process single-device"),
     (PULL, dict(run=RunConfig(engine="fused")), "item 5d"),
     (PULL, dict(exchange="halo"), "item 5c"),
+    (ProtocolConfig(mode="swim"), dict(exchange="sparse"),
+     "not implemented for swim"),
 ])
 def test_mesh_refusals_name_their_item(proto, kw, match):
     """What the mesh does not run yet is refused with the ROADMAP item
-    it waits for, before any rank is spawned."""
+    it waits for (the log workload in the reference's words: it shards
+    through the library API), before any rank is spawned; SWIM and rumor
+    mongering (``match`` None) run on two gloo ranks and answer as the
+    reference's sharded drivers on its 2-device mesh."""
     mesh = MeshConfig(n_devices=2, exchange=kw.pop("exchange", "dense"))
     run = kw.pop("run", RunConfig(engine="xla"))
-    with pytest.raises(ValueError, match=match):
-        run_simulation(proto, TopologyConfig(n=256), run, device="cpu",
-                       mesh_cfg=mesh, **kw)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            run_simulation(proto, TopologyConfig(n=256), run, device="cpu",
+                           mesh_cfg=mesh, **kw)
+        return
+    port = run_simulation(proto, TopologyConfig(n=256), run, device="cpu",
+                          mesh_cfg=mesh)
+    ref = jrun_simulation("jax-tpu", JC.ProtocolConfig(mode=proto.mode),
+                          JC.TopologyConfig(n=256),
+                          JC.RunConfig(engine="xla"), None,
+                          JC.MeshConfig(n_devices=2))
+    assert (port.rounds, port.coverage, port.msgs) == \
+        (ref.rounds, ref.coverage, ref.msgs)
+    same = {k: v for k, v in ref.meta.items()
+            if not k.endswith("_s") and k != "compile_cache"}
+    assert {k: port.meta[k] for k in same} == same
+    assert port.meta["devices"] == 2 and port.meta["process_group"] == "gloo"
+
+
+@pytest.mark.parametrize("args", [
+    ["--mode", "swim", "--n", "500", "--family", "power_law", "--k", "3",
+     "--degree-cap", "64", "--fanout", "2", "--swim-suspect-rounds", "24",
+     "--max-rounds", "40"],
+    ["--mode", "rumor", "--n", "3001", "--rumor-k", "2", "--curve",
+     "--max-rounds", "30"],
+])
+def test_cli_swim_and_rumor_on_a_mesh(args):
+    """``python -m gossip_tpu_torch run --mode swim|rumor --devices 2
+    --device cpu`` exits 0 and prints the JAX package's values for the
+    same command on its 2-device mesh."""
+    proc = _port("-m", "gossip_tpu_torch", "run", *args, "--devices", "2",
+                 "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    jp = dict(mode=args[1], fanout=2 if args[1] == "swim" else 1)
+    if args[1] == "swim":
+        jp.update(swim_suspect_rounds=24)
+        tc = JC.TopologyConfig(family="power_law", n=500, k=3,
+                               degree_cap=64)
+        run = JC.RunConfig(max_rounds=40)
+    else:
+        jp.update(rumor_k=2)
+        tc, run = JC.TopologyConfig(n=3001), JC.RunConfig(max_rounds=30)
+    ref = jrun_simulation("jax-tpu", JC.ProtocolConfig(**jp), tc, run,
+                          None, JC.MeshConfig(n_devices=2),
+                          want_curve="--curve" in args)
+    assert (out["rounds"], out["coverage"], out["msgs"], out["curve"]) == \
+        (ref.rounds, ref.coverage, ref.msgs, ref.curve)
+    assert out["meta"]["devices"] == 2
 
 
 def test_more_ranks_than_cards_are_refused(monkeypatch):

@@ -19,12 +19,15 @@ def test_every_collective_on_gloo_groups(capsys):
     one, two = lines[0]["results"][0], lines[1]["results"]
     assert one["all_gather_int32"] == list(range(8))
     assert one["combine_float32"] == [0.5, 1.0]
+    assert one["all_reduce_max_int32"] == [[0, 1, 2, 3], [4, 5, 6, 7]]
     for rank in two:
         assert rank["all_gather_int32"] == \
             list(range(8)) + list(range(100, 108))
         assert rank["all_gather_bool"] == [True, False] * 8
         assert rank["reduce_scatter_int32"] == [3] * 8
         assert rank["all_reduce_int64"] == [3] * 4
+        assert rank["all_reduce_max_int32"] == [[100, 101, 102, 103],
+                                                [104, 105, 106, 107]]
         # rank order: 0.5 + 1.5; 1.0 + 1.0
         assert rank["combine_float32"] == [2.0, 2.0]
         assert rank["all_gather_40MB_ms"] > 0

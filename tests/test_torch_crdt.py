@@ -544,8 +544,10 @@ def test_cli_crdt_error_paths(capsys):
     assert "positive" in capsys.readouterr().err
     assert cli.main(["crdt", "--add", "0:0", "--device", "cpu"]) == 2
     assert "3 colon-separated" in capsys.readouterr().err
-    assert cli.main(["crdt", "--devices", "2", "--device", "cpu"]) == 2
-    assert "queue 1, item 5" in capsys.readouterr().err
+    capsys.readouterr()
+    assert cli.main(["crdt", "--n", "64", "--devices", "2", "--device",
+                     "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["engine"] == "crdt-sharded"
     with pytest.raises(SystemExit):
         cli.main(["crdt", "--type", "vclock", "--device", "cpu"])
     for flag in (["--no-compile-cache"], ["--compile-cache", "d"]):

@@ -59,7 +59,9 @@ def test_importing_every_module_loads_no_jax():
     for name in ("ops.crdt", "models.crdt", "ops.logs", "models.log",
                  "ops.registers", "models.register", "utils.metrics",
                  "parallel", "parallel.group", "parallel.sharded",
-                 "parallel.sharded_packed"):
+                 "parallel.sharded_packed", "parallel.sharded_swim",
+                 "parallel.sharded_rumor", "parallel.sharded_crdt",
+                 "parallel.sharded_log", "parallel.sharded_register"):
         assert f"gossip_tpu_torch.{name}" in out["imported"]
     assert out["forbidden"] == []
 

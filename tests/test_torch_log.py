@@ -320,8 +320,10 @@ def test_cli_log_error_paths(capsys):
     assert "values must be >= 1" in capsys.readouterr().err
     assert cli.main(["log", "--send", "0:0:0", "--device", "cpu"]) == 2
     assert "4 colon-separated" in capsys.readouterr().err
-    assert cli.main(["log", "--devices", "4", "--device", "cpu"]) == 2
-    assert "multi-GPU" in capsys.readouterr().err
+    capsys.readouterr()
+    assert cli.main(["log", "--n", "64", "--devices", "4", "--device",
+                     "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["engine"] == "log-sharded"
 
 
 def test_shared_predicates_are_the_crdt_payloads():

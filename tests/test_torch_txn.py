@@ -840,8 +840,10 @@ def test_cli_txn_error_paths(capsys):
     assert "values must be >= 1" in capsys.readouterr().err
     assert cli.main(["txn", "--write", "0:0:0", "--device", "cpu"]) == 2
     assert "4 colon-separated" in capsys.readouterr().err
-    assert cli.main(["txn", "--devices", "4", "--device", "cpu"]) == 2
-    assert "multi-GPU" in capsys.readouterr().err
+    capsys.readouterr()
+    assert cli.main(["txn", "--n", "64", "--devices", "4", "--device",
+                     "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["engine"] == "txn-sharded"
     assert cli.main(["txn", "--defend", "--device", "cpu"]) == 2
     assert "without a byzantine program" in capsys.readouterr().err
     assert cli.main(["txn", "--n", "4", "--keys", "1", "--txns", "32",
