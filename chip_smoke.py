@@ -11,8 +11,9 @@ sampling kernel, without and under a fault program), SWIM failure
 detection and rumor mongering, the CRDT payloads (with the byzantine
 liar program), the replicated logs and the LWW registers' txn workload,
 the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
-card under gloo), SWIM, rumor and the payloads among them, and the
-roofline tool through the port's own entry
+card under gloo), SWIM, rumor and the payloads among them, the sparse
+all_to_all and halo ppermute exchanges, and the roofline tool through
+the port's own entry
 points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
@@ -164,7 +165,19 @@ points, and measures them.  One JSON line per phase:
    allocated memory at most 4.1 states; each run's ms a round, each
    collective's ms a round by name and every rank's peak, beside the
    single-device run's ms a round, no kernel launched, and the largest
-   G-counter n the gather design allows;
+   G-counter n the gather design allows; then ``mesh_exchanges``, the
+   sparse and halo exchanges at K = 2 ranks on this card: the command
+   lines of ``EXCHANGE_CASES`` (SP5 ``BASELINE.json`` configuration 5 and
+   SPCH its ``churn_heal`` program on the sparse all_to_all exchange,
+   SPAE anti-entropy with 33 rumors, TS3 configuration 3's
+   Watts-Strogatz table on the capacity-capped buckets, HL1 the 1M-node
+   halo ring), each printing the JAX package's values on its 2-device
+   mesh (``MESH_SP5`` ... ``MESH_HL1``, TS3's overflow and bucket cap
+   too); the same runs through the library API in one spawn, each
+   rank's SHA-256 of its padded final rows equal to the window of the
+   single-device state on the card (the sparse twin at p = 2, HL1's XLA
+   run); each run's ms a round, collectives by name, bytes a round and
+   peaks, beside the dense exchange's ms a round, no kernel launched;
 20. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
@@ -402,6 +415,50 @@ MESH_LG1 = (20, 1.0, {"lens": [4] * 8, "committed": [2] * 8,
                       "total_entries": 32}, 6799524.0)
 MESH_TX1 = (21, 1.0, _T8, 24399524.0)
 MESH_TX10M = (24, 1.0, _T8, 960000000.0)
+
+# The sparse and halo exchanges' deployments at K = 2 (each command line
+# plus --devices 2 --share-card) and the JAX package's values for them on
+# its 2-device CPU mesh, jax 0.9.0: XLA_FLAGS=
+# --xla_force_host_platform_device_count=2 JAX_PLATFORMS=cpu python -m
+# gossip_tpu run --devices 2 with, for
+#   MESH_SP5 (BASELINE.json configuration 5): --mode pull --rumors 32
+#     --n 10000000 --engine xla --exchange sparse;
+#   MESH_SPCH (the churn_heal program on the sparse exchange): --mode
+#     pull --n 10000000 --drop 0.02 --churn-event 1:1:4 --churn-event 2:2
+#     --partition 0:6:5000000 --drop-ramp 0:4:0:0.1 --exchange sparse;
+#   MESH_SPAE (the sparse_antientropy family, __graft_entry__.py:889):
+#     --mode antientropy --fanout 2 --rumors 33 --period 2 --n 1000000
+#     --exchange sparse;
+#   MESH_TS3 (BASELINE.json configuration 3, with its overflow and bucket
+#     cap): --mode antientropy --n 100000 --family watts_strogatz --k 6
+#     --p 0.1 --period 2 --exchange sparse;
+#   MESH_HL1 (README.md's halo ring): --mode pushpull --family ring --k 6
+#     --n 1000000 --exchange halo (no target reached in 256 rounds).
+MESH_SP5 = (28, 0.9989855289459229, 560000000.0)
+MESH_SPCH = (32, 0.9954994916915894, 524506432.0)
+MESH_SPAE = (21, 0.9999989867210388, 66000000.0)
+MESH_TS3 = (53, 0.9946500062942505, 8100000.0)
+MESH_TS3_OVERFLOW, MESH_TS3_CAP = 0.0, 48523
+MESH_HL1 = (256, 0.0009120000177063048, 512116608.0)
+N_AE, N_TS3, N_HALO = 1_000_000, 100_000, 1_000_000
+_HEAL_CUT = ["--drop-prob", "0.02", "--churn-event", "1:1:4",
+             "--churn-event", "2:2", "--partition", f"0:6:{N // 2}",
+             "--drop-ramp", "0:4:0:0.1"]
+_TS3 = ["--mode", "antientropy", "--n", str(N_TS3), "--family",
+        "watts_strogatz", "--k", "6", "--p", "0.1", "--period", "2"]
+_HL1 = ["--mode", "pushpull", "--family", "ring", "--k", "6", "--n",
+        str(N_HALO)]
+EXCHANGE_CASES = {
+    "SP5": (["--mode", "pull", "--rumors", str(RUMORS), "--n", str(N),
+             "--engine", "xla", "--exchange", "sparse"], MESH_SP5),
+    "SPCH": (["--mode", "pull", "--n", str(N), *_HEAL_CUT, "--exchange",
+              "sparse"], MESH_SPCH),
+    "SPAE": (["--mode", "antientropy", "--fanout", "2", "--rumors", "33",
+              "--period", "2", "--n", str(N_AE), "--exchange", "sparse"],
+             MESH_SPAE),
+    "TS3": ([*_TS3, "--exchange", "sparse"], MESH_TS3),
+    "HL1": ([*_HL1, "--exchange", "halo"], MESH_HL1),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -2038,6 +2095,7 @@ def phase_mesh_path(dev, smi: str):
              "curve": sc * 1e3 / MESH_CURVE_ROUNDS},
          states_equal_single_device={"cfg5": same5, "curve": same_c},
          phase_s=time.perf_counter() - t_phase, card=smi)
+    return _mesh_numbers(cfg5, cfg5["rounds"])["ms_per_round"]
 
 
 SWIM_FIELDS, RUMOR_FIELDS = ("wire", "timer"), ("seen", "hot", "cnt")
@@ -2050,10 +2108,23 @@ def _swim_args(n_swim: int):
             "--swim-suspect-rounds", "24", "--max-rounds", "80"]
 
 
+def _launch_counts() -> dict:
+    from gossip_tpu_torch.ops import _kernels
+    return {k.name: k.launches for k in _kernels.KERNELS}
+
+
+def _check_no_launches(what: str, rank_launches) -> None:
+    """Every rank of a mesh run launched no kernel of the port (the mesh
+    drivers draw through threefry)."""
+    check(rank_launches is not None
+          and all(sum(r.values()) == 0 for r in rank_launches),
+          f"{what}: the ranks launched {rank_launches}")
+
+
 def _timed_group(group, fn, *args, **kwargs):
     """``(result, numbers)`` of one library-API run on this rank: its
-    steady seconds, each collective's calls and ms, and every rank's
-    peak allocated memory."""
+    steady seconds, each collective's calls and ms, every rank's peak
+    allocated memory, and this rank's kernel launches in the run."""
     import torch
     from gossip_tpu_torch.parallel import group as GR
     from gossip_tpu_torch.utils.timing import steady_timed
@@ -2061,10 +2132,13 @@ def _timed_group(group, fn, *args, **kwargs):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     group.collective_ms(reset=True)
+    before = _launch_counts()
     out, steady = steady_timed(dev, fn, *args, group=group, **kwargs)
+    after = _launch_counts()
     coll = group.collective_ms()
     return out, {"steady_s": steady, "collective_ms": coll,
-                 "rank_peak_mem_bytes": GR.peak_memory(group)}
+                 "rank_peak_mem_bytes": GR.peak_memory(group),
+                 "launches": {k: after[k] - before[k] for k in after}}
 
 
 def _mesh_models_rank(n: int, n_swim: int, group):
@@ -2114,13 +2188,15 @@ def _mesh_models_rank(n: int, n_swim: int, group):
 
 
 def _mesh_run_numbers(meta: dict, rounds: int) -> dict:
-    """ms a round, each collective's ms a round and every rank's peak
-    allocated memory of a mesh run's report keys."""
+    """ms a round, each collective's ms a round, every rank's peak
+    allocated memory and, where the report has them (``run``), every
+    rank's kernel launches, of a mesh run's report keys."""
     return {"rounds_run": rounds,
             "ms_per_round": meta["steady_wall_s"] * 1e3 / rounds,
             "collective_ms_per_round": {
                 k: c["ms"] / rounds for k, c in meta["collective_ms"].items()},
             "rank_peak_mem_bytes": meta["rank_peak_mem_bytes"],
+            "rank_launches": meta.get("rank_launches"),
             "process_group": meta["process_group"]}
 
 
@@ -2183,6 +2259,8 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
         if args[0] != "run":
             ok = ok and out["engine"] == f"{args[0]}-sharded"
         check(ok, f"{name} at K = 2: {got}, want {want}; {meta}")
+        if args[0] == "run":
+            _check_no_launches(f"{name} at K = 2", meta["rank_launches"])
         if name in PAYLOAD_CURVES:
             check(out["curve"] == PAYLOAD_CURVES[name],
                   f"{name} curve at K = 2: {out['curve']}")
@@ -2225,6 +2303,8 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
               f"{name} library K = 2: {got}, want {want}; digests "
               f"{got_d} vs single {digests[name]}")
         nums = ranks[0][name][2]
+        rank_launches = [rk[name][2]["launches"] for rk in ranks]
+        _check_no_launches(f"{name} library K = 2", rank_launches)
         rounds = got[0]
         library[name] = {
             "result": list(got), "digests_equal_single": True,
@@ -2232,6 +2312,7 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
             "collective_ms_per_round": {
                 k: c["ms"] / rounds for k, c in nums["collective_ms"].items()},
             "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+            "rank_launches": rank_launches,
             "single_device_ms_per_round": single_ms.get(name) or
             single_runs.get(name, {}).get("ms_per_round")}
 
@@ -2303,6 +2384,189 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
          gcounter_n_max={"card_bytes": card, "peak_over_state": ratios,
                          "n": n_max},
          launches=launches, phase_wall_s=wall_s,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+
+
+def _exchange_configs(name: str):
+    """``(proto, topology config, run, fault)`` of an exchange case, as
+    its command line in ``EXCHANGE_CASES`` builds them."""
+    from gossip_tpu_torch import cli
+    return cli.run_configs(cli.build_parser().parse_args(
+        ["run", *EXCHANGE_CASES[name][0]]))
+
+
+def _exchange_rank(group):
+    """One rank of the library-API exchange runs at K ranks: each case's
+    result, this rank's SHA-256 of its padded final rows and its numbers;
+    then the dense exchange's runs of TS3 and HL1 (their numbers, and
+    HL1's result, which the halo's trajectory equals)."""
+    from gossip_tpu_torch.parallel import halo as HL
+    from gossip_tpu_torch.parallel import sharded as SH
+    from gossip_tpu_torch.parallel import sharded_packed as SP
+    from gossip_tpu_torch.parallel import sharded_sparse as SS
+    from gossip_tpu_torch.topology import generators as G
+    out = {}
+    for name in EXCHANGE_CASES:
+        proto, tc, run, fault = _exchange_configs(name)
+        topo = G.build(tc, group.device)
+        if name == "HL1":
+            res, nums = _timed_group(group, HL.simulate_until_halo, proto,
+                                     topo, run, fault=fault)
+        elif name == "TS3":
+            res, nums = _timed_group(group, SS.simulate_until_topo_sparse,
+                                     proto, topo, run, fault=fault)
+        else:
+            res, nums = _timed_group(group, SS.simulate_until_sparse, proto,
+                                     tc.n, run, fault=fault)
+        out[name] = (res[:3], state_digests(res[3], ("seen",), 1)[0], nums)
+        del res, topo
+    for name, fn in (("TS3", SP.simulate_until_packed_sharded),
+                     ("HL1", SH.simulate_until_sharded)):
+        proto, tc, run, fault = _exchange_configs(name)
+        topo = G.build(tc, group.device)
+        res, nums = _timed_group(group, fn, proto, topo, run, fault=fault)
+        out[f"{name}_dense"] = (res[:3], None, nums)
+    return out
+
+
+def _twin_digests(dev, name: str, rounds: int):
+    """``(digests, ms a round)`` of a case's single-device state on the
+    card, in the two ranks' windows: the sparse cases' twin at p = 2
+    stepped ``rounds`` times, HL1's single-device XLA run (the halo
+    trajectory is the single-device one)."""
+    import torch
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.parallel import sharded_sparse as SS
+    from gossip_tpu_torch.runtime.simulator import simulate_until
+    from gossip_tpu_torch.topology import generators as G
+    from gossip_tpu_torch.utils.timing import steady_timed
+    proto, tc, run, fault = _exchange_configs(name)
+    topo = G.build(tc, dev)
+    if name == "HL1":
+        res, steady = steady_timed(dev, simulate_until, proto, topo, run,
+                                   fault, dev)
+        check(res.state.round == rounds,
+              f"HL1 single device: {res.state.round} rounds")
+        return state_digests(res.state, ("seen",), 2), steady * 1e3 / rounds
+
+    def twin():
+        state = SS.init_sparse_state(run, proto, tc.n, p=2, device=dev)
+        if name == "TS3":
+            step = SS.sparse_topo_pull_round_reference(proto, topo, 2, fault,
+                                                       device=dev)
+            ovf = torch.zeros((), device=dev)
+            for _ in range(rounds):
+                state, ovf = step(state, ovf)
+            return state
+        step = NE.drop_lost(SS.sparse_pull_round_reference(
+            proto, tc.n, 2, fault, device=dev), NE.get(fault))
+        for _ in range(rounds):
+            state = step(state)
+        return state
+
+    state, steady = steady_timed(dev, twin)
+    return state_digests(state, ("seen",), 2), steady * 1e3 / rounds
+
+
+def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
+    """The sparse and halo exchanges at K = 2 ranks on this card under
+    gloo: (a) each of ``EXCHANGE_CASES`` through ``python -m
+    gossip_tpu_torch run --devices 2 --share-card``, which must print the
+    JAX package's values on its 2-device mesh (TS3 with its overflow and
+    bucket cap) and the exchange's meta; (b) the same runs through the
+    library API in one spawn, each rank's SHA-256 of its padded final
+    rows against the window of the single-device state (the sparse twin
+    at p = 2, HL1's XLA run) on the card; the dense exchange's TS3 and
+    HL1 in that spawn; (c) each run's ms a round, each collective's ms a
+    round by name, the report's ``ici_bytes_per_round`` and every rank's
+    peak allocated memory, beside the dense exchange's ms a round
+    (configuration 5's from ``mesh_path``) and the twin's.  Every rank
+    of every run launches no kernel of the port (the exchanges draw
+    through threefry): the command lines' ranks count theirs in the
+    report's ``rank_launches``, the library's ranks each run's in
+    :func:`_timed_group`; the single-device twins, run here, are counted
+    apart."""
+    import torch
+    from gossip_tpu_torch.parallel import group as GR
+
+    t_phase, wall_s = time.perf_counter(), {}
+    torch.cuda.empty_cache()
+    share = ["--devices", "2", "--share-card"]
+    cli_runs = {}
+    for name, (args, want) in EXCHANGE_CASES.items():
+        t0 = time.perf_counter()
+        out = _port_run([*args, *share])
+        got = (out["rounds"], out["coverage"], out["msgs"])
+        meta = out["meta"]
+        exchange = args[-1]
+        ok = (got == want and meta["devices"] == 2
+              and meta["process_group"] == "gloo"
+              and meta["exchange"] == exchange)
+        if name == "TS3":
+            ok = ok and (meta["overflow_dropped_requests"],
+                         meta["bucket_cap"]) == (MESH_TS3_OVERFLOW,
+                                                 MESH_TS3_CAP)
+        check(ok, f"{name} at K = 2: {got}, want {want}; {meta}")
+        _check_no_launches(f"{name} at K = 2", meta["rank_launches"])
+        cli_runs[name] = {
+            "command": [*args, *share], "result": list(got),
+            **{k: meta[k] for k in ("ici_bytes_per_round",
+                                    "overflow_dropped_requests",
+                                    "bucket_cap", "band") if k in meta},
+            **_mesh_run_numbers(meta, out["rounds"])}
+        wall_s[f"cli_{name}"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ranks = GR.launch(_exchange_rank, 2, device=dev, shared_card=True)
+    wall_s["library_spawn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    library = {}
+    twin_before = _launch_counts()
+    for name, (_, want) in EXCHANGE_CASES.items():
+        got = tuple(ranks[0][name][0])
+        digests, single_ms = _twin_digests(dev, name, want[0])
+        got_d = [rk[name][1] for rk in ranks]
+        check(got == want and got_d == digests,
+              f"{name} library K = 2: {got}, want {want}; digests {got_d} "
+              f"vs single device {digests}")
+        nums = ranks[0][name][2]
+        rank_launches = [rk[name][2]["launches"] for rk in ranks]
+        _check_no_launches(f"{name} library K = 2", rank_launches)
+        library[name] = {
+            "result": list(got), "digests_equal_single": True,
+            "ms_per_round": nums["steady_s"] * 1e3 / want[0],
+            "collective_ms_per_round": {
+                k: c["ms"] / want[0] for k, c in nums["collective_ms"].items()},
+            "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+            "rank_launches": rank_launches,
+            "single_device_ms_per_round": single_ms}
+    twin_after = _launch_counts()
+    twin_launches = {k: twin_after[k] - twin_before[k] for k in twin_after}
+    check(sum(twin_launches.values()) == 0,
+          f"the single-device twins launched {twin_launches}")
+    wall_s["single_device"] = time.perf_counter() - t0
+    dense = {}
+    for name in ("TS3", "HL1"):
+        got, _, nums = ranks[0][f"{name}_dense"]
+        rank_launches = [rk[f"{name}_dense"][2]["launches"] for rk in ranks]
+        _check_no_launches(f"{name} dense K = 2", rank_launches)
+        rounds = got[0]
+        if name == "HL1":
+            # the halo's trajectory is the dense one; the dense report
+            # carries the quotient, the halo's the mean's product
+            check((got[0], got[2]) == (MESH_HL1[0], MESH_HL1[2]),
+                  f"HL1 dense at K = 2: {got}")
+        dense[name] = {
+            "result": list(got),
+            "ms_per_round": nums["steady_s"] * 1e3 / rounds,
+            "collective_ms_per_round": {
+                k: c["ms"] / rounds for k, c in nums["collective_ms"].items()},
+            "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+            "rank_launches": rank_launches}
+    dense["SP5"] = {"ms_per_round": cfg5_dense_ms,
+                    "from": "mesh_path cfg5 (the same deployment, dense)"}
+    emit("mesh_exchanges", cli_k2=cli_runs, library_k2=library,
+         dense_k2=dense, twin_launches=twin_launches, phase_wall_s=wall_s,
          phase_s=time.perf_counter() - t_phase, card=smi)
 
 
@@ -2593,8 +2857,9 @@ def main() -> int:
                    launches_by_path={"xla_sampler_path": xla_sampler_launches,
                                      "churn_path": churn_launches})
     phase_fused_deaths(dev, smi)
-    phase_mesh_path(dev, smi)
+    cfg5_ms = phase_mesh_path(dev, smi)
     phase_mesh_models(dev, smi, single_runs)
+    phase_mesh_exchanges(dev, smi, cfg5_ms)
     cal_kernels, floors = phase_roofline(dev, smi)
 
     kernels = [{

@@ -25,11 +25,17 @@ mongering run on the node-sharded drivers over ``torch.distributed``
 (:mod:`gossip_tpu_torch.parallel`, the reference's ``n_dev > 1``
 branch): bit-packed for pull and anti-entropy without a curve, dense
 otherwise, SWIM and rumor mongering on their own sharded rounds, on
-``engine='xla'`` or ``'auto'``.  The process group is NCCL with a card a
-rank, gloo on the CPU or on one card shared by the ranks
-(``mesh_cfg.shared_card``); more ranks than cards are refused.  The
-sparse and halo exchanges (ROADMAP queue 1 item 5c) and the fused
-engine's rumor-plane sharding (5d) are refused, each naming its item.
+``engine='xla'`` or ``'auto'``.  ``mesh_cfg.exchange='sparse'`` takes
+pull and anti-entropy to the all_to_all exchange
+(:mod:`gossip_tpu_torch.parallel.sharded_sparse`: the stratified draw on
+the complete graph, capacity-capped buckets on a table), and ``'halo'``
+flood, pull, push and push-pull on a banded table to the ``ppermute``
+exchange (:mod:`gossip_tpu_torch.parallel.halo`); what either cannot
+run is refused in the reference's words, never run on another exchange.
+The process group is NCCL with a card a rank, gloo on the CPU or on one
+card shared by the ranks (``mesh_cfg.shared_card``); more ranks than
+cards are refused.  The fused engine's rumor-plane sharding (ROADMAP
+queue 1 item 5d) is refused, naming its item.
 
 A ``log_cfg`` runs the replicated-log workload
 (:func:`run_log_workload`, the reference's ``run_log_workload``) and a
@@ -151,7 +157,7 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
     n_dev = 1 if mesh_cfg is None else mesh_cfg.n_devices
     exchange = "dense" if mesh_cfg is None else mesh_cfg.exchange
     if exchange != "dense":
-        # the reference's words, then the item the exchange waits for
+        # the reference's words: never the dense path in its place
         if n_dev == 1:
             return (f"exchange={exchange!r} is a cross-shard pattern; it "
                     "needs n_devices > 1 (single-device runs have no "
@@ -160,9 +166,11 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
             return (f"exchange={exchange!r} is not implemented for "
                     f"{proto.mode}; swim and rumor shard via the dense "
                     "kernels (pmax / psum_scatter + all_gather)")
-        return (f"exchange={exchange!r} waits for the port's multi-GPU "
-                "sparse and halo exchanges (ROADMAP queue 1, item 5c); the "
-                "port runs exchange='dense'")
+        if run.engine == "fused":
+            return (f"exchange={exchange!r} requests a cross-shard digest "
+                    "pattern; engine='fused' shards rumor planes with zero "
+                    "per-round ICI and implements no exchange — use "
+                    "engine='auto' for sparse/halo runs")
     if n_dev > 1 and run.engine == "fused":
         return ("engine='fused' with more than one device is the "
                 "reference's rumor-plane sharded route, which waits for the "
@@ -457,15 +465,76 @@ def _run_xla(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
                      wall_s=round(wall, 4), curve=curve, meta=meta)
 
 
+def check_exchange(proto: ProtocolConfig, tc: TopologyConfig,
+                   fault: Optional[FaultConfig], k: int,
+                   exchange: str) -> None:
+    """Refuse, before any rank starts and in the reference's words, a
+    sparse or halo run that its drivers cannot take on ``k`` ranks (the
+    halo's band is checked on the table, in the ranks)."""
+    from gossip_tpu_torch.parallel import halo as HL
+    from gossip_tpu_torch.parallel import sharded_sparse as SS
+    if exchange == "sparse" and tc.family == C.COMPLETE:
+        SS.check_sparse(proto, tc.n, k, fault)
+    elif exchange == "sparse":
+        SS.check_topo_sparse(proto, False, fault)
+    elif exchange == "halo":
+        HL.check_halo(proto, tc.n, tc.family == C.COMPLETE, k)
+
+
+def _exchange_run(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
+                  fault: Optional[FaultConfig], want_curve: bool, topo,
+                  group, exchange: str):
+    """This rank's run of the sparse or halo drivers: ``(rounds,
+    coverage, msgs, curve, final_state, meta, steady_s)`` with the
+    reference's meta keys (the exchange, its bytes a round or band, and
+    for an explicit table the bucket cap and the dropped requests)."""
+    from gossip_tpu_torch.parallel import halo as HL
+    from gossip_tpu_torch.parallel import sharded_sparse as SS
+    dev = group.device
+    meta: Dict[str, Any] = {"exchange": exchange}
+    if exchange == "halo":
+        fn = HL.simulate_curve_halo if want_curve else HL.simulate_until_halo
+        out, steady = steady_timed(dev, fn, proto, topo, run, group, fault)
+        meta["band"] = out[-1]
+    elif tc.family == C.COMPLETE:
+        fn = (SS.simulate_curve_sparse if want_curve
+              else SS.simulate_until_sparse)
+        out, steady = steady_timed(dev, fn, proto, tc.n, run, group, fault)
+    else:
+        fn = (SS.simulate_curve_topo_sparse if want_curve
+              else SS.simulate_until_topo_sparse)
+        (*out, ovf), steady = steady_timed(dev, fn, proto, topo, run, group,
+                                           fault)
+        meta.update({"overflow_dropped_requests": float(
+            ovf[-1] if want_curve else ovf), "bucket_cap": out[-1].cap})
+    if exchange == "sparse":
+        smeta = out[-1]
+        # for anti-entropy with period > 1 every figure is per exchange
+        # round (the whole exchange skips the quiet rounds)
+        meta["ici_bytes_per_round"] = {
+            "sparse": smeta.sparse_bytes,
+            "dense_equivalent": smeta.dense_bytes,
+            "reverse_exchange_only": smeta.reverse_bytes}
+    if want_curve:
+        covs, msgs_t, final = out[:3]
+        rounds, cov, msgs, curve = _curve_summary(covs, msgs_t,
+                                                  run.target_coverage)
+    else:
+        (rounds, cov, msgs, final), curve = out[:4], None
+    return rounds, cov, msgs, curve, final, meta, steady
+
+
 def sharded_report(proto: ProtocolConfig, tc: TopologyConfig,
                    run: RunConfig, fault: Optional[FaultConfig],
-                   want_curve: bool, group) -> RunReport:
-    """One rank's run of the node-sharded drivers: the bit-packed
-    while-loop for pull and anti-entropy without a curve, the dense
+                   want_curve: bool, group,
+                   exchange: str = "dense") -> RunReport:
+    """One rank's run of the node-sharded drivers: the sparse or halo
+    exchange where ``exchange`` asks for it, else the bit-packed
+    while-loop for pull and anti-entropy without a curve and the dense
     drivers otherwise (the reference's ``n_dev > 1`` routing).  Every
     rank returns the same report; ``meta`` adds the process group's
-    backend, each collective's device time, and every rank's peak
-    allocated memory on a card."""
+    backend, each collective's device time, every rank's peak allocated
+    memory on a card and every rank's kernel launches."""
     from gossip_tpu_torch.parallel import group as GR
     from gossip_tpu_torch.parallel import sharded as SH
     from gossip_tpu_torch.parallel import sharded_packed as SP
@@ -474,10 +543,14 @@ def sharded_report(proto: ProtocolConfig, tc: TopologyConfig,
     t0 = time.perf_counter()
     topo = G.build(tc, dev)
     topo_build_s = time.perf_counter() - t0
-    packed = proto.mode in (C.PULL, C.ANTI_ENTROPY) and not want_curve
+    # the sparse exchange's state is packed words; the halo's is bool
+    packed = exchange == "sparse" or (
+        exchange == "dense" and proto.mode in (C.PULL, C.ANTI_ENTROPY)
+        and not want_curve)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     group.collective_ms(reset=True)
+    launches0 = _launch_counts()
     meta = {"clock": "rounds", "devices": group.size,
             "msgs_counts": "transmissions"}
     t0 = time.perf_counter()
@@ -488,6 +561,10 @@ def sharded_report(proto: ProtocolConfig, tc: TopologyConfig,
     elif proto.mode == C.RUMOR:
         rounds, cov, msgs, curve, meta, steady, rounds_run = _run_rumor(
             proto, run, fault, want_curve, topo, dev, group)
+    elif exchange != "dense":
+        rounds, cov, msgs, curve, final, xmeta, steady = _exchange_run(
+            proto, tc, run, fault, want_curve, topo, group, exchange)
+        meta.update(xmeta)
     elif packed:
         (rounds, cov, msgs, final), steady = steady_timed(
             dev, SP.simulate_until_packed_sharded, proto, topo, run, group,
@@ -517,11 +594,20 @@ def sharded_report(proto: ProtocolConfig, tc: TopologyConfig,
                  "device": _device_name(dev),
                  "collective_ms": collectives,
                  "rank_peak_mem_bytes": GR.peak_memory(group),
+                 "rank_launches": _rank_launches(group, launches0),
                  **timing_meta(0.0, steady, wall),
                  "topo_build_s": round(topo_build_s, 4)})
     return RunReport(backend=f"torch-{dev.type}", mode=proto.mode, n=tc.n,
                      rounds=rounds, coverage=cov, msgs=msgs,
                      wall_s=round(wall, 4), curve=curve, meta=meta)
+
+
+def _rank_launches(group, launches0: Dict[str, int]) -> List[Dict[str, int]]:
+    """Every rank's kernel launches since ``launches0``, in rank order."""
+    now = _launch_counts()
+    mine = torch.tensor([[now[k] - launches0[k] for k in now]],
+                        dtype=torch.int64, device=group.device)
+    return [dict(zip(now, row)) for row in group.all_gather(mine).tolist()]
 
 
 def run_sharded(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
@@ -535,15 +621,17 @@ def run_sharded(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
 
     from gossip_tpu_torch.parallel import group as GR
     k = mesh_cfg.n_devices
+    check_exchange(proto, tc, fault, k, mesh_cfg.exchange)
     if dist.is_available() and dist.is_initialized():
         group = GR.current(device)
         if group.size != k:
             raise ValueError(f"the process group has {group.size} ranks; "
                              f"the mesh asks for {k}")
         return sharded_report(proto, tc, run, fault, want_curve,
-                              group=group)
+                              group=group, exchange=mesh_cfg.exchange)
     return GR.launch(sharded_report, k, proto, tc, run, fault, want_curve,
-                     device=device, shared_card=mesh_cfg.shared_card)[0]
+                     device=device, shared_card=mesh_cfg.shared_card,
+                     exchange=mesh_cfg.exchange)[0]
 
 
 def _run_payload_workload(mode: str, model, proto: ProtocolConfig,

@@ -15,7 +15,8 @@ commands on one device::
         [--dead-nodes ID...] [--fail-round R]
         [--churn-event NODE:DIE[:REC]]... [--partition START:END:CUT]...
         [--drop-ramp START:END:P0:P1] [--save-curve PATH]
-        [--devices K [--exchange dense] [--share-card]] [--device cpu]
+        [--devices K [--exchange dense|sparse|halo] [--share-card]]
+        [--device cpu]
     python -m gossip_tpu_torch crdt --type gcounter|pncounter|gset|orset \\
         [--n N] [--fanout F] [--family F] [--k K] [--p P] [--target C]
         [--max-rounds M] [--seed S] [--origin O] [--drop P] [--death D]
@@ -47,7 +48,9 @@ build a fault program (``ChurnConfig``), which runs on the xla engine
 the SI modes on K ranks of the node-sharded drivers
 (``backend.run_sharded``): NCCL with a card a rank, gloo with ``--device
 cpu`` or ``--share-card`` (K ranks on one card); SWIM and rumor
-mongering on their own sharded rounds.  ``--save-curve PATH``
+mongering on their own sharded rounds; ``--exchange sparse`` (pull and
+anti-entropy, all_to_all) or ``halo`` (banded tables, ppermute) in
+place of the dense all_gather.  ``--save-curve PATH``
 writes the curve as the reference's JSONL, the report as its meta line.
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
@@ -437,22 +440,20 @@ def run_payload(argv):
     return a.fn(a)
 
 
-def cmd_run(a) -> int:
-    from gossip_tpu_torch.backend import run_simulation
+def run_configs(a):
+    """``(proto, topology config, run, fault)`` of the ``run`` command's
+    arguments ``a``."""
     churn = _parse_churn(a)
     fault = None
     if a.drop > 0 or a.death > 0 or a.dead_nodes or churn is not None:
         fault = FaultConfig(node_death_rate=a.death, drop_prob=a.drop,
                             seed=a.seed, dead_nodes=tuple(a.dead_nodes or ()),
                             fail_round=a.fail_round, churn=churn)
-    mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
-                       shared_card=a.share_card) if a.devices > 1 else None)
-    want_curve = a.curve or bool(a.save_curve)
     t = a.swim_suspect_rounds
     if not t and a.mode == C.SWIM:
         from gossip_tpu_torch.models.swim import suggested_suspect_rounds
         t = suggested_suspect_rounds(a.n, a.fanout)
-    report = run_simulation(
+    return (
         ProtocolConfig(mode=a.mode, fanout=a.fanout, rumors=a.rumors,
                        period=a.period, swim_subjects=a.swim_subjects,
                        swim_proxies=a.swim_proxies,
@@ -465,7 +466,16 @@ def cmd_run(a) -> int:
                        degree_cap=a.degree_cap, seed=a.seed),
         RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
                   seed=a.seed, origin=a.origin, engine=a.engine),
-        fault, want_curve=want_curve, device=a.device, mesh_cfg=mesh)
+        fault)
+
+
+def cmd_run(a) -> int:
+    from gossip_tpu_torch.backend import run_simulation
+    mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
+                       shared_card=a.share_card) if a.devices > 1 else None)
+    want_curve = a.curve or bool(a.save_curve)
+    report = run_simulation(*run_configs(a), want_curve=want_curve,
+                            device=a.device, mesh_cfg=mesh)
     out = report.to_dict()
     if a.save_curve:
         from gossip_tpu_torch.utils.metrics import dump_curve_jsonl
@@ -562,8 +572,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cross-shard pattern: dense all_gather (any), "
                         "sparse all_to_all (complete topology, "
                         "pull/antientropy, O(messages)), halo ppermute "
-                        "(band-limited topologies, O(band)); the port "
-                        "runs dense")
+                        "(band-limited topologies, O(band))")
     p.add_argument("--share-card", action="store_true",
                    help="run the --devices ranks on one card under gloo "
                         "(a test mode: NCCL takes one card a rank)")

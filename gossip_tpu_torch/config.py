@@ -752,9 +752,10 @@ class RunConfig:
 class MeshConfig:
     """The node mesh: ``n_devices`` ranks, each holding a contiguous
     block of the (padded) node rows (:mod:`gossip_tpu_torch.parallel`).
-    ``exchange``: the cross-shard pattern; the port runs ``dense`` (the
-    all_gather / reduce-scatter of whole digest tables) and refuses
-    ``sparse`` and ``halo`` at run time.  ``shared_card``: run the ranks
+    ``exchange``: the cross-shard pattern: ``dense`` (the all_gather /
+    reduce-scatter of whole digest tables), ``sparse`` (all_to_all
+    requests and responses) or ``halo`` (``ppermute`` of boundary rows
+    on banded tables).  ``shared_card``: run the ranks
     on one card under gloo (a test mode; otherwise each rank takes a card
     of its own and more ranks than cards are refused)."""
 

@@ -325,7 +325,8 @@ def check_supported(fault: Optional[FaultConfig], *, engine: str,
         return
     if not events:
         raise ValueError(f"the {engine} engine does not run churn "
-                         "schedules")
+                         "schedules; use the dense/sparse exchanges "
+                         "(docs/ROBUSTNESS.md scenario catalog)")
     if not partitions and ch.partitions:
         # the reference's words (SWIM is the engine that refuses a cut)
         raise ValueError(

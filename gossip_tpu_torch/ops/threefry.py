@@ -23,7 +23,11 @@ on and ``jax_default_prng_impl = threefry2x32``:
   does in wrapping uint32 arithmetic;
 * ``uniform`` (float32 in ``[0, 1)``): ``(bits >> 9) | 0x3F800000``
   bitcast, minus 1.0;
-* ``bernoulli(key, p, shape)``: ``uniform < float32(p)``.
+* ``bernoulli(key, p, shape)``: ``uniform < float32(p)``;
+* ``permutation(key, p)`` of ``arange(p)`` (``_shuffle``): ``ceil(3 ln
+  max(1, p) / ln(2^32 - 1))`` rounds, each ``key, sub = split(key)``, then
+  a stable sort of the values by ``random_bits(sub, (p,))`` read as
+  unsigned.
 
 Representation: a key is an int64 tensor whose last axis holds the two
 32-bit words, values in ``[0, 2^32)``; a batch of keys is ``[..., 2]``.
@@ -191,3 +195,18 @@ def bernoulli(k: torch.Tensor, p, shape) -> torch.Tensor:
         raise ValueError(f"p must be a float32 0-d tensor, got {p.dtype} "
                          f"of shape {tuple(p.shape)}")
     return uniform(k, shape) < p
+
+
+def permutation(k: torch.Tensor, p: int) -> torch.Tensor:
+    """``jax.random.permutation(k, arange(p))`` of one key: int64[p].
+    ``_shuffle`` sorts the values by fresh random words as often as
+    ``3 ln p / ln(2^32 - 1)`` says (one round up to p = 1625, two up to
+    2^32 / 1625), each sort stable on the words read as unsigned."""
+    x = torch.arange(p, dtype=torch.int64, device=k.device)
+    rounds = int(np.ceil(3 * np.log(max(1, p))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub, (p,)), stable=True).indices
+        x = x[order]
+    return x

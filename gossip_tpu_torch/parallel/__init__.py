@@ -1,4 +1,8 @@
 """Node-dimension sharding over ``torch.distributed``: the process group
 (:mod:`~gossip_tpu_torch.parallel.group`), the dense SI drivers
-(:mod:`~gossip_tpu_torch.parallel.sharded`) and the bit-packed pull /
-anti-entropy drivers (:mod:`~gossip_tpu_torch.parallel.sharded_packed`)."""
+(:mod:`~gossip_tpu_torch.parallel.sharded`), the bit-packed pull /
+anti-entropy drivers (:mod:`~gossip_tpu_torch.parallel.sharded_packed`),
+the sparse all_to_all and halo ppermute exchanges
+(:mod:`~gossip_tpu_torch.parallel.sharded_sparse`,
+:mod:`~gossip_tpu_torch.parallel.halo`) and the sharded SWIM, rumor and
+payload drivers."""

@@ -26,12 +26,18 @@ the drivers use.
   refuses ``uint32``) and bytes: :meth:`Group.all_gather` is the
   reference's ``all_gather(tiled=True)``, :meth:`Group.reduce_scatter_sum`
   its ``psum_scatter``, :meth:`Group.all_reduce_sum` an integer ``psum``,
-  :meth:`Group.all_reduce_max` its ``pmax`` (SWIM's wire merge), and
+  :meth:`Group.all_reduce_max` its ``pmax`` (SWIM's wire merge),
   :meth:`Group.combine_f32` its float32 ``psum`` of ``msgs`` and
   ``lost``: the K partials gathered and added in rank order
   (:func:`~gossip_tpu_torch.ops.common.rank_order_sum`, the float32 rule
-  of :mod:`gossip_tpu_torch.ops.common`).  Each collective's device time
-  is kept per name (:meth:`Group.collective_ms`).
+  of :mod:`gossip_tpu_torch.ops.common`), :meth:`Group.all_to_all` its
+  ``all_to_all(tiled=False)`` (the sparse exchange's requests and
+  responses) and :meth:`Group.ppermute` its ``ppermute`` by a ring shift
+  (the halo exchange's boundary rows).  Both of the last two are one
+  ``all_to_all_single``, which NCCL and gloo carry alike; ``ppermute``
+  gives it uneven splits (the rows to one rank, nothing to the others).
+  Each collective's device time is kept per name
+  (:meth:`Group.collective_ms`).
 """
 
 from __future__ import annotations
@@ -162,6 +168,36 @@ class Group:
         self._run("all_reduce_max",
                   lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX))
         return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[d]`` (``x`` of shape ``[size, cap, ...]``) goes to rank d;
+        ``out[s]`` is what rank s sent here (bool rows travel as
+        bytes)."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_to_all needs a leading axis of "
+                             f"{self.size}, got shape {tuple(x.shape)}")
+        src = x.contiguous()
+        wire = src.view(torch.uint8) if src.dtype == torch.bool else src
+        out = torch.empty_like(wire)
+        self._run("all_to_all",
+                  lambda: dist.all_to_all_single(out, wire))
+        return out.view(torch.bool) if src.dtype == torch.bool else out
+
+    def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        """``x`` goes to rank ``(rank + shift) mod size``; the result is
+        what rank ``(rank - shift) mod size`` sent, of ``x``'s shape (bool
+        rows travel as bytes)."""
+        src = x.contiguous()
+        wire = src.view(torch.uint8) if src.dtype == torch.bool else src
+        out = torch.empty_like(wire)
+        rows = wire.shape[0]
+        send = [0] * self.size
+        recv = [0] * self.size
+        send[(self.rank + shift) % self.size] = rows
+        recv[(self.rank - shift) % self.size] = rows
+        self._run("ppermute",
+                  lambda: dist.all_to_all_single(out, wire, recv, send))
+        return out.view(torch.bool) if src.dtype == torch.bool else out
 
     def combine_f32(self, x: torch.Tensor) -> torch.Tensor:
         """The reference's float32 ``psum`` of ``x``: the ranks' partials

@@ -3,16 +3,19 @@ mesh's largest all_gather costs.
 
     python -m gossip_tpu_torch.tools.collectives [--device cpu]
 
-It launches three groups through :func:`gossip_tpu_torch.parallel.group.launch`
-on one card: one rank under NCCL, two ranks sharing the card under gloo,
-and one rank under gloo (with ``--device cpu``: one and two gloo ranks
-on the CPU).  Each rank runs every collective the sharded drivers use,
-on CUDA tensors of the dtypes they send (int32 words, bool bytes, int64
-counts, float32 partials, SWIM's int32 wires through the ``max``
-all-reduce), and records each result or the error it
-raised; then it times ``all_gather`` of 10M int32 words (40 MB, the
-packed table of ``BASELINE.json`` configuration 5) split over the ranks:
-a warm-up, then five calls on the host clock between synchronisations.
+It launches four groups through :func:`gossip_tpu_torch.parallel.group.launch`
+on one card: one rank under NCCL, two and four ranks sharing the card
+under gloo, and one rank under gloo (with ``--device cpu``: one, two and
+four gloo ranks on the CPU).  Each rank runs every collective the
+sharded drivers use, on CUDA tensors of the dtypes they send (int32
+words, bool bytes, int64 counts, float32 partials, SWIM's int32 wires
+through the ``max`` all-reduce, the sparse exchange's ``all_to_all`` of
+int32 words and bool bytes, an ``all_to_all_single`` with uneven splits,
+and the halo exchange's ``ppermute`` by +1 and -1), and records each
+result or the error it raised; then it times ``all_gather`` of 10M
+int32 words (40 MB, the packed table of ``BASELINE.json`` configuration
+5) split over the ranks, and ``all_to_all`` of the same words: a
+warm-up, then five calls on the host clock between synchronisations.
 It prints one JSON line a group, after the card's name and power limit
 as ``nvidia-smi`` gives them.
 """
@@ -45,7 +48,7 @@ def probe_rank(group) -> dict:
     """One rank's results: each collective's output (or its error) and
     the 40 MB all_gather's ms."""
     dev = group.device
-    r = group.rank
+    r, size = group.rank, group.size
     x = torch.arange(8, dtype=torch.int32, device=dev) + 100 * r
     out = {
         "all_gather_int32": _try(lambda: group.all_gather(x)),
@@ -59,21 +62,52 @@ def probe_rank(group) -> dict:
             x.reshape(2, 4))),
         "combine_float32": _try(lambda: group.combine_f32(
             torch.tensor([r + 0.5, 1.0], device=dev))),
+        # x[d, j] = 100 r + 10 d + j goes to rank d
+        "all_to_all_int32": _try(lambda: group.all_to_all(
+            100 * r + 10 * torch.arange(size, dtype=torch.int32,
+                                        device=dev)[:, None]
+            + torch.arange(3, dtype=torch.int32, device=dev))),
+        "all_to_all_bool": _try(lambda: group.all_to_all(
+            (torch.arange(2 * size, device=dev) + r).reshape(size, 2)
+            % 2 == 0)),
+        "all_to_all_uneven": _try(lambda: _uneven(group)),
+        "ppermute_plus1": _try(lambda: group.ppermute(x[:4], 1)),
+        "ppermute_minus1": _try(lambda: group.ppermute(x[4:] % 2 == 0,
+                                                       -1)),
     }
-    src = torch.ones(WORDS // group.size, dtype=torch.int32, device=dev)
+    src = torch.ones(WORDS // size, dtype=torch.int32, device=dev)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    group.all_gather(src)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        group.all_gather(src)
-    sync()
-    out["all_gather_40MB_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
+    for name, fn in (("all_gather", lambda: group.all_gather(src)),
+                     ("all_to_all", lambda: group.all_to_all(
+                         src.reshape(size, -1)))):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        sync()
+        out[f"{name}_40MB_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
     return out
+
+
+def _uneven(group) -> list:
+    """``all_to_all_single`` with uneven splits: rank r sends ``r + d +
+    1`` words ``100 r + 10 d + j`` to rank d, so it receives ``s + r + 1``
+    words from rank s."""
+    import torch.distributed as dist
+    dev, r, size = group.device, group.rank, group.size
+    send = [r + d + 1 for d in range(size)]
+    recv = [s + r + 1 for s in range(size)]
+    x = torch.cat([100 * r + 10 * d + torch.arange(c, dtype=torch.int32,
+                                                    device=dev)
+                   for d, c in enumerate(send)])
+    out = torch.empty(sum(recv), dtype=torch.int32, device=dev)
+    dist.all_to_all_single(out, x, recv, send)
+    return out.tolist()
 
 
 def main(argv=None) -> int:
@@ -89,9 +123,9 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader", "--id=0"], capture_output=True,
             text=True, check=True).stdout.strip(), flush=True)
-        groups = ((1, False), (2, True), (1, True))
+        groups = ((1, False), (2, True), (4, True), (1, True))
     else:
-        groups = ((1, False), (2, False))
+        groups = ((1, False), (2, False), (4, False))
     for size, shared in groups:
         backend, _ = GR.plan(size, a.device, shared)
         t0 = time.perf_counter()

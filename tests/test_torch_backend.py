@@ -156,7 +156,7 @@ def test_refusals_are_loud(proto, topo, run, fault, match):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_cfg=MeshConfig(n_devices=2, exchange="sparse")),
-     "multi-GPU.*item 5c"),
+     "engine='fused'.*implements no exchange"),
     (dict(mesh_cfg=MeshConfig(exchange="sparse")),
      "needs n_devices > 1"),
     (dict(log_cfg=LogConfig(), txn_cfg=object()), "at most one payload"),
@@ -164,10 +164,41 @@ def test_refusals_are_loud(proto, topo, run, fault, match):
      "single-process single-device"),
 ])
 def test_later_slices_are_refused(kw, match):
-    for engine in ("xla", "auto", "fused"):
+    """Refused on every engine, in the reference's words; a sparse
+    exchange on two devices only on the fused engine, which implements
+    no exchange (xla and auto run it:
+    ``test_sparse_exchange_runs_on_a_mesh``)."""
+    mesh = kw.get("mesh_cfg")
+    two = mesh is not None and mesh.n_devices > 1
+    for engine in ("fused",) if two else ("xla", "auto", "fused"):
         with pytest.raises(ValueError, match=match):
             run_simulation(PULL, TOPO, RunConfig(engine=engine), device="cpu",
                            **kw)
+
+
+@pytest.mark.parametrize("engine", ["xla", "auto"])
+def test_sparse_exchange_runs_on_a_mesh(engine):
+    """``run_simulation(mesh_cfg=MeshConfig(2, exchange='sparse'))`` on
+    the xla and auto engines runs the sparse all_to_all exchange on two
+    gloo ranks and returns the reference's report values and its meta
+    keys (the exchange and its bytes a round), with no kernel launched
+    on either rank."""
+    kw = dict(mode="pull", rumors=3)
+    port = run_simulation(ProtocolConfig(**kw), TopologyConfig(n=1000),
+                          RunConfig(seed=5, engine=engine), device="cpu",
+                          mesh_cfg=MeshConfig(n_devices=2,
+                                              exchange="sparse"))
+    ref = jrun_simulation("jax-tpu", JC.ProtocolConfig(**kw),
+                          JC.TopologyConfig(n=1000),
+                          JC.RunConfig(seed=5, engine=engine), None,
+                          JC.MeshConfig(n_devices=2, exchange="sparse"))
+    assert (port.rounds, port.coverage, port.msgs) == \
+        (ref.rounds, ref.coverage, ref.msgs)
+    for key in ("exchange", "ici_bytes_per_round", "devices"):
+        assert port.meta[key] == ref.meta[key]
+    assert "all_to_all" in port.meta["collective_ms"]
+    # no kernel of the port on either rank: the exchange draws by threefry
+    assert [sum(r.values()) for r in port.meta["rank_launches"]] == [0, 0]
 
 
 @pytest.mark.parametrize("args", [
@@ -182,6 +213,48 @@ def test_later_slices_are_refused(kw, match):
 def test_cli_refuses_other_flags_and_values(args):
     proc = _port("-m", "gossip_tpu_torch", "run", *args)
     assert proc.returncode == 2 and not proc.stdout
+
+
+@pytest.mark.parametrize("args", [
+    ["--mode", "swim", "--n", "1000", "--devices", "2", "--exchange",
+     "sparse"],
+    ["--mode", "pull", "--n", "1000", "--engine", "xla", "--devices", "2",
+     "--exchange", "halo"],
+])
+def test_cli_exchange_refusals_match_reference(capsys, args):
+    """SWIM on the sparse exchange and the halo exchange on the complete
+    graph exit 2 with the reference command's message, word for word."""
+    from gossip_tpu import cli as jcli
+    from gossip_tpu_torch import cli
+    capsys.readouterr()
+    assert jcli.main(["run", *args, "--no-compile-cache"]) == 2
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    assert cli.main(["run", *args, "--device", "cpu"]) == 2
+    got = capsys.readouterr()
+    assert got.err.strip().splitlines()[-1] == want and not got.out
+
+
+def test_halo_exchange_runs_on_a_ring():
+    """``run_simulation(mesh_cfg=MeshConfig(2, exchange='halo'))`` on a
+    ring runs the halo exchange on two gloo ranks: the reference's report
+    values (the single-device trajectory) and its ``band``, with no
+    kernel launched on either rank."""
+    kw = dict(mode="pushpull", fanout=2)
+    tc = dict(family="ring", n=1000, k=6)
+    port = run_simulation(ProtocolConfig(**kw), TopologyConfig(**tc),
+                          RunConfig(seed=5, max_rounds=30, engine="auto"),
+                          device="cpu",
+                          mesh_cfg=MeshConfig(n_devices=2, exchange="halo"))
+    ref = jrun_simulation("jax-tpu", JC.ProtocolConfig(**kw),
+                          JC.TopologyConfig(**tc),
+                          JC.RunConfig(seed=5, max_rounds=30, engine="auto"),
+                          None, JC.MeshConfig(n_devices=2, exchange="halo"))
+    assert (port.rounds, port.coverage, port.msgs) == \
+        (ref.rounds, ref.coverage, ref.msgs)
+    assert (port.meta["exchange"], port.meta["band"]) == ("halo", 3) == \
+        (ref.meta["exchange"], ref.meta["band"])
+    assert "ppermute" in port.meta["collective_ms"]
+    assert [sum(r.values()) for r in port.meta["rank_launches"]] == [0, 0]
 
 
 def _both(mode, family="complete", engine="xla", fault=None, n=3000,
@@ -394,16 +467,18 @@ def test_run_simulation_on_a_mesh(k):
     (ProtocolConfig(mode="rumor"), {}, None),
     (PULL, dict(log_cfg=LogConfig()), "single-process single-device"),
     (PULL, dict(run=RunConfig(engine="fused")), "item 5d"),
-    (PULL, dict(exchange="halo"), "item 5c"),
+    (PULL, dict(exchange="halo"), "needs an explicit neighbor table"),
     (ProtocolConfig(mode="swim"), dict(exchange="sparse"),
      "not implemented for swim"),
 ])
 def test_mesh_refusals_name_their_item(proto, kw, match):
     """What the mesh does not run yet is refused with the ROADMAP item
-    it waits for (the log workload in the reference's words: it shards
-    through the library API), before any rank is spawned; SWIM and rumor
-    mongering (``match`` None) run on two gloo ranks and answer as the
-    reference's sharded drivers on its 2-device mesh."""
+    it waits for (the fused planes), and what the reference refuses in
+    its words (the log workload: it shards through the library API; the
+    halo exchange on the implicit complete graph; SWIM on the sparse
+    exchange), before any rank is spawned; SWIM and rumor mongering
+    (``match`` None) run on two gloo ranks and answer as the reference's
+    sharded drivers on its 2-device mesh."""
     mesh = MeshConfig(n_devices=2, exchange=kw.pop("exchange", "dense"))
     run = kw.pop("run", RunConfig(engine="xla"))
     if match is not None:

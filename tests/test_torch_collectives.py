@@ -1,8 +1,10 @@
 """tools/collectives.py on the CPU: every collective the sharded drivers
-use, through the node mesh's gloo groups of one and two ranks, with the
-values each must return; and its refusal to run without a card unless
-the CPU is asked for."""
+use, through the node mesh's gloo groups of one, two and four ranks,
+with the values each must return; and its refusal to run without a card
+unless the CPU is asked for."""
 
+import contextlib
+import io
 import json
 
 import pytest
@@ -10,12 +12,22 @@ import torch
 
 from gossip_tpu_torch.tools import collectives as CO
 
+SIZES = (1, 2, 4)
 
-def test_every_collective_on_gloo_groups(capsys):
-    assert CO.main(["--device", "cpu"]) == 0
-    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+
+@pytest.fixture(scope="module")
+def lines():
+    """The probe's output lines on the CPU's gloo groups, one run a
+    module."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert CO.main(["--device", "cpu"]) == 0
+    return [json.loads(s) for s in out.getvalue().splitlines()]
+
+
+def test_every_collective_on_gloo_groups(lines):
     assert [(g["ranks"], g["backend"]) for g in lines] == \
-        [(1, "gloo"), (2, "gloo")]
+        [(size, "gloo") for size in SIZES]
     one, two = lines[0]["results"][0], lines[1]["results"]
     assert one["all_gather_int32"] == list(range(8))
     assert one["combine_float32"] == [0.5, 1.0]
@@ -31,6 +43,29 @@ def test_every_collective_on_gloo_groups(capsys):
         # rank order: 0.5 + 1.5; 1.0 + 1.0
         assert rank["combine_float32"] == [2.0, 2.0]
         assert rank["all_gather_40MB_ms"] > 0
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_all_to_all_and_ppermute_on_gloo_groups(lines, size):
+    """The sparse exchange's all_to_all (even and uneven splits) and the
+    halo exchange's ppermute by +1 and -1, on every rank of one, two and
+    four gloo ranks, against the values each must return."""
+    ranks = lines[SIZES.index(size)]["results"]
+    assert len(ranks) == size
+    for r, out in enumerate(ranks):
+        assert out["all_to_all_int32"] == [
+            [100 * s + 10 * r + j for j in range(3)] for s in range(size)]
+        assert out["all_to_all_bool"] == [
+            [(2 * r + s + j) % 2 == 0 for j in range(2)]
+            for s in range(size)]
+        assert out["all_to_all_uneven"] == [
+            100 * s + 10 * r + j for s in range(size)
+            for j in range(s + r + 1)]
+        left, right = (r - 1) % size, (r + 1) % size
+        assert out["ppermute_plus1"] == [100 * left + j for j in range(4)]
+        assert out["ppermute_minus1"] == [
+            (100 * right + j) % 2 == 0 for j in range(4, 8)]
+        assert out["all_to_all_40MB_ms"] > 0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="runs on the card")

@@ -61,7 +61,8 @@ def test_importing_every_module_loads_no_jax():
                  "parallel", "parallel.group", "parallel.sharded",
                  "parallel.sharded_packed", "parallel.sharded_swim",
                  "parallel.sharded_rumor", "parallel.sharded_crdt",
-                 "parallel.sharded_log", "parallel.sharded_register"):
+                 "parallel.sharded_log", "parallel.sharded_register",
+                 "parallel.sharded_sparse", "parallel.halo"):
         assert f"gossip_tpu_torch.{name}" in out["imported"]
     assert out["forbidden"] == []
 

@@ -150,3 +150,16 @@ def test_refuses_seeds_past_32_bits():
         T.key(1 << 32)
     with pytest.raises(ValueError, match="int32"):
         T.randint(T.key(0), (2,), 0, 1 << 31)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 8, 1625, 1626, 2000])
+def test_permutation(p):
+    """``permutation(key, p)`` equals ``jax.random.permutation(key,
+    arange(p))`` over several keys, across its one-round (p <= 1625) and
+    two-round sorts."""
+    for seed in range(6):
+        key = jax.random.fold_in(jax.random.key(seed), 101)
+        want = np.asarray(jax.random.permutation(
+            key, jnp.arange(p, dtype=jnp.int32)))
+        got = T.permutation(T.fold_in(T.key(seed), 101), p)
+        np.testing.assert_array_equal(got.numpy(), want)
