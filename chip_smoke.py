@@ -12,8 +12,8 @@ detection and rumor mongering, the CRDT payloads (with the byzantine
 liar program), the replicated logs and the LWW registers' txn workload,
 the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
 card under gloo), SWIM, rumor and the payloads among them, the sparse
-all_to_all and halo ppermute exchanges, and the roofline tool through
-the port's own entry
+all_to_all and halo ppermute exchanges, the fused rumor planes, and the
+roofline tool through the port's own entry
 points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
@@ -178,6 +178,25 @@ points, and measures them.  One JSON line per phase:
    single-device state on the card (the sparse twin at p = 2, HL1's XLA
    run); each run's ms a round, collectives by name, bytes a round and
    peaks, beside the dense exchange's ms a round, no kernel launched;
+   then ``mesh_fused_planes``, the fused rumor planes at the README's
+   N = 10M x 256 rumors (``FP_CASES``: FP256, FPD with static deaths and
+   drops, FPCH under the ``churn_heal`` program): K = 1 under NCCL through
+   the library API (8 planes on one rank, counts set to 0 just before and
+   read just after: 8 ``fused_mr_round`` launches a round and nothing
+   else), FP256's and FPD's planes equal to the single-device
+   multi-rumor loop on each plane and FP256's rounds the planes' largest
+   rounds to the target; ``run --engine fused --devices 2 --share-card``
+   for the three and the same through the library API in one spawn
+   (FP256's curve beside them), every rank's plane digests equal to
+   K = 1's and every rank launching ``fused_mr_round`` 4 x its rounds and
+   nothing else; FPD's first two rounds and FPCH's first eight (every
+   change of its program) against the plain lane-major round on the same
+   operands, the planes, each rumor's count from the kernel's counters
+   and the curve; each K = 1 coverage against the final planes' least
+   count in plain float32; the PRNG invariant holding at K = 2 and
+   raising when each rank takes its own seed; the planes' refusals (push
+   rounds, a table, an exchange, scripted dead nodes); each run's ms a
+   round, collectives by name, launches and peaks;
 20. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
@@ -458,6 +477,32 @@ EXCHANGE_CASES = {
              MESH_SPAE),
     "TS3": ([*_TS3, "--exchange", "sparse"], MESH_TS3),
     "HL1": ([*_HL1, "--exchange", "halo"], MESH_HL1),
+}
+
+
+# The fused rumor planes at the README's deployment (README.md:367: run
+# --mode pull --n 10000000 --rumors 256 --engine fused --devices 8, here
+# on the card's ranks): FP256 as it is, FPD with static deaths and drops,
+# FPCH under the churn_heal program; each at K = 2 ranks sharing the card
+# (--devices 2 --share-card) and at K = 1 under NCCL.
+FP_RUMORS = 256
+_FP = ["--mode", "pull", "--n", str(N), "--rumors", str(FP_RUMORS),
+       "--engine", "fused"]
+FP_CASES = {"FP256": _FP, "FPD": [*_FP, "--death", "0.1", "--drop", "0.05"],
+            "FPCH": [*_FP, *_HEAL_CUT]}
+# the cases replayed with the plain round, and their rounds: FPD's
+# first two; FPCH's first eight, through every change of its program (a
+# crash at 1 and 2, a recovery and the ramp's end at 4, the cut's at 6)
+FP_REPLAY = {"FPD": 2, "FPCH": 8}
+# what the planes refuse, before any rank starts, and a phrase of each
+# refusal (the reference's words)
+FP_REFUSED = {
+    "push": (["--mode", "push"], "implements pull rounds only"),
+    "erdos_renyi": (["--family", "erdos_renyi", "--p", "0.000001"],
+                    "implicit complete topology only"),
+    "sparse": (["--exchange", "sparse"], "implements no exchange"),
+    "dead_nodes": (["--dead-nodes", "3", "--fail-round", "1"],
+                   "does not implement scripted dead_nodes"),
 }
 
 
@@ -2189,14 +2234,14 @@ def _mesh_models_rank(n: int, n_swim: int, group):
 
 def _mesh_run_numbers(meta: dict, rounds: int) -> dict:
     """ms a round, each collective's ms a round, every rank's peak
-    allocated memory and, where the report has them (``run``), every
-    rank's kernel launches, of a mesh run's report keys."""
+    allocated memory and every rank's kernel launches, of a mesh run's
+    report keys."""
     return {"rounds_run": rounds,
             "ms_per_round": meta["steady_wall_s"] * 1e3 / rounds,
             "collective_ms_per_round": {
                 k: c["ms"] / rounds for k, c in meta["collective_ms"].items()},
             "rank_peak_mem_bytes": meta["rank_peak_mem_bytes"],
-            "rank_launches": meta.get("rank_launches"),
+            "rank_launches": meta["rank_launches"],
             "process_group": meta["process_group"]}
 
 
@@ -2259,8 +2304,7 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
         if args[0] != "run":
             ok = ok and out["engine"] == f"{args[0]}-sharded"
         check(ok, f"{name} at K = 2: {got}, want {want}; {meta}")
-        if args[0] == "run":
-            _check_no_launches(f"{name} at K = 2", meta["rank_launches"])
+        _check_no_launches(f"{name} at K = 2", meta["rank_launches"])
         if name in PAYLOAD_CURVES:
             check(out["curve"] == PAYLOAD_CURVES[name],
                   f"{name} curve at K = 2: {out['curve']}")
@@ -2570,6 +2614,336 @@ def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
          phase_s=time.perf_counter() - t_phase, card=smi)
 
 
+def _planes_configs(name: str):
+    """``(proto, topology config, run, fault)`` of a planes case, as its
+    command line in ``FP_CASES`` builds them."""
+    from gossip_tpu_torch import cli
+    return cli.run_configs(cli.build_parser().parse_args(
+        ["run", *FP_CASES[name]]))
+
+
+def _plane_digests(planes) -> list:
+    """SHA-256 of each plane of a stack ``[W, R, 128]``."""
+    import hashlib
+
+    import torch
+    return [hashlib.sha256(p.contiguous().cpu().view(torch.uint8)
+                           .numpy().data).hexdigest() for p in planes]
+
+
+def _planes_rank(curve_rounds: int, group):
+    """One rank of the library-API planes runs: each case of ``FP_CASES``
+    to the target (its result, this rank's plane digests and numbers),
+    FP256's curve of ``curve_rounds`` rounds, the replays of
+    ``FP_REPLAY`` (:func:`_planes_replay`), and the PRNG invariant: it
+    must hold on the Philox stream and raise when each rank takes its own
+    seed."""
+    import dataclasses
+
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    out = {}
+    for name in FP_CASES:
+        proto, tc, run, fault = _planes_configs(name)
+        timing = {}
+        res, nums = _timed_group(group, SF.simulate_until_sharded_fused,
+                                 tc.n, proto.rumors, run, fanout=1,
+                                 fault=fault, timing=timing)
+        nums["loop_s"] = timing["steady_s"]
+        nums["init_build_s"] = timing["init_build_s"]
+        out[name] = (res[:3], _plane_digests(res[3]), nums)
+        del res
+    proto, tc, run, fault = _planes_configs("FP256")
+    timing = {}
+    res, nums = _timed_group(group, SF.simulate_curve_sharded_fused, tc.n,
+                             proto.rumors, dataclasses.replace(
+                                 run, max_rounds=curve_rounds),
+                             fanout=1, fault=fault, timing=timing)
+    nums["loop_s"] = timing["steady_s"]
+    out["FP256_curve"] = (res[0], _plane_digests(res[1]), nums)
+    del res
+    for name, rounds in FP_REPLAY.items():
+        out[f"{name}_replay_equal"] = _planes_replay(name, rounds, group)
+    out["invariant"] = SF.assert_prng_invariant(N, group).tolist()
+    try:
+        SF.assert_prng_invariant(N, group, seed=group.rank)
+        out["diverged"] = None
+    except AssertionError as e:
+        out["diverged"] = str(e).splitlines()[0]
+    return out
+
+
+def _planes_replay(name: str, rounds: int, group) -> bool:
+    """A planes case's first ``rounds`` rounds on this rank, on the card:
+    the curve loop (its final planes and its curve) and the loops' own
+    round (``_round`` on ``_Operands.round_args``, each rumor's count of
+    the coverage's nodes from the kernel's counters by
+    ``_Operands.counts``), round by round, against the plain lane-major
+    round on the same operands and a popcount of its planes at the
+    coverage's nodes, the curve against that count's minimum over the
+    ranks in plain float32.  True when all of it is equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    proto, tc, run, fault = _planes_configs(name)
+    n, dev = tc.n, group.device
+    covs, final = SF.simulate_curve_sharded_fused(
+        n, proto.rumors, dataclasses.replace(run, max_rounds=rounds), group,
+        1, fault)
+    ops = SF._Operands(n, fault, run.origin, dev)
+    metric = ops.metric
+    total = (None if metric is None
+             else int((metric.reshape(-1) != 0).sum()))
+    planes = SF.init_plane_state(n, proto.rumors, group, run.origin)
+    ops.start(planes)
+    lanes = planes.transpose(1, 2).contiguous()
+    plain, spare = lanes.clone(), torch.empty_like(lanes)
+    del planes
+    same = True
+    for r in range(rounds):
+        args = ops.round_args(r)
+        pop = torch.zeros(lanes.shape[0], 32, dtype=torch.int32, device=dev)
+        lanes, spare = SF._round(lanes, spare, pop, run.seed, r, n, 1, args)
+        plain = torch.stack([MR.fused_mr_round_lanes_plain(
+            p, run.seed, r, n, 1, None, args["drop_threshold"],
+            args["alive_lanes"], args.get("cut_lanes")) for p in plain])
+        want = torch.stack([MR.rumor_counts(
+            p.t() if metric is None else p.t() & metric, 32)
+            for p in plain])
+        least = int(group.all_reduce_min(want.min().reshape(1))[0])
+        cov = (np.float32(least) * (np.float32(1) / np.float32(n))
+               if total is None else np.float32(least) / np.float32(total))
+        same = (same and torch.equal(lanes, plain)
+                and torch.equal(ops.counts(pop, lanes), want)
+                and covs[r] == float(cov))
+    return same and torch.equal(plain.transpose(1, 2).contiguous(), final)
+
+
+def _single_plane_digests(dev, name: str, rounds: int, w: int):
+    """``(digests, rounds to the target)`` of the single-device
+    multi-rumor loop on each plane p < w from origin 32p, ``rounds``
+    rounds on the card: FP256 from a fresh state
+    (``curve_fused_multirumor``), FPD from the plane's start words under
+    the planes' alive words and threshold (the run's origin pins the
+    alive set)."""
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    _, tc, run, fault = _planes_configs(name)
+    digests, hits = [], []
+    for p in range(w):
+        if fault is None:
+            final, covs = MR.curve_fused_multirumor(
+                tc.n, 32, run.seed, max_rounds=rounds, origin=32 * p,
+                device=dev)
+            hits.append(next((i + 1 for i, c in enumerate(covs)
+                              if c >= run.target_coverage), -1))
+        else:
+            final, _ = MR.until_fused_multirumor(
+                tc.n, 32, run.seed, target_coverage=2.0, max_rounds=rounds,
+                origin=run.origin, fault=fault, device=dev,
+                state=MR.init_multirumor_state(tc.n, 32, 32 * p, dev))
+        digests.append(_plane_digests(final.table[None])[0])
+        del final
+    return digests, hits
+
+
+def phase_mesh_fused_planes(dev, smi: str):
+    """The fused rumor planes at N = 10M x 256 rumors (8 planes):
+    (a) ``python -m gossip_tpu_torch run --engine fused --devices 2
+    --share-card`` for FP256, FPD and FPCH, each rank launching
+    ``fused_mr_round`` exactly 4 x its rounds and no other kernel
+    (``meta.rank_launches``); (b) the same through the library API in one
+    spawn, FP256's curve beside them, each rank's plane digests, the
+    replays of ``FP_REPLAY`` against the plain lane-major round, the PRNG
+    invariant holding and failing on a rank keyed by another seed; (c)
+    K = 1 under NCCL (8 planes on one rank), counts set to 0 just before
+    and read just after, whose digests every K = 2 rank's must equal and
+    whose coverage the final planes' least count gives in float32;
+    (d) FP256's and FPD's planes against the single-device loop on each
+    plane (FP256's rounds the planes' largest rounds to the target); (e)
+    what the planes refuse.  Each run's ms a round, collectives by name,
+    launches and peaks, beside the single-device loop's ms a round."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.backend import run_simulation
+    from gossip_tpu_torch.config import MeshConfig
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+
+    t_phase, wall_s = time.perf_counter(), {}
+    torch.cuda.empty_cache()
+    w = SF.plane_count(FP_RUMORS, 1)
+    share = ["--devices", "2", "--share-card"]
+
+    def rank_ok(what, rank_launches, rounds_run, w_local):
+        check(rank_launches is not None and all(
+            r == {**{k: 0 for k in r}, "fused_mr_round": w_local * rounds_run}
+            for r in rank_launches),
+            f"{what}: the ranks launched {rank_launches}, want "
+            f"{w_local} x {rounds_run} fused_mr_round")
+
+    # (c) K = 1 under NCCL: the oracle of every K = 2 rank's planes
+    k1 = {}
+    with GR.local(dev) as g:
+        for name in FP_CASES:
+            proto, tc, run, fault = _planes_configs(name)
+            for k in _kernels.KERNELS:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            g.collective_ms(reset=True)
+            timing = {}
+            t0 = time.perf_counter()
+            rounds_run, cov, msgs, final = SF.simulate_until_sharded_fused(
+                tc.n, proto.rumors, run, g, 1, fault, timing)
+            wall_s[f"k1_{name}"] = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in _kernels.KERNELS}
+            rank_ok(f"{name} at K = 1", [launches], rounds_run, w)
+            # which rumors hold the minimum (over the coverage's nodes),
+            # and the coverage from it in plain float32
+            metric = SF._Operands(tc.n, fault, run.origin, dev).metric
+            counts = torch.stack([MR.rumor_counts(
+                p if metric is None else p & metric, 32)
+                for p in final]).reshape(-1)
+            least = torch.nonzero(counts == counts.min()).reshape(-1)
+            c = np.float32(int(counts.min()))
+            want = (c * (np.float32(1) / np.float32(tc.n)) if metric is None
+                    else c / np.float32(int((metric.reshape(-1) != 0).sum())))
+            check(cov == float(want),
+                  f"{name} at K = 1: coverage {cov}, the final planes' "
+                  f"least count {int(c)} gives {float(want)}")
+            del metric
+            k1[name] = {
+                "result": [rounds_run, cov, msgs],
+                "digests": _plane_digests(final),
+                "ms_per_round": timing["steady_s"] * 1e3 / rounds_run,
+                "init_build_s": timing["init_build_s"],
+                "collective_ms_per_round": {
+                    k: c["ms"] / rounds_run
+                    for k, c in g.collective_ms().items()},
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "launches": launches,
+                "least_count": int(counts.min()),
+                "least_rumors": least[:16].tolist(),
+                "least_rumors_n": int(least.numel())}
+            del final, counts
+    fp256_launches = k1["FP256"]["launches"]["fused_mr_round"]
+
+    # (d) the single-device loop on each plane, on the card
+    t0 = time.perf_counter()
+    single = {}
+    for name in ("FP256", "FPD"):
+        rounds_run = k1[name]["result"][0]
+        digests, hits = _single_plane_digests(dev, name, rounds_run, w)
+        check(digests == k1[name]["digests"],
+              f"{name} at K = 1: the planes differ from the single-device "
+              "loop on each plane")
+        single[name] = {"digests_equal": True, "rounds_to_target": hits}
+    check(k1["FP256"]["result"][0] == max(single["FP256"]["rounds_to_target"]),
+          f"FP256 ran {k1['FP256']['result'][0]} rounds; the planes' "
+          f"rounds to the target are {single['FP256']['rounds_to_target']}")
+    # plane 0's loop alone: configuration 5's one-device run
+    single_ms = _loop_ms(dev, MR.until_fused_multirumor, N, 32, SEED,
+                         device=dev) / single["FP256"]["rounds_to_target"][0]
+    wall_s["single_device"] = time.perf_counter() - t0
+
+    # (a) the command lines at K = 2
+    cli_runs = {}
+    for name, args in FP_CASES.items():
+        t0 = time.perf_counter()
+        out = _port_run([*args, *share])
+        meta = out["meta"]
+        got = (out["rounds"], out["coverage"], out["msgs"])
+        want = tuple(k1[name]["result"])
+        hit = want[1] >= np.float32(0.99)
+        check(got == ((want[0] if hit else -1), want[1], want[2])
+              and meta["devices"] == 2 and meta["process_group"] == "gloo"
+              and meta["engine"] == "fused-cuda-planes"
+              and meta["ici_bytes_per_round"] == 0.0
+              and meta["layout"] == f"{w} rumor planes x one 32-rumor word "
+              "per node",
+              f"{name} at K = 2: {got}, K = 1 gave {want}; {meta}")
+        rank_ok(f"{name} at K = 2", meta["rank_launches"], want[0], w // 2)
+        cli_runs[name] = {"command": [*args, *share], "result": list(got),
+                          **_mesh_run_numbers(meta, want[0])}
+        wall_s[f"cli_{name}"] = time.perf_counter() - t0
+
+    # (b) the library API at K = 2, one spawn
+    t0 = time.perf_counter()
+    ranks = GR.launch(_planes_rank, 2, k1["FP256"]["result"][0], device=dev,
+                      shared_card=True)
+    wall_s["library_spawn"] = time.perf_counter() - t0
+    library = {}
+    for name in FP_CASES:
+        got = tuple(ranks[0][name][0])
+        rounds_run = k1[name]["result"][0]
+        digests = [d for rk in ranks for d in rk[name][1]]
+        check(got == tuple(k1[name]["result"])
+              and digests == k1[name]["digests"],
+              f"{name} library K = 2: {got} and its plane digests against "
+              f"K = 1's {k1[name]['result']}")
+        rank_launches = [rk[name][2]["launches"] for rk in ranks]
+        rank_ok(f"{name} library K = 2", rank_launches, rounds_run, w // 2)
+        nums = ranks[0][name][2]
+        library[name] = {
+            "result": list(got), "digests_equal_k1": True,
+            "ms_per_round": nums["loop_s"] * 1e3 / rounds_run,
+            "init_build_s": nums["init_build_s"],
+            "collective_ms_per_round": {
+                k: c["ms"] / rounds_run
+                for k, c in nums["collective_ms"].items()},
+            "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+            "rank_launches": rank_launches}
+    covs, _, nums = ranks[0]["FP256_curve"]
+    curve_rounds = k1["FP256"]["result"][0]
+    check(covs[-1] == k1["FP256"]["result"][1]
+          and [d for rk in ranks for d in rk["FP256_curve"][1]]
+          == k1["FP256"]["digests"],
+          f"FP256 curve at K = 2: last {covs[-1]}, digests differ from K = 1")
+    rank_ok("FP256 curve K = 2",
+            [rk["FP256_curve"][2]["launches"] for rk in ranks],
+            curve_rounds, w // 2)
+    library["FP256_curve"] = {
+        "rounds": curve_rounds, "last": covs[-1],
+        "ms_per_round": nums["loop_s"] * 1e3 / curve_rounds,
+        "collective_ms_per_round": {
+            k: c["ms"] / curve_rounds
+            for k, c in nums["collective_ms"].items()}}
+    for name, rounds in FP_REPLAY.items():
+        check(all(rk[f"{name}_replay_equal"] for rk in ranks),
+              f"{name}'s first {rounds} rounds differ from the plain "
+              "round's replay")
+    inv = ranks[0]["invariant"]
+    check(len(inv) == 2 and inv[0] == inv[1] and inv[0][0] > 0
+          and all(rk["diverged"] is not None
+                  and "VIOLATED" in rk["diverged"] for rk in ranks),
+          f"the PRNG invariant: {inv}; diverged ranks: "
+          f"{[rk['diverged'] for rk in ranks]}")
+
+    # (e) refusals, before any rank starts
+    refused = {}
+    for what, (extra, phrase) in FP_REFUSED.items():
+        a = cli.build_parser().parse_args(["run", *_FP, *extra])
+        mesh = MeshConfig(n_devices=2, exchange=a.exchange, shared_card=True)
+        try:
+            run_simulation(*cli.run_configs(a), device=dev, mesh_cfg=mesh)
+            refused[what] = None
+        except ValueError as e:
+            refused[what] = str(e)
+        check(refused[what] is not None and phrase in refused[what],
+              f"the planes ran {what}: {refused[what]}")
+    emit("mesh_fused_planes", k1_nccl=k1, cli_k2=cli_runs,
+         library_k2=library, single_device=single,
+         single_device_ms_per_round=single_ms,
+         invariant=inv, diverged=ranks[1]["diverged"], refused=refused,
+         launches=fp256_launches, phase_wall_s=wall_s,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    return fp256_launches
+
+
 def _words(rng, shape, sparsity: int):
     """uint32 words, each bit set at rate 2^-sparsity (the AND of that
     many random words; 0: all bits random), as int32 bits."""
@@ -2860,6 +3234,10 @@ def main() -> int:
     cfg5_ms = phase_mesh_path(dev, smi)
     phase_mesh_models(dev, smi, single_runs)
     phase_mesh_exchanges(dev, smi, cfg5_ms)
+    planes_launches = phase_mesh_fused_planes(dev, smi)
+    mr_kernels[0]["launches_by_path"] = {
+        "mr_main_path": mr_kernels[0]["launches"],
+        "mesh_fused_planes": planes_launches}
     cal_kernels, floors = phase_roofline(dev, smi)
 
     kernels = [{

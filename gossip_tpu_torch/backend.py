@@ -17,8 +17,8 @@ The port of the JAX package's ``backend.run_simulation`` (``run_jax`` and
   (:mod:`gossip_tpu_torch.models.rumor`) on their own rounds;
 * ``engine='auto'``: fused where :func:`fused_ineligible_reason` is None,
   else xla.  A fault program (``fault.churn``) runs on the xla engine;
-  ``fused`` refuses it, as the reference's single-device fused routing
-  does.
+  ``fused`` refuses it on one device, as the reference's single-device
+  fused routing does.
 
 With ``mesh_cfg.n_devices = K > 1`` the SI modes, SWIM and rumor
 mongering run on the node-sharded drivers over ``torch.distributed``
@@ -34,8 +34,14 @@ exchange (:mod:`gossip_tpu_torch.parallel.halo`); what either cannot
 run is refused in the reference's words, never run on another exchange.
 The process group is NCCL with a card a rank, gloo on the CPU or on one
 card shared by the ranks (``mesh_cfg.shared_card``); more ranks than
-cards are refused.  The fused engine's rumor-plane sharding (ROADMAP
-queue 1 item 5d) is refused, naming its item.
+cards are refused.  ``engine='fused'`` with K > 1 shards rumor planes
+instead (:mod:`gossip_tpu_torch.parallel.sharded_fused`, the reference's
+``_run_fused`` with ``n_dev > 1``): W planes of 32 rumors, W/K a rank,
+every rank launching the fused multi-rumor kernel on its planes with the
+same partner stream, one scalar reduction a round; it runs more than 32
+rumors, static deaths and drops, and the whole fault program
+(:func:`planes_report`).  ``auto`` with K > 1 keeps the node-sharded
+drivers, as the reference's does.
 
 A ``log_cfg`` runs the replicated-log workload
 (:func:`run_log_workload`, the reference's ``run_log_workload``) and a
@@ -108,27 +114,36 @@ def _curve_summary(covs, msgs, target):
 
 
 def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
-                            run: RunConfig,
-                            fault: Optional[FaultConfig]) -> Optional[str]:
+                            run: RunConfig, fault: Optional[FaultConfig],
+                            n_dev: int = 1) -> Optional[str]:
     """Why the fused route cannot run the configuration, or None if it
-    can.  Configuration reasons only; the device is resolved afterwards."""
+    can: the reference's list, in its order and words.  More than 32
+    rumors and a fault program are allowed exactly where the run shards
+    rumor planes (``n_dev > 1``).  Configuration reasons only; the
+    device is resolved afterwards."""
     if proto.mode != C.PULL:
         return (f"engine='fused' implements pull rounds only "
                 f"(got mode {proto.mode!r})")
     if topo.family != C.COMPLETE:
         return ("engine='fused' runs on the implicit complete "
                 f"topology only (got family {topo.family!r})")
-    if proto.rumors > FR.BITS:
-        return (f"engine='fused' packs <= {FR.BITS} rumors per word on "
-                f"one device (got rumors={proto.rumors}); rumor planes "
-                "across devices wait for the port's multi-GPU fused planes "
-                "(ROADMAP queue 1, item 5d)")
-    if fault is not None and fault.churn is not None:
-        # the reference's words; its plane-sharded fused surfaces wait
-        # for ROADMAP queue 1, item 5d
+    if fault is not None and fault.dead_nodes:
+        return ("engine='fused' does not implement scripted dead_nodes/"
+                "fail_round; use engine='auto' (or node_death_rate for "
+                "random static deaths)")
+    if fault is not None and fault.churn is not None and n_dev == 1:
+        # the reference's words; the port's plane surfaces are --devices
+        # (its --checkpoint and churn-sweep wait for ROADMAP item 6)
         return ("engine='fused' routing does not run churn "
                 "schedules single-device; use engine='auto' (XLA "
-                "kernels run the full nemesis scenario catalog)")
+                "kernels run the full nemesis scenario catalog — "
+                "docs/ROBUSTNESS.md), or the plane-sharded fused "
+                "surfaces (--devices > 1), which run events + "
+                "partitions + ramps as runtime operands")
+    if n_dev == 1 and proto.rumors > FR.BITS:
+        return (f"engine='fused' packs <= {FR.BITS} rumors per word "
+                f"on one device (got rumors={proto.rumors}); "
+                "shard rumor planes with --devices")
     if topo.n >= 1 << 31:
         return (f"n={topo.n}: node ids and the round's popcount counter "
                 "are 32-bit; n must stay below 2^31")
@@ -171,11 +186,6 @@ def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
                     "pattern; engine='fused' shards rumor planes with zero "
                     "per-round ICI and implements no exchange — use "
                     "engine='auto' for sparse/halo runs")
-    if n_dev > 1 and run.engine == "fused":
-        return ("engine='fused' with more than one device is the "
-                "reference's rumor-plane sharded route, which waits for the "
-                "port's multi-GPU fused planes (ROADMAP queue 1, item 5d); "
-                "use engine='xla' or 'auto' for the node-sharded drivers")
     return None
 
 
@@ -610,28 +620,94 @@ def _rank_launches(group, launches0: Dict[str, int]) -> List[Dict[str, int]]:
     return [dict(zip(now, row)) for row in group.all_gather(mine).tolist()]
 
 
+def planes_report(proto: ProtocolConfig, tc: TopologyConfig,
+                  run: RunConfig, fault: Optional[FaultConfig],
+                  want_curve: bool, group) -> RunReport:
+    """One rank's run of the fused rumor planes
+    (:mod:`gossip_tpu_torch.parallel.sharded_fused`): to the target, or
+    exactly ``max_rounds`` rounds with the curve.  Every rank returns the
+    same report, with the reference's meta keys (``engine``, ``layout``,
+    the table bytes a plane, ``ici_bytes_per_round`` 0.0: no digest
+    crosses ranks) and the port's: the process group, each collective's
+    time, every rank's peak allocated memory on a card and every rank's
+    kernel launches, and the wall's parts (``init_build_s``, the state's
+    and operands' build)."""
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    dev = group.device
+    n = tc.n
+    table_bytes = MR.check_fused_fits(n, FR.BITS, dev)
+    t0 = time.perf_counter()
+    build_s = 0.0
+    if dev.type == "cuda":
+        _kernels.build_all()
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+    group.collective_ms(reset=True)
+    launches0 = _launch_counts()
+    timing: Dict[str, float] = {}
+    args = (n, proto.rumors, run, group, proto.fanout, fault, timing)
+    if want_curve:
+        covs, _ = SF.simulate_curve_sharded_fused(*args)
+        # the closed form 2 * fanout * n a round over the whole curve
+        rounds, cov, msgs, curve = _curve_summary(
+            covs, [2.0 * proto.fanout * n * run.max_rounds],
+            run.target_coverage)
+        rounds_run = run.max_rounds
+    else:
+        rounds_run, cov, msgs, _ = SF.simulate_until_sharded_fused(*args)
+        hit = cov >= float(np.float32(run.target_coverage))
+        rounds, curve = (rounds_run if hit else -1), None
+    wall = time.perf_counter() - t0
+    collectives = {name: {**c, "ms_per_round": c["ms"] / max(rounds_run, 1)}
+                   for name, c in group.collective_ms().items()}
+    w = SF.plane_count(proto.rumors, group.size)
+    return RunReport(
+        backend=f"torch-{dev.type}", mode=proto.mode, n=n, rounds=rounds,
+        coverage=cov, msgs=msgs, wall_s=round(wall, 4), curve=curve,
+        meta={"clock": "rounds", "devices": group.size,
+              "msgs_counts": "transmissions",
+              "engine": ("fused-cuda-planes" if dev.type == "cuda"
+                         else "fused-plain-planes"),
+              "layout": f"{w} rumor planes x one 32-rumor word per node",
+              "table_bytes_per_plane": table_bytes,
+              "ici_bytes_per_round": 0.0,
+              "process_group": group.backend,
+              "device": _device_name(dev),
+              "collective_ms": collectives,
+              "rank_peak_mem_bytes": GR.peak_memory(group),
+              "rank_launches": _rank_launches(group, launches0),
+              **timing_meta(build_s, timing["steady_s"], wall),
+              "init_build_s": round(timing["init_build_s"], 4)})
+
+
 def run_sharded(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
                 fault: Optional[FaultConfig], mesh_cfg: MeshConfig,
                 want_curve: bool = False, device=None) -> RunReport:
-    """The node-sharded run on ``mesh_cfg.n_devices`` ranks: inside a
-    process group that is up (``torchrun``) as this rank; otherwise it
-    spawns the ranks (:func:`~gossip_tpu_torch.parallel.group.launch`) and
-    returns rank 0's report."""
+    """The run on ``mesh_cfg.n_devices`` ranks, the fused rumor planes
+    (:func:`planes_report`) for ``engine='fused'`` and the node-sharded
+    drivers (:func:`sharded_report`) otherwise: inside a process group
+    that is up (``torchrun``) as this rank; otherwise it spawns the ranks
+    (:func:`~gossip_tpu_torch.parallel.group.launch`) and returns rank
+    0's report."""
     import torch.distributed as dist
 
     from gossip_tpu_torch.parallel import group as GR
     k = mesh_cfg.n_devices
-    check_exchange(proto, tc, fault, k, mesh_cfg.exchange)
+    if run.engine == "fused":
+        fn, kw = planes_report, {}
+    else:
+        check_exchange(proto, tc, fault, k, mesh_cfg.exchange)
+        fn, kw = sharded_report, {"exchange": mesh_cfg.exchange}
     if dist.is_available() and dist.is_initialized():
         group = GR.current(device)
         if group.size != k:
             raise ValueError(f"the process group has {group.size} ranks; "
                              f"the mesh asks for {k}")
-        return sharded_report(proto, tc, run, fault, want_curve,
-                              group=group, exchange=mesh_cfg.exchange)
-    return GR.launch(sharded_report, k, proto, tc, run, fault, want_curve,
+        return fn(proto, tc, run, fault, want_curve, group=group, **kw)
+    return GR.launch(fn, k, proto, tc, run, fault, want_curve,
                      device=device, shared_card=mesh_cfg.shared_card,
-                     exchange=mesh_cfg.exchange)[0]
+                     **kw)[0]
 
 
 def _run_payload_workload(mode: str, model, proto: ProtocolConfig,
@@ -700,8 +776,8 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
                    mesh_cfg: Optional[MeshConfig] = None,
                    log_cfg=None, txn_cfg=None) -> RunReport:
     """Run one simulation with ``run.engine`` (module doc): on one
-    device, or with ``mesh_cfg.n_devices > 1`` on the node-sharded
-    drivers (:func:`run_sharded`).  ``meta`` names what ran: ``engine``
+    device, or with ``mesh_cfg.n_devices > 1`` on the fused rumor planes
+    or the node-sharded drivers (:func:`run_sharded`).  ``meta`` names what ran: ``engine``
     (``fused-cuda`` / ``fused-plain`` for the fused route, ``bit-packed``
     for the packed XLA rounds, absent for the bool rounds, as in the
     reference), ``engine_auto`` when ``auto`` picked the fused route,
@@ -717,6 +793,11 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
         return run_log_workload(proto, topo, run, log_cfg, fault,
                                 want_curve, resolve_device(device))
     if mesh_cfg is not None and mesh_cfg.n_devices > 1:
+        if run.engine == "fused":
+            reason = fused_ineligible_reason(proto, topo, run, fault,
+                                             mesh_cfg.n_devices)
+            if reason is not None:
+                raise ValueError(reason)
         return run_sharded(proto, topo, run, fault, mesh_cfg, want_curve,
                            device)
     fused_reason = fused_ineligible_reason(proto, topo, run, fault)

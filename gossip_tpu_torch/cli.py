@@ -44,13 +44,22 @@ are the JAX command's (``--drop-prob`` is another name for ``--drop``;
 for SWIM and 4 otherwise).  The topology and the fault take ``--seed``
 as their seeds too, as the JAX command sets them.  The three churn flags
 build a fault program (``ChurnConfig``), which runs on the xla engine
-(``auto`` takes it; ``fused`` refuses it).  ``--devices K`` above 1 runs
-the SI modes on K ranks of the node-sharded drivers
-(``backend.run_sharded``): NCCL with a card a rank, gloo with ``--device
-cpu`` or ``--share-card`` (K ranks on one card); SWIM and rumor
-mongering on their own sharded rounds; ``--exchange sparse`` (pull and
-anti-entropy, all_to_all) or ``halo`` (banded tables, ppermute) in
-place of the dense all_gather.  ``--save-curve PATH``
+(``auto`` takes it; ``fused`` refuses it on one device).  ``--devices K``
+above 1 runs K ranks (``backend.run_sharded``): NCCL with a card a rank,
+gloo with ``--device cpu`` or ``--share-card`` (K ranks on one card).
+With ``--engine fused`` they shard rumor planes (pull on the complete
+graph, any number of rumors, static deaths and drops and the whole fault
+program; ``parallel/sharded_fused.py``); otherwise the SI modes run on
+the node-sharded drivers, SWIM and rumor mongering on their own sharded
+rounds, with ``--exchange sparse`` (pull and anti-entropy, all_to_all)
+or ``halo`` (banded tables, ppermute) in place of the dense all_gather.
+``run``, ``crdt``, ``log`` and ``txn`` first call
+``parallel.multislice.maybe_init_distributed``: started by ``torchrun``
+(``MASTER_ADDR``, ``RANK`` and ``WORLD_SIZE`` set) or with
+``GOSSIP_TPU_MULTIHOST=1``, the process joins the launcher's group
+(gloo with ``--device cpu`` or ``--share-card``, else NCCL on
+``cuda:LOCAL_RANK``) and ``--devices K`` runs as its rank, on one host
+or several; otherwise nothing happens.  ``--save-curve PATH``
 writes the curve as the reference's JSONL, the report as its meta line.
 It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
@@ -183,13 +192,16 @@ def _loop(mode: str, sharded: bool, want_curve: bool):
 def _payload_rank(mode, cfg, proto, tc, run, fault, want_curve, kw,
                   keep_state, group):
     """One rank of a sharded payload command: ``(loop result, wall,
-    the port's report keys)``, the final state dropped unless
-    ``keep_state`` (it stays this rank's rows)."""
+    the port's report keys)``, every rank's kernel launches among them,
+    the final state dropped unless ``keep_state`` (it stays this rank's
+    rows)."""
+    from gossip_tpu_torch.backend import _launch_counts, _rank_launches
     from gossip_tpu_torch.parallel import group as GR
     from gossip_tpu_torch.topology import generators as G
     dev = group.device
     topo = G.build(tc, dev)
     group.collective_ms(reset=True)
+    launches0 = _launch_counts()
     result, wall, extra = _timed(dev, _loop(mode, True, want_curve), cfg,
                                  proto, topo, run, group, fault, **kw)
     rounds = run.max_rounds if want_curve else result[0]
@@ -197,7 +209,8 @@ def _payload_rank(mode, cfg, proto, tc, run, fault, want_curve, kw,
         "process_group": group.backend,
         "collective_ms": {k: {**c, "ms_per_round": c["ms"] / max(rounds, 1)}
                           for k, c in group.collective_ms().items()},
-        "rank_peak_mem_bytes": GR.peak_memory(group)})
+        "rank_peak_mem_bytes": GR.peak_memory(group),
+        "rank_launches": _rank_launches(group, launches0)})
     if not keep_state:
         result = tuple(None if hasattr(x, "val") else x for x in result)
     return result, wall, extra
@@ -511,8 +524,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--degree-cap", type=int, default=None)
     p.add_argument("--fanout", type=int, default=1)
     p.add_argument("--rumors", type=int, default=1,
-                   help="concurrent rumors (fused: up to 32, one word per "
-                        "node)")
+                   help="concurrent rumors (fused: up to 32 on one device, "
+                        "one word per node; any number over --devices)")
     p.add_argument("--period", type=int, default=1,
                    help="anti-entropy exchange period (rounds)")
     p.add_argument("--seed", type=int, default=0)
@@ -564,9 +577,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-curve", default=None, metavar="PATH",
                    help="write the coverage curve as JSONL (implies --curve)")
     p.add_argument("--devices", type=int, default=1,
-                   help="mesh size for node-dim sharding (one rank a "
-                        "device: NCCL with a card a rank, gloo with "
-                        "--device cpu)")
+                   help="mesh size (one rank a device: NCCL with a card a "
+                        "rank, gloo with --device cpu): node-dim sharding, "
+                        "or rumor planes with --engine fused")
     p.add_argument("--exchange", default="dense",
                    choices=("dense", "sparse", "halo"),
                    help="cross-shard pattern: dense all_gather (any), "
@@ -653,7 +666,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
+    joined = False
     try:
+        # multi-host runs: join the launcher's process group first (a
+        # no-op without its variables)
+        from gossip_tpu_torch.parallel.multislice import \
+            maybe_init_distributed
+        joined = maybe_init_distributed(
+            "gloo" if a.device == "cpu" or a.share_card else None)
         if a.cmd in PAYLOAD_COMMANDS:
             print(json.dumps(a.fn(a, keep_state=False)[0]))
             return 0
@@ -661,6 +681,10 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

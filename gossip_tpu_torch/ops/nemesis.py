@@ -28,6 +28,13 @@ static path's coin (same tags, same per-node keys) at probability
 The coverage denominator is the eventual alive set (:func:`eventual_alive`):
 a node that recovers stays in it.
 
+The fused rumor planes (:mod:`gossip_tpu_torch.parallel.sharded_fused`)
+take the same program in the fused one-word-per-node layout:
+:func:`fused_sched_tables` (each round's cut and 20-bit drop threshold),
+:func:`fused_base_words`, :func:`fused_word_tables` (die and recover
+rounds a word), :func:`fused_alive_words_at` and
+:func:`fused_eventual_words`.
+
 The byzantine half: a :class:`~gossip_tpu_torch.config.ByzConfig` (liars
 that serve forged state) is lowered by :func:`build_byz` into a
 :class:`ByzSchedule` of per-node tables, which only the CRDT and the
@@ -285,6 +292,63 @@ def folded_denominator(fault: Optional[FaultConfig]) -> bool:
     With random deaths the mask comes from a threefry draw, which XLA
     does not fold, and the loops divide."""
     return get(fault) is not None and fault.node_death_rate <= 0.0
+
+
+def fused_sched_tables(fault: FaultConfig, n: int,
+                       t_pad: Optional[int] = None):
+    """``(cut int32[T], thr int32[T])``, numpy: the fused planes'
+    schedule operands, the partition cut of each round (-1 closed) and
+    the 20-bit drop threshold ``round(p * 2^20)`` of each round's drop
+    probability, computed on the host in float64 as the static
+    threshold is (a flat schedule's thresholds equal the static value).
+    The loops read them by the clamped lookup (:func:`_idx`)."""
+    if get(fault) is None:
+        raise ValueError("fused_sched_tables needs a churn schedule")
+    validate_events(fault, n)
+    cut, drop = _cut_drop_rows(fault, t_pad)
+    thr = [int(round(p * (1 << 20))) if p else 0 for p in drop]
+    return np.asarray(cut, np.int32), np.asarray(thr, np.int32)
+
+
+def fused_base_words(fault: Optional[FaultConfig], n: int, origin: int,
+                     device=None) -> torch.Tensor:
+    """The static alive mask in the fused one-word-per-node layout
+    ``int32[mr_rows(n), 128]`` (-1, i.e. 0xFFFFFFFF, alive; 0 dead or
+    phantom), always a tensor: the churn rounds always mask."""
+    from gossip_tpu_torch.ops.fused_mr_round import render_alive_words
+    return render_alive_words(
+        base_alive_or_ones(fault, n, origin, device), n)
+
+
+def fused_word_tables(fault: FaultConfig, n: int, device=None):
+    """``(die, rec)``: the program's down and recover rounds in the fused
+    one-word-per-node layout, ``int32[mr_rows(n), 128]`` (:data:`NEVER`
+    on unscripted and phantom words)."""
+    from gossip_tpu_torch.ops.fused_mr_round import mr_rows
+    ch = get(fault)
+    if ch is None:
+        raise ValueError("fused_word_tables needs a churn schedule")
+    validate_events(fault, n)
+    rows = mr_rows(n)
+    die, rec = _event_tables(ch, rows * 128, resolve_device(device))
+    return die.reshape(rows, 128), rec.reshape(rows, 128)
+
+
+def fused_alive_words_at(base: torch.Tensor, die: torch.Tensor,
+                         rec: torch.Tensor, round_: int) -> torch.Tensor:
+    """The alive words of ``round_``: the base words less the nodes that
+    are down (``die <= r < rec``).  Elementwise, so any layout of the
+    three tables (the loops keep them lane-major)."""
+    r = int(round_)
+    return torch.where((die <= r) & (r < rec), 0, base)
+
+
+def fused_eventual_words(base: torch.Tensor, die: torch.Tensor,
+                         rec: torch.Tensor) -> torch.Tensor:
+    """The steady-state alive words, the fused planes' coverage
+    denominator under a program: the base words less the permanent
+    deaths (:func:`eventual_alive`, word-rendered)."""
+    return torch.where((die < NEVER) & (rec >= NEVER), 0, base)
 
 
 def drop_lost(step, ch: Optional[ChurnConfig]):

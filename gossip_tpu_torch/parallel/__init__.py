@@ -4,5 +4,7 @@
 anti-entropy drivers (:mod:`~gossip_tpu_torch.parallel.sharded_packed`),
 the sparse all_to_all and halo ppermute exchanges
 (:mod:`~gossip_tpu_torch.parallel.sharded_sparse`,
-:mod:`~gossip_tpu_torch.parallel.halo`) and the sharded SWIM, rumor and
-payload drivers."""
+:mod:`~gossip_tpu_torch.parallel.halo`), the sharded SWIM, rumor and
+payload drivers; rumor-plane sharding of the fused round
+(:mod:`~gossip_tpu_torch.parallel.sharded_fused`); and the hybrid meshes
+and multi-host bootstrap (:mod:`~gossip_tpu_torch.parallel.multislice`)."""

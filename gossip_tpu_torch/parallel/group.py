@@ -27,6 +27,8 @@ the drivers use.
   reference's ``all_gather(tiled=True)``, :meth:`Group.reduce_scatter_sum`
   its ``psum_scatter``, :meth:`Group.all_reduce_sum` an integer ``psum``,
   :meth:`Group.all_reduce_max` its ``pmax`` (SWIM's wire merge),
+  :meth:`Group.all_reduce_min` its ``pmin`` (the fused planes' stop
+  test),
   :meth:`Group.combine_f32` its float32 ``psum`` of ``msgs`` and
   ``lost``: the K partials gathered and added in rank order
   (:func:`~gossip_tpu_torch.ops.common.rank_order_sum`, the float32 rule
@@ -37,7 +39,11 @@ the drivers use.
   ``all_to_all_single``, which NCCL and gloo carry alike; ``ppermute``
   gives it uneven splits (the rows to one rank, nothing to the others).
   Each collective's device time is kept per name
-  (:meth:`Group.collective_ms`).
+  (:meth:`Group.collective_ms`).  A group is the world's ranks unless
+  it holds a sub-group's handle (``pg``, from ``dist.new_group``:
+  :func:`gossip_tpu_torch.parallel.multislice.make_hybrid_mesh`), which
+  every collective passes on; ``rank`` and ``size`` are then the
+  sub-group's.
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ class Group:
     size: int
     device: torch.device
     backend: str
+    pg: Optional[object] = None     # the process group; None: the world
     _spans: Dict[str, list] = dataclasses.field(default_factory=dict,
                                                 repr=False)
 
@@ -142,7 +149,7 @@ class Group:
         out = torch.empty((self.size * wire.shape[0],) + tuple(
             wire.shape[1:]), dtype=wire.dtype, device=wire.device)
         self._run("all_gather",
-                  lambda: _ALL_GATHER(out, wire))
+                  lambda: _ALL_GATHER(out, wire, group=self.pg))
         return out.view(torch.bool) if src.dtype == torch.bool else out
 
     def reduce_scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -152,13 +159,14 @@ class Group:
         out = torch.empty((src.shape[0] // self.size,) + tuple(
             src.shape[1:]), dtype=src.dtype, device=src.device)
         self._run("reduce_scatter",
-                  lambda: _REDUCE_SCATTER(out, src, op=dist.ReduceOp.SUM))
+                  lambda: _REDUCE_SCATTER(out, src, op=dist.ReduceOp.SUM,
+                                          group=self.pg))
         return out
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The integer sum over ranks of ``x``, on every rank."""
         out = x.clone()
-        self._run("all_reduce", lambda: dist.all_reduce(out))
+        self._run("all_reduce", lambda: dist.all_reduce(out, group=self.pg))
         return out
 
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +174,18 @@ class Group:
         reference's ``pmax``)."""
         out = x.contiguous().clone()
         self._run("all_reduce_max",
-                  lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX))
+                  lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                                          group=self.pg))
+        return out
+
+    def all_reduce_min(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise min over ranks of ``x``, on every rank (the
+        fused planes' stop test: the least count of any rank's
+        planes)."""
+        out = x.contiguous().clone()
+        self._run("all_reduce_min",
+                  lambda: dist.all_reduce(out, op=dist.ReduceOp.MIN,
+                                          group=self.pg))
         return out
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -180,7 +199,7 @@ class Group:
         wire = src.view(torch.uint8) if src.dtype == torch.bool else src
         out = torch.empty_like(wire)
         self._run("all_to_all",
-                  lambda: dist.all_to_all_single(out, wire))
+                  lambda: dist.all_to_all_single(out, wire, group=self.pg))
         return out.view(torch.bool) if src.dtype == torch.bool else out
 
     def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -196,7 +215,8 @@ class Group:
         send[(self.rank + shift) % self.size] = rows
         recv[(self.rank - shift) % self.size] = rows
         self._run("ppermute",
-                  lambda: dist.all_to_all_single(out, wire, recv, send))
+                  lambda: dist.all_to_all_single(out, wire, recv, send,
+                                                 group=self.pg))
         return out.view(torch.bool) if src.dtype == torch.bool else out
 
     def combine_f32(self, x: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,11 @@ sharded drivers use, on CUDA tensors of the dtypes they send (int32
 words, bool bytes, int64 counts, float32 partials, SWIM's int32 wires
 through the ``max`` all-reduce, the sparse exchange's ``all_to_all`` of
 int32 words and bool bytes, an ``all_to_all_single`` with uneven splits,
-and the halo exchange's ``ppermute`` by +1 and -1), and records each
-result or the error it raised; then it times ``all_gather`` of 10M
+the halo exchange's ``ppermute`` by +1 and -1, and the fused planes'
+``min`` all-reduce of int64 counts), then the sub-group collectives of a
+hybrid mesh (``parallel/multislice.make_hybrid_mesh``: 2 x K/2 where K is
+even, else 1 x K; a sum, a min and an all_gather along each axis), and
+records each result or the error it raised; then it times ``all_gather`` of 10M
 int32 words (40 MB, the packed table of ``BASELINE.json`` configuration
 5) split over the ranks, and ``all_to_all`` of the same words: a
 warm-up, then five calls on the host clock between synchronisations.
@@ -74,6 +77,9 @@ def probe_rank(group) -> dict:
         "ppermute_plus1": _try(lambda: group.ppermute(x[:4], 1)),
         "ppermute_minus1": _try(lambda: group.ppermute(x[4:] % 2 == 0,
                                                        -1)),
+        "all_reduce_min_int64": _try(lambda: group.all_reduce_min(
+            torch.tensor([10 - r, r], dtype=torch.int64, device=dev))),
+        "hybrid_mesh": _try(lambda: _hybrid(group)),
     }
     src = torch.ones(WORDS // size, dtype=torch.int32, device=dev)
 
@@ -91,6 +97,24 @@ def probe_rank(group) -> dict:
             fn()
         sync()
         out[f"{name}_40MB_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
+    return out
+
+
+def _hybrid(group) -> dict:
+    """This rank's coordinates in a hybrid mesh over the group's ranks and,
+    along each axis, the sum and min of the ranks and the gathered
+    ranks."""
+    from gossip_tpu_torch.parallel.multislice import make_hybrid_mesh
+    size = group.size
+    shape = (2, size // 2) if size % 2 == 0 else (1, size)
+    mesh = make_hybrid_mesh(*shape, device=group.device)
+    mine = torch.tensor([group.rank], dtype=torch.int64, device=group.device)
+    out = {"shape": list(shape), "coords": list(mesh.coords)}
+    for axis in ("inner", "outer"):
+        sub = getattr(mesh, axis)
+        out[axis] = {"sum": sub.all_reduce_sum(mine).tolist(),
+                     "min": sub.all_reduce_min(mine).tolist(),
+                     "gather": sub.all_gather(mine).tolist()}
     return out
 
 

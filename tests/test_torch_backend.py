@@ -466,17 +466,17 @@ def test_run_simulation_on_a_mesh(k):
     (ProtocolConfig(mode="swim"), {}, None),
     (ProtocolConfig(mode="rumor"), {}, None),
     (PULL, dict(log_cfg=LogConfig()), "single-process single-device"),
-    (PULL, dict(run=RunConfig(engine="fused")), "item 5d"),
+    (ProtocolConfig(mode="push"), dict(run=RunConfig(engine="fused")),
+     "implements pull rounds only"),
     (PULL, dict(exchange="halo"), "needs an explicit neighbor table"),
     (ProtocolConfig(mode="swim"), dict(exchange="sparse"),
      "not implemented for swim"),
 ])
 def test_mesh_refusals_name_their_item(proto, kw, match):
-    """What the mesh does not run yet is refused with the ROADMAP item
-    it waits for (the fused planes), and what the reference refuses in
-    its words (the log workload: it shards through the library API; the
-    halo exchange on the implicit complete graph; SWIM on the sparse
-    exchange), before any rank is spawned; SWIM and rumor mongering
+    """What the reference refuses on a mesh is refused in its words (the
+    log workload: it shards through the library API; the fused rumor
+    planes on push rounds; the halo exchange on the implicit complete
+    graph; SWIM on the sparse exchange), before any rank is spawned; SWIM and rumor mongering
     (``match`` None) run on two gloo ranks and answer as the reference's
     sharded drivers on its 2-device mesh."""
     mesh = MeshConfig(n_devices=2, exchange=kw.pop("exchange", "dense"))

@@ -68,6 +68,25 @@ def test_all_to_all_and_ppermute_on_gloo_groups(lines, size):
         assert out["all_to_all_40MB_ms"] > 0
 
 
+@pytest.mark.parametrize("size", SIZES)
+def test_min_and_hybrid_mesh_on_gloo_groups(lines, size):
+    """The fused planes' min all-reduce, and the hybrid mesh's sub-groups
+    (2 x K/2, or 1 x 1): a sum, a min and an all_gather along each axis
+    give the ranks of the rank's row and column."""
+    ranks = lines[SIZES.index(size)]["results"]
+    shape = (2, size // 2) if size % 2 == 0 else (1, size)
+    for r, out in enumerate(ranks):
+        assert out["all_reduce_min_int64"] == [10 - (size - 1), 0]
+        mesh = out["hybrid_mesh"]
+        row, col = divmod(r, shape[1])
+        assert mesh["shape"] == list(shape) and mesh["coords"] == [row, col]
+        inner = [row * shape[1] + j for j in range(shape[1])]
+        outer = [i * shape[1] + col for i in range(shape[0])]
+        for axis, members in (("inner", inner), ("outer", outer)):
+            assert mesh[axis] == {"sum": [sum(members)],
+                                  "min": [min(members)], "gather": members}
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="runs on the card")
 def test_refuses_without_a_card(capsys):
     assert CO.main([]) == 1

@@ -62,7 +62,8 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.sharded_packed", "parallel.sharded_swim",
                  "parallel.sharded_rumor", "parallel.sharded_crdt",
                  "parallel.sharded_log", "parallel.sharded_register",
-                 "parallel.sharded_sparse", "parallel.halo"):
+                 "parallel.sharded_sparse", "parallel.halo",
+                 "parallel.sharded_fused", "parallel.multislice"):
         assert f"gossip_tpu_torch.{name}" in out["imported"]
     assert out["forbidden"] == []
 

@@ -219,7 +219,9 @@ def test_refusals_match_reference():
     with pytest.raises(ValueError, match="mode='rumor'"):
         R.make_rumor_round(TC.ProtocolConfig(mode="push"), G.complete(64),
                            device=CPU)
-    with pytest.raises(ValueError, match="multi-GPU"):
+    # the fused rumor planes on two devices refuse rumor mongering in
+    # the reference's words, as the single-device fused route does
+    with pytest.raises(ValueError, match="pull rounds only"):
         run_simulation(tp, TC.TopologyConfig(n=1024), TC.RunConfig(),
                        mesh_cfg=TC.MeshConfig(n_devices=2), device="cpu")
     if not torch.cuda.is_available():

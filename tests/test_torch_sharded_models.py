@@ -600,3 +600,19 @@ def test_run_payload_gathers_the_ranks_rows():
         (rep1["rounds"], rep1["txn_conv"], rep1["msgs"])
     assert res[3].val.shape[0] == 64
     assert torch.equal(res[3].val[:63], res1[3].val)
+
+
+@pytest.mark.parametrize("cmd", sorted(_CLI))
+def test_payload_commands_count_every_ranks_launches(cmd):
+    """``crdt``, ``log`` and ``txn --devices 2`` reports carry every
+    rank's kernel launches (``rank_launches``, in rank order, one entry
+    a kernel), as ``run --devices K`` does; the payload rounds launch no
+    kernel of the port."""
+    from gossip_tpu_torch.ops import _kernels
+    rep, _ = cli.run_payload(_CLI[cmd] + ["--devices", "2", "--device",
+                                          "cpu"])
+    launches = rep["rank_launches"]
+    assert len(launches) == 2
+    for rank in launches:
+        assert set(rank) == {k.name for k in _kernels.ROUND_KERNELS}
+        assert sum(rank.values()) == 0
