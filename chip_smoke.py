@@ -12,7 +12,8 @@ detection and rumor mongering, the CRDT payloads (with the byzantine
 liar program), the replicated logs and the LWW registers' txn workload,
 the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
 card under gloo), SWIM, rumor and the payloads among them, the sparse
-all_to_all and halo ppermute exchanges, the fused rumor planes, and the
+all_to_all and halo ppermute exchanges, the fused rumor planes, the
+sweep axis (seed ensembles, config grids, churn sweeps), and the
 roofline tool through the port's own entry
 points, and measures them.  One JSON line per phase:
 
@@ -197,7 +198,25 @@ points, and measures them.  One JSON line per phase:
    raising when each rank takes its own seed; the planes' refusals (push
    rounds, a table, an exchange, scripted dead nodes); each run's ms a
    round, collectives by name, launches and peaks;
-20. ``roofline_checks`` and ``roofline``  the three calibration
+20. ``sweeps``  the sweep axis (``gossip_tpu_torch.parallel.sweep``) at
+   the README's commands: EN32 (``run --mode pushpull --n 10000
+   --ensemble 32``), EN10M (8 seeds of the 10M pull flagship, 32
+   rounds), ES32 and ER32 (SWIM and rumor ensembles of 32 at 100,000
+   nodes), GR12 (``grid --modes push pull pushpull --fanouts 1 2 --drops
+   0 0.1``) at n = 4096 and at 10M (40 rounds), GRF (the families grid
+   at 100,000 nodes), GRP (the pod sweep on the 2 x 1 and 1 x 2 hybrid
+   meshes), CS8 (the JAX bench's churn_sweep family) and CS10M (four
+   programs at 10M), CF256 (``churn-sweep --engine fused`` at 10M x 256
+   rumors, fanout 2, at K = 1 under NCCL and K = 2 sharing the card).
+   Every point of GR12 at 4096 and CS8 equals its solo run on the card,
+   bitwise; the first and last of the others; K = 2 equals K = 1;
+   CF256's scenarios equal the fused curve driver's, every rank
+   launching ``fused_mr_round`` W_local x its rounds and nothing else,
+   and kernel 2 at fanout 2 under ``churn_heal``'s alive, cut and
+   threshold operands equals its plain round for 8 rounds.  One line a
+   run: rounds to the target, the batch's ms a round beside S x the
+   solo run's, the threefry draw's share, peaks, collectives, launches;
+21. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
    i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
@@ -1462,18 +1481,36 @@ def _swim_fault(kind):
                                          ramp=(0, 4, 0.0, 0.05)))
 
 
-def _port_run(args, cmd: str = "run") -> dict:
-    """The report of ``python -m gossip_tpu_torch CMD ARGS`` (its last
-    line), run from this checkout."""
+def _port_lines(*commands) -> list:
+    """Every JSON line of each command line of ``python -m
+    gossip_tpu_torch`` in ``commands`` (argument lists), run one after
+    another in one process from this checkout (one start-up for all):
+    a list of line lists, in order."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p)}
-    proc = subprocess.run([sys.executable, "-m", "gossip_tpu_torch", cmd,
-                           *args], capture_output=True, text=True, cwd=root,
-                          env=env, timeout=600)
-    check(proc.returncode == 0, f"run {' '.join(args)}: {proc.stderr}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    driver = ("import json, sys\n"
+              "from gossip_tpu_torch import cli\n"
+              "for argv in json.loads(sys.argv[1]):\n"
+              "    rc = cli.main(argv)\n"
+              "    print(json.dumps({'_rc': rc}), flush=True)\n")
+    proc = subprocess.run([sys.executable, "-c", driver,
+                           json.dumps([list(c) for c in commands])],
+                          capture_output=True, text=True, cwd=root, env=env,
+                          timeout=900)
+    check(proc.returncode == 0, f"{commands}: {proc.stderr}")
+    out, cur = [], []
+    for ln in proc.stdout.strip().splitlines():
+        row = json.loads(ln)
+        if "_rc" in row:
+            check(row["_rc"] == 0, f"{commands[len(out)]}: exit "
+                  f"{row['_rc']}: {proc.stderr}")
+            out.append(cur)
+            cur = []
+        else:
+            cur.append(row)
+    return out
 
 
 def _same_fields(a, b, fields) -> bool:
@@ -1594,15 +1631,15 @@ def phase_swim_rumor_path(dev, smi: str, n_swim: int = N_SWIM, n: int = N,
     t0 = time.perf_counter()
 
     # the command line, the JAX package's spelling
-    cli = {
-        "SW1": _port_run(["--mode", "swim", "--n", str(n_swim), "--family",
-                          "power_law", "--k", "3", "--degree-cap", "256",
-                          "--fanout", "2", "--swim-subjects", "8",
-                          "--swim-proxies", "3", "--swim-suspect-rounds",
-                          "24", "--max-rounds", "80"]),
-        "RM1": _port_run(["--mode", "rumor", "--n", str(n), "--fanout", "1",
-                          "--rumor-k", "2", "--rumor-variant", "feedback",
-                          "--max-rounds", "128"])}
+    sw1, rm1 = _port_lines(
+        ["run", "--mode", "swim", "--n", str(n_swim), "--family",
+         "power_law", "--k", "3", "--degree-cap", "256", "--fanout", "2",
+         "--swim-subjects", "8", "--swim-proxies", "3",
+         "--swim-suspect-rounds", "24", "--max-rounds", "80"],
+        ["run", "--mode", "rumor", "--n", str(n), "--fanout", "1",
+         "--rumor-k", "2", "--rumor-variant", "feedback", "--max-rounds",
+         "128"])
+    cli = {"SW1": sw1[-1], "RM1": rm1[-1]}
     for name, out in cli.items():
         want = (SWIM_CASES.get(name) or RUMOR_CASES[name])[2]
         got = (out["rounds"], out["coverage"], out["msgs"])
@@ -1845,9 +1882,9 @@ def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
         torch.cuda.empty_cache()
     wall_s["round_split"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for name in command_ids:
-        args, want = cases[name]
-        out = _port_run(args[1:], cmd=args[0])
+    outs = _port_lines(*(cases[name][0] for name in command_ids))
+    for name, lines_out in zip(command_ids, outs):
+        want, out = cases[name][1], lines_out[-1]
         check(_payload_key(out) == want
               and (out["device"] != "cpu") == on_card,
               f"{name} command line: {_payload_key(out)} on "
@@ -2001,9 +2038,9 @@ def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
         torch.cuda.empty_cache()
     wall_s["round_split"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for name in command_ids:
-        args, want = cases[name]
-        out = _port_run(args[1:], cmd=args[0])
+    outs = _port_lines(*(cases[name][0] for name in command_ids))
+    for name, lines_out in zip(command_ids, outs):
+        want, out = cases[name][1], lines_out[-1]
         check(_payload_key(out) == want
               and (out["device"] != "cpu") == on_card,
               f"{name} command line: {_payload_key(out)} on "
@@ -2098,15 +2135,15 @@ def phase_mesh_path(dev, smi: str):
 
     base = ["--devices", "2", "--share-card", "--mode", "pull", "--n",
             str(N), "--engine", "xla"]
-    cfg5 = _port_run(base + ["--rumors", str(RUMORS)])
+    cfg5, curve = (out[-1] for out in _port_lines(
+        ["run", *base, "--rumors", str(RUMORS)],
+        ["run", *base, "--curve", "--max-rounds", str(MESH_CURVE_ROUNDS)]))
     got = (cfg5["rounds"], cfg5["coverage"], cfg5["msgs"])
     check(got == MESH_CFG5 and cfg5["meta"]["engine"] == "bit-packed"
           and cfg5["meta"]["devices"] == 2
           and cfg5["meta"]["process_group"] == "gloo",
           f"configuration 5 at K = 2: {got} {cfg5['meta']}, want "
           f"{MESH_CFG5}")
-    curve = _port_run(base + ["--curve", "--max-rounds",
-                              str(MESH_CURVE_ROUNDS)])
     got_c = (curve["rounds"], curve["coverage"], curve["msgs"])
     check(got_c == MESH_CURVE and curve["curve"] == MESH_CURVE_VALUES
           and "engine" not in curve["meta"],
@@ -2290,9 +2327,12 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
         "TX1": (TXN_CASES["TX1"][0], MESH_TX1),
     }
     cli_runs = {}
-    for name, (args, want) in commands.items():
-        t0 = time.perf_counter()
-        out = _port_run([*args[1:], *share], cmd=args[0])
+    # every command line in one process (one start-up for the five)
+    t0 = time.perf_counter()
+    outs = _port_lines(*([*args, *share] for args, _ in commands.values()))
+    wall_s["cli"] = time.perf_counter() - t0
+    for (name, (args, want)), lines_out in zip(commands.items(), outs):
+        out = lines_out[-1]
         if args[0] == "run":
             got = (out["rounds"], out["coverage"], out["msgs"])
             meta, rounds = out["meta"], out["rounds"]
@@ -2312,7 +2352,6 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
                           **_mesh_run_numbers(meta, rounds),
                           "single_device_ms_per_round":
                               single_runs.get(name, {}).get("ms_per_round")}
-        wall_s[f"cli_{name}"] = time.perf_counter() - t0
 
     # (b) the library API, one spawn of two ranks on this card
     t0 = time.perf_counter()
@@ -2537,9 +2576,13 @@ def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
     torch.cuda.empty_cache()
     share = ["--devices", "2", "--share-card"]
     cli_runs = {}
-    for name, (args, want) in EXCHANGE_CASES.items():
-        t0 = time.perf_counter()
-        out = _port_run([*args, *share])
+    # every command line in one process (one start-up for the five)
+    t0 = time.perf_counter()
+    outs = _port_lines(*(["run", *args, *share]
+                         for args, _ in EXCHANGE_CASES.values()))
+    wall_s["cli"] = time.perf_counter() - t0
+    for (name, (args, want)), lines_out in zip(EXCHANGE_CASES.items(), outs):
+        out = lines_out[-1]
         got = (out["rounds"], out["coverage"], out["msgs"])
         meta = out["meta"]
         exchange = args[-1]
@@ -2558,7 +2601,6 @@ def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
                                     "overflow_dropped_requests",
                                     "bucket_cap", "band") if k in meta},
             **_mesh_run_numbers(meta, out["rounds"])}
-        wall_s[f"cli_{name}"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     ranks = GR.launch(_exchange_rank, 2, device=dev, shared_card=True)
@@ -2672,8 +2714,11 @@ def _planes_rank(curve_rounds: int, group):
     return out
 
 
-def _planes_replay(name: str, rounds: int, group) -> bool:
-    """A planes case's first ``rounds`` rounds on this rank, on the card:
+def _planes_replay(name: str, rounds: int, group, fanout: int = 1,
+                   configs=None) -> bool:
+    """A planes case's first ``rounds`` rounds on this rank, on the card
+    (``configs``: its ``(proto, topology config, run, fault)`` in place
+    of ``FP_CASES[name]``'s), at ``fanout``:
     the curve loop (its final planes and its curve) and the loops' own
     round (``_round`` on ``_Operands.round_args``, each rumor's count of
     the coverage's nodes from the kernel's counters by
@@ -2687,11 +2732,11 @@ def _planes_replay(name: str, rounds: int, group) -> bool:
     import torch
     from gossip_tpu_torch.ops import fused_mr_round as MR
     from gossip_tpu_torch.parallel import sharded_fused as SF
-    proto, tc, run, fault = _planes_configs(name)
+    proto, tc, run, fault = configs or _planes_configs(name)
     n, dev = tc.n, group.device
     covs, final = SF.simulate_curve_sharded_fused(
         n, proto.rumors, dataclasses.replace(run, max_rounds=rounds), group,
-        1, fault)
+        fanout, fault)
     ops = SF._Operands(n, fault, run.origin, dev)
     metric = ops.metric
     total = (None if metric is None
@@ -2705,9 +2750,10 @@ def _planes_replay(name: str, rounds: int, group) -> bool:
     for r in range(rounds):
         args = ops.round_args(r)
         pop = torch.zeros(lanes.shape[0], 32, dtype=torch.int32, device=dev)
-        lanes, spare = SF._round(lanes, spare, pop, run.seed, r, n, 1, args)
+        lanes, spare = SF._round(lanes, spare, pop, run.seed, r, n, fanout,
+                                 args)
         plain = torch.stack([MR.fused_mr_round_lanes_plain(
-            p, run.seed, r, n, 1, None, args["drop_threshold"],
+            p, run.seed, r, n, fanout, None, args["drop_threshold"],
             args["alive_lanes"], args.get("cut_lanes")) for p in plain])
         want = torch.stack([MR.rumor_counts(
             p.t() if metric is None else p.t() & metric, 32)
@@ -2852,9 +2898,13 @@ def phase_mesh_fused_planes(dev, smi: str):
 
     # (a) the command lines at K = 2
     cli_runs = {}
-    for name, args in FP_CASES.items():
-        t0 = time.perf_counter()
-        out = _port_run([*args, *share])
+    # every command line in one process (one start-up for the three)
+    t0 = time.perf_counter()
+    outs = _port_lines(*(["run", *args, *share]
+                         for args in FP_CASES.values()))
+    wall_s["cli"] = time.perf_counter() - t0
+    for (name, args), lines_out in zip(FP_CASES.items(), outs):
+        out = lines_out[-1]
         meta = out["meta"]
         got = (out["rounds"], out["coverage"], out["msgs"])
         want = tuple(k1[name]["result"])
@@ -2869,7 +2919,6 @@ def phase_mesh_fused_planes(dev, smi: str):
         rank_ok(f"{name} at K = 2", meta["rank_launches"], want[0], w // 2)
         cli_runs[name] = {"command": [*args, *share], "result": list(got),
                           **_mesh_run_numbers(meta, want[0])}
-        wall_s[f"cli_{name}"] = time.perf_counter() - t0
 
     # (b) the library API at K = 2, one spawn
     t0 = time.perf_counter()
@@ -2942,6 +2991,599 @@ def phase_mesh_fused_planes(dev, smi: str):
          launches=fp256_launches, phase_wall_s=wall_s,
          phase_s=time.perf_counter() - t_phase, card=smi)
     return fp256_launches
+
+
+# The sweep axis (phase ``sweeps``): the README's sweep commands at their
+# widths (README.md:358-362, :368, :377, :383, :404-412, :431), the
+# README's 8 devices cut to the card's ranks (K = 1 under NCCL, K = 2
+# sharing it under gloo).  The round counts are the commands' own.
+N_EN = 10_000             # EN32: run --mode pushpull --n 10000 --ensemble 32
+N_SW = 100_000            # ES32, ER32: swim and rumor ensembles of 32
+N_GRID = 4_096            # GR12 and GRP: grid's default n
+N_GRF = 100_000           # GRF: the families grid
+N_CS = 65_536             # CS8: the JAX bench's churn_sweep family
+EN10M_SEEDS, EN10M_ROUNDS = 8, 32
+GRID10M_ROUNDS = 40
+CS10M_ROUNDS = 48
+CF_RUMORS = 256
+EN32_ARGS = ["--mode", "pushpull", "--n", str(N_EN), "--ensemble", "32"]
+ES32_ARGS = ["--mode", "swim", "--n", str(N_SW), "--ensemble", "32"]
+ER32_ARGS = ["--mode", "rumor", "--n", str(N_SW), "--rumor-k", "2",
+             "--ensemble", "32"]
+GR12_ARGS = ["--modes", "push", "pull", "pushpull", "--fanouts", "1", "2",
+             "--drops", "0", "0.1"]
+GRF_ARGS = ["--modes", "pull", "pushpull", "--fanouts", "1", "2",
+            "--families", "erdos_renyi", "watts_strogatz", "power_law",
+            "--n", str(N_GRF)]
+GRP_ARGS = ["--modes", "push", "pull", "pushpull", "antientropy",
+            "--fanouts", "1", "2"]
+# CS10M: the churn_heal program (JAX bench.py run_churn_heal) and three
+# one-fault programs at 10M
+CS10M_SCENARIOS = (
+    "event=1:1:4;event=2:2;partition=0:6:5000000;ramp=0:4:0:0.1",
+    "event=3:1:4", "partition=0:3:5000000", "ramp=0:4:0.0:0.2")
+CS10M_ARGS = ["--mode", "pull", "--fanout", "1", "--n", str(N), "--drop",
+              "0.02", "--max-rounds", str(CS10M_ROUNDS)]
+# CF256: README.md:412's four programs, their cuts scaled from n = 1024
+# to 10M; churn-sweep's defaults (fanout 2, 64 rounds)
+CF_SCENARIOS = ("event=3:1:4", "partition=0:3:5000000", "ramp=0:4:0.0:0.2",
+                "event=9:1:-1;partition=1:4:2500000")
+CF_ARGS = ["--engine", "fused", "--mode", "pull", "--n", str(N),
+           "--rumors", str(CF_RUMORS)]
+CF_REPLAY_ROUNDS = 8      # the fanout-2 replay: every change of churn_heal
+
+
+def _scenario_args(scens) -> list:
+    return [x for s in scens for x in ("--scenario", s)]
+
+
+def _parsed(cmd: str, args):
+    from gossip_tpu_torch import cli
+    return cli.build_parser().parse_args([cmd, *args])
+
+
+def _spec(fault) -> str:
+    """A fault program as a ``--scenario`` spec."""
+    ch = fault.churn
+    items = [f"event={e[0]}:{e[1]}:{e[2]}" for e in ch.events]
+    items += [f"partition={w[0]}:{w[1]}:{w[2]}" for w in ch.partitions]
+    if ch.ramp is not None:
+        items.append("ramp=" + ":".join(str(x) for x in ch.ramp))
+    return ";".join(items)
+
+
+def _cs8_faults(salt: int):
+    from gossip_tpu_torch.ops import nemesis as NE
+    return NE.mixed_scenarios(8, N_CS, salt=salt, drop_prob=0.01, seed=0,
+                              ramp_to=0.09)
+
+
+def _timed_run(dev, fn, *args, **kwargs):
+    """``(result, numbers)`` of one library run on this device: its
+    steady seconds, the peak allocated memory and the kernel launches."""
+    import torch
+    from gossip_tpu_torch.utils.timing import steady_timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = _launch_counts()
+    out, steady = steady_timed(dev, fn, *args, **kwargs)
+    after = _launch_counts()
+    return out, {"steady_s": steady,
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                 "launches": {k: after[k] - before[k] for k in after}}
+
+
+def _draw_ms(dev, s: int, n: int, k: int, coin: bool, peers=None) -> float:
+    """One batched partner draw (and its drop coin) of S points at n,
+    as a round pays it."""
+    import torch
+    from gossip_tpu_torch.ops import threefry
+    from gossip_tpu_torch.ops.sampling import drop_mask, sample_peers_complete
+    keys = torch.stack([threefry.key(i, dev) for i in range(s)])[:, None]
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    p = torch.full((s, 1, 1), 0.1, dtype=torch.float32, device=dev)
+
+    def draw():
+        t = (peers(keys) if peers is not None
+             else sample_peers_complete(keys, ids, n, k, True))
+        if coin:
+            t = torch.where(drop_mask(keys, 3, ids, k, p), n, t)
+        return t
+    ms = _median_ms(dev, draw)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _solo_si(dev, proto, topo, run, fault=None):
+    """``(curve result, ms a round)`` of a point's solo run on the card."""
+    from gossip_tpu_torch.runtime.simulator import simulate_curve
+    from gossip_tpu_torch.utils.timing import steady_timed
+    res, s = steady_timed(dev, simulate_curve, proto, topo, run, fault, dev)
+    return res, s * 1e3 / run.max_rounds
+
+
+def _held_si(what, curves, msgs, rtt, solo) -> None:
+    import numpy as np
+    check(np.array_equal(curves, solo.coverage)
+          and np.array_equal(msgs, solo.msgs)
+          and int(rtt) == solo.rounds_to_target,
+          f"{what}: the batch point differs from its solo run "
+          f"(rounds {rtt} / {solo.rounds_to_target}, last coverage "
+          f"{curves[-1]} / {solo.coverage[-1]}, msgs {msgs[-1]} / "
+          f"{solo.msgs[-1]})")
+
+
+def _solo_trace(dev, proto, topo, run, fault):
+    """A churn scenario's solo step, round by round: ``(exact counts,
+    msgs, lost, ms a round)`` of ``make_si_round`` under its program (the
+    solo run's trajectory, read with the churn sweep's count)."""
+    import numpy as np
+    from gossip_tpu_torch.models.si import coverage_count, make_si_round
+    from gossip_tpu_torch.models.state import init_state
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.utils.timing import steady_timed
+    step = make_si_round(proto, topo, fault, run.origin, dev)
+    alive = NE.metric_alive(fault, topo.n, run.origin, dev)
+
+    def loop():
+        state = init_state(run, proto, topo.n, dev)
+        cnt, msgs, lost = [], [], []
+        for _ in range(run.max_rounds):
+            state, lo = step(state)
+            cnt.append(coverage_count(state.seen, alive)[0])
+            msgs.append(state.msgs)
+            lost.append(lo)
+        return (np.asarray(cnt), np.asarray([m.item() for m in msgs],
+                                             np.float32),
+                np.asarray([x.item() for x in lost], np.float32))
+    out, s = steady_timed(dev, loop)
+    return (*out, s * 1e3 / run.max_rounds)
+
+
+def _sweep_line(name: str, nums: dict, rounds: int, points: int,
+                rtt, solo_ms, draw=None, **fields) -> dict:
+    """The phase's line of one run: rounds-to-target per point, the
+    batch's ms a round beside S x the solo run's, the draw's share."""
+    import numpy as np
+    batch_ms = nums["steady_s"] * 1e3 / rounds
+    line = {"run": name, "points": points, "rounds": rounds,
+            "rounds_to_target": np.asarray(rtt).tolist(),
+            "converged": int((np.asarray(rtt) >= 0).sum()),
+            "batch_ms_per_round": batch_ms, "solo_ms_per_round": solo_ms,
+            "s_x_solo_ms_per_round": (points * solo_ms
+                                      if solo_ms is not None else None),
+            "draw_ms_per_round": draw,
+            "draw_share": draw / batch_ms if draw is not None else None,
+            "peak_mem_bytes": nums.get("peak_mem_bytes"),
+            "rank_peak_mem_bytes": nums.get("rank_peak_mem_bytes"),
+            "collective_ms": nums.get("collective_ms"),
+            "launches": nums.get("launches"), **fields}
+    return line
+
+
+def _sweeps_rank(group):
+    """One rank of the K = 2 library runs, one spawn: ES32's ensemble
+    (the seed axis), GRP on the 2 x 1 and 1 x 2 hybrid meshes, CF256's
+    fused sweep (the plane axis) and each of its scenarios solo, with
+    each run's numbers."""
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.backend import run_ensemble
+    from gossip_tpu_torch.parallel import multislice as MSL
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    from gossip_tpu_torch.parallel import sweep as SWP
+    from gossip_tpu_torch.topology import generators as G
+    out = {}
+    a = _parsed("run", ES32_ARGS)
+    proto, tc, run, fault = cli.run_configs(a)
+    (ens, _), nums = _timed_group(group, run_ensemble, proto, tc, run, fault,
+                                  count=32)
+    out["ES32"] = (ens.curves, ens.msgs, nums)
+    a = _parsed("grid", GRP_ARGS)
+    points, _ = cli.grid_points(a)
+    run = cli.RunConfig(max_rounds=a.max_rounds, seed=a.seed)
+    for shape in ((2, 1), (1, 2)):
+        mesh = MSL.make_hybrid_mesh(*shape, device=group.device)
+        res, nums = _timed_group(
+            mesh.inner, lambda group: SWP.config_sweep_curves_2d(
+                points, G.complete(N_GRID), run, mesh))
+        out[f"GRP{shape[0]}x{shape[1]}"] = (res.curves, res.msgs, nums)
+    a = _parsed("churn-sweep", [*CF_ARGS, *_scenario_args(CF_SCENARIOS)])
+    proto, tc, run, faults = cli.churn_sweep_configs(a)
+    res, nums = _timed_group(group, SWP.fused_churn_sweep_curves, tc.n,
+                             proto.rumors, run, faults,
+                             fanout=proto.fanout)
+    out["CF256"] = (res.curves, nums)
+    solo = []
+    for f in faults:
+        covs, final = SF.simulate_curve_sharded_fused(
+            tc.n, proto.rumors, run, group, proto.fanout, f)
+        solo.append((covs, _plane_digests(final)))
+        del final
+    out["CF256_solo"] = solo
+    return out
+
+
+def phase_sweeps(dev, smi: str):
+    """The sweep axis (``gossip_tpu_torch.parallel.sweep``) at the
+    README's commands: EN32, EN10M, ES32, ER32 (seed ensembles), GR12 at
+    n = 4096 and 10M, GRF, GRP (config grids), CS8, CS10M (XLA churn
+    sweeps), CF256 (the fused churn sweep).  Every point of GR12's at
+    4096 and CS8's batch against its solo run on the card, bitwise
+    (curve, msgs, rounds to the target; the churn sweeps' exact counts
+    and dropped counts against the solo step's); the first and last
+    points of the others; the K = 2
+    runs against K = 1; CF256's scenarios against the fused curve
+    driver solo, every rank launching ``fused_mr_round`` W_local x
+    its rounds and nothing else; kernel 2 at fanout 2 under the alive,
+    cut and threshold operands replayed against its plain round at 10M.
+    One line a run: rounds to the target per point, the batch's ms a
+    round beside S x the solo run's, the threefry draw's share, peaks,
+    collectives and launches.  Returns CF256's fused_mr_round launches
+    at K = 1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gossip_tpu_torch import bench
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.backend import run_ensemble
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.models.rumor import simulate_curve_rumor
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    from gossip_tpu_torch.parallel import sweep as SWP
+    from gossip_tpu_torch.runtime.simulator import simulate_swim_curve
+    from gossip_tpu_torch.tools.roofline import mr_round_bound
+    from gossip_tpu_torch.topology import generators as G
+    from gossip_tpu_torch.utils.timing import steady_timed
+
+    t_phase, wall_s = time.perf_counter(), {}
+    torch.cuda.empty_cache()
+    lines = {}
+
+    def put(name, line):
+        """Keep a run's line and print it at once."""
+        lines[name] = line
+        emit("sweeps", **line, phase_s=time.perf_counter() - t_phase,
+             card=smi)
+
+    def no_kernels(what, nums):
+        check(sum(nums["launches"].values()) == 0,
+              f"{what} launched {nums['launches']}")
+
+    # EN32 and EN10M: SI seed ensembles, every point / first and last
+    t0 = time.perf_counter()
+    for name, args in (("EN32", EN32_ARGS),
+                       ("EN10M", ["--mode", "pull", "--n", str(N),
+                                  "--ensemble", str(EN10M_SEEDS),
+                                  "--max-rounds", str(EN10M_ROUNDS)])):
+        a = _parsed("run", args)
+        proto, tc, run, fault = cli.run_configs(a)
+        (ens, _), nums = _timed_run(dev, run_ensemble, proto, tc, run, fault,
+                                    count=a.ensemble, device=dev)
+        no_kernels(name, nums)
+        topo = G.build(tc, dev)
+        # the first and last seeds (every seed on the CPU tests)
+        held = (0, a.ensemble - 1)
+        solo_ms = []
+        for i in held:
+            solo, ms = _solo_si(dev, proto, topo, dataclasses.replace(
+                run, seed=run.seed + i), fault)
+            _held_si(f"{name} seed {i}", ens.curves[i], ens.msgs[i],
+                     ens.rounds_to_target[i], solo)
+            solo_ms.append(ms)
+        draws = 2 if proto.mode == "pushpull" else 1
+        put(name, _sweep_line(
+            name, nums, run.max_rounds, a.ensemble, ens.rounds_to_target,
+            statistics.median(solo_ms),
+            draws * _draw_ms(dev, a.ensemble, tc.n, proto.fanout, False),
+            held=list(held), batch_chunks=ens.meta["batch_chunks"],
+            summary=ens.summary()))
+        del ens, topo
+        wall_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # ES32 and ER32: SWIM and rumor ensembles (loops over the seeds)
+    t0 = time.perf_counter()
+    k1 = {}
+    for name, args in (("ES32", ES32_ARGS), ("ER32", ER32_ARGS)):
+        a = _parsed("run", args)
+        proto, tc, run, fault = cli.run_configs(a)
+        (ens, extra), nums = _timed_run(dev, run_ensemble, proto, tc, run,
+                                        fault, count=32, device=dev)
+        no_kernels(name, nums)
+        k1[name] = ens
+        solo_ms = []
+        for i in (0, 31):
+            if name == "ES32":
+                (fr, final), s = steady_timed(
+                    dev, simulate_swim_curve, proto, tc.n, run.max_rounds,
+                    dead_nodes=extra["dead_subjects"],
+                    fail_round=extra["fail_round"], fault=fault,
+                    seed=run.seed + i, device=dev)
+                ok = (np.array_equal(ens.curves[i], fr)
+                      and ens.msgs[i, -1] == np.float32(final.msgs.item()))
+                rtt = ens.rounds_to_target
+            else:
+                (covs, hots, msgs, _), s = steady_timed(
+                    dev, simulate_curve_rumor, proto, G.build(tc, dev),
+                    dataclasses.replace(run, seed=run.seed + i), fault, dev)
+                ok = (np.array_equal(ens.curves[i], covs)
+                      and np.array_equal(ens.hot[i], hots)
+                      and np.array_equal(ens.msgs[i], msgs))
+                rtt = ens.extinction_rounds
+            check(ok, f"{name} seed {i}: the batch point differs from its "
+                      "solo run")
+            solo_ms.append(s * 1e3 / run.max_rounds)
+        put(name, _sweep_line(
+            name, nums, run.max_rounds, 32, rtt, statistics.median(solo_ms),
+            held=[0, 31], summary=ens.summary()))
+        wall_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # GR12 at n = 4096 (every point) and at 10M (first and last), GRF
+    for name, args, every in (
+            ("GR12", GR12_ARGS, True),
+            ("GR12_10M", [*GR12_ARGS, "--n", str(N), "--max-rounds",
+                          str(GRID10M_ROUNDS)], False),
+            ("GRF", GRF_ARGS, False)):
+        a = _parsed("grid", args)
+        points, fam_n = cli.grid_points(a)
+        run = RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
+                        seed=a.seed)
+        tb = time.perf_counter()
+        topos = [G.build(cli.TopologyConfig(family=f, n=n, k=a.k, p=a.p,
+                                            degree_cap=a.degree_cap,
+                                            seed=a.seed), dev)
+                 for f, n in fam_n]
+        topo_build_s = time.perf_counter() - tb
+        topo = topos if len(topos) > 1 else topos[0]
+        res, nums = _timed_run(dev, SWP.config_sweep_curves_partitioned,
+                               points, topo, run, device=dev)
+        no_kernels(name, nums)
+        held = range(len(points)) if every else (0, len(points) - 1)
+        solo_ms = []
+        for i in held:
+            pt = points[i]
+            fault = (cli.FaultConfig(drop_prob=pt.drop_prob)
+                     if pt.drop_prob else None)
+            solo, ms = _solo_si(dev, ProtocolConfig(
+                mode=pt.mode, fanout=pt.fanout, period=pt.period),
+                topos[pt.topo_idx], dataclasses.replace(run, seed=pt.seed),
+                fault)
+            _held_si(f"{name} point {i} {pt}", res.curves[i], res.msgs[i],
+                     res.rounds_to_target[i], solo)
+            solo_ms.append(ms)
+        if len(topos) > 1:
+            nbrs, deg = SWP._stack_topologies(topos, dev)
+            tidx = torch.tensor([p.topo_idx for p in points], device=dev)
+            ids = torch.arange(nbrs.shape[1], dtype=torch.int64, device=dev)
+            # per bucket: 6 pull points, 6 push-pull points (two draws)
+            tidx = tidx[:6]
+            draw = 3 * _draw_ms(dev, 6, nbrs.shape[1], 2, False,
+                                peers=lambda k: SWP._stack_peers(
+                                    k, ids, nbrs, deg[tidx], tidx, 2,
+                                    nbrs.shape[1]))
+            del nbrs, deg
+        else:
+            # per bucket, as the partitioned batch draws: 4 push, 4 pull
+            # and 4 push-pull points, k_max 2, coins drawn (drops 0.1)
+            draw = 4 * _draw_ms(dev, 4, topos[0].n, 2, True)
+        put(name, _sweep_line(
+            name, nums, run.max_rounds, len(points), res.rounds_to_target,
+            statistics.median(solo_ms), draw, held=list(held),
+            topo_build_s=topo_build_s,
+            batch_chunks=res.meta["batch_chunks"],
+            mode_buckets=res.meta.get("mode_buckets", 1)))
+        if name == "GR12":
+            gr12 = res
+        del res, topos, topo
+        wall_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # CS8 (every scenario) and CS10M (first and last): XLA churn sweeps
+    t0 = time.perf_counter()
+    proto = ProtocolConfig(mode="pull", fanout=1)
+    for name, n, faults, rounds, every in (
+            ("CS8", N_CS, _cs8_faults(0), 32, True),
+            ("CS10M", N, cli.churn_sweep_configs(_parsed(
+                "churn-sweep", [*CS10M_ARGS,
+                                *_scenario_args(CS10M_SCENARIOS)]))[3],
+             CS10M_ROUNDS, False)):
+        run = RunConfig(max_rounds=rounds, seed=0)
+        topo = G.complete(n)
+        res, nums = _timed_run(dev, SWP.churn_sweep_curves, proto, topo,
+                               run, faults, device=dev)
+        no_kernels(name, nums)
+        held = range(len(faults)) if every else (0, len(faults) - 1)
+        solo_ms = []
+        for i in held:
+            cnt, msgs, lost, ms = _solo_trace(dev, proto, topo, run,
+                                              faults[i])
+            check(np.array_equal(res.counts[i], cnt)
+                  and np.array_equal(res.msgs[i], msgs)
+                  and np.array_equal(res.dropped[i], lost),
+                  f"{name} scenario {i}: counts, msgs or dropped differ "
+                  "from the solo step's")
+            solo_ms.append(ms)
+        put(name, _sweep_line(
+            name, nums, rounds, len(faults), res.rounds_to_target,
+            statistics.median(solo_ms),
+            _draw_ms(dev, len(faults), n, 1, True), held=list(held),
+            batch_chunks=res.meta["batch_chunks"],
+            dropped_total=res.dropped.sum(axis=1).tolist()))
+        if name == "CS8":
+            cs8 = res
+        del res
+        wall_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    # the bench family's two salts
+    fam = bench.run_churn_sweep(N_CS, device=dev)
+    check(np.array_equal(fam["first"].curves, cs8.curves),
+          "the bench family's salt-0 batch differs from CS8's")
+    emit("sweeps_bench", run="CS8", churn_sweep={
+        k: v for k, v in fam.items() if k not in ("first", "warm")},
+        card=smi)
+    wall_s["CS8_cli_bench"] = time.perf_counter() - t0
+
+    # CF256 at K = 1 under NCCL: the fused sweep, each scenario solo,
+    # the fanout-2 replay under alive, cut and threshold
+    t0 = time.perf_counter()
+    a = _parsed("churn-sweep", [*CF_ARGS, *_scenario_args(CF_SCENARIOS)])
+    proto, tc, run, faults = cli.churn_sweep_configs(a)
+    w = SF.plane_count(CF_RUMORS, 1)
+    with GR.local(dev) as g:
+        res, nums = _timed_group(g, SWP.fused_churn_sweep_curves, tc.n,
+                                 proto.rumors, run, faults,
+                                 fanout=proto.fanout)
+        want = w * run.max_rounds * len(faults)
+        check(nums["launches"] == {**{k: 0 for k in nums["launches"]},
+                                   "fused_mr_round": want},
+              f"CF256 at K = 1 launched {nums['launches']}, want {want} "
+              "fused_mr_round")
+        cf_launches = nums["launches"]["fused_mr_round"]
+        solo, solo_s = [], 0.0
+        for f in faults:
+            (covs, final), s = steady_timed(
+                dev, SF.simulate_curve_sharded_fused, tc.n, proto.rumors,
+                run, g, proto.fanout, f)
+            solo.append((covs, _plane_digests(final)))
+            solo_s += s
+            del final
+        check(all(np.array_equal(res.curves[k], solo[k][0])
+                  for k in range(len(faults))),
+              "CF256 at K = 1: a scenario's curve differs from the fused "
+              "curve driver's")
+        heal = cli.churn_sweep_configs(_parsed(
+            "churn-sweep", [*CF_ARGS, "--scenario", CS10M_SCENARIOS[0],
+                            "--drop", "0.02"]))
+        check(_planes_replay("CF256_heal", CF_REPLAY_ROUNDS, g,
+                             fanout=proto.fanout,
+                             configs=(heal[0], heal[1], heal[2],
+                                      heal[3][0])),
+              "kernel 2 at fanout 2 under churn_heal's alive, cut and "
+              "threshold operands differs from its plain round")
+        # that instantiation's time on one plane at round 1 (a crash,
+        # the cut open, the ramp's threshold), beside its plain round's
+        ops = SF._Operands(tc.n, heal[3][0], 0, dev)
+        lanes = SF.init_plane_state(tc.n, 32, g, 0).transpose(1, 2)[0]
+        lanes = lanes.contiguous()
+        args = ops.round_args(1)
+        spare = torch.empty_like(lanes)
+        pop = torch.zeros(32, dtype=torch.int32, device=dev)
+        k2 = {"ms": kernel_ms(lambda: MR.fused_mr_round_lanes(
+            lanes, SEED, 1, tc.n, 2, out=spare, pop=pop, **args)),
+            "plain_ms": 1e3 * statistics.median(steady_timed(
+                dev, MR.fused_mr_round_lanes_plain, lanes, SEED, 1, tc.n,
+                2, None, args["drop_threshold"], args["alive_lanes"],
+                args.get("cut_lanes"))[1] for _ in range(3)),
+            "bound": mr_round_bound(tc.n, 2), "operands": sorted(args)}
+        del ops, lanes, spare
+    put("CF256", _sweep_line(
+        "CF256", nums, run.max_rounds * len(faults), len(faults),
+        res.rounds_to_target, solo_s * 1e3 / (run.max_rounds * len(faults)),
+        planes=w, fanout=proto.fanout,
+        replay_fanout2_rounds=CF_REPLAY_ROUNDS, kernel2_fanout2=k2,
+        note="ms a round: one scenario's round (8 planes); the batch "
+             "runs the scenarios one after another"))
+    cf_k1 = res
+    wall_s["CF256_k1"] = time.perf_counter() - t0
+
+    # the K = 2 runs: the library in one spawn, CF256 through the command
+    t0 = time.perf_counter()
+    ranks = GR.launch(_sweeps_rank, 2, device=dev, shared_card=True)
+    r0 = ranks[0]
+    check(np.array_equal(r0["ES32"][0], k1["ES32"].curves)
+          and np.array_equal(r0["ES32"][1], k1["ES32"].msgs),
+          "ES32 at K = 2 differs from K = 1")
+    lines["ES32"]["k2"] = {"steady_s": r0["ES32"][2]["steady_s"],
+                           "ms_per_round": r0["ES32"][2]["steady_s"] * 1e3
+                           / _parsed("run", ES32_ARGS).max_rounds,
+                           "collective_ms": r0["ES32"][2]["collective_ms"],
+                           "rank_peak_mem_bytes":
+                               r0["ES32"][2]["rank_peak_mem_bytes"],
+                           "rank_launches": [rk["ES32"][2]["launches"]
+                                             for rk in ranks]}
+    _check_no_launches("ES32 at K = 2", lines["ES32"]["k2"]["rank_launches"])
+    grp_rounds = _parsed("grid", GRP_ARGS).max_rounds
+    a = _parsed("grid", GRP_ARGS)
+    points, _ = cli.grid_points(a)
+    one = SWP.config_sweep_curves(points, G.complete(N_GRID), RunConfig(
+        max_rounds=a.max_rounds, seed=a.seed), device=dev)
+    for shape in ("GRP2x1", "GRP1x2"):
+        curves, msgs, nums = r0[shape]
+        check(np.array_equal(curves, one.curves)
+              and np.array_equal(msgs, one.msgs),
+              f"{shape}: the pod sweep differs from the 1-D batch at K = 1")
+        _check_no_launches(shape, [rk[shape][2]["launches"] for rk in ranks])
+        put(shape, _sweep_line(
+            shape, nums, grp_rounds, len(points), one.rounds_to_target,
+            None, rank_launches=[rk[shape][2]["launches"] for rk in ranks]))
+    curves, nums = r0["CF256"]
+    check(np.array_equal(curves, cf_k1.curves),
+          "CF256 at K = 2 differs from K = 1")
+    for rk in ranks:
+        got = rk["CF256"][1]["launches"]
+        check(got == {**{k: 0 for k in got},
+                      "fused_mr_round": (w // 2) * run.max_rounds
+                      * len(faults)},
+              f"CF256 at K = 2: a rank launched {got}")
+    digests = [[d for rk in ranks for d in rk["CF256_solo"][k][1]]
+               for k in range(len(faults))]
+    check(digests == [s[1] for s in solo]
+          and all(np.array_equal(r0["CF256_solo"][k][0], solo[k][0])
+                  for k in range(len(faults))),
+          "CF256 at K = 2: a scenario's planes differ from K = 1's")
+    lines["CF256"]["k2"] = {
+        "steady_s": nums["steady_s"],
+        "ms_per_round": nums["steady_s"] * 1e3
+        / (run.max_rounds * len(faults)),
+        "collective_ms": nums["collective_ms"],
+        "rank_peak_mem_bytes": nums["rank_peak_mem_bytes"],
+        "rank_launches": [rk["CF256"][1]["launches"] for rk in ranks],
+        "plane_digests_equal_k1": True}
+    wall_s["k2_spawn"] = time.perf_counter() - t0
+    # the command lines, one process: GR12 and CS8 against the
+    # library's runs, CF256 at K = 2 sharing the card
+    t0 = time.perf_counter()
+    grid, cs8_cli, cf = _port_lines(
+        ["grid", *GR12_ARGS],
+        ["churn-sweep", "--mode", "pull", "--fanout", "1", "--n", str(N_CS),
+         "--drop", "0.01", "--max-rounds", "32",
+         *_scenario_args(_spec(f) for f in _cs8_faults(0))],
+        ["churn-sweep", *CF_ARGS, *_scenario_args(CF_SCENARIOS),
+         "--devices", "2", "--share-card"])
+    check([(g["rounds_to_target"], g["final_coverage"], g["msgs_total"])
+           for g in grid]
+          == [(int(r), float(c[-1]), float(m[-1])) for r, c, m in zip(
+              gr12.rounds_to_target, gr12.curves, gr12.msgs)],
+          "grid GR12: the command's lines differ from the library's")
+    check([(g["rounds_to_target"], g["final_coverage"], g["msgs_total"],
+            g["dropped_total"]) for g in cs8_cli[-1]["churn_sweep"]]
+          == [(s["rounds_to_target"], s["final_coverage"], s["msgs_total"],
+               s["dropped_total"]) for s in cs8.summaries()],
+          "churn-sweep CS8: the command's summaries differ from the "
+          "library's")
+    out = cf[-1]
+    check([(s["rounds_to_target"], s["final_coverage"])
+           for s in out["churn_sweep"]]
+          == [(s["rounds_to_target"], s["final_coverage"])
+              for s in cf_k1.summaries()]
+          and all(r == {**{k: 0 for k in r}, "fused_mr_round": (w // 2)
+                        * run.max_rounds * len(faults)}
+                  for r in out["rank_launches"]),
+          f"churn-sweep --engine fused --devices 2: {out['churn_sweep']}, "
+          f"launches {out['rank_launches']}")
+    lines["CF256"]["cli_k2"] = {"wall_s": out["wall_s"],
+                                "rank_launches": out["rank_launches"]}
+    wall_s["cli"] = time.perf_counter() - t0
+    for name in ("ES32", "CF256"):
+        emit("sweeps_k2", run=name, **{k: v for k, v in lines[name].items()
+                                       if k in ("k2", "cli_k2")}, card=smi)
+    emit("sweeps_phase", phase_wall_s=wall_s,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    return cf_launches
 
 
 def _words(rng, shape, sparsity: int):
@@ -3100,8 +3742,20 @@ def phase_roofline(dev, smi: str):
         emit("roofline", n=n, doc=docs[n], launches=launches[n], card=smi)
         check_roofline_doc(docs[n], launches[n])
 
-    note = ("no PyTorch call computes this microkernel: a calibration "
-            "kernel of the roofline tool")
+    # the one PyTorch call that draws as many random words: torch.randint
+    # over the prng microkernel's count (32 words a table word), on its
+    # own (Philox) stream, timed as the kernels are
+    words = R.BITS * rows * R.LANES
+    library = {"cal_prng": kernel_ms(lambda: torch.randint(
+        0, 2**31, (words,), dtype=torch.int32, device=dev))}
+    notes = {
+        "cal_prng": f"torch.randint(0, 2**31, ({words},), int32): the same "
+                    "count of random words, another stream, no table "
+                    "write",
+        "cal_prng_gather": "no single PyTorch call draws and gathers in "
+                           "one pass: randint then a gather are two calls",
+        "cal_vpu": "no single PyTorch call runs the integer chain: it is "
+                   "one elementwise launch an operation in PyTorch"}
     entries = [{"name": name, "route": "cuda",
                 "source": "gossip_tpu_torch/csrc/calibrate.cu",
                 "replaces": f"tools/roofline.py:{line}",
@@ -3110,7 +3764,8 @@ def phase_roofline(dev, smi: str):
                 "plain_ms": times[name][1],
                 "bound_ms": R.cal_bound(name, rows)[0],
                 "bound_by": R.cal_bound(name, rows)[1],
-                "library_ms": None, "library_note": note,
+                "library_ms": library.get(name),
+                "library_note": notes[name],
                 "path": "roofline", "card": smi}
                for name, line in (("cal_prng", 148), ("cal_prng_gather", 156),
                                   ("cal_vpu", 169))]
@@ -3118,7 +3773,11 @@ def phase_roofline(dev, smi: str):
                      for name, k in docs[N]["kernels"].items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # ``--only sweeps,roofline``: those phases alone, after the device and
+    # build lines, for a measurement; no ``ok`` line
+    only = argv[1].split(",") if argv[:1] == ["--only"] else None
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run",
@@ -3153,6 +3812,12 @@ def main() -> int:
     emit("build", build_s=time.perf_counter() - t0,
          kernels={k.name: [ln.strip() for ln in k.ptxas.splitlines()
                            if "registers" in ln] for k in _kernels.KERNELS})
+    if only:
+        phases = {"sweeps": phase_sweeps, "roofline": phase_roofline,
+                  "mesh_fused_planes": phase_mesh_fused_planes}
+        for p in only:
+            phases[p](dev, smi)
+        return 0
 
     # 3. kernel against plain, then times at the main path's shape
     results, max_err, table = phase_checks(dev, N)
@@ -3235,9 +3900,15 @@ def main() -> int:
     phase_mesh_models(dev, smi, single_runs)
     phase_mesh_exchanges(dev, smi, cfg5_ms)
     planes_launches = phase_mesh_fused_planes(dev, smi)
+    sweeps_launches = phase_sweeps(dev, smi)
     mr_kernels[0]["launches_by_path"] = {
         "mr_main_path": mr_kernels[0]["launches"],
-        "mesh_fused_planes": planes_launches}
+        "mesh_fused_planes": planes_launches,
+        "sweeps": sweeps_launches}
+    mr_kernels[0]["instantiations"] = {
+        "mr_main_path": "fanout 1",
+        "mesh_fused_planes": "fanout 1, alive, cut and threshold operands",
+        "sweeps": "fanout 2, alive, cut and threshold operands (CF256)"}
     cal_kernels, floors = phase_roofline(dev, smi)
 
     kernels = [{

@@ -43,6 +43,11 @@ rumors, static deaths and drops, and the whole fault program
 (:func:`planes_report`).  ``auto`` with K > 1 keeps the node-sharded
 drivers, as the reference's does.
 
+:func:`run_ensemble` runs a seed ensemble, the reference's
+``run_ensemble``: one batch of seeds on the XLA engine
+(:mod:`gossip_tpu_torch.parallel.sweep`), optionally sharded over the
+ranks of a group.
+
 A ``log_cfg`` runs the replicated-log workload
 (:func:`run_log_workload`, the reference's ``run_log_workload``) and a
 ``txn_cfg`` the LWW-register transactions (:func:`run_txn_workload`) on
@@ -115,12 +120,15 @@ def _curve_summary(covs, msgs, target):
 
 def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
                             run: RunConfig, fault: Optional[FaultConfig],
-                            n_dev: int = 1) -> Optional[str]:
+                            n_dev: int = 1,
+                            plane_stack: bool = False) -> Optional[str]:
     """Why the fused route cannot run the configuration, or None if it
     can: the reference's list, in its order and words.  More than 32
-    rumors and a fault program are allowed exactly where the run shards
-    rumor planes (``n_dev > 1``).  Configuration reasons only; the
-    device is resolved afterwards."""
+    rumors are allowed exactly where the run shards rumor planes
+    (``n_dev > 1``), and a fault program where it runs on the planes
+    (``n_dev > 1``, or ``plane_stack``: a caller that takes the plane
+    drivers whatever K is, as ``churn-sweep --engine fused`` does).
+    Configuration reasons only; the device is resolved afterwards."""
     if proto.mode != C.PULL:
         return (f"engine='fused' implements pull rounds only "
                 f"(got mode {proto.mode!r})")
@@ -131,15 +139,17 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
         return ("engine='fused' does not implement scripted dead_nodes/"
                 "fail_round; use engine='auto' (or node_death_rate for "
                 "random static deaths)")
-    if fault is not None and fault.churn is not None and n_dev == 1:
-        # the reference's words; the port's plane surfaces are --devices
-        # (its --checkpoint and churn-sweep wait for ROADMAP item 6)
+    if (fault is not None and fault.churn is not None and n_dev == 1
+            and not plane_stack):
+        # the reference's words, less the plane surface the port does
+        # not have yet (the plane checkpoints' --checkpoint)
         return ("engine='fused' routing does not run churn "
                 "schedules single-device; use engine='auto' (XLA "
                 "kernels run the full nemesis scenario catalog — "
                 "docs/ROBUSTNESS.md), or the plane-sharded fused "
-                "surfaces (--devices > 1), which run events + "
-                "partitions + ramps as runtime operands")
+                "surfaces (--devices > 1, churn-sweep --engine fused), "
+                "which run events + partitions + ramps as runtime "
+                "operands")
     if n_dev == 1 and proto.rumors > FR.BITS:
         return (f"engine='fused' packs <= {FR.BITS} rumors per word "
                 f"on one device (got rumors={proto.rumors}); "
@@ -768,6 +778,52 @@ def run_txn_workload(proto: ProtocolConfig, tc: TopologyConfig,
     from gossip_tpu_torch.models import register
     return _run_payload_workload("txn", register, proto, tc, run, txn_cfg,
                                  fault, want_curve, dev)
+
+
+def run_ensemble(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
+                 fault: Optional[FaultConfig] = None, seeds=None,
+                 count: Optional[int] = None, group=None, device=None):
+    """A seed ensemble (:mod:`gossip_tpu_torch.parallel.sweep`), the mode
+    dispatch of the reference's ``run_ensemble``: SI modes, rumor
+    mongering (residue and extinction distributions) and SWIM (the
+    detection-latency distribution of one scenario).  Pass ``seeds``, or
+    ``count`` (seeds ``run.seed + i``).  ``group``: each rank runs its
+    slice of the seeds (value-invariant), on ``group.device``; else on
+    ``device`` (default CUDA).  Returns ``(ensemble result, the
+    mode's report keys)``."""
+    from gossip_tpu_torch.parallel import sweep as SWP
+    from gossip_tpu_torch.topology import generators as G
+    if run.engine == "fused":
+        # the reference's words
+        raise ValueError("ensembles run the threefry XLA kernels; "
+                         "engine='fused' is single-run only")
+    if seeds is None and count is not None:
+        seeds = [run.seed + i for i in range(int(count))]
+    seeds = list(seeds) if seeds else None
+    if not seeds:
+        raise ValueError("need at least one seed (pass seeds or count)")
+    dev = group.device if group is not None else resolve_device(device)
+    extra: Dict[str, Any] = {}
+    if proto.mode == C.RUMOR:
+        ens = SWP.ensemble_rumor_curves(proto, G.build(tc, dev), run, seeds,
+                                        fault, group=group, device=dev)
+    elif proto.mode == C.SWIM:
+        dead, fail_round, extra = swim_scenario_meta(proto, tc.n, fault)
+        topo = None if tc.family == C.COMPLETE else G.build(tc, dev)
+        ens = SWP.ensemble_swim_curves(proto, tc.n, run, seeds,
+                                       dead_nodes=dead,
+                                       fail_round=fail_round, fault=fault,
+                                       topo=topo, group=group, device=dev)
+        if proto.swim_rotate:
+            # the headline is each seed's peak (the solo drivers')
+            peaks = ens.curves.max(axis=1)
+            extra["subject_window"] = "rotating"
+            extra["peak_detection_mean"] = float(peaks.mean())
+            extra["peak_detection_min"] = float(peaks.min())
+    else:
+        ens = SWP.ensemble_curves(proto, G.build(tc, dev), run, seeds,
+                                  fault, group=group, device=dev)
+    return ens, extra
 
 
 def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,

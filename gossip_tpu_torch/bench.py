@@ -11,11 +11,14 @@ the kernel) read from CUDA events.  It prints one JSON line with the
 card's name and power limit::
 
     python -m gossip_tpu_torch.bench [--n N] [--churn-heal SAMPLER]
+        [--churn-sweep]
 
 :func:`run_xla_packed` times the XLA engine's bit-packed pull loop (the
 JAX package's ``run_xla_packed``) for the same line; ``chip_smoke.py``
 prints it.  :func:`run_churn_heal` (``--churn-heal threefry|kernel``)
-times that loop under the JAX package's ``churn_heal`` fault program.
+times that loop under the JAX package's ``churn_heal`` fault program,
+and :func:`run_churn_sweep` (``--churn-sweep``) its ``churn_sweep``
+family, eight fault programs as one batch.
 
 There is no CPU row: without a CUDA device it prints nothing and exits
 non-zero.  There is no ``vs_baseline`` either: the JAX package derives
@@ -131,6 +134,41 @@ def run_churn_heal(n: int = N_FLAGSHIP, device=None,
     return final.round, cov, float(final.msgs.item()), seconds
 
 
+SWEEP_K, SWEEP_N = 8, 65_536   # the churn_sweep family's batch and n
+
+
+def run_churn_sweep(n: int = SWEEP_N, device=None) -> dict:
+    """The JAX package's ``churn_sweep`` family (its
+    ``bench.py:run_churn_families``): K = 8 ``mixed_scenarios`` (drop
+    0.01, ramps to 0.09) over pull, fanout 1, 32 rounds at ``n`` as one
+    batch (:func:`~gossip_tpu_torch.parallel.sweep.churn_sweep_curves`).
+    ``first_ms`` times the family of salt 0, the first batch the process
+    runs; ``warm_ms`` a second family (salt 9) of the same shapes.  There
+    is no compile to amortize: the ratio is the first run's own cost
+    (allocator growth, first launches)."""
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.parallel.sweep import churn_sweep_curves
+    from gossip_tpu_torch.topology import generators as G
+    dev = resolve_device(device)
+    proto = ProtocolConfig(mode="pull", fanout=1, rumors=1)
+    run = RunConfig(target_coverage=TARGET, max_rounds=32, seed=0)
+
+    def family(salt):
+        return NE.mixed_scenarios(SWEEP_K, n, salt=salt, drop_prob=0.01,
+                                  seed=0, ramp_to=0.09)
+
+    first, first_s = steady_timed(dev, churn_sweep_curves, proto,
+                                  G.complete(n), run, family(0), device=dev)
+    res, warm_s = steady_timed(dev, churn_sweep_curves, proto,
+                               G.complete(n), run, family(9), device=dev)
+    return {"k": SWEEP_K, "n": n, "first_ms": first_s * 1e3,
+            "warm_ms": warm_s * 1e3,
+            "amortization": first_s / max(warm_s, 1e-12),
+            "converged": int((res.rounds_to_target >= 0).sum()),
+            "first": first, "warm": res}
+
+
 def measurement_line(n: int, rounds: int, seconds: float, card: dict,
                      engine: str = "fused-cuda") -> dict:
     """The one-line result, with the card it ran on."""
@@ -152,12 +190,23 @@ def main(argv=None) -> int:
                     help="time the churn_heal program on the XLA engine's "
                          "packed loop with this sampler instead of the "
                          "fused flagship")
+    ap.add_argument("--churn-sweep", action="store_true",
+                    help="time the churn_sweep family (8 mixed scenarios "
+                         "at n = 65,536 as one batch) instead of the "
+                         "fused flagship")
     a = ap.parse_args(argv)
     try:
         card = card_info()
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if a.churn_sweep:
+        sweep = run_churn_sweep(device="cuda")
+        print(json.dumps({"churn_sweep": {k: v for k, v in sweep.items()
+                                          if k not in ("first", "warm")},
+                          "card": card["name"],
+                          "power_limit": card["power_limit"]}))
+        return 0
     if a.churn_heal:
         rounds, _, _, seconds = run_churn_heal(a.n, "cuda", a.churn_heal)
         line = measurement_line(a.n, rounds, seconds, card,

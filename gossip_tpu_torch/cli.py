@@ -1,8 +1,8 @@
 """Command line of the port: ``python -m gossip_tpu_torch
-run|crdt|log|txn``.
+run|grid|churn-sweep|crdt|log|txn``.
 
-The port of the JAX package's ``run``, ``crdt``, ``log`` and ``txn``
-commands on one device::
+The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
+``crdt``, ``log`` and ``txn`` commands::
 
     python -m gossip_tpu_torch run --mode pull --n 10000000 [--engine E] \\
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
@@ -16,7 +16,18 @@ commands on one device::
         [--churn-event NODE:DIE[:REC]]... [--partition START:END:CUT]...
         [--drop-ramp START:END:P0:P1] [--save-curve PATH]
         [--devices K [--exchange dense|sparse|halo] [--share-card]]
-        [--device cpu]
+        [--ensemble S] [--device cpu]
+    python -m gossip_tpu_torch grid [--modes M...] [--fanouts F...] \\
+        [--drops P...] [--periods T...] [--seeds S...] [--n N | --ns N...]
+        [--rumors R...] [--family F | --families F...] [--k K] [--p P]
+        [--degree-cap D] [--target C] [--max-rounds M] [--seed S]
+        [--death D] [--curve] [--devices K | --pod-mesh S N]
+        [--share-card] [--device cpu]
+    python -m gossip_tpu_torch churn-sweep --scenario SPEC... \\
+        [--engine xla|fused] [--n N] [--family F] [--k K] [--p P]
+        [--mode M] [--fanout F] [--rumors R] [--period T] [--target C]
+        [--max-rounds M] [--seed S] [--drop P] [--death D] [--curve]
+        [--devices K] [--share-card] [--device cpu]
     python -m gossip_tpu_torch crdt --type gcounter|pncounter|gset|orset \\
         [--n N] [--fanout F] [--family F] [--k K] [--p P] [--target C]
         [--max-rounds M] [--seed S] [--origin O] [--drop P] [--death D]
@@ -53,6 +64,20 @@ program; ``parallel/sharded_fused.py``); otherwise the SI modes run on
 the node-sharded drivers, SWIM and rumor mongering on their own sharded
 rounds, with ``--exchange sparse`` (pull and anti-entropy, all_to_all)
 or ``halo`` (banded tables, ppermute) in place of the dense all_gather.
+``run --ensemble S`` (S above 1) runs the seeds ``--seed + i`` as one
+batch (``backend.run_ensemble``, :mod:`gossip_tpu_torch.parallel.sweep`)
+and prints the reference's ensemble report; ``--devices K`` shards the
+seed axis (the exchange must stay dense), and ``--engine fused`` is
+refused.  ``grid`` runs the cartesian product of its lists as one batch
+a mode bucket (one line a point), or with ``--devices K`` one batch
+sharded over the config axis, or with ``--pod-mesh S N`` configs over S
+and nodes over N ranks.  ``churn-sweep`` runs its ``--scenario``
+programs as one batch (``--engine xla``, ``--devices`` sharding the
+scenarios) or through the fused rumor planes (``--engine fused``,
+``--devices`` sharding the planes).  Each adds the port's keys to the
+reference's report: the device, the walls, the peak memory and the
+kernel launches (every rank's, with the collectives' time, on ranks).
+
 ``run``, ``crdt``, ``log`` and ``txn`` first call
 ``parallel.multislice.maybe_init_distributed``: started by ``torchrun``
 (``MASTER_ADDR``, ``RANK`` and ``WORLD_SIZE`` set) or with
@@ -482,7 +507,113 @@ def run_configs(a):
         fault)
 
 
+def _on_ranks(a, fn, *args, spawn_one: bool = False):
+    """``fn(*args, group=...)``'s results, rank 0's first: in this process
+    without a group (``--devices`` 1, unless ``spawn_one``), as this rank
+    of a process group that is up, or on ``--devices`` spawned ranks
+    (NCCL with a card a rank, gloo with ``--device cpu`` or
+    ``--share-card``)."""
+    import torch.distributed as dist
+
+    from gossip_tpu_torch.parallel import group as GR
+    if a.devices <= 1 and not spawn_one:
+        return [fn(*args, group=None)]
+    if dist.is_available() and dist.is_initialized():
+        group = GR.current(a.device)
+        if group.size != a.devices:
+            raise ValueError(f"the process group has {group.size} ranks; "
+                             f"--devices asks for {a.devices}")
+        return [fn(*args, group=group)]
+    return GR.launch(fn, a.devices, *args, device=a.device,
+                     shared_card=a.share_card)
+
+
+def _measured(dev, group, fn, /, *args, **kwargs):
+    """``(fn's result, the port's report keys)``: the device, the wall
+    and steady seconds, and the peak allocated memory and kernel
+    launches (every rank's, with the process group's backend and each
+    collective's time, under a ``group``)."""
+    import time
+
+    import torch
+
+    from gossip_tpu_torch.backend import (_device_name, _launch_counts,
+                                          _rank_launches)
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.utils.timing import steady_timed
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    if group is not None:
+        group.collective_ms(reset=True)
+    launches0 = _launch_counts()
+    t0 = time.perf_counter()
+    result, steady = steady_timed(dev, fn, *args, **kwargs)
+    keys = {"device": _device_name(dev),
+            "wall_s": round(time.perf_counter() - t0, 4),
+            "steady_wall_s": round(steady, 4)}
+    if group is None:
+        now = _launch_counts()
+        keys.update({"peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                                        if dev.type == "cuda" else None),
+                     "launches": {k: now[k] - launches0[k] for k in now}})
+    else:
+        keys.update({"process_group": group.backend,
+                     "collective_ms": group.collective_ms(),
+                     "rank_peak_mem_bytes": GR.peak_memory(group),
+                     "rank_launches": _rank_launches(group, launches0)})
+    return result, keys
+
+
+def _rank_device(a, group):
+    from gossip_tpu_torch.ops.common import resolve_device
+    return group.device if group is not None else resolve_device(a.device)
+
+
+def _ensemble_rank(a, group=None):
+    """One rank's share of ``run --ensemble``: ``(result, the mode's
+    report keys, the port's keys)``."""
+    from gossip_tpu_torch.backend import run_ensemble
+    dev = _rank_device(a, group)
+    proto, tc, run, fault = run_configs(a)
+    (ens, extra), keys = _measured(dev, group, run_ensemble, proto, tc, run,
+                                   fault, count=a.ensemble, group=group,
+                                   device=dev)
+    return ens, extra, keys
+
+
+def cmd_ensemble(a) -> int:
+    """``run --ensemble S``: S seeds (``--seed + i``) as one batch, the
+    reference's report (the ensemble's summary and the mode's keys),
+    then the port's keys; ``--devices K`` shards the seed axis."""
+    if a.devices > 1 and a.exchange != "dense":
+        # the reference's words
+        print("error: --ensemble shards the SEED axis; "
+              "--exchange does not apply (drop it)", file=sys.stderr)
+        return 2
+    ens, extra, keys = _on_ranks(a, _ensemble_rank, a)[0]
+    out = {"ensemble": ens.summary(), "mode": a.mode, "n": a.n,
+           "backend": f"torch-{'cpu' if keys['device'] == 'cpu' else 'cuda'}",
+           **extra}
+    if a.save_curve:
+        # the per-round band over seeds: mean, min and max
+        import numpy as np
+
+        from gossip_tpu_torch.utils.metrics import dump_curve_jsonl
+        dump_curve_jsonl(a.save_curve, ens.curves.mean(axis=0),
+                         meta={**out, "band_min": np.round(
+                             ens.curves.min(axis=0), 6).tolist(),
+                             "band_max": np.round(
+                                 ens.curves.max(axis=0), 6).tolist()})
+    if a.curve:
+        out["curve_mean"] = [float(c) for c in ens.curves.mean(axis=0)]
+    out.update({"devices": a.devices, **getattr(ens, "meta", {}), **keys})
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_run(a) -> int:
+    if a.ensemble > 1:
+        return cmd_ensemble(a)
     from gossip_tpu_torch.backend import run_simulation
     mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
                        shared_card=a.share_card) if a.devices > 1 else None)
@@ -496,6 +627,177 @@ def cmd_run(a) -> int:
         dump_curve_jsonl(a.save_curve, meta.pop("curve"), meta=meta)
         if not a.curve:          # the curve went to the file
             out["curve"] = None
+    print(json.dumps(out))
+    return 0
+
+
+def grid_points(a):
+    """``(points, [(family, n)])`` of a ``grid`` command line: the
+    cartesian product of its lists, the reference's order, topo_idx t
+    the pair ``t``."""
+    from gossip_tpu_torch.parallel.sweep import SweepPoint
+    families = a.families or [a.family]
+    ns = a.ns or [a.n]
+    fam_n = [(f, n) for f in families for n in ns]
+    points = [
+        SweepPoint(mode=m, fanout=f, drop_prob=d,
+                   period=(p if m == C.ANTI_ENTROPY else 1), seed=s,
+                   topo_idx=t, rumors=r)
+        for t in range(len(fam_n))
+        for m in a.modes for f in a.fanouts for d in a.drops
+        for p in (a.periods if C.ANTI_ENTROPY in a.modes else [1])
+        for s in a.seeds for r in a.rumors]
+    # periods multiply only anti-entropy points; dedupe the rest
+    return list(dict.fromkeys(points)), fam_n
+
+
+def _grid_rank(a, group=None):
+    """One rank's run of ``grid``: ``(result, the port's keys)``."""
+    from gossip_tpu_torch.parallel import sweep as SWP
+    from gossip_tpu_torch.topology import generators as G
+    points, fam_n = grid_points(a)
+    run = RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
+                    seed=a.seed)
+    fault = (FaultConfig(node_death_rate=a.death, seed=a.seed)
+             if a.death > 0 else None)
+    if a.pod_mesh:
+        from gossip_tpu_torch.parallel.multislice import make_hybrid_mesh
+        mesh = make_hybrid_mesh(*a.pod_mesh, device=a.device)
+        dev = mesh.inner.device
+    else:
+        dev = _rank_device(a, group)
+    topos = [G.build(TopologyConfig(family=f, n=n, k=a.k, p=a.p,
+                                    degree_cap=a.degree_cap, seed=a.seed),
+                     dev) for f, n in fam_n]
+    topo = topos if len(topos) > 1 else topos[0]
+    if a.pod_mesh:
+        return _measured(dev, mesh.inner, SWP.config_sweep_curves_2d,
+                         points, topo, run, mesh, fault=fault)
+    if group is not None:
+        return _measured(dev, group, SWP.config_sweep_curves, points, topo,
+                         run, fault=fault, group=group)
+    # one device: a batch a mode bucket, so a pure bucket never pays
+    # the other half
+    return _measured(dev, None, SWP.config_sweep_curves_partitioned, points,
+                     topo, run, fault=fault, device=dev)
+
+
+def cmd_grid(a) -> int:
+    """``grid``: the cartesian product of ``--modes``, ``--fanouts``,
+    ``--drops``, ``--periods``, ``--seeds``, ``--rumors`` and the
+    ``--families`` x ``--ns`` topologies as one batch
+    (:func:`~gossip_tpu_torch.parallel.sweep.config_sweep_curves`); one
+    JSON line a point, the reference's.  ``--devices K`` shards the
+    config axis; ``--pod-mesh S N`` shards configs over S and every
+    config's nodes over N ranks."""
+    if any(r < 1 for r in a.rumors):
+        print("error: --rumors values must be >= 1", file=sys.stderr)
+        return 2
+    if a.pod_mesh:
+        a.devices = a.pod_mesh[0] * a.pod_mesh[1]
+    res, _ = _on_ranks(a, _grid_rank, a, spawn_one=bool(a.pod_mesh))[0]
+    points, fam_n = grid_points(a)
+    for i, summary in enumerate(res.summaries()):
+        fam, n = fam_n[points[i].topo_idx]
+        summary["n"] = n
+        summary["family"] = fam
+        if a.curve:
+            summary["curve"] = [float(c) for c in res.curves[i]]
+        print(json.dumps(summary), flush=True)
+    return 0
+
+
+def parse_scenario(spec: str) -> ChurnConfig:
+    """One ``--scenario`` spec -> a :class:`ChurnConfig`: ';'-separated
+    ``event=NODE:DIE[:REC]`` / ``partition=START:END:CUT`` /
+    ``ramp=START:END:P0:P1`` items, parsed as ``run``'s churn flags are
+    (the reference's ``_parse_scenario``)."""
+    events, partitions, ramp = [], [], None
+    for item in filter(None, (s.strip() for s in spec.split(";"))):
+        key, _, val = item.partition("=")
+        if key == "event":
+            events.append(val)
+        elif key == "partition":
+            partitions.append(val)
+        elif key == "ramp":
+            if ramp is not None:
+                raise ValueError(
+                    f"scenario {spec!r} has more than one ramp")
+            ramp = val
+        else:
+            raise ValueError(
+                f"unknown scenario field {key!r} in {spec!r} "
+                "(use event= / partition= / ramp=)")
+    ch = _parse_churn(argparse.Namespace(
+        churn_event=events or None, partition=partitions or None,
+        drop_ramp=ramp))
+    if ch is None:
+        raise ValueError(f"scenario {spec!r} scripts no faults")
+    return ch
+
+
+def churn_sweep_configs(a):
+    """``(proto, topology config, run, faults)`` of a ``churn-sweep``
+    command line."""
+    proto = ProtocolConfig(mode=a.mode, fanout=a.fanout, rumors=a.rumors,
+                           period=a.period)
+    tc = TopologyConfig(family=a.family, n=a.n, k=a.k, p=a.p, seed=a.seed)
+    run = RunConfig(target_coverage=a.target, max_rounds=a.max_rounds,
+                    seed=a.seed)
+    faults = [FaultConfig(node_death_rate=a.death, drop_prob=a.drop,
+                          seed=a.seed, churn=parse_scenario(s))
+              for s in a.scenario]
+    return proto, tc, run, faults
+
+
+def _churn_rank(a, group=None):
+    """One rank's run of ``churn-sweep``: ``(result, the port's
+    keys)``."""
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sweep as SWP
+    from gossip_tpu_torch.topology import generators as G
+    proto, tc, run, faults = churn_sweep_configs(a)
+    dev = _rank_device(a, group)
+    if a.engine == "fused":
+        if group is None:          # one rank: a one-rank plane mesh
+            with GR.local(dev) as one:
+                return _measured(dev, one, SWP.fused_churn_sweep_curves,
+                                 tc.n, proto.rumors, run, faults, one,
+                                 proto.fanout)
+        return _measured(dev, group, SWP.fused_churn_sweep_curves, tc.n,
+                         proto.rumors, run, faults, group, proto.fanout)
+    return _measured(dev, group, SWP.churn_sweep_curves, proto,
+                     G.build(tc, dev), run, faults, group=group, device=dev)
+
+
+def cmd_churn_sweep(a) -> int:
+    """``churn-sweep``: K fault programs (``--scenario``, repeated) over
+    one configuration.  ``--engine xla``: one batch
+    (:func:`~gossip_tpu_torch.parallel.sweep.churn_sweep_curves`),
+    ``--devices`` sharding the scenario axis; ``--engine fused``: the
+    fused rumor planes, one scenario after another, ``--devices``
+    sharding the plane axis.  The reference's report, then the port's
+    keys."""
+    from gossip_tpu_torch.backend import fused_ineligible_reason
+    proto, tc, run, faults = churn_sweep_configs(a)
+    if a.engine == "fused":
+        reason = fused_ineligible_reason(proto, tc, run, faults[0],
+                                         a.devices, plane_stack=True)
+        if reason is not None:
+            print(f"error: {reason}", file=sys.stderr)
+            return 2
+    elif a.devices > 1 and len(faults) % a.devices:
+        print(f"error: {len(faults)} scenarios do not divide over "
+              f"{a.devices} devices", file=sys.stderr)
+        return 2
+    res, keys = _on_ranks(a, _churn_rank, a)[0]
+    out = {"churn_sweep": res.summaries(), "n": tc.n, "mode": a.mode,
+           "engine": a.engine, "scenarios": len(faults),
+           "target": run.target_coverage}
+    if a.curve:
+        out["curves"] = [[round(float(c), 6) for c in row]
+                         for row in res.curves]
+    out.update({"devices": a.devices, **getattr(res, "meta", {}), **keys})
     print(json.dumps(out))
     return 0
 
@@ -589,10 +891,98 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--share-card", action="store_true",
                    help="run the --devices ranks on one card under gloo "
                         "(a test mode: NCCL takes one card a rank)")
+    p.add_argument("--ensemble", type=int, default=0, metavar="S",
+                   help="run S seeds (--seed + i) as one batch and report "
+                        "the distribution (SI modes, rumor, swim)")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cpu runs the plain versions (default: cuda, which "
                         "must be present)")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("grid", help="batched config sweep: cartesian "
+                       "product of modes/fanouts/drops/seeds as one batch")
+    p.add_argument("--modes", nargs="+", default=["push", "pull", "pushpull"],
+                   choices=(C.PUSH, C.PULL, C.PUSH_PULL, C.ANTI_ENTROPY))
+    p.add_argument("--fanouts", nargs="+", type=int, default=[1, 2])
+    p.add_argument("--drops", nargs="+", type=float, default=[0.0])
+    p.add_argument("--periods", nargs="+", type=int, default=[2],
+                   help="anti-entropy cadences (ignored for other modes)")
+    p.add_argument("--seeds", nargs="+", type=int, default=[0])
+    p.add_argument("--n", type=int, default=4096)
+    p.add_argument("--ns", nargs="+", type=int, default=None,
+                   help="sweep several graph sizes in one batch (overrides "
+                        "--n; smaller graphs pad with inert phantom rows, "
+                        "or on the complete graph bound each point's draw "
+                        "by its own n)")
+    p.add_argument("--rumors", nargs="+", type=int, default=[1],
+                   help="rumor counts to sweep (phantom columns pad to the "
+                        "max; the pod mesh takes one value)")
+    p.add_argument("--family", default=C.COMPLETE, choices=C.FAMILIES)
+    p.add_argument("--families", nargs="+", default=None,
+                   choices=tuple(f for f in C.FAMILIES if f != C.COMPLETE),
+                   help="sweep several explicit families as one stacked "
+                        "table (overrides --family)")
+    p.add_argument("--k", type=int, default=4)
+    p.add_argument("--p", type=float, default=0.01)
+    p.add_argument("--degree-cap", type=int, default=None)
+    p.add_argument("--target", type=float, default=0.99)
+    p.add_argument("--max-rounds", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--death", type=float, default=0.0)
+    p.add_argument("--curve", action="store_true")
+    p.add_argument("--devices", type=int, default=1,
+                   help="shard the config axis over this many ranks")
+    p.add_argument("--pod-mesh", nargs=2, type=int, default=None,
+                   metavar=("SWEEP", "NODES"),
+                   help="2-D mesh: configs over SWEEP ranks, each config's "
+                        "nodes over NODES ranks")
+    p.add_argument("--share-card", action="store_true",
+                   help="run the ranks on one card under gloo (a test "
+                        "mode: NCCL takes one card a rank)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="cpu runs the plain versions (default: cuda)")
+    p.set_defaults(fn=cmd_grid)
+
+    p = sub.add_parser("churn-sweep", help="run K fault programs (churn/"
+                       "partition/drop-ramp) over one configuration and "
+                       "report per-scenario convergence and dropped totals")
+    p.add_argument("--scenario", action="append", required=True,
+                   metavar="SPEC",
+                   help="one fault program: ';'-separated "
+                        "event=NODE:DIE[:REC] / partition=START:END:CUT / "
+                        "ramp=START:END:P0:P1 items; repeat per scenario")
+    p.add_argument("--n", type=int, default=4096)
+    p.add_argument("--family", default=C.COMPLETE, choices=C.FAMILIES)
+    p.add_argument("--k", type=int, default=4)
+    p.add_argument("--p", type=float, default=0.01)
+    p.add_argument("--mode", default=C.PUSH_PULL,
+                   choices=(C.PUSH, C.PULL, C.PUSH_PULL, C.FLOOD,
+                            C.ANTI_ENTROPY))
+    p.add_argument("--fanout", type=int, default=2)
+    p.add_argument("--rumors", type=int, default=1)
+    p.add_argument("--period", type=int, default=1)
+    p.add_argument("--target", type=float, default=0.99)
+    p.add_argument("--max-rounds", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--drop", type=float, default=0.0,
+                   help="base link drop probability (the drop table "
+                        "outside any ramp)")
+    p.add_argument("--death", type=float, default=0.0,
+                   help="static death rate (shared by every scenario)")
+    p.add_argument("--curve", action="store_true")
+    p.add_argument("--devices", type=int, default=1,
+                   help="shard the scenario axis (xla) or the rumor-plane "
+                        "axis (fused) over this many ranks")
+    p.add_argument("--engine", default="xla", choices=("xla", "fused"),
+                   help="xla: the K scenarios as one batch; fused: the "
+                        "fused rumor planes, one scenario after another "
+                        "(--mode pull, complete family)")
+    p.add_argument("--share-card", action="store_true",
+                   help="run the ranks on one card under gloo (a test "
+                        "mode: NCCL takes one card a rank)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="cpu runs the plain versions (default: cuda)")
+    p.set_defaults(fn=cmd_churn_sweep)
 
     p = sub.add_parser("crdt", help="run a commutative-merge CRDT payload "
                        "(counters, sets) on the pull exchange")

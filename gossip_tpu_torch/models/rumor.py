@@ -65,7 +65,32 @@ def make_rumor_round(proto: ProtocolConfig, topo: Topology,
                      device=None):
     """The single-device round on ``device`` (default: the topology's
     table's, or CUDA): ``RumorState -> RumorState``, or under a fault
-    program ``RumorState -> (RumorState, lost)``."""
+    program ``RumorState -> (RumorState, lost)``.  The one-point case of
+    :func:`make_rumor_round_batched`."""
+    bstep = make_rumor_round_batched(proto, topo, fault, origin, device)
+
+    def step(state: RumorState):
+        out = bstep(RumorState(
+            seen=state.seen[None], hot=state.hot[None], cnt=state.cnt[None],
+            round=state.round, base_key=state.base_key[None],
+            msgs=state.msgs[None]))
+        out, lost = (out, None) if isinstance(out, RumorState) else out
+        one = RumorState(seen=out.seen[0], hot=out.hot[0], cnt=out.cnt[0],
+                         round=out.round, base_key=state.base_key,
+                         msgs=out.msgs[0])
+        return one if lost is None else (one, lost[0])
+
+    return step
+
+
+def make_rumor_round_batched(proto: ProtocolConfig, topo: Topology,
+                             fault: Optional[FaultConfig] = None,
+                             origin: int = 0, device=None):
+    """The round of a batch of S seeds of one configuration on a leading
+    axis (``seen``, ``hot``, ``cnt`` ``[S, N, R]``, ``base_key`` ``[S,
+    2]``, ``msgs`` ``[S]``, the round shared); seed s's trajectory is the
+    solo round's from its key, bit for bit, and under a program ``lost``
+    is ``float32[S]``."""
     if proto.mode != C.RUMOR:
         raise ValueError(f"make_rumor_round builds mode='rumor' only "
                          f"(got {proto.mode!r})")
@@ -81,7 +106,7 @@ def make_rumor_round(proto: ProtocolConfig, topo: Topology,
     ids = torch.arange(n, dtype=torch.int64, device=dev)
 
     def step(state: RumorState):
-        rkey = threefry.fold_in(state.base_key, state.round)
+        rkey = threefry.fold_in(state.base_key, state.round)[:, None]
         seen, hot, cnt = state.seen, state.hot, state.cnt
         if churn:
             # a node that is down loses its hot state, as a crash would;
@@ -90,7 +115,8 @@ def make_rumor_round(proto: ProtocolConfig, topo: Topology,
             dp = NE.drop_at(sched, state.round)
         else:
             alive, dp = static_alive, drop_prob
-        payload = hot if alive is None else hot & alive[:, None]
+        am = None if alive is None else alive[:, None]
+        payload = hot if am is None else hot & am
 
         targets0 = sample_peers(threefry.fold_in(rkey, RUMOR_PUSH_TAG), ids,
                                 topo, k, proto.exclude_self)
@@ -99,29 +125,30 @@ def make_rumor_round(proto: ProtocolConfig, topo: Topology,
         if churn:
             targets = NE.partition_targets(NE.cut_at(sched, state.round),
                                            ids, targets, n)
-        sender_active = payload.any(dim=1)
-        valid = (targets < n) & sender_active[:, None]
+        sender_active = payload.any(dim=-1)
+        valid = (targets < n) & sender_active[..., None]
         delta = push_delta(n, torch.where(valid, targets, n), payload)
-        if alive is not None:
-            delta = delta & alive[:, None]     # dead nodes receive nothing
+        if am is not None:
+            delta = delta & am                 # dead nodes receive nothing
 
         # hits against the round's starting knowledge
         if feedback:
             safe_t = torch.where(valid, targets, 0)
-            knew = seen[safe_t] & valid[:, :, None]              # [N, k, R]
-            hits = knew.sum(dim=1, dtype=torch.int32)
+            pts = torch.arange(seen.shape[0], device=dev)[:, None, None]
+            knew = seen[pts, safe_t] & valid[..., None]       # [S, N, k, R]
+            hits = knew.sum(dim=-2, dtype=torch.int32)
         else:
-            hits = valid.sum(dim=1, dtype=torch.int32)[:, None]
+            hits = valid.sum(dim=-1, dtype=torch.int32)[..., None]
         cnt = cnt + torch.where(payload, hits, 0)
 
         # removal, and the new arrivals become hot (a dead node holds no
         # hot pair, or the run would never end)
         hot = (hot & (cnt < kk)) | (delta & ~seen)
-        if alive is not None:
-            hot = hot & alive[:, None]
+        if am is not None:
+            hot = hot & am
         out = RumorState(seen=seen | delta, hot=hot, cnt=cnt,
                          round=state.round + 1, base_key=state.base_key,
-                         msgs=state.msgs + f32(valid.sum()))
+                         msgs=state.msgs + f32(valid.sum(dim=(-2, -1))))
         if churn:
             return out, NE.lost_count(targets0, targets, sender_active, n)
         return out

@@ -14,6 +14,10 @@ a multiple of the period and is quiescent on the others: the port draws
 nothing on a quiescent round, where the reference draws and masks it
 all, with the same result.
 
+The step is the one-point case of :func:`make_si_round_batched`, which
+runs S points of one configuration on a leading batch axis (the
+ensembles and the churn sweep, :mod:`gossip_tpu_torch.parallel.sweep`).
+
 Under a fault program (``fault.churn``, lowered by
 :mod:`gossip_tpu_torch.ops.nemesis`) the step reads the round's
 liveness, drop probability and partition cut from the schedule's tables,
@@ -88,7 +92,45 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
     """The single-device round step on ``device`` (default: the
     topology's table's, or CUDA): ``SimState -> SimState``, or under a
     schedule (``fault.churn``, or ``schedule``) ``SimState -> (SimState,
-    lost)``."""
+    lost)``.  The one-point case of :func:`make_si_round_batched`."""
+    bstep = make_si_round_batched(proto, topo, fault, origin, device,
+                                  schedule)
+
+    def step(state: SimState):
+        out = bstep(SimState(seen=state.seen[None], round=state.round,
+                             key=state.key[None], msgs=state.msgs[None]))
+        out, lost = (out, None) if isinstance(out, SimState) else out
+        one = SimState(seen=out.seen[0], round=out.round, key=state.key,
+                       msgs=out.msgs[0])
+        return one if lost is None else (one, lost[0])
+
+    return step
+
+
+def _per_point(x, dims: int):
+    """A per-point value (a float, a 0-d tensor, or one a point ``[S]``)
+    shaped to broadcast against ``[S, ...]`` of ``dims`` axes."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape((-1,) + (1,) * (dims - 1))
+    return x
+
+
+def make_si_round_batched(proto: ProtocolConfig, topo: Topology,
+                          fault: Optional[FaultConfig] = None,
+                          origin: int = 0, device=None,
+                          schedule: Optional[NE.Schedule] = None):
+    """The round step of a batch of S points of one configuration, on a
+    leading axis: ``seen`` ``bool[S, N, R]``, ``key`` ``int64[S, 2]`` (a
+    seed a point), ``msgs`` ``float32[S]``, and the round shared.  Point
+    s's trajectory is the solo step's from its key, bit for bit: its
+    draws are keyed ``fold_in(fold_in(key_s, round), node)`` as the solo
+    draws are, and its push scatter counts into its own block of one
+    table (:func:`~gossip_tpu_torch.ops.propagate.push_counts`).
+
+    ``schedule`` may be a stacked one
+    (:func:`~gossip_tpu_torch.ops.nemesis.build_stack`, die/rec ``[S,
+    N]``): point s then runs scenario s, its liveness, drop probability
+    and cut its own, and ``lost`` is ``float32[S]``."""
     n, k = topo.n, proto.fanout
     mode = proto.mode
     if mode == C.SWIM:
@@ -100,7 +142,16 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
         raise ValueError("flood mode needs an explicit neighbor table")
     NE.check_supported(fault, engine="si-xla")
     dev = topology_device(topo, device)
-    sched = round_schedule(fault, n, dev, schedule)
+    if schedule is not None and schedule.die.dim() == 2:
+        on = schedule.die.device
+        if schedule.die.shape[1] != n or on.type != dev.type or (
+                dev.index is not None and on.index != dev.index):
+            raise ValueError(f"the schedule holds {schedule.die.shape[1]} "
+                             f"rows on {schedule.die.device}, the round "
+                             f"{n} on {dev}")
+        sched = schedule
+    else:
+        sched = round_schedule(fault, n, dev, schedule)
     churn = sched is not None
     drop_prob = 0.0 if fault is None else fault.drop_prob
     # the static mask; under a schedule always a tensor, which each
@@ -110,17 +161,22 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
     ids = torch.arange(n, dtype=torch.int64, device=dev)
     nbrs_t = None if topo.implicit else topo.nbrs.to(torch.int64)
 
+    def cut_off(cut, targets):
+        """Targets across the point's open cut become the sentinel."""
+        return NE.partition_targets(_per_point(cut, 3), ids, targets, n)
+
     def step(state: SimState):
-        rkey = threefry.fold_in(state.key, state.round)
+        rkey = threefry.fold_in(state.key, state.round)[:, None]
         seen = state.seen
         if churn:
             alive = NE.alive_rows(sched, base_alive, state.round)
-            dp = NE.drop_at(sched, state.round)
+            dp = _per_point(NE.drop_at(sched, state.round), 3)
             cut = NE.cut_at(sched, state.round)
         else:
             alive, dp = base_alive, drop_prob
-        lost = torch.zeros((), dtype=torch.float32, device=dev)
-        visible = seen if alive is None else seen & alive[:, None]
+        lost = torch.zeros(seen.shape[0], dtype=torch.float32, device=dev)
+        am = None if alive is None else alive[..., None]
+        visible = seen if am is None else seen & am
         delta = torch.zeros_like(seen)
         msgs = state.msgs
 
@@ -130,12 +186,12 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
             targets = apply_drop(rkey, PUSH_DROP_TAG, ids, targets0, dp, n,
                                  force=churn)
             if churn:
-                targets = NE.partition_targets(cut, ids, targets, n)
-            sender_active = visible.any(dim=1)
-            valid = (targets < n) & sender_active[:, None]
+                targets = cut_off(cut, targets)
+            sender_active = visible.any(dim=-1)
+            valid = (targets < n) & sender_active[..., None]
             delta = delta | push_delta(n, torch.where(valid, targets, n),
                                        visible)
-            msgs = msgs + f32(valid.sum())
+            msgs = msgs + f32(valid.sum(dim=(-2, -1)))
             if churn:
                 lost = lost + NE.lost_count(targets0, targets,
                                             sender_active, n)
@@ -148,11 +204,11 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
             partners = apply_drop(rkey, PULL_DROP_TAG, ids, partners0, dp,
                                   n, force=churn)
             if churn:
-                partners = NE.partition_targets(cut, ids, partners, n)
+                partners = cut_off(cut, partners)
             pulled = pull_merge(visible, partners, n)
-            if alive is not None:     # dead nodes neither ask nor receive
-                partners = torch.where(alive[:, None], partners, n)
-            n_req = f32((partners < n).sum())
+            if am is not None:        # dead nodes neither ask nor receive
+                partners = torch.where(am, partners, n)
+            n_req = f32((partners < n).sum(dim=(-2, -1)))
             if churn:
                 lost = lost + NE.lost_count(partners0, partners, alive, n)
             if mode == C.ANTI_ENTROPY:
@@ -170,19 +226,20 @@ def make_si_round(proto: ProtocolConfig, topo: Topology,
                 dropped = drop_mask(rkey, FLOOD_DROP_TAG, ids,
                                     nbrs.shape[1], dp)
                 nbrs = torch.where(dropped, n, nbrs)
-            sender_active = visible.any(dim=1)
+            sender_active = visible.any(dim=-1)
             if churn:
-                nbrs = NE.partition_targets(cut, ids, nbrs, n)
+                nbrs = cut_off(cut, nbrs)
                 # lost edge uses whose sender (the neighbour the gather
                 # reads from) had something to say
                 live = (nbrs_t < n) & sender_active[
-                    torch.clamp(nbrs_t, 0, n - 1)]
-                lost = lost + f32((live & (nbrs >= n)).sum())
+                    ..., torch.clamp(nbrs_t, 0, n - 1)]
+                lost = lost + f32((live & (nbrs >= n)).sum(dim=(-2, -1)))
             delta = flood_gather(visible, nbrs, n)
-            msgs = msgs + f32(torch.where(sender_active, topo.deg, 0).sum())
+            msgs = msgs + f32(torch.where(sender_active, topo.deg,
+                                          0).sum(dim=-1))
 
-        if alive is not None:
-            delta = delta & alive[:, None]   # dead nodes receive nothing
+        if am is not None:
+            delta = delta & am             # dead nodes receive nothing
         out = SimState(seen=seen | delta, round=state.round + 1,
                        key=state.key, msgs=msgs)
         return (out, lost) if churn else out

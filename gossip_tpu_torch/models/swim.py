@@ -241,21 +241,23 @@ def probe_draws(rkey: torch.Tensor, gids: torch.Tensor, s_count: int,
     (int64[N]), direct-probe drop (bool[N]), proxies (int64[N, K]) and
     the two per-proxy hop drops (bool[N, K]).  A zero rate draws no coins
     unless ``force`` (a ramp's per-round probability, a float32 0-d
-    tensor)."""
+    tensor).  A batch of round keys ``[S, 1, 2]`` draws each with a
+    leading ``S``."""
     subj = threefry.randint(node_keys(threefry.fold_in(rkey, _SUBJ_TAG),
                                       gids), (), 0, s_count)
     proxy_ids = threefry.randint(
         node_keys(threefry.fold_in(rkey, _PROXY_TAG), gids), (proxies,), 0,
         n)
-    m = gids.shape[0]
     if force or drop_prob > 0.0:
-        d_drop = drop_mask(rkey, _DIRECT_DROP_TAG, gids, 1, drop_prob)[:, 0]
+        d_drop = drop_mask(rkey, _DIRECT_DROP_TAG, gids, 1,
+                           drop_prob)[..., 0]
         to_p = drop_mask(rkey, _TO_PROXY_DROP_TAG, gids, proxies, drop_prob)
         p_to_s = drop_mask(rkey, _PROXY_SUBJ_DROP_TAG, gids, proxies,
                            drop_prob)
     else:
-        d_drop = torch.zeros(m, dtype=torch.bool, device=gids.device)
-        to_p = p_to_s = torch.zeros(m, proxies, dtype=torch.bool,
+        d_drop = torch.zeros(subj.shape, dtype=torch.bool,
+                             device=gids.device)
+        to_p = p_to_s = torch.zeros(proxy_ids.shape, dtype=torch.bool,
                                     device=gids.device)
     return subj, d_drop, proxy_ids, to_p, p_to_s
 
@@ -287,14 +289,15 @@ def packed_round_draws(rkey: torch.Tensor, gids: torch.Tensor,
     dissemination peers (complete: mod n-1 and the self-shift; a table:
     mod the degree), then with drops one direct and ``2 * proxies`` hop
     coins, each ``word < threshold`` (:func:`packed_threshold`).
-    Returns :func:`probe_draws`' tuple and the peers (int64[N, fanout])."""
+    Returns :func:`probe_draws`' tuple and the peers (int64[N, fanout]),
+    each with a leading ``S`` for a batch of round keys ``[S, 1, 2]``."""
     have_drop = force or drop_prob > 0.0
     w = 1 + proxies + fanout + (1 + 2 * proxies if have_drop else 0)
     keys = node_keys(threefry.fold_in(rkey, _PACKED_TAG), gids)
     words = threefry.random_bits(keys, (w,))          # int64 in [0, 2^32)
-    subj = words[:, 0] % s_count
-    proxy_ids = words[:, 1:1 + proxies] % n
-    peer_w = words[:, 1 + proxies:1 + proxies + fanout]
+    subj = words[..., 0] % s_count
+    proxy_ids = words[..., 1:1 + proxies] % n
+    peer_w = words[..., 1 + proxies:1 + proxies + fanout]
     if nbrs is None:
         r = peer_w % max(n - 1, 1)
         targets = shift_excluding_self(r, gids.to(torch.int64)[:, None])
@@ -302,16 +305,17 @@ def packed_round_draws(rkey: torch.Tensor, gids: torch.Tensor,
         d = deg.to(torch.int64)[:, None]
         targets = table_lookup_or_sentinel(peer_w % torch.clamp(d, min=1),
                                            nbrs, d, sentinel)
-    m = gids.shape[0]
     if have_drop:
         thresh = packed_threshold(drop_prob, force).to(words.device)
         base = 1 + proxies + fanout
-        d_drop = words[:, base] < thresh
-        to_p = words[:, base + 1:base + 1 + proxies] < thresh
-        p_to_s = words[:, base + 1 + proxies:base + 1 + 2 * proxies] < thresh
+        d_drop = words[..., base] < thresh
+        to_p = words[..., base + 1:base + 1 + proxies] < thresh
+        p_to_s = (words[..., base + 1 + proxies:base + 1 + 2 * proxies]
+                  < thresh)
     else:
-        d_drop = torch.zeros(m, dtype=torch.bool, device=gids.device)
-        to_p = p_to_s = torch.zeros(m, proxies, dtype=torch.bool,
+        d_drop = torch.zeros(subj.shape, dtype=torch.bool,
+                             device=gids.device)
+        to_p = p_to_s = torch.zeros(proxy_ids.shape, dtype=torch.bool,
                                     device=gids.device)
     return subj, d_drop, proxy_ids, to_p, p_to_s, targets
 
@@ -325,7 +329,34 @@ def make_swim_round(proto: ProtocolConfig, n: int,
     (default: the topology's table's, or CUDA).  ``topo`` (default the
     complete graph) restricts the dissemination's peers only: probes go
     to the subject directly.  ``max_rounds`` is the run's round budget,
-    which only the ``pack`` lowering reads (:func:`pack_width`)."""
+    which only the ``pack`` lowering reads (:func:`pack_width`).  The
+    one-point case of :func:`make_swim_round_batched`."""
+    bstep = make_swim_round_batched(proto, n, dead_nodes, fail_round,
+                                    fault, topo, max_rounds, device)
+
+    def step(state: SwimState) -> SwimState:
+        out = bstep(SwimState(wire=state.wire[None], timer=state.timer[None],
+                              round=state.round,
+                              base_key=state.base_key[None],
+                              msgs=state.msgs[None]))
+        return SwimState(wire=out.wire[0], timer=out.timer[0],
+                         round=out.round, base_key=state.base_key,
+                         msgs=out.msgs[0])
+
+    return step
+
+
+def make_swim_round_batched(proto: ProtocolConfig, n: int,
+                            dead_nodes: Tuple[int, ...] = (),
+                            fail_round: int = 0,
+                            fault: Optional[FaultConfig] = None,
+                            topo: Optional[Topology] = None,
+                            max_rounds=None, device=None):
+    """The round of a batch of S seeds of one scenario on a leading axis
+    (``wire``, ``timer`` ``[S, N, S_subj]``, ``base_key`` ``[S, 2]``,
+    ``msgs`` ``[S]``, the round shared): seed s's trajectory is the solo
+    round's from its key, bit for bit.  The dissemination's max-merge
+    runs over one flat table, point s's receivers offset by ``s * n``."""
     s_count = proto.swim_subjects
     if s_count > n:
         raise ValueError(
@@ -351,7 +382,7 @@ def make_swim_round(proto: ProtocolConfig, n: int,
 
     def step(state: SwimState) -> SwimState:
         r = state.round
-        rkey = threefry.fold_in(state.base_key, r)
+        rkey = threefry.fold_in(state.base_key, r)[:, None]
         alive_now = alive_base if r >= fail_round else everyone
         dp = drop_prob
         if ch is not None:
@@ -381,15 +412,15 @@ def make_swim_round(proto: ProtocolConfig, n: int,
         subj_ok = subj_alive[subj]
         direct_ok = subj_ok & ~d_drop
         proxy_ok = (alive_now[proxy_ids] & ~to_p & ~p_to_s
-                    & subj_ok[:, None])
-        fail = alive_now & ~direct_ok & ~proxy_ok.any(dim=1)
+                    & subj_ok[..., None])
+        fail = alive_now & ~direct_ok & ~proxy_ok.any(dim=-1)
         suspectable = ((wire_prev < DEAD_WIRE)
-                       & (subj[:, None] == slots[None, :]) & fail[:, None])
+                       & (subj[..., None] == slots) & fail[..., None])
         wire1 = torch.where(suspectable, wire_prev | 1, wire_prev)
         # a direct ping and its ack; on a direct failure, four messages
         # per proxy path (the ping-req chain)
-        msgs_probe = (f32((alive_now & direct_ok).sum()) * 2.0
-                      + f32((alive_now & ~direct_ok).sum())
+        msgs_probe = (f32((alive_now & direct_ok).sum(dim=-1)) * 2.0
+                      + f32((alive_now & ~direct_ok).sum(dim=-1))
                       * (1.0 + 4.0 * proxies))
 
         # 3: dissemination, a max-merge of the pushed wire rows
@@ -397,18 +428,25 @@ def make_swim_round(proto: ProtocolConfig, n: int,
             targets = sample_peers(threefry.fold_in(rkey, _DISS_TAG), ids,
                                    topo, fanout, exclude_self=True)
         targets = torch.where(alive_now[:, None], targets, n)
-        recv = disseminate_max(targets, wire1, n, proto.swim_diss,
-                               max_rounds)
-        wire2 = torch.maximum(wire1, recv)
-        msgs_diss = f32((targets < n).sum())
+        b = targets.shape[0]
+        # one flat table: point s's receivers at s * n, the sentinel past
+        # every row
+        flat = torch.where(targets < n, targets + n * torch.arange(
+            b, device=dev)[:, None, None], b * n)
+        recv = disseminate_max(flat.reshape(b * n, -1),
+                               wire1.reshape(b * n, -1), b * n,
+                               proto.swim_diss, max_rounds)
+        wire2 = torch.maximum(wire1, recv.reshape(wire1.shape))
+        msgs_diss = f32((targets < n).sum(dim=(-2, -1)))
 
         # 4: refutation, an alive subject over its own suspicion
-        self_view = wire2[subj_gids, slots]
+        self_view = wire2[:, subj_gids, slots]
         refuted = torch.where(
             subj_alive & (self_view % 2 == 1) & (self_view < DEAD_WIRE),
             (torch.div(self_view, 2, rounding_mode="floor") + 1) * 2,
             self_view)
-        wire3 = wire2.index_put((subj_gids, slots), refuted)
+        wire3 = wire2.clone()
+        wire3[:, subj_gids, slots] = refuted
 
         # 5: suspicion timers and confirmation
         is_susp = (wire3 % 2 == 1) & (wire3 < DEAD_WIRE)

@@ -166,6 +166,32 @@ def build(fault: FaultConfig, n: int, n_pad: Optional[int] = None,
         drop_tbl=torch.from_numpy(np.asarray(drop, np.float32)).to(dev))
 
 
+def build_stack(faults, n: int, n_pad: Optional[int] = None,
+                device=None) -> Schedule:
+    """K fault programs as one :class:`Schedule` with a leading scenario
+    axis (die/rec ``int32[K, n_pad]``, cut/drop ``[K, T]``), every table
+    padded to the stack's largest canonical horizon (exact: the final
+    row is the steady state).  The operand of the churn sweep
+    (:func:`gossip_tpu_torch.parallel.sweep.churn_sweep_curves`); the
+    static structure each entry shares (deaths, scripted dead nodes) is
+    the sweep's to check."""
+    faults = tuple(faults)
+    if not faults:
+        raise ValueError("build_stack needs at least one FaultConfig")
+    missing = [i for i, f in enumerate(faults) if get(f) is None]
+    if missing:
+        # the reference's words
+        raise ValueError(
+            f"scenario stack entries {missing} carry no churn schedule; "
+            "a churn sweep batches fault PROGRAMS (static-only points "
+            "belong in the plain ensemble/config sweeps)")
+    t_pad = max(canonical_horizon(f.churn) for f in faults)
+    scheds = [build(f, n, n_pad, t_pad=t_pad, device=device)
+              for f in faults]
+    return Schedule(*(torch.stack([s[i] for s in scheds])
+                      for i in range(4)))
+
+
 def build_or_static(fault: Optional[FaultConfig], n: int,
                     n_pad: Optional[int] = None,
                     t_pad: Optional[int] = None, device=None) -> Schedule:
@@ -188,9 +214,10 @@ def build_or_static(fault: Optional[FaultConfig], n: int,
 
 
 def _idx(tbl: torch.Tensor, round_: int) -> torch.Tensor:
-    """The clamped lookup, a 0-d tensor on the table's device (exact past
-    the horizon: the last row is the steady state)."""
-    return tbl[min(max(int(round_), 0), tbl.shape[0] - 1)]
+    """The clamped lookup on the last axis (exact past the horizon: the
+    last row is the steady state): a 0-d tensor, or one a scenario of a
+    stacked table (:func:`build_stack`)."""
+    return tbl[..., min(max(int(round_), 0), tbl.shape[-1] - 1)]
 
 
 def alive_rows(sched: Schedule, base_alive: torch.Tensor,
@@ -223,23 +250,25 @@ def partition_targets(cut: torch.Tensor, src_gids: torch.Tensor,
                       targets: torch.Tensor, sentinel: int) -> torch.Tensor:
     """Targets across the open cut become the sentinel, in the targets'
     dtype (lost for this round only).  ``src_gids`` ``[m]`` broadcasts
-    against ``targets`` ``[m, k]``."""
-    src = (src_gids[:, None] if targets.dim() == src_gids.dim() + 1
+    against ``targets`` ``[m, k]`` (or a batch's ``[S, m, k]``)."""
+    src = (src_gids[:, None] if targets.dim() > src_gids.dim()
            else src_gids)
     return torch.where(same_side(cut, src, targets), targets, sentinel)
 
 
 def _f32_count(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum().to(torch.float32)
+    """The count over the last two axes (a batch point's), as float32."""
+    return mask.sum(dim=(-2, -1)).to(torch.float32)
 
 
 def lost_count(pre: torch.Tensor, post: torch.Tensor, active: torch.Tensor,
                n: int) -> torch.Tensor:
-    """float32 0-d: messages the nemesis destroyed this round, the real
+    """float32: messages the nemesis destroyed this round, the real
     targets (``< n``) of ``active`` senders before the drop coin and the
-    cut, less those still real after.  Counted in integers and rounded
-    once, where the reference sums float32 (the same below 2^24)."""
-    a = active[:, None]
+    cut, less those still real after; 0-d, or one a point of a batch
+    (``[S, N, k]`` targets).  Counted in integers and rounded once, where
+    the reference sums float32 (the same below 2^24)."""
+    a = active[..., None]
     return _f32_count((pre < n) & a) - _f32_count((post < n) & a)
 
 

@@ -6,6 +6,13 @@ global_id)``, so the draws equal the reference's bit for bit
 (:mod:`gossip_tpu_torch.ops.threefry`).  The reference's ``vmap`` over
 per-node keys is a batch of keys here.  Targets are int64 tensors
 ``[N, k]`` holding node ids, or the sentinel ``n`` for "no peer".
+
+A batch of round keys ``[S, 1, 2]`` draws ``[S, N, k]``: point s's draws
+are its solo run's (the threefry counter is per element, so a
+``k_max``-wide draw holds the f-wide draw in its first f columns).  The
+complete graph's bound may be a tensor (each point's own n, shaped
+``[S, 1, 1]``: the draw depends on the bound's value only), and a table
+may carry the batch axis too (``[S, N, D]``, ``[S, N]``).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ def apply_drop(round_key: torch.Tensor, tag: int, global_ids: torch.Tensor,
     schedule (a float32 0-d tensor; at 0 the mask is all False)."""
     if not force and drop_prob <= 0.0:
         return targets
-    dropped = drop_mask(round_key, tag, global_ids, targets.shape[1],
+    dropped = drop_mask(round_key, tag, global_ids, targets.shape[-1],
                         drop_prob)
     return torch.where(dropped, sentinel, targets)
 
@@ -54,6 +61,8 @@ def table_lookup_or_sentinel(idx: torch.Tensor, rows: torch.Tensor,
                              deg: torch.Tensor, sentinel: int):
     """Neighbour ``idx`` of each row (int64); degree-0 rows give the
     sentinel.  The gather reads the table in its own dtype."""
+    if idx.dim() > rows.dim():
+        rows = rows.expand(idx.shape[:-1] + rows.shape[-1:])
     t = torch.gather(rows, -1, idx).to(torch.int64)
     return torch.where(deg > 0, t, sentinel)
 
@@ -61,12 +70,17 @@ def table_lookup_or_sentinel(idx: torch.Tensor, rows: torch.Tensor,
 def sample_peers_complete(round_key: torch.Tensor, global_ids: torch.Tensor,
                           n_total: int, k: int,
                           exclude_self: bool = True) -> torch.Tensor:
-    """Uniform peers on the implicit complete graph, int64[N, k]."""
+    """Uniform peers on the implicit complete graph, int64[..., N, k].
+    ``n_total`` is an int, or a tensor of each point's own n (which must
+    then be at least 2 where self is excluded, as the reference's traced
+    bound requires)."""
     keys = node_keys(round_key, global_ids)
-    if exclude_self and int(n_total) > 1:
-        r = threefry.randint(keys, (k,), 0, int(n_total) - 1)
+    if not isinstance(n_total, torch.Tensor):
+        n_total = int(n_total)
+    if exclude_self and (isinstance(n_total, torch.Tensor) or n_total > 1):
+        r = threefry.randint(keys, (k,), 0, n_total - 1)
         return shift_excluding_self(r, global_ids.to(torch.int64)[:, None])
-    return threefry.randint(keys, (k,), 0, int(n_total))
+    return threefry.randint(keys, (k,), 0, n_total)
 
 
 def sample_peers_table(round_key: torch.Tensor, global_ids: torch.Tensor,
@@ -75,7 +89,7 @@ def sample_peers_table(round_key: torch.Tensor, global_ids: torch.Tensor,
     """k uniform neighbours per node from a padded table, int64[N, k];
     degree-0 nodes give the sentinel."""
     keys = node_keys(round_key, global_ids)
-    d = deg.to(torch.int64)[:, None]
+    d = deg.to(torch.int64)[..., None]
     idx = threefry.randint(keys, (k,), 0, torch.clamp(d, min=1))
     return table_lookup_or_sentinel(idx, nbrs, d, sentinel)
 

@@ -187,12 +187,13 @@ def uniform(k: torch.Tensor, shape) -> torch.Tensor:
 def bernoulli(k: torch.Tensor, p, shape) -> torch.Tensor:
     """``jax.random.bernoulli(k, p, shape)`` of a key batch: bool of shape
     ``(..., *shape)``, ``uniform < float32(p)``.  ``p`` is a float or a
-    float32 0-d tensor on the keys' device (a per-round probability read
-    from a schedule table)."""
+    float32 tensor on the keys' device that broadcasts against that shape
+    (a per-round probability read from a schedule table: 0-d, or one a
+    batch point shaped ``[S, 1, ..., 1]``)."""
     if not isinstance(p, torch.Tensor):
         p = torch.tensor(np.float32(p), device=k.device)
-    elif p.dtype != torch.float32 or p.dim() != 0:
-        raise ValueError(f"p must be a float32 0-d tensor, got {p.dtype} "
+    elif p.dtype != torch.float32:
+        raise ValueError(f"p must be a float32 tensor, got {p.dtype} "
                          f"of shape {tuple(p.shape)}")
     return uniform(k, shape) < p
 

@@ -6,5 +6,7 @@ the sparse all_to_all and halo ppermute exchanges
 (:mod:`~gossip_tpu_torch.parallel.sharded_sparse`,
 :mod:`~gossip_tpu_torch.parallel.halo`), the sharded SWIM, rumor and
 payload drivers; rumor-plane sharding of the fused round
-(:mod:`~gossip_tpu_torch.parallel.sharded_fused`); and the hybrid meshes
-and multi-host bootstrap (:mod:`~gossip_tpu_torch.parallel.multislice`)."""
+(:mod:`~gossip_tpu_torch.parallel.sharded_fused`); the hybrid meshes
+and multi-host bootstrap (:mod:`~gossip_tpu_torch.parallel.multislice`);
+and the sweep axis, seed ensembles, config grids and churn sweeps as a
+batched leading axis (:mod:`~gossip_tpu_torch.parallel.sweep`)."""

@@ -7,8 +7,9 @@ The ``complete`` family is implicit (``nbrs is None``): samplers draw
 peers from ``[0, N)`` directly.
 
 The edge lists are built on the host with numpy, by the reference's own
-code, so they are identical for the same seed; only the table's scatter
-runs on the device (:func:`_scatter_table`).
+code, so they are identical for the same seed; the table's packing (a
+stable sort by source and one scatter) runs on the device
+(:func:`_pack`).
 """
 
 from __future__ import annotations
@@ -48,36 +49,37 @@ def _device(device) -> torch.device:
     return resolve_device(device)
 
 
-def _scatter_table(src: np.ndarray, dst: np.ndarray, col: np.ndarray,
-                   n: int, d_max: int, device) -> torch.Tensor:
-    """The padded table built on the device from the edge list: one
-    scatter of E elements into a sentinel-filled ``[n, d_max]`` table, so
-    only the edges cross to the device."""
-    nbrs = torch.full((n, d_max), n, dtype=torch.int32, device=device)
-    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)
-                                      ).to(device)
-    nbrs.index_put_((as_t(src), as_t(col)),
-                    torch.from_numpy(np.asarray(dst, np.int32)).to(device))
-    return nbrs
-
-
 def _pack(n: int, src: np.ndarray, dst: np.ndarray,
           degree_cap: Optional[int], family: str,
           rng: np.random.Generator, device) -> Topology:
-    """Pack an edge list (directed pairs; undirected graphs pass both
-    directions) into a padded neighbour table (the reference's ``_pack``,
-    degree-cap subsampling included)."""
-    order = np.argsort(src, kind="stable")
-    src, dst = src[order], dst[order]
-    deg = np.bincount(src, minlength=n).astype(np.int32)
-    d_max = int(deg.max()) if len(src) else 0
-    starts = np.concatenate([[0], np.cumsum(deg)])[:-1]
-    col = np.arange(len(src)) - np.repeat(starts, deg)
+    """Pack an edge list (numpy or int64 tensors of directed pairs;
+    undirected graphs pass both directions) into a padded neighbour
+    table (the reference's ``_pack``, degree-cap subsampling included).
+    The stable sort by source and the packing run in torch on the
+    table's device (numpy's stable argsort of an int64 array is a merge
+    sort: minutes at 10^8 edges on a slow host); a stable sort has one
+    result.  The degree cap's subsampling draws from ``rng`` in numpy,
+    as the reference does."""
+    dev = _device(device)
+
+    def as_t(a):
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a, np.int64))
+        return a.to(dev)
+
+    src_t, dst_t = as_t(src), as_t(dst)
+    order = torch.argsort(src_t, stable=True)
+    src_t, dst_t = src_t[order], dst_t[order]
+    deg_t = torch.bincount(src_t, minlength=n)
+    d_max = int(deg_t.max()) if len(src) else 0
     if degree_cap is not None and d_max > degree_cap:
         # rows over the cap keep a random subset: within each, the edges
         # sorted by a uniform priority (drawn for every edge, as the
         # reference draws it); the rows under the cap keep their order,
         # so only the rows over it are sorted
+        src, dst = src_t.cpu().numpy(), dst_t.cpu().numpy()
+        deg = deg_t.cpu().numpy().astype(np.int32)
+        starts = np.concatenate([[0], np.cumsum(deg)])[:-1]
         over_rows = np.flatnonzero((deg > degree_cap)[src])
         pri = rng.random(len(src))[over_rows]
         order2 = np.arange(len(src))
@@ -85,13 +87,16 @@ def _pack(n: int, src: np.ndarray, dst: np.ndarray,
         src, dst = src[order2], dst[order2]
         rank = np.arange(len(src)) - np.repeat(starts, deg)
         keep = rank < degree_cap
-        src, dst, col = src[keep], dst[keep], rank[keep]
-        deg = np.minimum(deg, degree_cap)
+        src_t, dst_t, col = as_t(src[keep]), as_t(dst[keep]), as_t(rank[keep])
+        deg_t = torch.from_numpy(np.minimum(deg, degree_cap)).to(dev)
         d_max = degree_cap
-    d_max = max(d_max, 1)
-    dev = _device(device)
-    nbrs = _scatter_table(src, dst, col, n, d_max, dev)
-    return Topology(nbrs=nbrs, deg=torch.from_numpy(deg).to(dev), n=n,
+    else:
+        starts = torch.cumsum(deg_t, 0) - deg_t
+        col = (torch.arange(len(src), dtype=torch.int64, device=dev)
+               - torch.repeat_interleave(starts, deg_t))
+    nbrs = torch.full((n, max(d_max, 1)), n, dtype=torch.int32, device=dev)
+    nbrs.index_put_((src_t, col), dst_t.to(torch.int32))
+    return Topology(nbrs=nbrs, deg=deg_t.to(torch.int32), n=n,
                     family=family)
 
 
@@ -142,25 +147,34 @@ def grid2d(rows: int, cols: int, device=None) -> Topology:
 def erdos_renyi(n: int, p: float, seed: int = 0,
                 degree_cap: Optional[int] = None, device=None) -> Topology:
     """G(n, p) by sparse edge sampling: Binomial(n(n-1)/2, p) distinct
-    unordered pairs, O(E)."""
+    unordered pairs, O(E).  The draws are the reference's numpy draws;
+    the sorts and the pair decoding run in torch on the table's device
+    (sorted unique values and IEEE float64 arithmetic: the same
+    arrays)."""
     rng = np.random.default_rng(seed)
+    dev = _device(device)
+
+    def unique(a):
+        return torch.unique(torch.from_numpy(a).to(dev)).cpu().numpy()
+
     m_total = n * (n - 1) // 2
     m = rng.binomial(m_total, p)
     if m > m_total // 8:
         codes = rng.permutation(m_total)[:m]
     else:
-        codes = np.unique(rng.integers(0, m_total, size=int(m * 1.05) + 16))
+        codes = unique(rng.integers(0, m_total, size=int(m * 1.05) + 16))
         batch = max(m // 8, 64)
         while len(codes) < m:
             extra = rng.integers(0, m_total, size=batch)
-            codes = np.unique(np.concatenate([codes, extra]))
+            codes = unique(np.concatenate([codes, extra]))
             batch *= 2
         codes = rng.permutation(codes)[:m]
-    b = np.ceil((np.sqrt(8.0 * codes + 9) - 1) / 2).astype(np.int64)
-    a = (codes - b * (b - 1) // 2).astype(np.int64)
-    src = np.concatenate([a, b])
-    dst = np.concatenate([b, a])
-    return _pack(n, src, dst, degree_cap, cfg_mod.ERDOS_RENYI, rng, device)
+    c = torch.from_numpy(np.ascontiguousarray(codes, np.int64)).to(dev)
+    b = torch.ceil((torch.sqrt(c.to(torch.float64) * 8.0 + 9) - 1) / 2
+                   ).to(torch.int64)
+    a = c - b * (b - 1) // 2
+    return _pack(n, torch.cat([a, b]), torch.cat([b, a]), degree_cap,
+                 cfg_mod.ERDOS_RENYI, rng, device)
 
 
 def watts_strogatz(n: int, k: int = 4, beta: float = 0.1, seed: int = 0,
