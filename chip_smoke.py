@@ -19,7 +19,8 @@ points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
-   sources, one ``nvcc`` per source, started together);
+   sources, and the measurement variants of ``csrc/fused_mr_parts.cu``,
+   one ``nvcc`` per source, started together);
 3. ``checks``  one kernel round against the plain version on the card,
    bitwise (tolerance 0), at N = 10M and 10M - 37, once for every
    instantiation the launcher picks: fanout 1, plane sharing 1 on the
@@ -28,7 +29,8 @@ points, and measures them.  One JSON line per phase:
    three operands), and under injected bits (once with every draw's drop
    coin at the threshold or one below it); then the kernel's time per
    round, the plain version's, the bound, and the static SASS counts of
-   the main path's instantiations;
+   the main path's instantiations; and, for measurement only, the generic
+   instantiation's time at fanout 2 under deaths and drops;
 4. ``main_path``  ``run_simulation`` at N = 10M, pull, fanout 1, seed 0,
    target 0.99, with every launch count set to 0 just before and read
    just after; then the same loop replayed round by round with the
@@ -38,8 +40,10 @@ points, and measures them.  One JSON line per phase:
 6. ``mr_build``  the two multi-rumor kernels' build reports;
 7. ``mr_checks``  both multi-rumor kernels against their plain versions
    on the card, bitwise, at N = 10M and 10M - 37 with 32 rumors, fanout
-   1, 2 and 3, each combination of the drop coin, alive and cut words,
-   and under injected bits (and at the coin boundary): the lane-major
+   1 to 5 (every instantiation of the value kernel's operand path), each
+   combination of the drop coin, alive and cut words, and under injected
+   bits (and at the coin boundary), each case with its instantiation's
+   dynamic shared memory and resident blocks per SM: the lane-major
    kernel the loops launch against ``fused_mr_round_lanes_plain``,
    ``fused_multirumor_pull_round`` (the kernel between two transposes)
    and the whole staged round against ``fused_mr_round_plain`` (the
@@ -48,6 +52,12 @@ points, and measures them.  One JSON line per phase:
    kernel's time (the value kernel's as the loops launch it,
    lane-major), its plain version's, its bound, the staged route's torch
    rotation, and the value kernel's static SASS counts;
+7b. ``mr_parts``  the value kernel's operand path at CF256's operands
+   (10M x 32, ``churn_heal``'s round 1) broken down by part: the
+   replaced generic instantiation and the redesign, each beside
+   variants with a part knocked out (``csrc/fused_mr_parts.cu``), each
+   operand set apart, fanout 1 and 2, and a table of whole waves; with
+   each instantiation's shared memory and resident blocks per SM;
 8. ``mr_routes``  both routes' time per round at 10M x 32 and 1M x 32,
    fanout 1 and 2, as a loop pays it (the value route on the loops'
    lane-major buffers), the value kernel's own time at each,
@@ -213,9 +223,12 @@ points, and measures them.  One JSON line per phase:
    CF256's scenarios equal the fused curve driver's, every rank
    launching ``fused_mr_round`` W_local x its rounds and nothing else,
    and kernel 2 at fanout 2 under ``churn_heal``'s alive, cut and
-   threshold operands equals its plain round for 8 rounds.  One line a
-   run: rounds to the target, the batch's ms a round beside S x the
-   solo run's, the threefry draw's share, peaks, collectives, launches;
+   threshold operands equals its plain round for 8 rounds; that
+   instantiation's time and the fanout-1 one's (FPCH's) under the same
+   operands, each with its operand-counted bound, shared memory and
+   resident blocks per SM.  One line a run: rounds to the target, the
+   batch's ms a round beside S x the solo run's, the threefry draw's
+   share, peaks, collectives, launches;
 21. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
@@ -645,8 +658,8 @@ def phase_mr_checks(dev, n: int):
     import numpy as np
     import torch
     from gossip_tpu_torch.config import FaultConfig
+    from gossip_tpu_torch.ops import _kernels, philox
     from gossip_tpu_torch.ops import fused_mr_round as MR
-    from gossip_tpu_torch.ops import philox
     from gossip_tpu_torch.ops.fused_round import drop_threshold_for
 
     rng = np.random.default_rng(SEED + 1)
@@ -655,7 +668,7 @@ def phase_mr_checks(dev, n: int):
     inject = {f: (rng.integers(0, 2**32, size=(f, 8, MR.LANES),
                                dtype=np.uint32),
                   rng.integers(0, 2**32, size=(f, rows, MR.LANES),
-                               dtype=np.uint32)) for f in (1, 2)}
+                               dtype=np.uint32)) for f in (1, 2, 4, 5)}
     # every draw's coin field exactly at the threshold or one below it
     coin = np.where(rng.random(inject[1][1].shape) < 0.5, thr, thr - 1)
     boundary = (inject[1][0], (coin.astype(np.uint32) << np.uint32(12))
@@ -665,13 +678,17 @@ def phase_mr_checks(dev, n: int):
     boundary = tuple(torch.from_numpy(np.ascontiguousarray(b).view(np.int32))
                      .to(dev) for b in boundary)
     # (name, fanout, drop, alive, cut, inject): every operand combination
-    # at fanout 1, 2 and 3 (the staging loop over draws), then injected
+    # at fanout 1 to 5 (each instantiation of the operand path: fanout 1,
+    # the one-Philox-call class 2-4, and the general one past 4, whose
+    # fifth draw takes a second call), then injected (the general one)
     cases = [(f"f{f}{'_drop' * d}{'_alive' * a}{'_cut' * c}", f, d, a, c,
               None)
-             for f in (1, 2, 3) for d in (False, True)
+             for f in (1, 2, 3, 4, 5) for d in (False, True)
              for a in (False, True) for c in (False, True)]
     cases += [("inject_f1", 1, False, False, False, inject[1]),
               ("inject_f2_drop_alive_cut", 2, True, True, True, inject[2]),
+              ("inject_f4_drop_alive_cut", 4, True, True, True, inject[4]),
+              ("inject_f5_drop_alive_cut", 5, True, True, True, inject[5]),
               ("inject_coin_boundary", 1, True, False, False, boundary)]
     key = philox.round_key(SEED, CHECK_ROUND, philox.MR_SALT)
     results, tables = [], {}
@@ -732,7 +749,10 @@ def phase_mr_checks(dev, n: int):
                        - MR.rumor_counts(table, RUMORS).sum())
             results.append({"case": name, "n": m, "fanout": fanout, **ok,
                             "max_abs_err": max(e_value, e_gather),
-                            "newly_informed": grew})
+                            "newly_informed": grew,
+                            **_kernels.fused_mr_occupancy(
+                                fanout, a is not None, c is not None,
+                                bits is not None, t)})
             check(all(ok.values()) and grew > 0,
                   f"multi-rumor kernels vs plain, {name} at n={m}: {ok}")
             err["fused_mr_round"] = max(err["fused_mr_round"], e_value)
@@ -787,6 +807,138 @@ def phase_mr_routes(dev, big_table):
                          "value_kernel_ms": kernel_ms(value),
                          "faster": "staged" if st < v else "value"})
     return rows
+
+
+MR_PARTS = {0: "replaced generic", 1: "replaced generic, no Philox",
+            2: "replaced generic, no pulled tile",
+            4: "redesign, no Philox",
+            5: "redesign, own words read in the epilogue"}
+
+
+def phase_mr_parts(dev, smi: str) -> dict:
+    """Kernel 2's operand path broken down by part at CF256's operand
+    set: 10M x 32 rumors under ``churn_heal``'s round-1 operands (a
+    crash's alive words, the open cut, the ramp's drop threshold), on a
+    table with every rumor bit at 1/32.  The replaced generic
+    instantiation (``csrc/fused_mr_parts.cu`` variant 0) and the
+    redesign as shipped,
+    each beside its variants with a part knocked out at compile time
+    (``MR_PARTS``), each operand set apart at fanout 2, both at fanout
+    1 (FPCH's), and each on a table of whole waves (the tail wave).  ms
+    a launch (``kernel_ms``) with each instantiation's dynamic shared
+    memory and resident blocks per SM; the variants that keep the
+    function are held to the shipped kernel's output, bitwise."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.ops import _kernels, philox
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    from gossip_tpu_torch.tools.roofline import mr_round_bound
+
+    heal = cli.churn_sweep_configs(_parsed(
+        "churn-sweep", [*CF_ARGS, "--scenario", CS10M_SCENARIOS[0],
+                        "--drop", "0.02"]))
+    n = heal[1].n
+    args = SF._Operands(n, heal[3][0], 0, dev).round_args(1)
+    thr, alive, cut = (args["drop_threshold"], args["alive_lanes"],
+                       args["cut_lanes"])
+    check(thr > 0 and alive is not None and cut is not None,
+          f"churn_heal's round 1 has no threshold, alive or cut: {args}")
+    key = philox.round_key(SEED, 1, philox.MR_SALT)
+    full = MR.to_lanes(random_mr_table(np.random.default_rng(SEED + 3), n,
+                                       dev))
+    rows = full.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pop = torch.zeros(RUMORS, dtype=torch.int32, device=dev)
+
+    def operands(ops, cols=None):
+        a, c = (alive if "alive" in ops else None,
+                cut if "cut" in ops else None)
+        if cols is None:
+            return a, c
+        return tuple(None if x is None else x[:, :cols].contiguous()
+                     for x in (a, c))
+
+    def time_case(variant, fanout, ops="thr+alive+cut", cols=None):
+        table = full if cols is None else full[:, :cols].contiguous()
+        a, c = operands(ops, cols)
+        m = min(n, table.shape[1] * MR.LANES)
+        out = torch.empty_like(table)
+
+        def launch():
+            return _kernels.fused_mr_round(
+                table, m, fanout, key, thr if "thr" in ops else 0, RUMORS,
+                alive_lanes=a, cut_lanes=c, out=out, pop=pop,
+                variant=variant)
+        occ = (_kernels.fused_mr_occupancy(fanout, a is not None,
+                                           c is not None, False, thr)
+               if variant is None else
+               _kernels.fused_mr_parts_occupancy(variant, fanout,
+                                                 a is not None,
+                                                 c is not None))
+        return {"ms": kernel_ms(launch), "rows": table.shape[1], **occ}, \
+            launch
+
+    rows_out, results = {}, {}
+    for design, v in (("replaced", 0), ("redesign", None)):
+        for fanout in (2, 1):
+            key_ = f"{design}_f{fanout}"
+            rows_out[key_], launch = time_case(v, fanout)
+            results[key_] = launch().clone()
+        for ops in ("thr", "thr+alive", "thr+cut"):
+            rows_out[f"{design}_f2_{ops}"] = time_case(v, 2, ops)[0]
+        # FPD's operand set: deaths and drops, no cut
+        rows_out[f"{design}_f1_thr+alive"] = time_case(v, 1, "thr+alive")[0]
+        per_wave = (sms * rows_out[f"{design}_f2"]["blocks_per_sm"]
+                    * (64 if v == 0 else 32))
+        cols = rows // per_wave * per_wave
+        rows_out[f"{design}_f2_whole_waves"] = time_case(v, 2,
+                                                         cols=cols)[0]
+    same = {f"replaced_f{f}": torch.equal(results[f"replaced_f{f}"],
+                                          results[f"redesign_f{f}"])
+            for f in (1, 2)}
+    for v in (1, 2, 4, 5):
+        for fanout in ((2,) if v == 2 else (2, 1)):
+            rows_out[f"v{v}_f{fanout}"], launch = time_case(v, fanout)
+            if v == 5:
+                same[f"v5_f{fanout}"] = torch.equal(
+                    launch(), results[f"redesign_f{fanout}"])
+
+    def parts(design, no_philox):
+        ms = {k[len(design) + 1:]: v["ms"] for k, v in rows_out.items()
+              if k.startswith(design + "_")}
+        whole = rows_out[f"{design}_f2_whole_waves"]
+        out = {"fanout2_ms": ms["f2"], "fanout1_ms": ms["f1"],
+               "philox_ms": ms["f2"] - rows_out[f"v{no_philox}_f2"]["ms"],
+               "philox_f1_ms": ms["f1"] - rows_out[f"v{no_philox}_f1"]["ms"],
+               "alive_staging_ms": ms["f2_thr+alive"] - ms["f2_thr"],
+               "cut_staging_ms": ms["f2_thr+cut"] - ms["f2_thr"],
+               "second_draw_ms": ms["f2"] - ms["f1"],
+               "tail_wave_ms": ms["f2"] - whole["ms"] * rows / whole["rows"]}
+        return out
+    breakdown = {"replaced": parts("replaced", 1),
+                 "redesign": parts("redesign", 4)}
+    breakdown["replaced"]["pulled_tile_ms"] = (rows_out["replaced_f2"]["ms"]
+                                               - rows_out["v2_f2"]["ms"])
+    for f in (1, 2):
+        breakdown["redesign"][f"own_prefetch_f{f}_ms"] = (
+            rows_out[f"redesign_f{f}"]["ms"] - rows_out[f"v5_f{f}"]["ms"])
+    bound = {f"f{f}": mr_round_bound(n, f, alive=True, cut=True)
+             for f in (1, 2)}
+    line = {"n": n, "rumors": RUMORS, "operands": "churn_heal round 1: "
+            "alive, cut and threshold", "threshold": thr, "sms": sms,
+            "variants": MR_PARTS, "cases": rows_out, "breakdown": breakdown,
+            "bound_ms": {k: b[0] for k, b in bound.items()},
+            "bound_by": {k: b[1] for k, b in bound.items()},
+            "time_over_bound": {
+                d: {f"f{f}": rows_out[f"{d}_f{f}"]["ms"] / bound[f"f{f}"][0]
+                    for f in (1, 2)} for d in ("replaced", "redesign")},
+            "equal_to_redesign": same, "card": smi}
+    emit("mr_parts", **line)
+    check(all(same.values()), "a variant that keeps the function differs "
+          f"from the redesign: {same}")
+    return line
 
 
 def phase_mr(dev, smi: str):
@@ -3229,6 +3381,7 @@ def phase_sweeps(dev, smi: str):
     from gossip_tpu_torch.backend import run_ensemble
     from gossip_tpu_torch.config import ProtocolConfig, RunConfig
     from gossip_tpu_torch.models.rumor import simulate_curve_rumor
+    from gossip_tpu_torch.ops import _kernels
     from gossip_tpu_torch.ops import fused_mr_round as MR
     from gossip_tpu_torch.parallel import group as GR
     from gossip_tpu_torch.parallel import sharded_fused as SF
@@ -3472,13 +3625,23 @@ def phase_sweeps(dev, smi: str):
         args = ops.round_args(1)
         spare = torch.empty_like(lanes)
         pop = torch.zeros(32, dtype=torch.int32, device=dev)
-        k2 = {"ms": kernel_ms(lambda: MR.fused_mr_round_lanes(
-            lanes, SEED, 1, tc.n, 2, out=spare, pop=pop, **args)),
-            "plain_ms": 1e3 * statistics.median(steady_timed(
-                dev, MR.fused_mr_round_lanes_plain, lanes, SEED, 1, tc.n,
-                2, None, args["drop_threshold"], args["alive_lanes"],
-                args.get("cut_lanes"))[1] for _ in range(3)),
-            "bound": mr_round_bound(tc.n, 2), "operands": sorted(args)}
+        # and the fanout-1 instantiation under the same operands (FPCH's)
+        flags = dict(alive=args.get("alive_lanes") is not None,
+                     cut=args.get("cut_lanes") is not None)
+
+        def k2_line(fanout):
+            return {"ms": kernel_ms(lambda: MR.fused_mr_round_lanes(
+                lanes, SEED, 1, tc.n, fanout, out=spare, pop=pop, **args)),
+                "plain_ms": 1e3 * statistics.median(steady_timed(
+                    dev, MR.fused_mr_round_lanes_plain, lanes, SEED, 1,
+                    tc.n, fanout, None, args["drop_threshold"],
+                    args["alive_lanes"], args.get("cut_lanes"))[1]
+                    for _ in range(3)),
+                "bound": mr_round_bound(tc.n, fanout, **flags),
+                **_kernels.fused_mr_occupancy(
+                    fanout, flags["alive"], flags["cut"], False,
+                    args["drop_threshold"])}
+        k2 = {**k2_line(2), "operands": sorted(args), "fanout1": k2_line(1)}
         del ops, lanes, spare
     put("CF256", _sweep_line(
         "CF256", nums, run.max_rounds * len(faults), len(faults),
@@ -3787,8 +3950,8 @@ def main(argv=None) -> int:
 
     from gossip_tpu_torch import bench
     from gossip_tpu_torch.backend import run_simulation
-    from gossip_tpu_torch.config import (ProtocolConfig, RunConfig,
-                                         TopologyConfig)
+    from gossip_tpu_torch.config import (FaultConfig, ProtocolConfig,
+                                         RunConfig, TopologyConfig)
     from gossip_tpu_torch.ops import _kernels
     from gossip_tpu_torch.ops import fused_round as FR
     from gossip_tpu_torch.tools.roofline import round_bound
@@ -3808,13 +3971,21 @@ def main(argv=None) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _kernels.build_all()
+    built = _kernels.KERNELS + (_kernels.FUSED_MR_PARTS,)
+    _kernels.build_all(built)
     emit("build", build_s=time.perf_counter() - t0,
-         kernels={k.name: [ln.strip() for ln in k.ptxas.splitlines()
-                           if "registers" in ln] for k in _kernels.KERNELS})
+         kernels={k.name: [ln.split(":", 1)[-1].strip()
+                           for ln in k.ptxas.splitlines()
+                           if any(w in ln for w in ("entry function",
+                                                    "registers", "spill"))]
+                  for k in built})
     if only:
         phases = {"sweeps": phase_sweeps, "roofline": phase_roofline,
-                  "mesh_fused_planes": phase_mesh_fused_planes}
+                  "mesh_fused_planes": phase_mesh_fused_planes,
+                  "mr_parts": phase_mr_parts,
+                  "mr_checks": lambda dev, smi: emit(
+                      "mr_checks", cases=phase_mr_checks(dev, N)[0],
+                      card=smi)}
         for p in only:
             phases[p](dev, smi)
         return 0
@@ -3829,10 +4000,20 @@ def main(argv=None) -> int:
         steady_timed(dev, FR.fused_pull_round_plain, table, SEED,
                      CHECK_ROUND, N)[1] for _ in range(3))
     bound_ms, bound_by = round_bound(N, 1, 1)
+    # measurement only: the generic instantiation at fanout 2 under
+    # deaths 0.1 and drop 0.05 (its bound counts operations, which the
+    # alive table's bytes do not reach)
+    alive_t, thr_t = FR.fault_masks_node_packed(
+        FaultConfig(node_death_rate=0.1, drop_prob=0.05), N, 0, dev)
+    generic = {"ms": kernel_ms(lambda: FR.fused_pull_round(
+        table, SEED, CHECK_ROUND, N, 2, drop_threshold=thr_t,
+        alive_table=alive_t, out=out, pop=pop)),
+        **dict(zip(("bound_ms", "bound_by"), round_bound(N, 2, 1)))}
+    del alive_t
     emit("checks", cases=results, max_abs_err=max_err, tolerance=0,
          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by, sass_static=round_sass(_kernels.FUSED_ROUND),
-         card=smi)
+         bound_by=bound_by, generic_f2_deaths_drop=generic,
+         sass_static=round_sass(_kernels.FUSED_ROUND), card=smi)
 
     # 4. the main path, counts from 0
     for k in _kernels.KERNELS:
@@ -3881,6 +4062,7 @@ def main(argv=None) -> int:
     emit("bench", line=line)
 
     mr_kernels = phase_mr(dev, smi)
+    mr_parts = phase_mr_parts(dev, smi)
 
     sampler = phase_sampler_checks(dev, smi)
     threefry_round_ms = phase_xla_main_path(dev, smi)
@@ -3905,10 +4087,21 @@ def main(argv=None) -> int:
         "mr_main_path": mr_kernels[0]["launches"],
         "mesh_fused_planes": planes_launches,
         "sweeps": sweeps_launches}
+    thr = mr_parts["threshold"]
     mr_kernels[0]["instantiations"] = {
-        "mr_main_path": "fanout 1",
-        "mesh_fused_planes": "fanout 1, alive, cut and threshold operands",
-        "sweeps": "fanout 2, alive, cut and threshold operands (CF256)"}
+        "mr_main_path": {"what": "fanout 1, the fast kernel",
+                         "ms": mr_kernels[0]["ms"],
+                         **_kernels.fused_mr_occupancy(1)},
+        "mesh_fused_planes": {
+            "what": "fanout 1, alive, cut and threshold operands",
+            "ms": mr_parts["cases"]["redesign_f1"]["ms"],
+            "bound_ms": mr_parts["bound_ms"]["f1"],
+            **_kernels.fused_mr_occupancy(1, True, True, False, thr)},
+        "sweeps": {
+            "what": "fanout 2, alive, cut and threshold operands (CF256)",
+            "ms": mr_parts["cases"]["redesign_f2"]["ms"],
+            "bound_ms": mr_parts["bound_ms"]["f2"],
+            **_kernels.fused_mr_occupancy(2, True, True, False, thr)}}
     cal_kernels, floors = phase_roofline(dev, smi)
 
     kernels = [{

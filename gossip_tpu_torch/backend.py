@@ -15,8 +15,13 @@ The port of the JAX package's ``backend.run_simulation`` (``run_jax`` and
   (:mod:`gossip_tpu_torch.runtime.simulator`), SWIM failure detection
   (:mod:`gossip_tpu_torch.models.swim`) and rumor mongering
   (:mod:`gossip_tpu_torch.models.rumor`) on their own rounds;
-* ``engine='auto'``: fused where :func:`fused_ineligible_reason` is None,
-  else xla.  A fault program (``fault.churn``) runs on the xla engine;
+* ``engine='auto'``: fused where :func:`fused_ineligible_reason` is None
+  and the device is CUDA, where the hand-written kernel runs, else xla:
+  the reference's rule, whose ``auto`` takes the fused route only where
+  its Pallas kernel runs.  On the CPU ``auto`` is the xla engine, bitwise
+  the reference's CPU run; an explicit ``engine='fused'`` there runs the
+  kernels' plain versions (an extension: the reference refuses fused off
+  its TPU).  A fault program (``fault.churn``) runs on the xla engine;
   ``fused`` refuses it on one device, as the reference's single-device
   fused routing does.
 
@@ -836,7 +841,8 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
     or the node-sharded drivers (:func:`run_sharded`).  ``meta`` names what ran: ``engine``
     (``fused-cuda`` / ``fused-plain`` for the fused route, ``bit-packed``
     for the packed XLA rounds, absent for the bool rounds, as in the
-    reference), ``engine_auto`` when ``auto`` picked the fused route,
+    reference), ``engine_auto`` when ``auto`` picked the fused route (on
+    a CUDA device only),
     every kernel's launches, and the wall's parts."""
     reason = _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg)
     if reason is not None:
@@ -860,8 +866,8 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
     if run.engine == "fused" and fused_reason is not None:
         raise ValueError(fused_reason)
     dev = resolve_device(device)
-    if run.engine == "fused" or (run.engine == "auto"
-                                 and fused_reason is None):
+    if run.engine == "fused" or (run.engine == "auto" and fused_reason is None
+                                 and dev.type == "cuda"):
         rep = _run_fused(proto, topo, run, fault, want_curve, dev)
         if run.engine == "auto":
             rep.meta["engine_auto"] = "fused"

@@ -48,8 +48,9 @@ The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
         [--device cpu]
 
 ``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
-``--engine`` one of ``auto|xla|fused`` (default ``auto``;
-``backend.run_simulation``).  The flags, their defaults and their parse
+``--engine`` one of ``auto|xla|fused`` (default ``auto``:
+``backend.run_simulation``'s rule, the fused kernel on a card where it is
+eligible, the xla engine otherwise and on the CPU).  The flags, their defaults and their parse
 are the JAX command's (``--drop-prob`` is another name for ``--drop``;
 ``--swim-suspect-rounds 0`` is ``suggested_suspect_rounds(n, fanout)``
 for SWIM and 4 otherwise).  The topology and the fault take ``--seed``

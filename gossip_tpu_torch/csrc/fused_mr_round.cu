@@ -45,9 +45,9 @@
 //    r mod 32 whatever m is: no bank conflicts.
 //  * Few instructions a word:
 //    - the main path (fanout 1, the Philox stream, no drop threshold,
-//      alive or cut words) is its own instantiation,
-//      fused_mr_round_kernel<true>, with no operand tests, and a block
-//      whose rows and nodes are all real runs its words unguarded;
+//      alive or cut words) is its own kernel, fused_mr_fast_kernel,
+//      with no operand tests, and a block whose rows and nodes are all
+//      real runs its words unguarded;
 //    - the one Philox call a word takes its ten round keys from the
 //      constant bank (philox.cuh, PhiloxKeys: the host computes them
 //      once a launch), where the compiler recomputed the key schedule
@@ -60,11 +60,11 @@
 //      __popc per lane, one atomicAdd per block and rumor).
 //  * The per-lane shifts of every draw are computed once per block (one
 //    Philox call per lane and draw) into shared memory.
-//  * Fanout above 1 (fused_mr_round_kernel<false>, which also takes the
-//    operands and injected bits) loops over the draws with one staging
-//    buffer; the pulled words wait in shared memory between draws, and
-//    each draw recomputes its word's Philox call (fanout calls a word
-//    where ceil(fanout / 4) would do: the main path's fanout is 1).
+//  * Every other call (fanout above 1, a drop threshold, alive or cut
+//    words, injected bits) takes the operand path of fused_mr_ops.cuh,
+//    instantiated by fanout class and operand set (its own note says how
+//    it is laid out; it replaced one generic instantiation, which
+//    fused_mr_parts.cu keeps as a measurement variant).
 //  * Random bits are computed where they are used, never stored; the stream
 //    (gossip_tpu_torch/ops/philox.py, multi-rumor section) is
 //      key (k0, k1) = (uint32(seed) * 1000003, uint32(round) ^ 0x5D0);
@@ -83,14 +83,17 @@
 // memory (2.2 ms a round).  Its per-rumor counts transposed every 32
 // words.
 //
-// C entry point: fused_mr_round_launch, plain C interface, bound with ctypes
-// by gossip_tpu_torch/ops/_kernels.py; returns cudaGetLastError().
+// C entry points: fused_mr_round_launch, and fused_mr_round_occupancy (the
+// instantiation a call takes, its dynamic shared memory and its resident
+// blocks per SM); plain C interface, bound with ctypes by
+// gossip_tpu_torch/ops/_kernels.py; each returns a cudaError_t.
 
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "fused_mr_ops.cuh"
 #include "philox.cuh"
 #include "rumor_counts.cuh"
 
@@ -98,7 +101,6 @@ namespace {
 
 using gossip::PhiloxKeys;
 using gossip::philox4x32_10;
-using gossip::philox_word;
 
 constexpr int kLanes = 128;
 constexpr int kRows = 64;          // destination rows a block owns
@@ -108,7 +110,8 @@ constexpr int kLaneStep = kWarps / 2;        // a thread's lanes j0 + 8k
 constexpr int kTile = kLanes * kRows;        // words of one staged tile
 constexpr int kCountBits = 5;      // a thread counts 128 / kLaneStep = 16
                                    // words in bit-sliced counters
-constexpr int kMaxFanout = 64;     // shifts: fanout * 512 B of shared memory
+// dynamic shared memory of the fast kernel: the shifts and two tiles
+constexpr size_t kFastSmemBytes = (kLanes + 2 * kTile) * sizeof(uint32_t);
 
 static_assert(kLanes / kLaneStep < (1 << kCountBits), "counter too narrow");
 static_assert((kLanes / kLaneStep) % 2 == 0, "words are counted in pairs");
@@ -143,48 +146,23 @@ __device__ __forceinline__ void count_pair(uint32_t* slice, uint32_t a,
   }
 }
 
-// FAST: the main path's fanout 1 with no drop threshold, alive or cut
-// words and the Philox stream, operand tests compiled out.  Otherwise any
-// fanout, operands and injected bits, read from the arguments.
-//
-// Dynamic shared memory, in words: shift[fanout][128], then tiles of
-// [128][kRows]: stage (the partners' runs), own (the block's own words),
-// stage_alive (the partners' alive runs) when alive is given, stage_cut
-// when cut is given, pulled (the words pulled so far) when fanout > 1.
-template <bool FAST>
+// The main path's fanout 1 with no drop threshold, alive or cut words and
+// the Philox stream.  Dynamic shared memory, in words: shift[128], then
+// tiles of [128][kRows]: stage (the partners' runs), own (the block's own
+// words).
 __global__ void __launch_bounds__(kThreads)
-fused_mr_round_kernel(const uint32_t* __restrict__ tin,
-                      uint32_t* __restrict__ tout,
-                      const uint32_t* __restrict__ alive,
-                      const uint32_t* __restrict__ cut,
-                      const uint32_t* __restrict__ sbits,
-                      const uint32_t* __restrict__ rbits,
-                      uint32_t* __restrict__ pop, uint32_t rows, int fanout,
-                      const PhiloxKeys keys, uint32_t thr, uint32_t n,
-                      int rumors) {
-  const bool has_alive = !FAST && alive != nullptr;
-  const bool has_cut = !FAST && cut != nullptr;
-  const bool has_rbits = !FAST && rbits != nullptr;
-  const int draws = FAST ? 1 : fanout;
-  const uint32_t coin = FAST ? 0u : thr;
-
+fused_mr_fast_kernel(const uint32_t* __restrict__ tin,
+                     uint32_t* __restrict__ tout,
+                     uint32_t* __restrict__ pop, uint32_t rows,
+                     const PhiloxKeys keys, uint32_t n, int rumors) {
   extern __shared__ uint32_t smem[];
   uint32_t* shift = smem;
-  uint32_t* stage = shift + draws * kLanes;
+  uint32_t* stage = shift + kLanes;
   uint32_t* own = stage + kTile;
-  uint32_t* stage_alive = own + kTile;
-  uint32_t* stage_cut = stage_alive + (has_alive ? kTile : 0);
-  uint32_t* pulled_s = stage_cut + (has_cut ? kTile : 0);
   __shared__ uint32_t block_counts[32];
 
-  for (int t = threadIdx.x; t < draws * kLanes; t += kThreads) {
-    const uint32_t f = t / kLanes;
-    const uint32_t j = t % kLanes;
-    const uint32_t word =
-        (!FAST && sbits) ? sbits[f * 8 * kLanes + j]
-                         : philox4x32_10(make_uint4(j, f, 1u, 0u), keys).x;
-    shift[t] = word % rows;
-  }
+  for (int t = threadIdx.x; t < kLanes; t += kThreads)
+    shift[t] = philox4x32_10(make_uint4(t, 0u, 1u, 0u), keys).x % rows;
   if (threadIdx.x < 32) block_counts[threadIdx.x] = 0u;
 
   // A thread's destination row is fixed: r = 32 * (warp & 1) + lane of
@@ -201,78 +179,44 @@ fused_mr_round_kernel(const uint32_t* __restrict__ tin,
   const bool full = i0 + kRows <= rows &&
                     static_cast<uint64_t>(i0 + kRows) * kLanes <= n;
 
-  // the word draw f pulls into T[j, i]: 0 when dropped or cut off
-  auto partner_of = [&](uint32_t j, int f) {
-    const uint32_t at = j * rows + i;
-    uint32_t rb = 0u;
-    if (has_rbits) {
-      if (in) rb = rbits[static_cast<size_t>(f) * kLanes * rows + at];
-    } else {
-      rb = philox_word(philox4x32_10(make_uint4(i * kLanes + j,
-                                                static_cast<uint32_t>(f >> 2),
-                                                0u, 0u),
-                                     keys),
-                       f & 3);
-    }
-    const uint32_t from = (rb & (kLanes - 1)) * kRows + r;
-    uint32_t partner = stage[from];
-    if (has_alive) partner &= stage_alive[from];
-    if (coin && (rb >> 12) < coin) partner = 0u;
-    if (has_cut && in && stage_cut[from] != cut[at]) partner = 0u;
-    return partner;
-  };
-
-  uint32_t slice[kCountBits] = {};
-  for (int f = 0; f < draws; ++f) {
-    __syncthreads();   // the shifts are in; the last draw's reads are done
-    // Stage lane m's run stage[m][r] = T[m, (i0 + r - s_m) mod R] (and
-    // the partners' alive and cut runs); with the first draw, the own tile
-    // own[m][r] = T[m, i0 + r].  Each warp copies 32 consecutive words.
-    if (in) {
+  __syncthreads();   // the shifts are in
+  // Stage lane m's run stage[m][r] = T[m, (i0 + r - s_m) mod R] and the
+  // own tile own[m][r] = T[m, i0 + r].  Each warp copies 32 consecutive
+  // words.
+  if (in) {
 #pragma unroll 4
-      for (uint32_t m = j0; m < kLanes; m += kLaneStep) {
-        uint32_t row = i + rows - shift[f * kLanes + m];
-        if (row >= rows) row -= rows;
-        const uint32_t at = m * rows + row;
-        const uint32_t slot = m * kRows + r;
-        copy_async(stage + slot, tin + at);
-        if (has_alive) copy_async(stage_alive + slot, alive + at);
-        if (has_cut) copy_async(stage_cut + slot, cut + at);
-        if (f == 0) copy_async(own + slot, tin + m * rows + i);
-      }
+    for (uint32_t m = j0; m < kLanes; m += kLaneStep) {
+      uint32_t row = i + rows - shift[m];
+      if (row >= rows) row -= rows;
+      const uint32_t slot = m * kRows + r;
+      copy_async(stage + slot, tin + m * rows + row);
+      copy_async(own + slot, tin + m * rows + i);
     }
-    copies_done();
-    __syncthreads();
+  }
+  copies_done();
+  __syncthreads();
 
-    if (f + 1 < draws) {
-      for (uint32_t j = j0; j < kLanes; j += kLaneStep) {
-        const uint32_t slot = j * kRows + r;
-        pulled_s[slot] = partner_of(j, f) | (f > 0 ? pulled_s[slot] : 0u);
-      }
-      continue;
-    }
-    // The last draw: OR in, mask, store, count.  Every warp runs the same
-    // lanes, as the count's warp transpose needs.
-    // (guard: only the words of rows in the table, and of real nodes)
-    auto finish = [&](uint32_t j, bool guard) {
-      const uint32_t slot = j * kRows + r;
-      const uint32_t at = j * rows + i;
-      uint32_t pulled = partner_of(j, f);
-      if (!FAST && f > 0) pulled |= pulled_s[slot];
-      uint32_t acc = 0u;
-      if (!guard || (in && i * kLanes + j < n))
-        acc = own[slot] | (has_alive ? pulled & alive[at] : pulled);
-      if (!guard || in) tout[at] = acc;
-      return acc;
-    };
-    if (full) {
+  // OR in, mask, store, count.  Every warp runs the same lanes, as the
+  // count's warp transpose needs.
+  // (guard: only the words of rows in the table, and of real nodes)
+  uint32_t slice[kCountBits] = {};
+  auto finish = [&](uint32_t j, bool guard) {
+    const uint32_t slot = j * kRows + r;
+    const uint32_t rb =
+        philox4x32_10(make_uint4(i * kLanes + j, 0u, 0u, 0u), keys).x;
+    const uint32_t pulled = stage[(rb & (kLanes - 1)) * kRows + r];
+    uint32_t acc = 0u;
+    if (!guard || (in && i * kLanes + j < n)) acc = own[slot] | pulled;
+    if (!guard || in) tout[j * rows + i] = acc;
+    return acc;
+  };
+  if (full) {
 #pragma unroll 2
-      for (uint32_t j = j0; j < kLanes; j += 2 * kLaneStep)
-        count_pair(slice, finish(j, false), finish(j + kLaneStep, false));
-    } else {
-      for (uint32_t j = j0; j < kLanes; j += 2 * kLaneStep)
-        count_pair(slice, finish(j, true), finish(j + kLaneStep, true));
-    }
+    for (uint32_t j = j0; j < kLanes; j += 2 * kLaneStep)
+      count_pair(slice, finish(j, false), finish(j + kLaneStep, false));
+  } else {
+    for (uint32_t j = j0; j < kLanes; j += 2 * kLaneStep)
+      count_pair(slice, finish(j, true), finish(j + kLaneStep, true));
   }
   if (pop) {
     uint32_t count = 0u;
@@ -281,6 +225,20 @@ fused_mr_round_kernel(const uint32_t* __restrict__ tin,
       count += gossip::warp_bit_count(slice[k]) << k;
     gossip::add_rumor_counts(count, block_counts, pop, rumors);
   }
+}
+
+bool args_ok(int rows, int fanout, int rumors, unsigned int n,
+             const void* sbits, const void* rbits) {
+  return rows > 0 && fanout > 0 && fanout <= gossip::kOpsMaxFanout &&
+         rumors > 0 && rumors <= 32 &&
+         static_cast<unsigned long long>(rows) * kLanes <= 0xFFFFFFFFull &&
+         n <= static_cast<unsigned int>(rows) * kLanes &&
+         (sbits == nullptr) == (rbits == nullptr);
+}
+
+bool is_fast(int fanout, bool alive, bool cut, bool rbits,
+             unsigned int thr) {
+  return fanout == 1 && !alive && !cut && !rbits && thr == 0u;
 }
 
 }  // namespace
@@ -297,33 +255,69 @@ extern "C" int fused_mr_round_launch(const void* tin, void* tout,
                                      unsigned int k0, unsigned int k1,
                                      unsigned int thr, unsigned int n,
                                      int rumors, void* stream) {
-  if (rows <= 0 || fanout <= 0 || fanout > kMaxFanout ||
-      rumors <= 0 || rumors > 32 ||
-      static_cast<unsigned long long>(rows) * kLanes > 0xFFFFFFFFull ||
-      n > static_cast<unsigned int>(rows) * kLanes ||
-      (sbits == nullptr) != (rbits == nullptr))
+  if (!args_ok(rows, fanout, rumors, n, sbits, rbits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool fast = fanout == 1 && !alive && !cut && !rbits && thr == 0u;
-  const auto kernel =
-      fast ? fused_mr_round_kernel<true> : fused_mr_round_kernel<false>;
-  const size_t tiles = 2 + (alive ? 1 : 0) + (cut ? 1 : 0) +
-                       (fanout > 1 ? 1 : 0);
-  const size_t smem_bytes =
-      (static_cast<size_t>(fanout) * kLanes + tiles * kTile) *
-      sizeof(uint32_t);
-  if (smem_bytes > 48 * 1024) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const PhiloxKeys keys = gossip::philox_keys(k0, k1);
+  if (is_fast(fanout, alive, cut, rbits, thr)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes));
+        fused_mr_fast_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kFastSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
+    fused_mr_fast_kernel<<<(rows + kRows - 1) / kRows, kThreads,
+                           kFastSmemBytes, st>>>(
+        static_cast<const uint32_t*>(tin), static_cast<uint32_t*>(tout),
+        static_cast<uint32_t*>(pop), static_cast<uint32_t>(rows), keys, n,
+        rumors);
+    return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid((rows + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  const gossip::OpsPlan plan = gossip::ops_plan(
+      fanout, alive != nullptr, cut != nullptr, rbits != nullptr);
+  const cudaError_t err = cudaFuncSetAttribute(
+      plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(plan.smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan.kernel<<<(rows + plan.rows_per_block - 1) / plan.rows_per_block,
+                plan.threads, plan.smem_bytes, st>>>(
       static_cast<const uint32_t*>(tin), static_cast<uint32_t*>(tout),
       static_cast<const uint32_t*>(alive), static_cast<const uint32_t*>(cut),
       static_cast<const uint32_t*>(sbits),
       static_cast<const uint32_t*>(rbits), static_cast<uint32_t*>(pop),
-      static_cast<uint32_t>(rows), fanout, gossip::philox_keys(k0, k1), thr,
-      n, rumors);
+      static_cast<uint32_t>(rows), fanout, keys, thr, n, rumors);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel fused_mr_round_launch takes for these arguments (alive, cut,
+// rbits: nonzero when given): `fanout_class` 0 for the fast kernel, else
+// the operand path's class (1, 4, or -1 for its general instantiation),
+// its dynamic shared memory and its resident blocks per SM.
+extern "C" int fused_mr_round_occupancy(int fanout, int alive, int cut,
+                                        int rbits, unsigned int thr,
+                                        int* fanout_class, int* smem_bytes,
+                                        int* blocks_per_sm) {
+  if (fanout <= 0 || fanout > gossip::kOpsMaxFanout)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel;
+  int threads;
+  size_t smem;
+  if (is_fast(fanout, alive, cut, rbits, thr)) {
+    kernel = reinterpret_cast<const void*>(fused_mr_fast_kernel);
+    threads = kThreads;
+    smem = kFastSmemBytes;
+    *fanout_class = 0;
+  } else {
+    const gossip::OpsPlan plan =
+        gossip::ops_plan(fanout, alive, cut, rbits);
+    kernel = reinterpret_cast<const void*>(plan.kernel);
+    threads = plan.threads;
+    smem = plan.smem_bytes;
+    *fanout_class = plan.fanout_class == 0 ? -1 : plan.fanout_class;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem_bytes = static_cast<int>(smem);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, threads, smem));
 }

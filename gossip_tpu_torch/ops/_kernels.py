@@ -115,6 +115,15 @@ class Kernel:
             build_all([self])
         return self._fn
 
+    def entry_point(self, entry: str, argtypes):
+        """Another C entry point of this kernel's build, one that launches
+        nothing (it is not counted)."""
+        self.fn()
+        fn = getattr(ctypes.CDLL(str(self.library())), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
 
 FUSED_ROUND = Kernel(
     "fused_round", "fused_round.cu", "fused_round_launch",
@@ -139,8 +148,14 @@ CAL_VPU = Kernel("cal_vpu", "calibrate.cu", "cal_vpu_launch",
 # the kernels a run launches (a run report counts these), and all of them
 ROUND_KERNELS = (FUSED_ROUND, FUSED_MR_ROUND, MR_GATHER, SAMPLER)
 KERNELS = ROUND_KERNELS + (CAL_PRNG, CAL_PRNG_GATHER, CAL_VPU)
+# measurement variants of the value kernel's operand path (chip_smoke.py's
+# mr_parts phase); no run launches them
+FUSED_MR_PARTS = Kernel(
+    "fused_mr_parts", "fused_mr_parts.cu", "fused_mr_parts_launch",
+    [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _I, _P])
 MR_MAX_FANOUT = 64        # the value kernel keeps fanout x 128 shifts in
-                          # shared memory (csrc/fused_mr_round.cu)
+                          # shared memory (csrc/fused_mr_ops.cuh)
+_OCC = ctypes.POINTER(ctypes.c_int)
 
 
 def build_all(kernels=KERNELS):
@@ -242,7 +257,7 @@ def fused_round(table, n: int, fanout: int, key, drop_threshold: int,
 
 def fused_mr_round(lanes, n: int, fanout: int, key, drop_threshold: int,
                    rumors: int, inject_bits=None, alive_lanes=None,
-                   cut_lanes=None, out=None, pop=None):
+                   cut_lanes=None, out=None, pop=None, variant=None):
     """Launch ``fused_mr_round_launch`` once: one multi-rumor round from
     the lane-major table ``lanes`` (int32[128, rows], word (i, j) of the
     reference's layout at [j, i]) into ``out`` (allocated when None;
@@ -250,7 +265,9 @@ def fused_mr_round(lanes, n: int, fanout: int, key, drop_threshold: int,
     ``inject_bits`` (sbits int32[fanout, 8, 128], rbits
     int32[fanout, 128, rows]) are lane-major too; ``pop`` (int32[32])
     gets the count of each of the first ``rumors`` bits of the new table
-    added."""
+    added.  ``variant``: launch that measurement variant of
+    ``csrc/fused_mr_parts.cu`` instead (counted on
+    :data:`FUSED_MR_PARTS`)."""
     rows = lanes.shape[1] if lanes.dim() == 2 else 0
     shape = (128, rows)
     _check("table", lanes, rows, shape)
@@ -281,10 +298,45 @@ def fused_mr_round(lanes, n: int, fanout: int, key, drop_threshold: int,
         operands.append(pop)
     _same_device(dev, operands, "multi-rumor round")
     k0, k1 = key
-    _launch(FUSED_MR_ROUND, dev, _ptr(lanes), _ptr(out), _ptr(alive_lanes),
+    kernel, head = ((FUSED_MR_ROUND, ()) if variant is None
+                    else (FUSED_MR_PARTS, (int(variant),)))
+    _launch(kernel, dev, *head, _ptr(lanes), _ptr(out), _ptr(alive_lanes),
             _ptr(cut_lanes), _ptr(sbits), _ptr(rbits), _ptr(pop), rows,
             fanout, k0, k1, drop_threshold & 0xFFFFFFFF, n, rumors)
     return out
+
+
+def _occupancy(fn, *args, cls=None) -> dict:
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    extra = () if cls is None else (ctypes.byref(cls),)
+    err = fn(*args, *extra, ctypes.byref(smem), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+
+
+def fused_mr_occupancy(fanout: int, alive: bool = False, cut: bool = False,
+                       inject: bool = False, drop_threshold: int = 0) -> dict:
+    """The value kernel's instantiation for a call with these operands
+    (``fanout_class`` 0: the fast kernel; 1, 4, or -1 for the general
+    one: ``csrc/fused_mr_ops.cuh``), its dynamic shared memory and its
+    resident blocks per SM on the current device
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = FUSED_MR_ROUND.entry_point("fused_mr_round_occupancy",
+                                    [_I, _I, _I, _I, _U, _OCC, _OCC, _OCC])
+    cls = ctypes.c_int()
+    out = _occupancy(fn, fanout, int(alive), int(cut), int(inject),
+                     drop_threshold & 0xFFFFFFFF, cls=cls)
+    return {"fanout_class": cls.value, **out}
+
+
+def fused_mr_parts_occupancy(variant: int, fanout: int, alive: bool = False,
+                             cut: bool = False) -> dict:
+    """A measurement variant's dynamic shared memory and resident blocks
+    per SM, as :func:`fused_mr_occupancy`."""
+    fn = FUSED_MR_PARTS.entry_point("fused_mr_parts_occupancy",
+                                    [_I, _I, _I, _I, _I, _OCC, _OCC])
+    return _occupancy(fn, variant, fanout, int(alive), int(cut), 0)
 
 
 def sampler(out, n_total: int, exclude_self: bool, seed_scalar: int,

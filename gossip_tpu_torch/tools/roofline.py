@@ -236,23 +236,27 @@ def round_bound(n: int, fanout: int, plane_sharing: int):
     return _bound_of(round_work(n, fanout, plane_sharing))
 
 
-def mr_round_work(n: int, fanout: int) -> Work:
+def mr_round_work(n: int, fanout: int, alive: bool = False,
+                  cut: bool = False) -> Work:
     """One multi-rumor round through the value kernel's function: the
-    table read and written once plus the 32 counters (a partner read
+    table read and written once plus the 32 counters, and the alive and
+    cut words read once each when the round takes them (a partner read
     again from a staged run is not counted: each input byte once); a
     word's draws in calls of four (one call a word at fanout 1, counter
     (w, 0, 0, 0)); the 128 lane shifts of every draw; every pull
     (MR_PULL_ALU_OPS); the phantom mask and per-rumor counts of every
     word (MR_WORD_ALU_OPS)."""
     words = MR.mr_rows(n) * LANES
+    arrays = 2 + int(alive) + int(cut)
     return _by_pipe(words, -(-fanout // 4), LANES * fanout,
                     words * (fanout * MR_PULL_ALU_OPS + MR_WORD_ALU_OPS),
-                    2 * words * 4 + RUMORS * 4)
+                    arrays * words * 4 + RUMORS * 4)
 
 
-def mr_round_bound(n: int, fanout: int):
+def mr_round_bound(n: int, fanout: int, alive: bool = False,
+                   cut: bool = False):
     """(bound_ms, bound_by) of one value-kernel round."""
-    return _bound_of(mr_round_work(n, fanout))
+    return _bound_of(mr_round_work(n, fanout, alive, cut))
 
 
 def mr_gather_work(n: int) -> Work:
@@ -361,7 +365,7 @@ ROUND_SASS_TAGS = (
     ("fused_round_f1_s1", "fused_round_kernelILi1ELi1ELb0ELb0ELb0E"),
     ("fused_round_f1_s1_drop_alive_cut",
      "fused_round_kernelILi1ELi1ELb1ELb1ELb1E"),
-    ("fused_mr_round", "fused_mr_round_kernelILb1E"))
+    ("fused_mr_round", "fused_mr_fast_kernel"))
 
 
 def _opcode_kernel(mangled: str, tags):

@@ -304,10 +304,54 @@ def test_xla_engine_matches_reference(mode, family, engine, fault, curve,
 
 
 def test_auto_takes_the_fused_route_where_eligible():
+    """Eligible means the configuration and a CUDA device, where the
+    hand-written kernel runs, as the reference's ``auto`` takes its
+    fused route only where its Pallas kernel runs.  On the CPU ``auto``
+    is the xla engine with the reference's values and no
+    ``engine_auto``; an explicit ``fused`` there is the plain route."""
+    fault = FaultConfig(node_death_rate=0.1)
     rep = run_simulation(PULL, TOPO, RunConfig(engine="auto", seed=4),
-                         FaultConfig(node_death_rate=0.1), device="cpu")
-    assert rep.meta["engine_auto"] == "fused"
-    assert rep.meta["engine"] == "fused-plain"
+                         fault, device="cpu")
+    ref = jrun_simulation("jax-tpu", JC.ProtocolConfig(mode="pull"),
+                          JC.TopologyConfig(n=N),
+                          JC.RunConfig(engine="auto", seed=4),
+                          JC.FaultConfig(node_death_rate=0.1))
+    assert (rep.rounds, rep.coverage, rep.msgs) == \
+        (ref.rounds, ref.coverage, ref.msgs)
+    assert rep.meta["engine"] == ref.meta["engine"] == "bit-packed"
+    assert "engine_auto" not in rep.meta and "engine_auto" not in ref.meta
+    fused = run_simulation(PULL, TOPO, RunConfig(engine="fused", seed=4),
+                           fault, device="cpu")
+    assert fused.meta["engine"] == "fused-plain"
+    assert "engine_auto" not in fused.meta
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--mode", "pull", "--n", "100000"],
+     (19, 0.9994999766349792, 3800000.0)),
+    (["--mode", "pull", "--n", "5000", "--rumors", "7", "--fanout", "3",
+      "--seed", "9"], (8, 0.9997999668121338, 240000.0)),
+])
+def test_cli_default_engine_on_the_cpu_is_the_references(capsys, flags,
+                                                         want):
+    """``run`` with the default ``--engine auto`` on the CPU prints the
+    reference command's rounds, coverage and msgs on the xla engine
+    (``bit-packed``); ``--engine fused`` takes the plain fused route."""
+    from gossip_tpu import cli as jcli
+    from gossip_tpu_torch import cli
+    capsys.readouterr()
+    assert jcli.main(["run", *flags, "--no-compile-cache"]) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cli.main(["run", *flags, "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (got["rounds"], got["coverage"], got["msgs"]) == want == \
+        (ref["rounds"], ref["coverage"], ref["msgs"])
+    assert got["meta"]["engine"] == ref["meta"]["engine"] == "bit-packed"
+    assert "engine_auto" not in got["meta"]
+    assert cli.main(["run", *flags, "--engine", "fused", "--device",
+                     "cpu"]) == 0
+    fused = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert fused["meta"]["engine"] == "fused-plain"
 
 
 @pytest.mark.parametrize("rumors", [1, 8])

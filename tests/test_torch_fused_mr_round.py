@@ -128,8 +128,11 @@ def test_value_route_matches_reference(n, r, fanout):
     assert not pop[r:].any()
 
 
-@pytest.mark.parametrize("fanout", [1, 2])
-@pytest.mark.parametrize("faults", ["drop", "alive", "cut", "all"])
+# every operand set at fanout 1 and 2, then all of them at fanout 3 and 4
+# (the kernel's one-Philox-call class) and 5 (a second call a word)
+@pytest.mark.parametrize("faults,fanout", [
+    *((f, fo) for fo in (1, 2) for f in ("drop", "alive", "cut", "all")),
+    ("all", 3), ("all", 4), ("all", 5)])
 def test_value_route_fault_operands_match_reference(faults, fanout):
     n = 128 * 16 - 29
     rng = np.random.default_rng(7 + fanout)
@@ -325,9 +328,10 @@ def test_curve_values_are_the_jitted_coverage():
     assert differs > 0
 
 
-@pytest.mark.parametrize("faults", ["none", "drop", "alive", "cut", "all"])
-@pytest.mark.parametrize("fanout", [1, 2])
-@pytest.mark.parametrize("n", [128 * 24, 128 * 16 - 29])
+@pytest.mark.parametrize("n,fanout,faults", [
+    *((n, fo, f) for f in ("none", "drop", "alive", "cut", "all")
+      for fo in (1, 2) for n in (128 * 24, 128 * 16 - 29)),
+    *((n, fo, "all") for fo in (3, 4, 5) for n in (128 * 24, 128 * 16 - 29))])
 def test_lanes_plain_matches_reference(n, fanout, faults):
     """The lane-major plain round equals the reference's
     ``_fused_mr_round_ref`` under injected bits, with the table, the

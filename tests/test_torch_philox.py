@@ -132,3 +132,23 @@ def test_multirumor_stream_layout(fanout):
     np.testing.assert_array_equal(
         philox.shift_words(*key, fanout).numpy().astype(np.uint64),
         sb[:, 0].astype(np.uint64))
+
+
+@pytest.mark.parametrize("draws", [1, 2, 3, 4, 5])
+def test_four_draws_share_one_philox_call(draws):
+    """The invariant the value kernel's operand path draws by: draws 0-3
+    of word w are the four words of the one Philox call at counter
+    (w, 0, 0, 0), in order, so ``draw_words`` at 1 to 4 draws is that
+    call's first words; draw 4 starts the call at (w, 1, 0, 0)."""
+    rows, key = 8, philox.round_key(5, 3, philox.MR_SALT)
+    got = philox.draw_words(*key, rows, draws).numpy()
+    words = torch.arange(rows * 128, dtype=torch.int64)
+    first = torch.stack(philox.philox4x32_10(words, 0, 0, 0, *key)).numpy()
+    assert got.shape == (draws, rows, 128)
+    np.testing.assert_array_equal(got[:4].reshape(min(draws, 4), -1),
+                                  first[:draws])
+    if draws > 4:
+        second = philox.philox4x32_10(words, 1, 0, 0, *key)
+        np.testing.assert_array_equal(got[4].reshape(-1),
+                                      second[0].numpy())
+        assert not np.array_equal(got[4], got[0])

@@ -304,6 +304,15 @@ def test_bound_model_values():
     n = 10_000_000
     assert R.round_bound(n, 1, 1) == (0.005032356298507463, "operations")
     assert R.mr_round_bound(n, 1) == (0.023881552238805972, "bytes")
+    # under alive and cut words (CF256's fanout 2, the planes' fanout 1)
+    # the function also reads both once: four arrays of 40,001,536 B
+    assert R.mr_round_bound(n, 2, alive=True, cut=True) == \
+        R.mr_round_bound(n, 1, alive=True, cut=True) == \
+        (0.047763066268656715, "bytes")
+    assert R.mr_round_work(n, 2, alive=True, cut=True).nbytes == \
+        4 * 40_001_536 + 32 * 4
+    assert R.mr_round_work(n, 2, alive=True).nbytes == \
+        R.mr_round_work(n, 2, cut=True).nbytes == 3 * 40_001_536 + 32 * 4
     assert R.mr_gather_bound(n) == (0.04119561170149254, "operations")
     assert R.sampler_bound(n, 1) == (0.020895522388059702, "operations")
     words = 2448 * 128
