@@ -13,8 +13,8 @@ liar program), the replicated logs and the LWW registers' txn workload,
 the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
 card under gloo), SWIM, rumor and the payloads among them, the sparse
 all_to_all and halo ppermute exchanges, the fused rumor planes, the
-sweep axis (seed ensembles, config grids, churn sweeps), and the
-roofline tool through the port's own entry
+sweep axis (seed ensembles, config grids, churn sweeps), checkpoints
+and resume, and the roofline tool through the port's own entry
 points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
@@ -160,27 +160,32 @@ points, and measures them.  One JSON line per phase:
    must print ``XLA_10M`` and end in the single-device state; at K = 2
    ranks sharing this card under gloo, ``python -m gossip_tpu_torch run
    --devices 2 --share-card`` for BASELINE.json's configuration 5 (10M x
-   32 rumors, the packed loop) and the dense curve at 10M (30 rounds),
-   which must print the JAX package's values on its 2-device mesh
-   (``MESH_CFG5``, ``MESH_CURVE``), and the same runs through the
-   library API, whose final states must equal the single-device port
-   runs'; each run's ms a round, its all_gather's ms a round and every
-   rank's peak allocated memory, with the single-device runs' ms a round;
-   then ``mesh_models``, the sharded SWIM, rumor and payload drivers:
-   K = 2 ranks on this card through ``--devices 2 --share-card`` for
-   SW1, RM1, CR3, LG1 and TX1 (TX1's curve too), each printing the JAX
-   package's values on its 2-device mesh (``MESH_*``); TX10M, BZ2d, SW1
-   and RM1 through the library API in one spawn, each rank's SHA-256 of
-   its padded final rows equal to the single-device state's window (the
-   earlier phases' runs); CR4 and TX10M at K = 1 under NCCL, CR4's peak
-   allocated memory at most 4.1 states; each run's ms a round, each
-   collective's ms a round by name and every rank's peak, beside the
-   single-device run's ms a round, no kernel launched, and the largest
-   G-counter n the gather design allows; then ``mesh_exchanges``, the
+   32 rumors, the packed loop; from this process, the command spawning
+   its own ranks) and the dense curve at 10M (30 rounds, the command's
+   ``main`` in the ranks of one spawn, as ``torchrun`` runs it), which
+   must print the JAX package's values on its 2-device mesh
+   (``MESH_CFG5``, ``MESH_CURVE``), and the same runs through the library
+   API, whose final states must equal the single-device port runs'; each
+   run's ms a round, its all_gather's ms a round and every rank's peak
+   allocated memory, with the single-device runs' ms a round; then
+   ``mesh_models``, the sharded SWIM, rumor and payload drivers: K = 2
+   ranks on this card through ``--devices 2 --share-card`` for TX1 (its
+   curve too; from this process, the payload command spawning its own
+   ranks), SW1, RM1, CR3 and LG1 (in the ranks of one spawn), each
+   printing the JAX package's values on its 2-device mesh (``MESH_*``);
+   TX10M, BZ2d, SW1 and RM1 through the library API in one spawn, each
+   rank's SHA-256 of its padded final rows equal to the single-device
+   state's window (the earlier phases' runs); CR4 and TX10M at K = 1
+   under NCCL, CR4's peak allocated memory at most 4.1 states; each run's
+   ms a round, each collective's ms a round by name and every rank's
+   peak, beside the single-device run's ms a round, no kernel launched,
+   and the largest G-counter n the gather design allows; then
+   ``mesh_exchanges``, the
    sparse and halo exchanges at K = 2 ranks on this card: the command
-   lines of ``EXCHANGE_CASES`` (SP5 ``BASELINE.json`` configuration 5 and
-   SPCH its ``churn_heal`` program on the sparse all_to_all exchange,
-   SPAE anti-entropy with 33 rumors, TS3 configuration 3's
+   lines of ``EXCHANGE_CASES`` in the ranks of one spawn (SP5
+   ``BASELINE.json`` configuration 5 and SPCH its ``churn_heal`` program
+   on the sparse all_to_all exchange, SPAE anti-entropy with 33 rumors,
+   TS3 configuration 3's
    Watts-Strogatz table on the capacity-capped buckets, HL1 the 1M-node
    halo ring), each printing the JAX package's values on its 2-device
    mesh (``MESH_SP5`` ... ``MESH_HL1``, TS3's overflow and bucket cap
@@ -197,10 +202,12 @@ points, and measures them.  One JSON line per phase:
    else), FP256's and FPD's planes equal to the single-device
    multi-rumor loop on each plane and FP256's rounds the planes' largest
    rounds to the target; ``run --engine fused --devices 2 --share-card``
-   for the three and the same through the library API in one spawn
-   (FP256's curve beside them), every rank's plane digests equal to
-   K = 1's and every rank launching ``fused_mr_round`` 4 x its rounds and
-   nothing else; FPD's first two rounds and FPCH's first eight (every
+   for the three (FP256 from this process, the command spawning its own
+   ranks; FPD and FPCH in the ranks of one spawn) and the same through
+   the library API in one spawn (FP256's curve beside them), every rank's
+   plane digests equal to K = 1's and every rank launching
+   ``fused_mr_round`` 4 x its rounds and nothing else; FPD's first two
+   rounds and FPCH's first eight (every
    change of its program) against the plain lane-major round on the same
    operands, the planes, each rumor's count from the kernel's counters
    and the curve; each K = 1 coverage against the final planes' least
@@ -213,7 +220,7 @@ points, and measures them.  One JSON line per phase:
    --ensemble 32``), EN10M (8 seeds of the 10M pull flagship, 32
    rounds), ES32 and ER32 (SWIM and rumor ensembles of 32 at 100,000
    nodes), GR12 (``grid --modes push pull pushpull --fanouts 1 2 --drops
-   0 0.1``) at n = 4096 and at 10M (40 rounds), GRF (the families grid
+   0 0.1``) at n = 4096 and at 10M (20 rounds), GRF (the families grid
    at 100,000 nodes), GRP (the pod sweep on the 2 x 1 and 1 x 2 hybrid
    meshes), CS8 (the JAX bench's churn_sweep family) and CS10M (four
    programs at 10M), CF256 (``churn-sweep --engine fused`` at 10M x 256
@@ -229,7 +236,27 @@ points, and measures them.  One JSON line per phase:
    resident blocks per SM.  One line a run: rounds to the target, the
    batch's ms a round beside S x the solo run's, the threefry draw's
    share, peaks, collectives, launches;
-21. ``roofline_checks`` and ``roofline``  the three calibration
+21. ``checkpoints``  ``run --checkpoint/--resume`` and the checkpointed
+   drivers at the README's commands (README.md:495-498; ``CK_*``), the
+   README's 8 devices cut to the card's ranks: CK-SI (1M push-pull, 500
+   rounds, then 800 from the file) and CK-CH (the XLA SI engine at 10M
+   under ``churn_heal``, 31 rounds, a child SIGKILLed after its first
+   checkpoint and resumed) must print the JAX package's values
+   (``CK_SI_JAX``, ``CK_CH_JAX``, its fault-program digest); CK-SW (SWIM
+   at 1M, K = 1 and 2) and CK-RM (RM1's deployment for 128 fixed
+   rounds: RM1's coverage, msgs and extinction round) resumed from the
+   middle equal their straight runs; CK-PL (the planes at 10M x 256,
+   256 rounds, a checkpoint every 50) and CK-PLCH (the same under
+   ``churn_heal``, 16 rounds, every 4) at K = 1 under NCCL: the straight
+   checkpointed run launches kernel 2 8 x its rounds and equals the
+   straight loop (planes, curve; ``msgs`` the float32 carry), a child
+   SIGKILLed after its first checkpoint and resumed equals it, the first
+   segment equals the plain round's replay; at K = 2 sharing the card
+   the command line SIGKILLed and resumed ends in the same planes, each
+   rank launching 4 x the rounds it ran.  Each run's ms a round beside
+   the straight loop's, each save's device-to-host and write ms and
+   bytes, the load's ms, the kill and resume rounds;
+22. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
    i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
@@ -244,6 +271,13 @@ points, and measures them.  One JSON line per phase:
    pipes' issue, no microkernel faster than its bound, and each measured
    round (single rumor at plane sharing 1 and 2, the value round, the
    staged round) at least 95% of its calibrated floor.
+
+The command lines at K = 2 of phases 19 (``mesh_path``, ``mesh_models``,
+``mesh_exchanges``, ``mesh_fused_planes``) run through the command's
+``main`` in one spawn of two ranks a phase, each rank the launched rank
+(the path ``torchrun`` takes); the checkpoints phase's K = 2 children
+and ``sweeps``' CF256 line spawn their ranks themselves, as
+``--share-card`` does alone.
 
 Then the ``kernels`` line (each round kernel with its calibrated floor
 ``floor_ms`` from the 10M document), and last ``{"ok": true, "device":
@@ -1636,8 +1670,8 @@ def _swim_fault(kind):
 def _port_lines(*commands) -> list:
     """Every JSON line of each command line of ``python -m
     gossip_tpu_torch`` in ``commands`` (argument lists), run one after
-    another in one process from this checkout (one start-up for all):
-    a list of line lists, in order."""
+    another in one child process from this checkout: a list of line
+    lists, in order."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -1663,6 +1697,51 @@ def _port_lines(*commands) -> list:
         else:
             cur.append(row)
     return out
+
+
+def _cli_lines(argv) -> list:
+    """Every JSON line of ``python -m gossip_tpu_torch`` on ``argv``: the
+    command's ``main`` called in this process, its standard output
+    captured.  Where no process group is up, a ``--devices K`` line
+    spawns its own ranks from here, as a user's command does."""
+    import contextlib
+    import io
+
+    from gossip_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    check(rc == 0, f"{argv}: exit {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+
+
+def _lines_rank(commands, group):
+    """One rank of :func:`_port_lines_k2`: each command line through
+    :func:`_cli_lines` as this rank of ``group`` (the path ``torchrun``
+    takes: the process group is up, so the command runs as its rank).
+    Rank 0 returns its lines."""
+    out = [_cli_lines(argv) for argv in commands]
+    return out if group.rank == 0 else None
+
+
+def _port_lines_k2(*commands) -> list:
+    """:func:`_port_lines` for command lines of ``--devices 2
+    --share-card``: one spawn of two gloo ranks on the card runs them
+    all, each rank calling the command's ``main`` as the launched rank,
+    in place of one spawn a line (a spawn's start-up is most of a short
+    line's wall)."""
+    from gossip_tpu_torch.parallel import group as GR
+    return GR.launch(_lines_rank, 2, [list(c) for c in commands],
+                     device="cuda", shared_card=True)[0]
+
+
+def _lines_k2(first, *rest) -> list:
+    """The lines of command lines of ``--devices 2 --share-card``:
+    ``first`` through :func:`_cli_lines` in this process (the command
+    spawns its own two ranks, the route a user's command takes),
+    ``rest`` in one spawn of the two ranks (:func:`_port_lines_k2`)."""
+    return [_cli_lines(first)] + (_port_lines_k2(*rest) if rest else [])
 
 
 def _same_fields(a, b, fields) -> bool:
@@ -2240,12 +2319,14 @@ def phase_mesh_path(dev, smi: str):
     the library API, packed and dense, at N = 10M, which must print
     ``XLA_10M`` and end in the single-device port's state; (b) K = 2
     ranks on this one card under gloo through ``python -m
-    gossip_tpu_torch run --devices 2 --share-card``: configuration 5
-    (10M x 32) and the dense 10M curve, which must print the JAX
-    package's values (``MESH_CFG5``, ``MESH_CURVE``), and the same two
-    runs through the library API, whose final states must equal the
-    single-device port runs'; (c) each run's ms a round, its all_gather's
-    ms a round and every rank's peak allocated memory."""
+    gossip_tpu_torch run --devices 2 --share-card``: configuration 5 (10M
+    x 32; from this process, the command spawning its own ranks) and the
+    dense 10M curve (in the ranks of :func:`_port_lines_k2`'s spawn),
+    which must print the JAX package's values (``MESH_CFG5``,
+    ``MESH_CURVE``), and the same two runs through the library API, whose
+    final states must equal the single-device port runs'; (c) each run's
+    ms a round, its all_gather's ms a round and every rank's peak
+    allocated memory."""
     import torch
     from gossip_tpu_torch.config import ProtocolConfig, RunConfig
     from gossip_tpu_torch.models.si_packed import simulate_until_packed
@@ -2287,7 +2368,7 @@ def phase_mesh_path(dev, smi: str):
 
     base = ["--devices", "2", "--share-card", "--mode", "pull", "--n",
             str(N), "--engine", "xla"]
-    cfg5, curve = (out[-1] for out in _port_lines(
+    cfg5, curve = (out[-1] for out in _lines_k2(
         ["run", *base, "--rumors", str(RUMORS)],
         ["run", *base, "--curve", "--max-rounds", str(MESH_CURVE_ROUNDS)]))
     got = (cfg5["rounds"], cfg5["coverage"], cfg5["msgs"])
@@ -2438,15 +2519,17 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
                       n: int = N, n_swim: int = N_SWIM):
     """The node-sharded SWIM, rumor and payload drivers on the card:
     (a) K = 2 ranks sharing it under gloo through the port's command
-    lines (``--devices 2 --share-card``): SW1, RM1, CR3, LG1 and TX1,
-    each against the JAX package's values on its 2-device mesh
-    (``MESH_*``, TX1's curve too); (b) K = 2 through the library API in
-    one spawn: TX10M, BZ2d, SW1 and RM1, each against the same values
-    and each rank's digest of its padded final rows against the
-    single-device port run's (TX10M's and BZ2d's from the earlier
-    phases, in ``single_runs``; SW1's and RM1's run here); (c) K = 1 under NCCL: CR4 (the
-    65,536-node G-counter, its peak allocated memory at most 4.1 states)
-    and TX10M, against the single-device values and, for TX10M, state.
+    lines (``--devices 2 --share-card``): TX1 from this process (the
+    payload command spawning its own ranks), SW1, RM1, CR3 and LG1 in the ranks
+    of one spawn (:func:`_lines_k2`), each against the JAX package's
+    values on its 2-device mesh (``MESH_*``, TX1's curve too); (b)
+    K = 2 through the library API in one spawn: TX10M, BZ2d, SW1 and
+    RM1, each against the same values and each rank's digest of its
+    padded final rows against the single-device port run's (TX10M's and
+    BZ2d's from the earlier phases, in ``single_runs``; SW1's and RM1's
+    run here); (c) K = 1 under NCCL: CR4 (the 65,536-node G-counter,
+    its peak allocated memory at most 4.1 states) and TX10M, against the
+    single-device values and, for TX10M, state.
     Each run's ms a round, each collective's ms a round and every rank's
     peak allocated memory, beside the single-device run's ms a round."""
     import torch
@@ -2470,18 +2553,19 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
 
     # (a) the command lines, two ranks on this card
     share = ["--devices", "2", "--share-card"]
+    # TX1 first: the payload commands' own spawn of the ranks
     commands = {
+        "TX1": (TXN_CASES["TX1"][0], MESH_TX1),
         "SW1": (["run", *_swim_args(n_swim)], MESH_SW1),
         "RM1": (["run", "--mode", "rumor", "--n", str(n), "--fanout", "1",
                  "--rumor-k", "2", "--max-rounds", "128"], MESH_RM1),
         "CR3": (CRDT_LOG_CASES["CR3"][0], MESH_CR3),
         "LG1": (CRDT_LOG_CASES["LG1"][0], MESH_LG1),
-        "TX1": (TXN_CASES["TX1"][0], MESH_TX1),
     }
     cli_runs = {}
-    # every command line in one process (one start-up for the five)
+    # TX1 through the command's own spawn, the rest in one spawn
     t0 = time.perf_counter()
-    outs = _port_lines(*([*args, *share] for args, _ in commands.values()))
+    outs = _lines_k2(*([*args, *share] for args, _ in commands.values()))
     wall_s["cli"] = time.perf_counter() - t0
     for (name, (args, want)), lines_out in zip(commands.items(), outs):
         out = lines_out[-1]
@@ -2706,7 +2790,8 @@ def _twin_digests(dev, name: str, rounds: int):
 def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
     """The sparse and halo exchanges at K = 2 ranks on this card under
     gloo: (a) each of ``EXCHANGE_CASES`` through ``python -m
-    gossip_tpu_torch run --devices 2 --share-card``, which must print the
+    gossip_tpu_torch run --devices 2 --share-card``'s ``main`` in the
+    ranks of one spawn (:func:`_port_lines_k2`), which must print the
     JAX package's values on its 2-device mesh (TS3 with its overflow and
     bucket cap) and the exchange's meta; (b) the same runs through the
     library API in one spawn, each rank's SHA-256 of its padded final
@@ -2728,10 +2813,10 @@ def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
     torch.cuda.empty_cache()
     share = ["--devices", "2", "--share-card"]
     cli_runs = {}
-    # every command line in one process (one start-up for the five)
+    # every command line in one spawn of the two ranks
     t0 = time.perf_counter()
-    outs = _port_lines(*(["run", *args, *share]
-                         for args, _ in EXCHANGE_CASES.values()))
+    outs = _port_lines_k2(*(["run", *args, *share]
+                            for args, _ in EXCHANGE_CASES.values()))
     wall_s["cli"] = time.perf_counter() - t0
     for (name, (args, want)), lines_out in zip(EXCHANGE_CASES.items(), outs):
         out = lines_out[-1]
@@ -2949,10 +3034,11 @@ def _single_plane_digests(dev, name: str, rounds: int, w: int):
 def phase_mesh_fused_planes(dev, smi: str):
     """The fused rumor planes at N = 10M x 256 rumors (8 planes):
     (a) ``python -m gossip_tpu_torch run --engine fused --devices 2
-    --share-card`` for FP256, FPD and FPCH, each rank launching
-    ``fused_mr_round`` exactly 4 x its rounds and no other kernel
-    (``meta.rank_launches``); (b) the same through the library API in one
-    spawn, FP256's curve beside them, each rank's plane digests, the
+    --share-card`` for FP256 (from this process, the command spawning its
+    own ranks), FPD and FPCH (in the ranks of one spawn), each rank
+    launching ``fused_mr_round`` exactly 4 x its rounds and no other
+    kernel (``meta.rank_launches``); (b) the same through the library API
+    in one spawn, FP256's curve beside them, each rank's plane digests, the
     replays of ``FP_REPLAY`` against the plain lane-major round, the PRNG
     invariant holding and failing on a rank keyed by another seed; (c)
     K = 1 under NCCL (8 planes on one rank), counts set to 0 just before
@@ -3050,10 +3136,10 @@ def phase_mesh_fused_planes(dev, smi: str):
 
     # (a) the command lines at K = 2
     cli_runs = {}
-    # every command line in one process (one start-up for the three)
+    # FP256 through the command's own spawn, the rest in one spawn
     t0 = time.perf_counter()
-    outs = _port_lines(*(["run", *args, *share]
-                         for args in FP_CASES.values()))
+    outs = _lines_k2(*(["run", *args, *share]
+                       for args in FP_CASES.values()))
     wall_s["cli"] = time.perf_counter() - t0
     for (name, args), lines_out in zip(FP_CASES.items(), outs):
         out = lines_out[-1]
@@ -3145,6 +3231,472 @@ def phase_mesh_fused_planes(dev, smi: str):
     return fp256_launches
 
 
+# The checkpoints phase: the README's checkpointed commands
+# (README.md:495-498), its 8 devices cut to the card's ranks (K = 1,
+# K = 2 sharing the card under gloo).  CK-SI: --max-rounds 500, then 800
+# with --resume, which must print the JAX package's values for the same
+# two command lines, jax 0.9.0 on the CPU (CK_SI_JAX: (rounds, coverage,
+# msgs) of each).  CK-PL: the flagship planes (10M x 256, 256 rounds, a
+# checkpoint every 50 rounds); CK-PLCH the same under FPCH's churn_heal
+# program, cut to 16 rounds with a checkpoint every 4, so that the kill
+# after the first checkpoint lands inside the partition window [0, 6).
+# The straight loops beside the checkpointed runs are timed on their
+# first STRAIGHT_ROUNDS rounds.
+# CK-SW: SWIM at 1M (README.md:498).  CK-RM: rumor mongering at RM1's
+# deployment, checkpointed (its fixed rounds run past RM1's extinction,
+# which is absorbing: RM1's coverage and msgs).  CK-CH: the XLA SI engine
+# at 10M under churn_heal, --max-rounds 31 (the round churn_path's loop
+# stops at) and a checkpoint every 5, killed after the first; CK_CH_JAX
+# is the JAX command's (rounds, coverage, msgs, dropped) for it, jax
+# 0.9.0 on the CPU (its coverage computed eagerly: a quotient, not the
+# loop's folded product), and CK_CH_DIGEST its fault-program digest.
+CK_SI = ["--mode", "pushpull", "--n", "1000000"]
+STRAIGHT_ROUNDS = 32
+CK_SI_JAX = {500: (500, 1.0, 1486711168.0), 800: (800, 1.0, 2386710016.0)}
+CK_CH_JAX = (31, 0.9948086738586426, 506505408.0, 56747272.0)
+CK_CH_DIGEST = ("94d0485ce32ab5e61e71571e0cd502e7"
+                "babb7b7405d25b90035887ac2783a8b3")
+CK_FP = ["--mode", "pull", "--n", str(N), "--rumors", str(FP_RUMORS),
+         "--engine", "fused", "--curve"]
+CK_PLANES = {"CK-PL": (CK_FP, 50),
+             "CK-PLCH": ([*CK_FP, *_HEAL_CUT, "--max-rounds", "16"], 4)}
+CK_SW = ["--mode", "swim", "--n", "1000000", "--max-rounds", "80",
+         "--curve"]
+CK_RM = ["--mode", "rumor", "--n", str(N), "--fanout", "1", "--rumor-k",
+         "2", "--max-rounds", "128", "--curve"]
+CK_CH = ["--mode", "pull", "--n", str(N), *_HEAL_CUT, "--max-rounds", "31",
+         "--checkpoint-every", "5"]
+
+
+def _ck_args(argv, path, *extra):
+    from gossip_tpu_torch import cli
+    return cli.build_parser().parse_args(
+        ["run", *argv, "--checkpoint", path, *extra])
+
+
+def _ck_run(argv, path, *extra):
+    """``(the output line, the port's keys)`` of ``run --checkpoint`` in
+    this process (its line captured, not printed)."""
+    import contextlib
+    import io
+
+    from gossip_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code, out, port = cli.run_checkpointed(_ck_args(argv, path, *extra))
+    check(code == 0 and out is not None,
+          f"run {' '.join(argv)} --checkpoint refused (exit {code})")
+    return out, port
+
+
+class _CkChild:
+    """A child process of the checkpoints phase, started early so that
+    its start-up (torch, the CUDA context, the kernels) overlaps the
+    phase's other runs: it waits for its go file, then runs
+    :func:`_ck_child_main`'s ``kind`` (the planes on a one-rank NCCL
+    group, or ``python -m gossip_tpu_torch``'s ``main`` on ``argv``),
+    which writes ``path``.  It runs in a session of its own, so its kill
+    takes the ranks it spawned with it."""
+
+    def __init__(self, path: str, kind: str, *args):
+        import os
+        for f in (path, path + ".go"):
+            if os.path.exists(f):
+                os.remove(f)
+        self.path, self.go, self.log_path = path, path + ".go", path + ".log"
+        self.log = open(self.log_path, "w")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke."
+             f"_ck_child_main({self.go!r}, {kind!r}, *{list(args)!r})"],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=root, env=env,
+            start_new_session=True)
+
+    def kill_after(self, at_least: int, timeout: float = 300.0):
+        """Let it go, SIGKILL its session once ``path`` holds round
+        ``at_least`` or later, and return ``(the round the file holds,
+        the seconds from go to the kill)``."""
+        import signal
+
+        from gossip_tpu_torch.utils.checkpoint import load_meta
+        t0 = time.perf_counter()
+        open(self.go, "w").close()
+        while time.perf_counter() - t0 < timeout and self.proc.poll() is None:
+            try:
+                if load_meta(self.path)["extra"]["round"] >= at_least:
+                    break
+            except (OSError, ValueError, KeyError):
+                pass
+            time.sleep(0.02)
+        ran_s = time.perf_counter() - t0
+        self.stop()
+        with open(self.log_path) as f:
+            tail = f.read()[-2000:]
+        check(self.proc.returncode == -signal.SIGKILL,
+              f"the child writing {self.path} ended with "
+              f"{self.proc.returncode} before the kill: {tail}")
+        return load_meta(self.path)["extra"]["round"], ran_s
+
+    def stop(self) -> None:
+        import os
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+
+
+def _ck_child_main(go: str, kind: str, *args) -> None:
+    """The body of a :class:`_CkChild`: the card and the kernels made
+    ready, then, once ``go`` exists, ``kind``."""
+    import os
+
+    import torch
+    from gossip_tpu_torch.ops import _kernels
+    torch.zeros(1, device="cuda")
+    _kernels.build_all()
+    while not os.path.exists(go):
+        time.sleep(0.01)
+    if kind == "planes":
+        _ck_planes_child(*args)
+    else:
+        from gossip_tpu_torch import cli
+        sys.exit(cli.main(list(args)))
+
+
+def _ck_saves(port) -> dict:
+    """A run's saves: each one's device-to-host and write ms and bytes."""
+    saves = port["saves"]
+    return {"count": len(saves),
+            "d2h_ms": [s["d2h_ms"] for s in saves],
+            "write_ms": [s["write_ms"] for s in saves],
+            "bytes": sorted({s["bytes"] for s in saves})}
+
+
+def _ck_planes_child(name: str, path: str) -> None:
+    """The K = 1 planes run of ``CK_PLANES[name]`` on a one-rank NCCL
+    group (a :class:`_CkChild`'s)."""
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    argv, every = CK_PLANES[name]
+    proto, tc, run, fault = cli.run_configs(
+        cli.build_parser().parse_args(["run", *argv]))
+    with GR.local(torch.device("cuda", 0)) as g:
+        SF.checkpointed_fused_planes(tc.n, proto.rumors, run, g, path,
+                                     every, proto.fanout, want_curve=True,
+                                     fault=fault)
+
+
+def _ck_children(tmp: str) -> dict:
+    """Every child of the phase, started at its beginning: CK-CH's
+    command line, and each planes case's K = 1 run and K = 2 command
+    line."""
+    children = {"CK-CH": _CkChild(f"{tmp}/ch.npz", "cli", "run", *CK_CH,
+                                  "--checkpoint", f"{tmp}/ch.npz")}
+    for name, (argv, every) in CK_PLANES.items():
+        k1 = f"{tmp}/{name}_killed.npz"
+        k2 = f"{tmp}/{name}_k2.npz"
+        children[name] = _CkChild(k1, "planes", name, k1)
+        children[f"{name}_k2"] = _CkChild(
+            k2, "cli", "run", *argv, "--devices", "2", "--share-card",
+            "--checkpoint", k2, "--checkpoint-every", str(every))
+    return children
+
+
+def _ck_planes(dev, smi: str, name: str, tmp: str, children) -> dict:
+    """One planes case (``CK_PLANES``) at K = 1 under NCCL and K = 2
+    sharing the card: the straight checkpointed run (kernel 2 launched
+    8 x rounds, counts set to 0 just before and read just after) against
+    the straight loop, a SIGKILLed child resumed, the first segment
+    against the plain round's replay; at K = 2 the command line killed
+    and resumed, each rank launching 4 x the rounds it ran."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    from gossip_tpu_torch.utils.checkpoint import load_meta, load_state
+    argv, every = CK_PLANES[name]
+    proto, tc, run, fault = cli.run_configs(
+        cli.build_parser().parse_args(["run", *argv]))
+    n, rounds, w = tc.n, run.max_rounds, SF.plane_count(proto.rumors, 1)
+    out = {"command": argv, "every": every, "rounds": rounds}
+    kw = dict(every=every, fanout=proto.fanout, want_curve=True,
+              fault=fault)
+    torch.cuda.empty_cache()
+    with GR.local(dev) as g:
+        # the straight checkpointed run, launches from 0
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        stats = []
+        t0 = time.perf_counter()
+        final, cov, curve = SF.checkpointed_fused_planes(
+            n, proto.rumors, run, g, f"{tmp}/{name}.npz", stats=stats, **kw)
+        torch.cuda.synchronize(dev)
+        ck_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        check(launches == {**{k: 0 for k in launches},
+                           "fused_mr_round": w * rounds},
+              f"{name}: launches {launches}, want {w} x {rounds}")
+        # the straight loop: the same planes and curve
+        t0 = time.perf_counter()
+        covs, planes = SF.simulate_curve_sharded_fused(
+            n, proto.rumors, run, g, proto.fanout, fault)
+        torch.cuda.synchronize(dev)
+        loop_s = time.perf_counter() - t0
+        check(torch.equal(planes, final.table) and covs == curve,
+              f"{name}: the checkpointed planes or curve differ from the "
+              "straight loop's")
+        del planes
+        carry = np.float32(0)
+        for _ in range(rounds):
+            carry = np.float32(carry + np.float32(2.0 * proto.fanout * n))
+        check(final.msgs == carry,
+              f"{name}: msgs {final.msgs}, the float32 carry {carry}")
+        digests = _plane_digests(final.table)
+        # a child killed after its first checkpoint, resumed here
+        path = f"{tmp}/{name}_killed.npz"
+        kill_round, child_s = children[name].kill_after(every)
+        t0 = time.perf_counter()
+        state = load_state(path, device="cpu")
+        load_ms = (time.perf_counter() - t0) * 1e3
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        resumed, rcov, rcurve = SF.checkpointed_fused_planes(
+            n, proto.rumors, run, g, path, resume_state=state,
+            curve_prefix=load_meta(path)["extra"]["curve"], **kw)
+        resumed_launches = _launch_counts()["fused_mr_round"]
+        check(_plane_digests(resumed.table) == digests
+              and (rcov, rcurve, resumed.msgs, resumed.round)
+              == (cov, curve, final.msgs, final.round)
+              and resumed_launches == w * (rounds - kill_round),
+              f"{name}: killed at {kill_round} and resumed, it differs "
+              "from the straight run")
+        del state, resumed
+        # the first segment against the plain round's replay
+        seg, _, _ = SF.checkpointed_fused_planes(
+            n, proto.rumors, dataclasses.replace(run, max_rounds=every), g,
+            f"{tmp}/{name}_seg.npz", **kw)
+        ops = SF._Operands(n, fault, run.origin, dev)
+        start = SF.init_plane_state(n, proto.rumors, g, run.origin)
+        ops.start(start)
+        plain = start.transpose(1, 2).contiguous()
+        del start
+        for r in range(every):
+            args = ops.round_args(r)
+            plain = torch.stack([MR.fused_mr_round_lanes_plain(
+                p, run.seed, r, n, proto.fanout, None,
+                args["drop_threshold"], args["alive_lanes"],
+                args.get("cut_lanes")) for p in plain])
+        check(torch.equal(plain.transpose(1, 2), seg.table),
+              f"{name}: the first segment differs from the plain replay")
+        del plain, seg, final
+    out["k1"] = {"result": [rounds, cov, float(carry)],
+                 "product_msgs": 2.0 * proto.fanout * n * rounds,
+                 "carry_is_not_product":
+                     float(carry) != 2.0 * proto.fanout * n * rounds,
+                 "launches": launches, "resumed_launches": resumed_launches,
+                 "ms_per_round": ck_s * 1e3 / rounds,
+                 "loop_ms_per_round": loop_s * 1e3 / rounds,
+                 "saves": _ck_saves({"saves": stats}),
+                 "kill_round": kill_round, "resumed_from": kill_round,
+                 "child_s": child_s, "load_ms": load_ms,
+                 "first_segment_plain_equal": True}
+    # K = 2 sharing the card: the command line killed, then resumed here
+    share = ["--devices", "2", "--share-card"]
+    path = f"{tmp}/{name}_k2.npz"
+    every_flag = ["--checkpoint-every", str(every)]
+    kill_round, child_s = children[f"{name}_k2"].kill_after(every)
+    line, port = _ck_run([*argv, *share], path, *every_flag, "--resume")
+    state = load_state(path, device="cpu")
+    check(_plane_digests(state.table) == digests
+          and (line["rounds"], line["coverage"], line["msgs"],
+               line["curve"]) == (rounds, cov, float(carry), curve)
+          and line["engine"] == "fused-pallas-planes"
+          and all(r == {**{k: 0 for k in r},
+                        "fused_mr_round": w // 2 * (rounds - kill_round)}
+                  for r in port["rank_launches"]),
+          f"{name} at K = 2: killed at {kill_round}, resumed to "
+          f"{line['rounds']} / {line['coverage']} / {line['msgs']}, "
+          f"launches {port['rank_launches']}")
+    del state
+    out["k2"] = {"kill_round": kill_round, "child_s": child_s,
+                 "load_ms": port["load_ms"],
+                 "run_ms_per_round": port["run_ms"] / (rounds - kill_round),
+                 "saves": _ck_saves(port),
+                 "rank_launches": port["rank_launches"],
+                 "planes_equal_k1": True}
+    return out
+
+
+def phase_checkpoints(dev, smi: str):
+    """``run --checkpoint/--resume`` and the checkpointed drivers
+    (``CK_*``): each run's ms a round beside the straight run's, each
+    save's device-to-host ms, write ms and bytes, the load's ms, the
+    kill and resume rounds, and the launches.  Returns kernel 2's
+    launches in CK-PL's straight K = 1 run."""
+    import os
+    import shutil
+    t_phase = time.perf_counter()
+    # the files (up to 320 MB each) stay inside the checkout, apart from
+    # what the call brings back; the paths are absolute, for the children
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chip_ck")
+    os.makedirs(tmp, exist_ok=True)
+    children = {}
+    try:
+        children = _ck_children(tmp)
+        return _ck_runs(dev, smi, tmp, t_phase, children)
+    finally:
+        for child in children.values():
+            child.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ck_runs(dev, smi: str, tmp: str, t_phase: float, children):
+    """The body of :func:`phase_checkpoints`, its files under ``tmp``."""
+    import dataclasses
+
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.backend import swim_scenario
+    from gossip_tpu_torch.models import rumor as TRU
+    from gossip_tpu_torch.runtime import simulator as TSIM
+    from gossip_tpu_torch.topology import generators as G
+    lines = {}
+
+    def configs(argv):
+        return cli.run_configs(cli.build_parser().parse_args(["run", *argv]))
+
+    def ms(port, rounds):
+        return port["run_ms"] / max(rounds, 1)
+
+    def straight_ms(argv) -> float:
+        """The straight SI loop's ms a round on its first
+        STRAIGHT_ROUNDS rounds."""
+        proto, tc, run, fault = configs(argv)
+        topo = G.build(tc, dev)
+        t0 = time.perf_counter()
+        TSIM.simulate_curve(proto, topo, dataclasses.replace(
+            run, max_rounds=STRAIGHT_ROUNDS), fault, dev)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3 / STRAIGHT_ROUNDS
+
+    # CK-SI: 500 rounds, then on to 800 from the file
+    path = f"{tmp}/run.npz"
+    first, p1 = _ck_run(CK_SI, path, "--max-rounds", "500")
+    second, p2 = _ck_run(CK_SI, path, "--max-rounds", "800", "--resume")
+    for line, want in ((first, CK_SI_JAX[500]), (second, CK_SI_JAX[800])):
+        check((line["rounds"], line["coverage"], line["msgs"]) == want,
+              f"CK-SI: {line['rounds']} / {line['coverage']} / "
+              f"{line['msgs']}, the JAX package's {want}")
+    lines["CK-SI"] = {"lines": [first, second], "jax": CK_SI_JAX,
+                      "ms_per_round": [ms(p1, 500), ms(p2, 300)],
+                      "straight_ms_per_round": straight_ms(CK_SI),
+                      "saves": [_ck_saves(p1), _ck_saves(p2)],
+                      "load_ms": p2["load_ms"],
+                      "launches": [p1["launches"], p2["launches"]]}
+    _check_no_launches("CK-SI", [p1["launches"], p2["launches"]])
+
+    # CK-CH: the command line killed after its first checkpoint, resumed
+    path = f"{tmp}/ch.npz"
+    kill_round, child_s = children["CK-CH"].kill_after(5)
+    resumed, pr = _ck_run(CK_CH, path, "--resume")
+    straight, ps = _ck_run(CK_CH, f"{tmp}/ch_straight.npz")
+    got = (resumed["rounds"], resumed["coverage"], resumed["msgs"],
+           resumed["dropped"])
+    check(got == CK_CH_JAX and got == (
+        straight["rounds"], straight["coverage"], straight["msgs"],
+        straight["dropped"]) and 0 < kill_round < 31
+          and resumed["fault_program"] == CK_CH_DIGEST,
+          f"CK-CH: killed at {kill_round}, resumed to {got}; straight "
+          f"{straight}; the JAX package's {CK_CH_JAX}")
+    lines["CK-CH"] = {"line": resumed, "jax": CK_CH_JAX,
+                      "kill_round": kill_round, "resumed_from": kill_round,
+                      "child_s": child_s, "load_ms": pr["load_ms"],
+                      "ms_per_round": ms(ps, 31),
+                      "straight_ms_per_round": straight_ms(CK_CH),
+                      "saves": _ck_saves(ps),
+                      "launches": ps["launches"]}
+    _check_no_launches("CK-CH", [pr["launches"], ps["launches"]])
+
+    # CK-SW at K = 1 (straight, and 40 rounds resumed to 80) and K = 2
+    path = f"{tmp}/swim.npz"
+    sw, psw = _ck_run(CK_SW, path)
+    _ck_run(CK_SW, f"{tmp}/swim_half.npz", "--max-rounds", "40")
+    swr, pswr = _ck_run(CK_SW, f"{tmp}/swim_half.npz", "--resume")
+    sw2, psw2 = _ck_run([*CK_SW, "--devices", "2", "--share-card"],
+                        f"{tmp}/swim_k2.npz")
+    check(sw == {**swr, "checkpoint": path, "resumed": False,
+                 "checkpoint_every": 50}
+          and (sw2["rounds"], sw2["coverage"], sw2["curve"])
+          == (sw["rounds"], sw["coverage"], sw["curve"])
+          and sw2["engine"] == "swim-sharded" and sw["engine"] == "swim-xla",
+          f"CK-SW: straight {sw}, resumed {swr}, K = 2 {sw2}")
+    proto, tc, run, fault = configs(CK_SW)
+    dead, fail_round, _ = swim_scenario(proto, tc.n, fault)
+    t0 = time.perf_counter()
+    TSIM.simulate_swim_curve(proto, tc.n, STRAIGHT_ROUNDS, dead, fail_round,
+                             fault, seed=run.seed, device=dev)
+    torch.cuda.synchronize(dev)
+    lines["CK-SW"] = {"line": {k: v for k, v in sw.items() if k != "curve"},
+                      "k2_msgs": sw2["msgs"], "k2_curve_equal": True,
+                      "ms_per_round": ms(psw, 80),
+                      "straight_ms_per_round":
+                          (time.perf_counter() - t0) * 1e3 / STRAIGHT_ROUNDS,
+                      "k2_ms_per_round": ms(psw2, 80),
+                      "saves": _ck_saves(psw), "k2_saves": _ck_saves(psw2),
+                      "load_ms": pswr["load_ms"], "resumed_from": 40}
+    _check_no_launches("CK-SW", [psw["launches"], *psw2["rank_launches"]])
+
+    # CK-RM: RM1's deployment checkpointed, 64 rounds resumed to 128
+    rm, prm = _ck_run(CK_RM, f"{tmp}/rumor.npz")
+    _ck_run(CK_RM, f"{tmp}/rumor_half.npz", "--max-rounds", "64")
+    rmr, prmr = _ck_run(CK_RM, f"{tmp}/rumor_half.npz", "--resume")
+    want = RUMOR_CASES["RM1"][2]
+    check((rm["coverage"], rm["msgs"], rm["extinction_round"], rm["extinct"])
+          == (want[1], want[2], want[0], True)
+          and (rmr["coverage"], rmr["msgs"], rmr["curve"], rmr["hot_curve"])
+          == (rm["coverage"], rm["msgs"], rm["curve"], rm["hot_curve"]),
+          f"CK-RM: {rm['coverage']} / {rm['msgs']} extinct at "
+          f"{rm['extinction_round']}, RM1's {want}; resumed {rmr['msgs']}")
+    proto, tc, run, fault = configs(CK_RM)
+    topo = G.build(tc, dev)
+    t0 = time.perf_counter()
+    TRU.simulate_curve_rumor(proto, topo, dataclasses.replace(
+        run, max_rounds=STRAIGHT_ROUNDS), fault, dev)
+    torch.cuda.synchronize(dev)
+    lines["CK-RM"] = {"line": {k: v for k, v in rm.items()
+                               if k not in ("curve", "hot_curve")},
+                      "ms_per_round": ms(prm, 128),
+                      "straight_ms_per_round":
+                          (time.perf_counter() - t0) * 1e3 / STRAIGHT_ROUNDS,
+                      "saves": _ck_saves(prm), "load_ms": prmr["load_ms"],
+                      "resumed_from": 64}
+    _check_no_launches("CK-RM", [prm["launches"], prmr["launches"]])
+
+    for name, line in lines.items():
+        emit("checkpoints", run=name, **line, card=smi)
+    # CK-PL and CK-PLCH, a line each
+    launches = None
+    for name in CK_PLANES:
+        out = _ck_planes(dev, smi, name, tmp, children)
+        emit("checkpoints", run=name, **out, card=smi)
+        launches = launches or out["k1"]["launches"]["fused_mr_round"]
+    emit("checkpoints_phase", phase_s=time.perf_counter() - t_phase,
+         card=smi)
+    return launches
+
+
 # The sweep axis (phase ``sweeps``): the README's sweep commands at their
 # widths (README.md:358-362, :368, :377, :383, :404-412, :431), the
 # README's 8 devices cut to the card's ranks (K = 1 under NCCL, K = 2
@@ -3155,7 +3707,7 @@ N_GRID = 4_096            # GR12 and GRP: grid's default n
 N_GRF = 100_000           # GRF: the families grid
 N_CS = 65_536             # CS8: the JAX bench's churn_sweep family
 EN10M_SEEDS, EN10M_ROUNDS = 8, 32
-GRID10M_ROUNDS = 40
+GRID10M_ROUNDS = 20       # cut from 40 to make room for checkpoints
 CS10M_ROUNDS = 48
 CF_RUMORS = 256
 EN32_ARGS = ["--mode", "pushpull", "--n", str(N_EN), "--ensemble", "32"]
@@ -3981,6 +4533,8 @@ def main(argv=None) -> int:
                   for k in built})
     if only:
         phases = {"sweeps": phase_sweeps, "roofline": phase_roofline,
+                  "checkpoints": phase_checkpoints,
+                  "mesh_path": phase_mesh_path,
                   "mesh_fused_planes": phase_mesh_fused_planes,
                   "mr_parts": phase_mr_parts,
                   "mr_checks": lambda dev, smi: emit(
@@ -4083,10 +4637,12 @@ def main(argv=None) -> int:
     phase_mesh_exchanges(dev, smi, cfg5_ms)
     planes_launches = phase_mesh_fused_planes(dev, smi)
     sweeps_launches = phase_sweeps(dev, smi)
+    ck_launches = phase_checkpoints(dev, smi)
     mr_kernels[0]["launches_by_path"] = {
         "mr_main_path": mr_kernels[0]["launches"],
         "mesh_fused_planes": planes_launches,
-        "sweeps": sweeps_launches}
+        "sweeps": sweeps_launches,
+        "checkpoints": ck_launches}
     thr = mr_parts["threshold"]
     mr_kernels[0]["instantiations"] = {
         "mr_main_path": {"what": "fanout 1, the fast kernel",

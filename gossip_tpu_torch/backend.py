@@ -132,7 +132,8 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
     rumors are allowed exactly where the run shards rumor planes
     (``n_dev > 1``), and a fault program where it runs on the planes
     (``n_dev > 1``, or ``plane_stack``: a caller that takes the plane
-    drivers whatever K is, as ``churn-sweep --engine fused`` does).
+    drivers whatever K is, as ``churn-sweep --engine fused`` and ``run
+    --engine fused --checkpoint`` do).
     Configuration reasons only; the device is resolved afterwards."""
     if proto.mode != C.PULL:
         return (f"engine='fused' implements pull rounds only "
@@ -146,15 +147,14 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
                 "random static deaths)")
     if (fault is not None and fault.churn is not None and n_dev == 1
             and not plane_stack):
-        # the reference's words, less the plane surface the port does
-        # not have yet (the plane checkpoints' --checkpoint)
+        # the reference's words
         return ("engine='fused' routing does not run churn "
                 "schedules single-device; use engine='auto' (XLA "
                 "kernels run the full nemesis scenario catalog — "
                 "docs/ROBUSTNESS.md), or the plane-sharded fused "
-                "surfaces (--devices > 1, churn-sweep --engine fused), "
-                "which run events + partitions + ramps as runtime "
-                "operands")
+                "surfaces (--devices > 1, --checkpoint, churn-sweep "
+                "--engine fused), which run events + partitions + "
+                "ramps as runtime operands")
     if n_dev == 1 and proto.rumors > FR.BITS:
         return (f"engine='fused' packs <= {FR.BITS} rumors per word "
                 f"on one device (got rumors={proto.rumors}); "

@@ -16,7 +16,8 @@ The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
         [--churn-event NODE:DIE[:REC]]... [--partition START:END:CUT]...
         [--drop-ramp START:END:P0:P1] [--save-curve PATH]
         [--devices K [--exchange dense|sparse|halo] [--share-card]]
-        [--ensemble S] [--device cpu]
+        [--ensemble S] [--checkpoint PATH [--checkpoint-every E]
+        [--resume]] [--device cpu]
     python -m gossip_tpu_torch grid [--modes M...] [--fanouts F...] \\
         [--drops P...] [--periods T...] [--seeds S...] [--n N | --ns N...]
         [--rumors R...] [--family F | --families F...] [--k K] [--p P]
@@ -78,6 +79,26 @@ scenarios) or through the fused rumor planes (``--engine fused``,
 ``--devices`` sharding the planes).  Each adds the port's keys to the
 reference's report: the device, the walls, the peak memory and the
 kernel launches (every rank's, with the collectives' time, on ranks).
+
+``run --checkpoint PATH`` runs exactly ``--max-rounds`` rounds in
+segments of ``--checkpoint-every`` (default 50), an atomic npz in the
+JAX package's format after each (:mod:`gossip_tpu_torch.utils.checkpoint`),
+and ``--resume`` continues the file's run to ``--max-rounds`` rounds in
+all, bitwise the run that was not interrupted, whichever package wrote
+the file.  The reference's five checkpointed drivers: the SI rounds on
+one device (``engine`` ``si-xla``), the packed node-sharded rounds
+(``--devices K``, pull and anti-entropy: ``sharded-packed``), the fused
+rumor planes (``--engine fused``, any ``--devices``, K = 1 a one-rank
+group: ``fused-pallas-planes``; with ``--device cpu`` the planes run the
+kernel's plain version, the port's fused routes' declared extension),
+SWIM (``swim-xla`` / ``swim-sharded``) and rumor mongering
+(``rumor-xla`` / ``rumor-sharded``).  The file stamps the run's
+configuration and fault-program fingerprints, and a resume refuses a
+file that is missing or corrupt, or that another configuration, program
+or curve request wrote, in the reference's words.  The output line is
+the reference's, less its ``backend`` key's value: the port's
+``torch-cuda`` / ``torch-cpu``, as its other reports name it; its
+``compile_cache`` is null.
 
 ``run``, ``crdt``, ``log`` and ``txn`` first call
 ``parallel.multislice.maybe_init_distributed``: started by ``torchrun``
@@ -615,6 +636,12 @@ def cmd_ensemble(a) -> int:
 def cmd_run(a) -> int:
     if a.ensemble > 1:
         return cmd_ensemble(a)
+    if a.resume and not a.checkpoint:
+        print("error: --resume needs --checkpoint PATH (the file to "
+              "continue from)", file=sys.stderr)
+        return 2
+    if a.checkpoint:
+        return cmd_run_checkpointed(a)
     from gossip_tpu_torch.backend import run_simulation
     mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
                        shared_card=a.share_card) if a.devices > 1 else None)
@@ -630,6 +657,261 @@ def cmd_run(a) -> int:
             out["curve"] = None
     print(json.dumps(out))
     return 0
+
+
+def _refuse(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def _resume_checks(a, fingerprint, fault_fp, want_curve):
+    """The reference's refusals of a ``--resume``: ``(exit code or None,
+    the saved meta's extra)``."""
+    import os
+
+    from gossip_tpu_torch.utils.checkpoint import load_meta
+    if not os.path.exists(a.checkpoint):
+        return _refuse(f"--resume: no checkpoint at {a.checkpoint}"), None
+    try:
+        extra = load_meta(a.checkpoint).get("extra", {})
+    except ValueError as e:
+        return _refuse(f"--resume: {e}"), None
+    saved = extra.get("config")
+    if saved is not None:
+        # checkpoints of the reference's first format lack these keys;
+        # they were all written by its single-device XLA driver
+        saved = {"devices": 1, "exchange": "dense", "engine": "xla",
+                 **saved}
+    want = json.loads(json.dumps(fingerprint))
+    if saved is not None and saved != want:
+        diff = [k for k in want if want[k] != saved.get(k)]
+        return _refuse("--resume config mismatch vs the checkpoint "
+                       f"(differs in: {', '.join(diff)}); rerun with the "
+                       "flags the checkpoint was written with"), None
+    saved_fp = extra.get("fault_program")
+    if fault_fp is not None and saved_fp is None:
+        return _refuse(
+            "--resume under a fault program, but the "
+            "checkpoint carries no fault-program fingerprint (it "
+            "was written without a churn schedule, or by a "
+            "pre-crash-safety build); a resumed run cannot prove "
+            "it continues the SAME schedule — restart without "
+            "--resume or drop the churn flags"), None
+    if saved_fp is not None and fault_fp is None:
+        return _refuse(
+            "the checkpoint was written under a fault "
+            "program but this resume scripts none; rerun with "
+            "the churn flags the checkpoint was written with"), None
+    if fault_fp is not None and saved_fp != fault_fp:
+        return _refuse(
+            "--resume fault-program mismatch vs the "
+            "checkpoint (schedule digest "
+            f"{saved_fp[:12]}... != {fault_fp[:12]}...); a "
+            "different churn/partition/ramp program would fork "
+            "the trajectory — rerun with the schedule the "
+            "checkpoint was written with"), None
+    saved_curve = extra.get("curve")
+    if want_curve and saved_curve is None:
+        return _refuse(
+            "--resume with --curve/--save-curve, but the "
+            "checkpoint has no curve history (it was written "
+            "without curve capture); drop the curve flags or "
+            "restart without --resume"), None
+    if saved_curve is not None and not want_curve:
+        return _refuse(
+            "the checkpoint carries a curve history; add "
+            "--curve or --save-curve to continue it (refusing to "
+            "silently drop it)"), None
+    return None, extra
+
+
+def _checkpointed_rank(a, kind, resume, curve_prefix, lost_prefix,
+                       extra_meta, group=None):
+    """One rank's (or the one process's) checkpointed run of ``kind``:
+    ``(rounds, coverage, msgs, curve, report extras, the port's keys)``:
+    the device, the load's and the run's milliseconds, each save's
+    :func:`~gossip_tpu_torch.utils.checkpoint.run_with_checkpoints`
+    record, and the kernel launches (every rank's, under a group).  On
+    resume each rank reads the file and takes its share."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from gossip_tpu_torch.backend import (_launch_counts, _rank_launches,
+                                          swim_scenario)
+    from gossip_tpu_torch.topology import generators as G
+    from gossip_tpu_torch.utils.checkpoint import load_state
+    proto, tc, run, fault = run_configs(a)
+    dev = _rank_device(a, group)
+    t0 = time.perf_counter()
+    state = load_state(a.checkpoint, device="cpu") if resume else None
+    load_ms = (time.perf_counter() - t0) * 1e3
+    stats = []
+    launches0 = _launch_counts()
+    t0 = time.perf_counter()
+    kw = dict(every=a.checkpoint_every, resume_state=state,
+              want_curve=a.curve or bool(a.save_curve),
+              curve_prefix=curve_prefix, extra_meta=extra_meta, stats=stats)
+    extra = {}
+    if kind == "swim":
+        from gossip_tpu_torch.runtime.simulator import checkpointed_swim
+        dead, fail_round, extra["default_scenario"] = swim_scenario(
+            proto, tc.n, fault)
+        topo = None if tc.family == C.COMPLETE else G.build(tc, dev)
+        final, cov, curve = checkpointed_swim(
+            proto, tc.n, run, a.checkpoint, dead_nodes=dead,
+            fail_round=fail_round, fault=fault, topo=topo, group=group,
+            device=dev, **kw)
+        extra = {"metric": "detection_fraction", **extra}
+        if proto.swim_rotate and curve:
+            # the best in-window detection (the window may have left the
+            # dead node's epoch)
+            extra["peak_detection"] = float(max(curve))
+    elif kind == "rumor":
+        from gossip_tpu_torch.models.rumor import checkpointed_rumor
+        final, cov, residue, curve = checkpointed_rumor(
+            proto, G.build(tc, dev), run, a.checkpoint, fault=fault,
+            group=group, lost_prefix=lost_prefix, device=dev, **kw)
+        hot = final.hot.any().to(torch.int64).reshape(1)
+        if group is not None:
+            hot = group.all_reduce_sum(hot)
+        extra = {"residue": residue, "extinct": not bool(hot[0])}
+        if curve:
+            dead_at = np.nonzero(np.asarray(curve["hot"]) == 0.0)[0]
+            extra["extinction_round"] = (int(dead_at[0]) + 1
+                                         if len(dead_at) else -1)
+    elif kind == "fused":
+        from gossip_tpu_torch.parallel.sharded_fused import \
+            checkpointed_fused_planes
+        final, cov, curve = checkpointed_fused_planes(
+            tc.n, proto.rumors, run, group, a.checkpoint,
+            fanout=proto.fanout, fault=fault, **kw)
+    elif kind == "packed":
+        from gossip_tpu_torch.parallel.sharded_packed import \
+            checkpointed_packed_sharded
+        final, cov, curve = checkpointed_packed_sharded(
+            proto, G.build(tc, dev), run, group, a.checkpoint, fault=fault,
+            lost_prefix=lost_prefix, **kw)
+    else:
+        from gossip_tpu_torch.runtime.simulator import checkpointed_si
+        final, cov, curve = checkpointed_si(
+            proto, G.build(tc, dev), run, a.checkpoint, fault=fault,
+            lost_prefix=lost_prefix, device=dev, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    port = {"device": dev.type, "load_ms": load_ms if resume else None,
+            "run_ms": (time.perf_counter() - t0) * 1e3, "saves": stats}
+    if group is None:
+        now = _launch_counts()
+        port["launches"] = {k: now[k] - launches0[k] for k in now}
+    else:
+        port["rank_launches"] = _rank_launches(group, launches0)
+    return int(final.round), cov, float(final.msgs), curve, extra, port
+
+
+def cmd_run_checkpointed(a) -> int:
+    """``run --checkpoint``: the reference's ``_cmd_run_checkpointed``
+    (module doc): prints :func:`run_checkpointed`'s line."""
+    code, out, _ = run_checkpointed(a)
+    if out is not None:
+        print(json.dumps(out))
+    return code
+
+
+def run_checkpointed(a):
+    """``(exit code, the reference's output line or None, the port's
+    keys)`` of ``run --checkpoint``.  Refusals go to stderr, checked
+    here before any rank starts; every rank of a sharded run reads the
+    file itself on resume.  The port's keys (rank 0's: its device, load
+    and run milliseconds, save records, launches) are not printed."""
+    import dataclasses
+
+    from gossip_tpu_torch.backend import fused_ineligible_reason
+    from gossip_tpu_torch.ops import nemesis as NE
+    from gossip_tpu_torch.utils.checkpoint import load_meta
+    proto, tc, run, fault = run_configs(a)
+    n_dev = a.devices
+    exchange = "dense" if n_dev <= 1 else a.exchange
+    want_curve = a.curve or bool(a.save_curve)
+    fused = run.engine == "fused"
+    if fused:
+        # the checkpointed fused driver is always the plane stack
+        reason = fused_ineligible_reason(proto, tc, run, fault, n_dev,
+                                         plane_stack=True)
+        if reason is not None:
+            return _refuse(reason), None, None
+    elif n_dev > 1 and a.mode not in (C.SWIM, C.RUMOR):
+        from gossip_tpu_torch.parallel.sharded_packed import \
+            sharded_checkpoint_ineligible_reason
+        reason = sharded_checkpoint_ineligible_reason(proto, exchange)
+        if reason is not None:
+            return _refuse(reason), None, None
+    fingerprint = {"proto": dataclasses.asdict(proto),
+                   "tc": dataclasses.asdict(tc),
+                   "fault": None if fault is None
+                   else dataclasses.asdict(fault),
+                   "seed": run.seed, "origin": run.origin,
+                   "devices": n_dev, "exchange": exchange,
+                   "engine": "fused" if fused else "xla"}
+    fault_fp = NE.schedule_fingerprint(fault, tc.n, run.origin)
+    curve_prefix, lost_prefix = (), 0.0
+    if a.resume:
+        code, saved = _resume_checks(a, fingerprint, fault_fp, want_curve)
+        if code is not None:
+            return code, None, None
+        lost_prefix = float(saved.get("dropped", 0.0))
+        saved_curve = saved.get("curve")
+        curve_prefix = (saved_curve if isinstance(saved_curve, dict)
+                        else tuple(saved_curve or ()))
+    extra_meta = {"config": fingerprint}
+    if fault_fp is not None:
+        extra_meta["fault_program"] = fault_fp
+    if a.mode in (C.SWIM, C.RUMOR):
+        kind = a.mode
+        label = f"{a.mode}-sharded" if n_dev > 1 else f"{a.mode}-xla"
+    elif fused:
+        kind, label = "fused", "fused-pallas-planes"
+    elif n_dev > 1:
+        kind, label = "packed", "sharded-packed"
+    else:
+        kind, label = "si", "si-xla"
+    args = (a, kind, a.resume, curve_prefix, lost_prefix, extra_meta)
+    import torch.distributed as dist
+    if kind == "fused" and n_dev <= 1 and not (dist.is_available()
+                                               and dist.is_initialized()):
+        # one device: the planes on a one-rank group in this process
+        from gossip_tpu_torch.ops.common import resolve_device
+        from gossip_tpu_torch.parallel import group as GR
+        with GR.local(resolve_device(a.device)) as one:
+            res = _checkpointed_rank(*args, group=one)
+    else:
+        res = _on_ranks(a, _checkpointed_rank, *args,
+                        spawn_one=kind == "fused")[0]
+    rounds, cov, msgs, curve, extra, port = res
+    out = {"backend": f"torch-{port['device']}", "mode": a.mode, "n": tc.n,
+           "rounds": rounds, "coverage": cov, "msgs": msgs,
+           "checkpoint": a.checkpoint,
+           "checkpoint_every": a.checkpoint_every, "resumed": a.resume,
+           "engine": label, "devices": n_dev, "compile_cache": None}
+    if NE.get(fault) is not None:
+        final_extra = load_meta(a.checkpoint).get("extra", {})
+        if "dropped" in final_extra:
+            out["dropped"] = final_extra["dropped"]
+        out["fault_program"] = fault_fp
+    out.update(extra)
+    curve_list = curve["coverage"] if isinstance(curve, dict) else curve
+    if a.save_curve:
+        from gossip_tpu_torch.utils.metrics import dump_curve_jsonl
+        save_meta = dict(out)
+        if isinstance(curve, dict):
+            save_meta["hot_curve"] = list(curve["hot"])
+        dump_curve_jsonl(a.save_curve, list(curve_list), meta=save_meta)
+    if a.curve:
+        out["curve"] = list(curve_list)
+        if isinstance(curve, dict):
+            out["hot_curve"] = list(curve["hot"])
+    return 0, out, port
 
 
 def grid_points(a):
@@ -895,6 +1177,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ensemble", type=int, default=0, metavar="S",
                    help="run S seeds (--seed + i) as one batch and report "
                         "the distribution (SI modes, rumor, swim)")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="checkpointed driver (SI single-device, sharded "
+                        "packed via --devices, --engine fused planes, "
+                        "swim, or rumor — the last two single-device or "
+                        "sharded): "
+                        "run max_rounds rounds saving an atomic npz every "
+                        "--checkpoint-every rounds; with --resume, "
+                        "continue a previous run from PATH (bitwise "
+                        "continuation incl. the PRNG key); composes with "
+                        "--curve/--save-curve (curve persists in the "
+                        "checkpoint and resumes seamlessly)")
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--resume", action="store_true",
+                   help="load --checkpoint PATH and continue to "
+                        "max_rounds total rounds")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cpu runs the plain versions (default: cuda, which "
                         "must be present)")

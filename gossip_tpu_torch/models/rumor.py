@@ -7,6 +7,8 @@ and counts its unnecessary contacts: ``feedback`` counts the pushes whose
 recipient already knew the rumor, ``blind`` every push; at ``rumor_k``
 the pair is removed.  A run ends when no pair is hot; its quality is the
 residue, the share of nodes never informed.
+:func:`checkpointed_rumor` runs a fixed number of rounds in
+checkpointed segments, on one device or a group's rank.
 
 One round: sample the hot senders' peers (threefry, the reference's tags
 and keys), OR the hot payload into them, count the hits against the
@@ -219,3 +221,80 @@ def simulate_curve_rumor(proto: ProtocolConfig, topo: Topology,
         msgs.append(state.msgs)
     return (np.asarray(covs, np.float32), np.asarray(hots, np.float32),
             np.asarray([m.item() for m in msgs], np.float32), state)
+
+
+def checkpointed_rumor(proto: ProtocolConfig, topo: Topology,
+                       run: RunConfig, path: str, every: int = 50,
+                       fault: Optional[FaultConfig] = None, group=None,
+                       resume_state=None, want_curve: bool = False,
+                       curve_prefix=(), extra_meta=None,
+                       lost_prefix: float = 0.0, device=None, stats=None):
+    """Rumor mongering for ``run.max_rounds`` rounds in checkpointed
+    segments (:func:`~gossip_tpu_torch.utils.checkpoint.run_with_checkpoints`),
+    the reference's: the segments are fixed, so the run does not stop at
+    extinction (the extinct state is absorbing).  ``want_curve`` records
+    two named channels a round, ``coverage`` and ``hot`` (the extinction
+    round is only recoverable from the second).  Under a fault program
+    the destroyed messages persist as ``dropped`` (seed a resume with
+    ``lost_prefix``) and the denominator is the eventual alive set.
+    With a ``group`` this rank runs the sharded round on its rows (a
+    resume takes its slice of the padded file).  Returns ``(final state,
+    coverage, residue, curve or None)``, the coverage eager.
+
+    The channels divide as the reference's scan does: by a denominator
+    it folds into a product with the float32 reciprocal where its alive
+    set is a constant of the trace (one device without random deaths;
+    on a mesh only the plain node count,
+    :func:`~gossip_tpu_torch.parallel.sharded.sharded_folded`), by the
+    true quotient elsewhere."""
+    from gossip_tpu_torch.utils.checkpoint import (on_device,
+                                                   run_with_checkpoints)
+    if group is None:
+        dev = topology_device(topo, device)
+        step = make_rumor_round(proto, topo, fault, run.origin, dev)
+        state = (on_device(resume_state, dev) if resume_state is not None
+                 else init_rumor_state(run, proto, topo.n, dev))
+        alive = NE.metric_alive(fault, topo.n, run.origin, dev)
+        total = topo.n if alive is None else int(alive.sum())
+        reduce = None
+
+        def local(s):
+            seen, hot = s.seen, s.hot.any(dim=1)
+            if alive is not None:
+                seen, hot = seen & alive[:, None], hot & alive
+            return torch.cat([seen.sum(dim=0), hot.sum()[None]])
+    else:
+        from gossip_tpu_torch.parallel import sharded_rumor as SR
+        step = SR.make_sharded_rumor_round(proto, topo, group, fault,
+                                           run.origin)
+        state = (SR.restore_sharded_rumor_state(resume_state, group)
+                 if resume_state is not None
+                 else SR.init_sharded_rumor_state(run, proto, topo, group))
+        counts = SR._Counts(fault, topo.n, run.origin, group)
+        total, local, reduce = (counts.total, counts.local,
+                                group.all_reduce_sum)
+    if group is None:
+        folded = alive is None or NE.folded_denominator(fault)
+    else:
+        from gossip_tpu_torch.parallel.sharded import sharded_folded
+        folded = sharded_folded(fault)
+    frac = f32_mean if folded else f32_fraction
+    kw = {}
+    if want_curve:
+        kw = dict(curve_fn=local, curve_reduce=reduce,
+                  curve_value=lambda row: {
+                      "coverage": frac(int(min(row[:-1])), total),
+                      "hot": frac(int(row[-1]), total)})
+    out = run_with_checkpoints(
+        step, state, max(0, run.max_rounds - state.round), path,
+        every=every, extra_meta=extra_meta, curve_prefix=curve_prefix,
+        track_lost=NE.get(fault) is not None, lost_prefix=lost_prefix,
+        group=group, stats=stats, **kw)
+    final, curve = out if want_curve else (out, None)
+    held = local(final)
+    if reduce is not None:
+        held = reduce(held)
+    # eager: a mean without an alive set, else the quotient
+    eager = f32_mean if group is None and alive is None else f32_fraction
+    cov = eager(int(held[:-1].min()), total)
+    return final, cov, 1.0 - cov, curve

@@ -247,14 +247,21 @@ def make_si_round_batched(proto: ProtocolConfig, topo: Topology,
     return step
 
 
+def least_count(seen: torch.Tensor,
+                alive: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The holders of the least-held rumor (alive nodes only, with
+    ``alive``), an int64 0-d tensor on the device (no host read)."""
+    if alive is not None:
+        seen = seen & alive[:, None]
+    return seen.sum(dim=0).min()
+
+
 def coverage_count(seen: torch.Tensor,
                    alive: Optional[torch.Tensor] = None):
     """``(count, total)``: the exact holders of the least-held rumor
     (alive nodes only, with ``alive``) and the nodes counted."""
-    if alive is None:
-        return int(seen.sum(dim=0).min()), seen.shape[0]
-    return (int((seen & alive[:, None]).sum(dim=0).min()),
-            int(alive.sum()))
+    total = seen.shape[0] if alive is None else int(alive.sum())
+    return int(least_count(seen, alive)), total
 
 
 def coverage(seen: torch.Tensor, alive: Optional[torch.Tensor] = None,

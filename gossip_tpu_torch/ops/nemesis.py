@@ -380,6 +380,28 @@ def fused_eventual_words(base: torch.Tensor, die: torch.Tensor,
     return torch.where((die < NEVER) & (rec >= NEVER), 0, base)
 
 
+def schedule_fingerprint(fault: Optional[FaultConfig], n: int,
+                         origin: int = 0) -> Optional[str]:
+    """sha256 hex digest of the built fault program, or None without one:
+    the reference's, digest for digest.  It hashes the numpy dtype name,
+    the shape and the bytes of ``die``, ``rec``, ``cut_tbl`` and
+    ``drop_tbl`` (padded to the canonical horizon) and of the eventual
+    alive set, built on the CPU.  A checkpoint stamps it and a resume
+    refuses another, whichever package wrote the file."""
+    if get(fault) is None:
+        return None
+    import hashlib
+    cpu = torch.device("cpu")
+    sched = build(fault, n, device=cpu)
+    h = hashlib.sha256()
+    for t in (*sched, eventual_alive(fault, n, origin, cpu)):
+        a = np.ascontiguousarray(t.numpy())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
 def drop_lost(step, ch: Optional[ChurnConfig]):
     """A round step as ``state -> state``: a step under a program returns
     ``(state, lost)``, and loops that do not record ``lost`` drop it

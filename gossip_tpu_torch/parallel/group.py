@@ -219,6 +219,12 @@ class Group:
                                                  group=self.pg))
         return out.view(torch.bool) if src.dtype == torch.bool else out
 
+    def barrier(self) -> None:
+        """Wait until every rank gets here (a one-word all-reduce, which
+        NCCL and gloo carry alike)."""
+        self.all_reduce_sum(torch.zeros(1, dtype=torch.int32,
+                                        device=self.device)).cpu()
+
     def combine_f32(self, x: torch.Tensor) -> torch.Tensor:
         """The reference's float32 ``psum`` of ``x``: the ranks' partials
         added in rank order in float32, the same value on every rank."""

@@ -48,6 +48,12 @@ kernel's counter less the bits the table holds at nodes that are dead
 from the start (constant: they receive nothing) and at the permanently
 crashed nodes (gathered each round: they receive until their crash).
 
+:func:`checkpointed_fused_planes` runs a fixed number of rounds in
+checkpointed segments (:mod:`gossip_tpu_torch.utils.checkpoint`) with
+the same rounds and operands, the planes lane-major between checkpoints
+and written in the reference's ``[W, rows, 128]`` layout, all ranks'
+planes in one file.
+
 :func:`assert_prng_invariant` checks on every rank that the partner
 stream is the same: one identically keyed round on one deterministic
 plane, digested and gathered.  A differing rank raises.
@@ -318,13 +324,25 @@ class _Operands:
 
     def start(self, planes: torch.Tensor) -> torch.Tensor:
         """This rank's least count of the start planes; records the
-        constant part of the counters' correction and drops the words in
-        the reference's layout, which no round reads."""
+        constant part of the counters' correction and drops the static
+        words, which no round reads (the metric's stay, for the eager
+        coverage of :meth:`cov_fn`)."""
         self.fixed = (None if self.static is None
                       else _counts(planes, ~self.static))
-        least = _counts(planes, self.metric).min()
-        self.static = self.metric = None
-        return least
+        self.static = None
+        return _counts(planes, self.metric).min()
+
+    def cov_fn(self, group=None):
+        """``planes -> coverage`` (:func:`fused_planes_cov_fn`) over this
+        run's metric words."""
+        words = self.metric
+        total = self.n if self.total is None else self.total
+
+        def cov(planes):
+            least = _counts(planes, words).min().reshape(1)
+            return f32_fraction(int(_global_min(group, least)[0]), total)
+
+        return cov
 
     def round_args(self, r: int) -> dict:
         """The kernel's operands of round ``r``."""
@@ -463,3 +481,86 @@ def simulate_curve_sharded_fused(n: int, rumors: int, run: RunConfig, group,
 
     (lanes, covs), steady = steady_timed(dev, loop, lanes)
     return covs, _finish(lanes, steady, timing)
+
+
+def fused_planes_cov_fn(n: int, fault=None, origin: int = 0, group=None,
+                        device=None):
+    """``planes -> coverage`` of this rank's planes (reference layout),
+    the minimum over every rank's: the reference's eager value, the
+    least count over ``n`` (a quotient, where its compiled loops
+    multiply by the reciprocal), alive-weighted under deaths, and under
+    a program over the eventual alive words."""
+    return _Operands(n, fault, origin, group.device if group is not None
+                     else device).cov_fn(group)
+
+
+def restore_plane_state(planes: torch.Tensor, group) -> torch.Tensor:
+    """This rank's planes of a loaded checkpoint's stack (``[W, rows,
+    128]``, already padded to the mesh, so a resume on the same number of
+    ranks is bitwise; the configuration fingerprint refuses another), on
+    the group's device."""
+    from gossip_tpu_torch.utils.checkpoint import rank_rows
+    return rank_rows(planes, group)
+
+
+def checkpointed_fused_planes(n: int, rumors: int, run: RunConfig, group,
+                              path: str, every: int = 50, fanout: int = 1,
+                              resume_state=None, want_curve: bool = False,
+                              curve_prefix=(), extra_meta=None, fault=None,
+                              stats=None):
+    """This rank's share of a plane-sharded fused run of
+    ``run.max_rounds`` rounds in checkpointed segments: the rounds and
+    operands of :func:`simulate_curve_sharded_fused` (one launch of
+    ``csrc/fused_mr_round.cu`` a local plane a round, keyed by the
+    absolute round; the operand path under a fault program), from
+    ``resume_state`` (a loaded ``FusedState`` whose ``table`` is the
+    stack) or round 0.  The planes stay lane-major between checkpoints
+    and are written in the reference's layout, every rank's in one file.
+    ``msgs`` is a float32 carry, ``2 * fanout * n`` added a round (not
+    the product of the straight loops' report).  The curve is the least
+    count of each round, reduced over the ranks at the checkpoint.
+    Returns ``(final FusedState of this rank's planes in the reference's
+    layout, coverage, curve or None)``, the coverage eager
+    (:func:`fused_planes_cov_fn`)."""
+    from gossip_tpu_torch.ops.fused_round import FusedState
+    from gossip_tpu_torch.utils.checkpoint import run_with_checkpoints
+    dev = group.device
+    ops = _Operands(n, fault, run.origin, dev)
+    if resume_state is None:
+        planes = init_plane_state(n, rumors, group, run.origin)
+        round0, msgs0 = 0, np.float32(0.0)
+    else:
+        planes = restore_plane_state(resume_state.table, group)
+        round0, msgs0 = resume_state.round, np.float32(resume_state.msgs)
+    ops.start(planes)
+    lanes = planes.transpose(1, 2).contiguous()
+    del planes
+    spare = torch.empty_like(lanes)
+    pop = torch.zeros(lanes.shape[0], BITS, dtype=torch.int32, device=dev)
+    add = np.float32(2.0 * fanout * n)
+
+    def step(st):
+        nonlocal spare
+        pop.zero_()
+        out, spare = _round(st.table, spare, pop, run.seed, st.round, n,
+                            fanout, ops.round_args(st.round))
+        return FusedState(table=out, round=st.round + 1,
+                          msgs=np.float32(np.float32(st.msgs) + add))
+
+    def reference_layout(st):
+        return st._replace(table=st.table.transpose(1, 2).contiguous())
+
+    kw = {}
+    if want_curve:
+        kw = dict(curve_fn=lambda st: ops.least(pop, st.table),
+                  curve_reduce=group.all_reduce_min,
+                  curve_value=lambda c: ops.fraction(int(c)))
+    out = run_with_checkpoints(
+        step, FusedState(table=lanes, round=round0, msgs=msgs0),
+        max(0, run.max_rounds - round0), path, every=every,
+        extra_meta=extra_meta, curve_prefix=curve_prefix, group=group,
+        to_saved=reference_layout, stats=stats, **kw)
+    final, curve = out if want_curve else (out, None)
+    del spare
+    final = reference_layout(final)
+    return final, ops.cov_fn(group)(final.table), curve

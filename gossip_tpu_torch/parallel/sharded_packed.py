@@ -10,6 +10,10 @@ anti-entropy adds its reverse delta, a reduce-scatter of unpacked
 ``int32[n_pad, R]`` counts, on exchange rounds only.  Draws, liveness,
 the fault program, the counters and the coverage rule are those of
 :mod:`gossip_tpu_torch.parallel.sharded`.
+
+:func:`checkpointed_packed_sharded` is the reference's checkpointed
+multi-device SI driver: the packed rounds for a fixed number of rounds
+in checkpointed segments, one file of the padded words for all ranks.
 """
 
 from __future__ import annotations
@@ -25,12 +29,15 @@ from gossip_tpu_torch.models.si_packed import pull_merge_packed
 from gossip_tpu_torch.models.state import SimState
 from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.ops import threefry
-from gossip_tpu_torch.ops.bitpack import pack, unpack
+from gossip_tpu_torch.ops.bitpack import pack, rumor_count_tensor, unpack
+from gossip_tpu_torch.ops.common import f32_fraction, f32_mean
 from gossip_tpu_torch.ops.propagate import push_counts
 from gossip_tpu_torch.ops.sampling import apply_drop
 from gossip_tpu_torch.parallel.group import Group
 from gossip_tpu_torch.parallel.sharded import (Coverage, _Rows,
-                                               init_sharded_state, run_until)
+                                               init_sharded_state,
+                                               metric_alive_pad, run_until,
+                                               sharded_folded)
 from gossip_tpu_torch.topology.generators import Topology
 
 
@@ -111,3 +118,73 @@ def simulate_until_packed_sharded(proto: ProtocolConfig, topo: Topology,
     state = init_sharded_packed_state(run, proto, topo, group)
     cov = Coverage(fault, topo.n, run.origin, group, proto.rumors)
     return run_until(step, state, cov, run)
+
+
+def sharded_checkpoint_ineligible_reason(proto: ProtocolConfig,
+                                         exchange: str):
+    """Why a multi-device SI run cannot take the checkpointed sharded
+    driver, or None: the reference's list and words."""
+    if exchange != "dense":
+        return ("--checkpoint shards via the dense packed engine; "
+                f"exchange={exchange!r} has no checkpointed driver")
+    if proto.mode not in (C.PULL, C.ANTI_ENTROPY):
+        return ("the sharded checkpointed driver runs the packed "
+                f"pull/antientropy kernels (got mode {proto.mode!r})")
+    return None
+
+
+def restore_sharded_packed_state(state: SimState, group: Group) -> SimState:
+    """This rank's words of a loaded checkpoint: the file holds the
+    mesh-padded rows, so a resume on the same number of ranks (the
+    configuration fingerprint refuses another) is bitwise."""
+    from gossip_tpu_torch.utils.checkpoint import rank_share
+    return rank_share(state, group)
+
+
+def checkpointed_packed_sharded(proto: ProtocolConfig, topo: Topology,
+                                run: RunConfig, group: Group, path: str,
+                                every: int = 50,
+                                fault: Optional[FaultConfig] = None,
+                                resume_state: Optional[SimState] = None,
+                                want_curve: bool = False, curve_prefix=(),
+                                extra_meta=None, lost_prefix: float = 0.0,
+                                stats=None):
+    """This rank's share of a packed pull / anti-entropy run of
+    ``run.max_rounds`` rounds in checkpointed segments
+    (:func:`~gossip_tpu_torch.utils.checkpoint.run_with_checkpoints`):
+    one file, the padded global words, written by rank 0.  Under a fault
+    program the step reads its schedule at the absolute round, the
+    destroyed messages persist as ``dropped`` and the denominator is the
+    eventual alive set.  The curve is the reference's scan's (the
+    division folded into a product with the reciprocal only over the
+    plain node count,
+    :func:`~gossip_tpu_torch.parallel.sharded.sharded_folded`).  Returns
+    ``(final state, coverage, curve or None)``: this rank's words, the
+    eager quotient."""
+    from gossip_tpu_torch.utils.checkpoint import run_with_checkpoints
+    step = make_sharded_packed_round(proto, topo, group, fault, run.origin)
+    state = (restore_sharded_packed_state(resume_state, group)
+             if resume_state is not None
+             else init_sharded_packed_state(run, proto, topo, group))
+    n_pad, nl, lo = group.rows(topo.n)
+    alive = metric_alive_pad(fault, topo.n, n_pad, run.origin,
+                             group.device)
+    total = int(alive.sum())
+    alive_l = alive[lo:lo + nl]
+
+    def held(s):
+        return rumor_count_tensor(s.seen, proto.rumors, alive_l)
+
+    kw = {}
+    if want_curve:
+        frac = f32_mean if sharded_folded(fault) else f32_fraction
+        kw = dict(curve_fn=held, curve_reduce=group.all_reduce_sum,
+                  curve_value=lambda row: frac(int(min(row)), total))
+    out = run_with_checkpoints(
+        step, state, max(0, run.max_rounds - state.round), path,
+        every=every, extra_meta=extra_meta, curve_prefix=curve_prefix,
+        track_lost=NE.get(fault) is not None, lost_prefix=lost_prefix,
+        group=group, stats=stats, **kw)
+    final, curve = out if want_curve else (out, None)
+    count = int(group.all_reduce_sum(held(final)).min())
+    return final, f32_fraction(count, total), curve

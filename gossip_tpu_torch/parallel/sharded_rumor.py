@@ -196,3 +196,11 @@ def simulate_curve_rumor_sharded(proto: ProtocolConfig, topo: Topology,
     hots = [frac(row[-1], counts.total) for row in table]
     return (np.asarray(covs, np.float32), np.asarray(hots, np.float32),
             np.asarray([m.item() for m in msgs], np.float32), state)
+
+
+def restore_sharded_rumor_state(state: RumorState,
+                                group: Group) -> RumorState:
+    """This rank's rows of a loaded checkpoint (the padded rows, as in
+    ``parallel.sharded_swim.restore_sharded_swim_state``)."""
+    from gossip_tpu_torch.utils.checkpoint import rank_share
+    return rank_share(state, group)

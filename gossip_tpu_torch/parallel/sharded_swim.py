@@ -173,3 +173,11 @@ def observer_rows(n: int, dead_nodes, fault: Optional[FaultConfig],
     n_pad, nl, lo = group.rows(n)
     obs = SW.observer_alive(n, tuple(dead_nodes), fault, group.device)
     return pad_rows(obs, n_pad, False)[lo:lo + nl]
+
+
+def restore_sharded_swim_state(state: SwimState, group: Group) -> SwimState:
+    """This rank's rows of a loaded checkpoint: the file holds the padded
+    rows (the run's configuration fingerprint pins the mesh size, so the
+    row count matches), and the rank takes its slice onto its device."""
+    from gossip_tpu_torch.utils.checkpoint import rank_share
+    return rank_share(state, group)

@@ -1,8 +1,7 @@
 """Run loops of the XLA engine's bool rounds.
 
 The port of the JAX package's ``runtime/simulator.py`` (the SI modes
-and SWIM, with their fault programs; the checkpointed loops wait for
-their slice):
+and SWIM, with their fault programs):
 
 * :func:`simulate_curve` runs exactly ``run.max_rounds`` rounds and
   records the coverage and the message count after each (the
@@ -21,6 +20,14 @@ record the detection fraction of the round just run: the share of
 in the reference's compiled loops too (its denominator is not folded).
 With a ``group`` (the reference's ``mesh=``) they run the node-sharded
 round, and the detection's integer counts are summed over the ranks.
+
+The checkpointed loops (:mod:`gossip_tpu_torch.utils.checkpoint`'s
+segments): :func:`checkpointed_si` (the single-device SI driver of the
+reference's ``run --checkpoint``) and :func:`checkpointed_swim` (one
+device or a group) here; the packed node-sharded one in
+:mod:`gossip_tpu_torch.parallel.sharded_packed`, rumor mongering's in
+:mod:`gossip_tpu_torch.models.rumor` and the fused rumor planes' in
+:mod:`gossip_tpu_torch.parallel.sharded_fused`.
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ import torch
 
 from gossip_tpu_torch.config import FaultConfig, ProtocolConfig, RunConfig
 from gossip_tpu_torch.models import swim as SW
-from gossip_tpu_torch.models.si import (coverage, make_si_round,
+from gossip_tpu_torch.models.si import (coverage, least_count, make_si_round,
                                         topology_device)
 from gossip_tpu_torch.models.state import SimState, init_state
 from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops.common import f32_fraction, f32_mean
 from gossip_tpu_torch.topology.generators import Topology, complete
 
 
@@ -214,3 +222,101 @@ def simulate_swim_until(proto: ProtocolConfig, n: int, max_rounds: int,
         det = detection(state) if counts is not None else 0.0
         peak = max(peak, det)
     return state.round, det, peak, state
+
+
+def checkpointed_si(proto: ProtocolConfig, topo: Topology, run: RunConfig,
+                    path: str, every: int = 50,
+                    fault: Optional[FaultConfig] = None, resume_state=None,
+                    want_curve: bool = False, curve_prefix=(),
+                    extra_meta=None, lost_prefix: float = 0.0, device=None,
+                    stats=None):
+    """The single-device SI run of ``run.max_rounds`` rounds in segments
+    with a checkpoint every ``every`` rounds
+    (:func:`~gossip_tpu_torch.utils.checkpoint.run_with_checkpoints`),
+    the reference's ``run --checkpoint`` driver: from ``resume_state``
+    (a loaded checkpoint) on, else from round 0.  Under a fault program
+    the step reads its schedule at the absolute round and the destroyed
+    messages persist as ``dropped`` (seed a resume with
+    ``lost_prefix``); the coverage's denominator is the eventual alive
+    set.  ``want_curve`` records the coverage after each round, as the
+    reference's scan computes it.  Returns ``(final state, coverage,
+    curve or None)``, the coverage eager."""
+    from gossip_tpu_torch.utils.checkpoint import (on_device,
+                                                   run_with_checkpoints)
+    dev = topology_device(topo, device)
+    step = make_si_round(proto, topo, fault, run.origin, dev)
+    state = (on_device(resume_state, dev) if resume_state is not None
+             else init_state(run, proto, topo.n, dev))
+    alive = NE.metric_alive(fault, topo.n, run.origin, dev)
+    kw = {}
+    if want_curve:
+        total = topo.n if alive is None else int(alive.sum())
+        frac = (f32_mean if alive is None or NE.folded_denominator(fault)
+                else f32_fraction)
+        kw = dict(curve_fn=lambda s: least_count(s.seen, alive),
+                  curve_value=lambda c: frac(int(c), total))
+    out = run_with_checkpoints(
+        step, state, max(0, run.max_rounds - state.round), path,
+        every=every, extra_meta=extra_meta, curve_prefix=curve_prefix,
+        track_lost=NE.get(fault) is not None, lost_prefix=lost_prefix,
+        stats=stats, **kw)
+    final, curve = out if want_curve else (out, None)
+    return final, coverage(final.seen, alive), curve
+
+
+def checkpointed_swim(proto: ProtocolConfig, n: int, run: RunConfig,
+                      path: str, every: int = 50, dead_nodes=(),
+                      fail_round: int = 0,
+                      fault: Optional[FaultConfig] = None,
+                      topo: Optional[Topology] = None, group=None,
+                      resume_state=None, want_curve: bool = False,
+                      curve_prefix=(), extra_meta=None, device=None,
+                      stats=None):
+    """SWIM for ``run.max_rounds`` rounds in checkpointed segments, the
+    reference's: the tables are built for ``run.max_rounds`` (so a
+    resume with a larger budget builds them for the new one), the
+    rotating window is a function of the absolute round, and the curve
+    is the detection of each round.  With a ``group`` this rank runs the
+    sharded round (a resume takes its rows of the padded file,
+    :func:`~gossip_tpu_torch.parallel.sharded_swim.restore_sharded_swim_state`)
+    and the counts are summed over the ranks.  Returns ``(final state,
+    detection, curve or None)``: the detection is the curve's last
+    value, or without a curve that of the final state (0.0 at round
+    0)."""
+    from gossip_tpu_torch.utils.checkpoint import (on_device,
+                                                   run_with_checkpoints)
+    step, state, counts = _swim_setup(proto, n, run.max_rounds, dead_nodes,
+                                      fail_round, fault, topo, run.seed,
+                                      device, group)
+    if resume_state is not None:
+        if group is None:
+            state = on_device(resume_state, state.wire.device)
+        else:
+            from gossip_tpu_torch.parallel.sharded_swim import \
+                restore_sharded_swim_state
+            state = restore_sharded_swim_state(resume_state, group)
+
+    def pairs(s):
+        if counts is None:
+            return torch.zeros(2, dtype=torch.int64, device=s.wire.device)
+        return torch.stack(counts(s))
+
+    reduce = None if group is None else group.all_reduce_sum
+    kw = {}
+    if want_curve:
+        kw = dict(curve_fn=pairs, curve_reduce=reduce,
+                  curve_value=lambda row: SW.detection_quotient(*row))
+    out = run_with_checkpoints(
+        step, state, max(0, run.max_rounds - state.round), path,
+        every=every, extra_meta=extra_meta, curve_prefix=curve_prefix,
+        group=group, stats=stats, **kw)
+    final, curve = out if want_curve else (out, None)
+    if curve:
+        det = float(curve[-1])
+    elif final.round:
+        c = pairs(final)
+        det = SW.detection_quotient(*(c if reduce is None
+                                      else reduce(c)).tolist())
+    else:
+        det = 0.0
+    return final, det, curve

@@ -1,0 +1,499 @@
+"""Checkpoint and resume of a run's round state.
+
+The port of the JAX package's ``utils/checkpoint.py``.  A run's state is
+a few tensors, so a checkpoint is one ``npz`` file with a JSON metadata
+entry, in the reference's format, so that either package resumes the
+other's file:
+
+* ``__meta__``: ``{"cls", "fields", "key_field", "key_impl", "extra"}``
+  with the reference's class and field names (``base_key``, never the
+  port's ``SimState.key``) and ``key_impl`` ``"threefry2x32"``, the one
+  impl a load accepts;
+* the arrays as the reference's numpy values: bool tables as bool,
+  packed words (``SimState.seen`` on the packed engines,
+  ``FusedState.table``) as ``uint32`` with the port's int32 bits, SWIM's
+  wires and the rumor counters as ``int32``, ``round`` ``int32``,
+  ``msgs`` ``float32``, the key as ``uint32[2]``;
+* a sharded state as one file holding the reference's padded global
+  array (its rows, or the fused planes' ``[W, rows, 128]`` stack in the
+  reference's row layout).  Every rank's rows are all-gathered, rank 0
+  alone copies them to the host and writes, and every rank waits on a
+  barrier after the ``os.replace``, so no rank runs ahead of a durable
+  file.  On resume every rank reads the file and takes its own rows or
+  planes (the drivers' ``restore_*``).
+
+Crash contract (the reference's):
+
+* writes are atomic: the archive lands in ``path + ".tmp"`` and
+  ``os.replace`` publishes it; a stale ``.tmp`` (a kill between the two)
+  is removed before every write and never read;
+* a file that is no readable checkpoint (truncated, a foreign npz, an
+  unknown class, incomplete metadata, a member torn mid-archive) raises
+  ``ValueError`` naming the file; a missing one stays
+  ``FileNotFoundError``;
+* fault programs are resume-safe: every round step reads its schedule at
+  the state's absolute ``round``, which the file persists, and
+  :func:`run_with_checkpoints` refuses a ``base_round`` that disagrees
+  with it.
+
+:func:`run_with_checkpoints` drives a step in segments of ``every``
+rounds, each a plain loop of rounds that reads the host once at its end
+(:func:`_fetch`: the curve, the ``dropped`` carry and the state for the
+save together).  The reference's jitted segment runners and their
+executable caches have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from gossip_tpu_torch.models.rumor import RumorState
+from gossip_tpu_torch.models.state import SimState
+from gossip_tpu_torch.models.swim import SwimState
+from gossip_tpu_torch.ops import threefry
+from gossip_tpu_torch.ops.common import resolve_device
+from gossip_tpu_torch.ops.fused_round import FusedState
+
+KEY_IMPL = "threefry2x32"
+
+State = Union[SimState, SwimState, RumorState, FusedState]
+
+# the reference's class name -> (the port's class, [(reference field,
+# port field, kind)]): "rows" tables (gathered over ranks; int32 words
+# stored as uint32 where "words"), "round", "key", "msgs"
+_SPECS = {
+    "SimState": (SimState, (("seen", "seen", "words"),
+                            ("round", "round", "round"),
+                            ("base_key", "key", "key"),
+                            ("msgs", "msgs", "msgs"))),
+    "SwimState": (SwimState, (("wire", "wire", "rows"),
+                              ("timer", "timer", "rows"),
+                              ("round", "round", "round"),
+                              ("base_key", "base_key", "key"),
+                              ("msgs", "msgs", "msgs"))),
+    "RumorState": (RumorState, (("seen", "seen", "rows"),
+                                ("hot", "hot", "rows"),
+                                ("cnt", "cnt", "rows"),
+                                ("round", "round", "round"),
+                                ("base_key", "base_key", "key"),
+                                ("msgs", "msgs", "msgs"))),
+    "FusedState": (FusedState, (("table", "table", "words"),
+                                ("round", "round", "round"),
+                                ("msgs", "msgs", "msgs"))),
+}
+_TABLES = ("rows", "words")
+
+
+def _spec(state):
+    cls = type(state).__name__
+    if cls not in _SPECS or not isinstance(state, _SPECS[cls][0]):
+        raise TypeError(f"unknown state type {cls}")
+    return cls, _SPECS[cls][1]
+
+
+def _fetch(tensors) -> list:
+    """The host read of a segment: every tensor of ``tensors`` to numpy,
+    in one call (other values pass through)."""
+    return [t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+            for t in tensors]
+
+
+def _gathered(state, group):
+    """``(cls, specs, values)``: the state's fields in the reference's
+    order, the tables all-gathered over ``group``'s ranks, still on the
+    device."""
+    cls, specs = _spec(state)
+    values = []
+    for _, attr, kind in specs:
+        v = getattr(state, attr)
+        if kind in _TABLES and group is not None and group.size > 1:
+            v = group.all_gather(v)
+        values.append(v)
+    return cls, specs, values
+
+
+def to_numpy(specs, host) -> dict:
+    """The reference's numpy fields from the host values of a state's
+    fields (:func:`_gathered` read by :func:`_fetch`)."""
+    out = {}
+    for (name, _, kind), v in zip(specs, host):
+        if kind == "words" and v.dtype == np.int32:
+            out[name] = np.ascontiguousarray(v).view(np.uint32)
+        elif kind in _TABLES:
+            out[name] = np.ascontiguousarray(v)
+        elif kind == "round":
+            out[name] = np.asarray(int(v), np.int32)
+        elif kind == "key":
+            out[name] = np.asarray(v, np.int64).astype(np.uint32)
+        else:
+            out[name] = np.asarray(np.float32(v))
+    return out
+
+
+def state_fields(state, group=None) -> dict:
+    """A state as the reference's numpy fields (``{field: array}``), the
+    tables gathered over ``group``'s ranks."""
+    _, specs, values = _gathered(state, group)
+    return to_numpy(specs, _fetch(values))
+
+
+def state_from_fields(cls: str, fields: dict, device=None) -> State:
+    """The port's ``cls`` state from the reference's numpy fields, on
+    ``device`` (default CUDA): uint32 words as int32 with the same bits;
+    ``FusedState.msgs`` stays a numpy float32, as the fused loops keep
+    it."""
+    dev = resolve_device(device)
+    port_cls, specs = _SPECS[cls]
+    kwargs = {}
+    for name, attr, kind in specs:
+        v = np.asarray(fields[name])
+        if kind in _TABLES:
+            if v.dtype == np.uint32:
+                v = v.view(np.int32)
+            kwargs[attr] = torch.from_numpy(np.ascontiguousarray(v).copy()
+                                            ).to(dev)
+        elif kind == "round":
+            kwargs[attr] = int(v)
+        elif kind == "key":
+            kwargs[attr] = threefry.key_from_words(v, dev)
+        elif port_cls is FusedState:
+            kwargs[attr] = np.float32(v)
+        else:
+            kwargs[attr] = torch.tensor(np.float32(v), device=dev)
+    return port_cls(**kwargs)
+
+
+def on_device(state: State, device) -> State:
+    """``state`` with every tensor on ``device``."""
+    return type(state)(*(v.to(device) if isinstance(v, torch.Tensor)
+                         else v for v in state))
+
+
+def rank_rows(table: torch.Tensor, group) -> torch.Tensor:
+    """This rank's share of a table loaded from a sharded run's file: the
+    leading-axis slice ``rank`` of ``size`` (the padded rows, or the
+    fused planes), on the group's device."""
+    m = table.shape[0] // group.size
+    return table[group.rank * m:(group.rank + 1) * m].to(group.device)
+
+
+def rank_share(state: State, group) -> State:
+    """This rank's share of a state loaded from a sharded run's file:
+    :func:`rank_rows` of every table; the scalars and the key as they
+    are, the tensors on the group's device."""
+    _, specs = _spec(state)
+    kinds = {attr: kind for _, attr, kind in specs}
+    out = []
+    for attr, v in zip(state._fields, state):
+        if kinds[attr] in _TABLES:
+            v = rank_rows(v, group)
+        out.append(v.to(group.device) if isinstance(v, torch.Tensor)
+                   else v)
+    return type(state)(*out)
+
+
+def _meta(cls: str, specs, extra_meta) -> dict:
+    names = [s[0] for s in specs]
+    key_field = "base_key" if "base_key" in names else None
+    meta = {"cls": cls, "fields": names, "key_field": key_field}
+    if key_field is not None:
+        meta["key_impl"] = KEY_IMPL
+    if extra_meta is not None:
+        meta["extra"] = extra_meta
+    return meta
+
+
+def _writes(group) -> bool:
+    """Whether this process writes the file: rank 0, or the one process."""
+    return group is None or group.rank == 0
+
+
+def _write(path: str, meta: dict, arrays: dict, group=None) -> None:
+    """Rank 0 (or the one process) writes ``path`` atomically; every rank
+    of ``group`` then waits for it."""
+    if _writes(group):
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            # a partial write stranded by a kill between the write and
+            # os.replace: never a checkpoint, and not kept
+            os.remove(tmp)
+        with open(tmp, "wb") as f:
+            np.savez(f, __meta__=json.dumps(meta), **arrays)
+        os.replace(tmp, path)
+    if group is not None and group.size > 1:
+        group.barrier()
+
+
+def save_state(path: str, state: State, extra_meta=None,
+               group=None) -> None:
+    """Write a registered state to ``path`` (.npz, the reference's
+    format).  ``extra_meta`` (JSON-able) rides in the metadata under
+    ``extra``.  With ``group``: the state is this rank's share, the file
+    the padded global array, written by rank 0 (the only rank that
+    copies it to the host)."""
+    cls, specs, values = _gathered(state, group)
+    host = _fetch(values) if _writes(group) else []
+    _write(path, _meta(cls, specs, extra_meta), to_numpy(specs, host),
+           group)
+
+
+def _open_npz(path: str):
+    """``np.load`` under the crash contract: anything short of a readable
+    archive is a ``ValueError`` naming the file; a missing file stays
+    ``FileNotFoundError``."""
+    try:
+        return np.load(path, allow_pickle=False)
+    except FileNotFoundError:
+        raise
+    except Exception as e:
+        raise ValueError(
+            f"checkpoint {path} is not a readable .npz archive "
+            f"(truncated or corrupted — e.g. by a crash of the "
+            f"filesystem, not of the simulator: writes are atomic): "
+            f"{type(e).__name__}: {e}") from e
+
+
+def _meta_of(z, path: str) -> dict:
+    if "__meta__" not in getattr(z, "files", ()):
+        raise ValueError(
+            f"checkpoint {path} has no __meta__ entry — not a "
+            "gossip_tpu checkpoint (save_state writes one always)")
+    try:
+        return json.loads(str(z["__meta__"]))
+    except Exception as e:
+        raise ValueError(
+            f"checkpoint {path} has an unparseable __meta__ entry: "
+            f"{type(e).__name__}: {e}") from e
+
+
+def load_meta(path: str) -> dict:
+    """The metadata entry of a checkpoint (``extra`` included), without
+    the arrays.  ``ValueError`` naming the file when it is no readable
+    checkpoint."""
+    with _open_npz(path) as z:
+        return _meta_of(z, path)
+
+
+def load_state(path: str, device=None) -> State:
+    """The state of a checkpoint written by either package, on ``device``
+    (default CUDA; a sharded run's file holds the padded global arrays,
+    which the drivers' ``restore_*`` cut to a rank's share), under the
+    crash contract (module doc)."""
+    with _open_npz(path) as z:
+        meta = _meta_of(z, path)
+        cls = meta.get("cls")
+        if cls not in _SPECS:
+            raise ValueError(
+                f"checkpoint {path} carries unknown state class "
+                f"{cls!r} (known: {sorted(_SPECS)}) — written by an "
+                "incompatible version?")
+        fields = meta.get("fields")
+        key_field = meta.get("key_field")
+        key_impl = meta.get("key_impl")
+        if fields is None or (key_field is not None and key_impl is None):
+            raise ValueError(
+                f"checkpoint {path} metadata is incomplete (needs "
+                "'fields' and, for a keyed state, 'key_impl') — "
+                "written by an incompatible version?")
+        if key_field is not None and key_impl != KEY_IMPL:
+            raise ValueError(
+                f"checkpoint {path} holds a {key_impl!r} key; the port "
+                f"draws {KEY_IMPL} keys only")
+        out = {}
+        try:
+            for name in fields:
+                out[name] = z[name]
+        except KeyError as e:
+            raise ValueError(
+                f"checkpoint {path} is missing array entry {e} named "
+                "by its own metadata — truncated write?") from e
+        except Exception as e:
+            raise ValueError(
+                f"checkpoint {path} has a corrupted array entry "
+                f"({type(e).__name__}: {e}) — damaged in place after "
+                "the atomic write?") from e
+    want = [s[0] for s in _SPECS[cls][1]]
+    if sorted(out) != sorted(want):
+        raise ValueError(f"checkpoint {path} holds fields {sorted(out)}; "
+                         f"a {cls} has {sorted(want)}")
+    return state_from_fields(cls, out, device)
+
+
+def _curve_rows(value, stacked, rounds: int) -> list:
+    """The host values of a segment's curve: ``value`` applied to each
+    round's row of ``stacked`` (a numpy array, or a dict of them)."""
+    if isinstance(stacked, dict):
+        return [value({k: v[i] for k, v in stacked.items()})
+                for i in range(rounds)]
+    return [value(stacked[i]) for i in range(rounds)]
+
+
+def _stack(vals):
+    if isinstance(vals[0], dict):
+        return {k: torch.stack([v[k] for v in vals]) for k in vals[0]}
+    return torch.stack(vals)
+
+
+def run_with_checkpoints(step, state: State, rounds: int, path: str,
+                         every: int = 50, extra_meta=None,
+                         curve_fn=None, curve_prefix=(), base_round=None,
+                         track_lost: bool = False, lost_prefix: float = 0.0,
+                         curve_value=float, curve_reduce=None, group=None,
+                         to_saved=None, stats: Optional[List[dict]] = None):
+    """Drive ``step`` for ``rounds`` rounds, checkpointing every ``every``
+    rounds and at the end; resume by loading the file and calling again
+    with the rounds left.  Each segment is a plain loop of rounds that
+    reads the host once, at its end (module doc).
+
+    ``curve_fn(state)`` returns a device tensor each round (what the
+    curve needs of it, e.g. a count), ``curve_reduce`` (optional) maps the
+    segment's stacked values on the device (a collective over the
+    ranks), and ``curve_value`` maps each round's host row to the
+    recorded value: a float (a flat curve) or a dict of floats (named
+    channels, one list each).  The curve so far rides in the metadata
+    under ``extra['curve']``; pass the saved value as ``curve_prefix`` to
+    continue it.  Returns ``state`` without ``curve_fn``, ``(state,
+    curve)`` with it.
+
+    ``base_round`` is cross-checked against ``state.round`` (a rebuilt
+    state with a re-zeroed round would restart the fault program) and
+    stamps ``extra['round']``.  ``track_lost``: ``step`` returns
+    ``(state, lost)`` and the float32 sum of ``lost``, seeded by
+    ``lost_prefix``, persists as ``extra['dropped']``: the same
+    sequential float32 carry as the reference's, so it matches the
+    uninterrupted run bit for bit across kills.
+
+    ``group``: the state is this rank's share (:func:`save_state`);
+    ``to_saved(state)`` gives the registered state to write (the fused
+    planes keep lane-major buffers, written in the reference's layout);
+    ``stats`` gets one ``{"round", "d2h_ms", "write_ms", "bytes"}`` a
+    save (the host read's and the write's milliseconds)."""
+    if every < 1:
+        raise ValueError(f"every must be >= 1, got {every}")
+    sr = int(state.round)
+    if base_round is None:
+        base_round = sr
+    elif int(base_round) != sr:
+        raise ValueError(
+            f"base_round={base_round} disagrees with the state's "
+            f"own round counter {sr}; a resumed fault program must "
+            "continue at the absolute round the checkpoint stopped "
+            "at")
+    curve = ({k: list(v) for k, v in curve_prefix.items()}
+             if isinstance(curve_prefix, dict) else list(curve_prefix))
+    dropped = float(lost_prefix)
+    dev = _device_of(state)
+    acc = (torch.tensor(np.float32(dropped), device=dev) if track_lost
+           else None)
+    saved = to_saved or (lambda s: s)
+
+    def extend(values):
+        nonlocal curve
+        if values and isinstance(values[0], dict):
+            if not isinstance(curve, dict):
+                if curve:
+                    raise TypeError(
+                        "curve_prefix is a flat list but curve_fn "
+                        "records named channels; pass the saved "
+                        "dict-of-lists instead")
+                curve = {k: [] for k in values[0]}
+            for v in values:
+                for k, x in v.items():
+                    curve[k].append(float(x))
+        elif values:
+            if isinstance(curve, dict):
+                raise TypeError(
+                    "curve_prefix carries named channels but "
+                    "curve_fn records a flat scalar; pass the "
+                    "matching channel list (or the dict-recording "
+                    "curve_fn the checkpoint was written with)")
+            curve.extend(float(x) for x in values)
+
+    def checkpoint(done, pending):
+        """The segment's one host read, the curve and carry it brings,
+        and the save."""
+        nonlocal dropped
+        t0 = time.perf_counter()
+        cls, specs, values = _gathered(saved(state), group)
+        # only the writer copies the tables to the host; every rank reads
+        # the curve and the carry
+        values = values if _writes(group) else []
+        tail = [acc] if track_lost else []
+        stacked = None
+        if pending:
+            stacked = _stack(pending)
+            if curve_reduce is not None:
+                stacked = curve_reduce(stacked)
+            keys = list(stacked) if isinstance(stacked, dict) else None
+            tail += (list(stacked.values()) if keys is not None
+                     else [stacked])
+        host = _fetch(values + tail)
+        d2h_ms = (time.perf_counter() - t0) * 1e3
+        host, rest = host[:len(values)], host[len(values):]
+        if track_lost:
+            # float(float32) and its JSON repr round-trip exactly
+            dropped = float(rest.pop(0))
+        if pending:
+            rows = dict(zip(keys, rest)) if keys is not None else rest[0]
+            extend(_curve_rows(curve_value, rows, len(pending)))
+        meta = dict(extra_meta or {})
+        meta["round"] = base_round + done
+        if track_lost:
+            meta["dropped"] = dropped
+        if curve_fn is not None:
+            meta["curve"] = curve
+        t1 = time.perf_counter()
+        _write(path, _meta(cls, specs, meta), to_numpy(specs, host), group)
+        if stats is not None:
+            stats.append({"round": base_round + done, "d2h_ms": d2h_ms,
+                          "write_ms": (time.perf_counter() - t1) * 1e3,
+                          "bytes": os.path.getsize(path)})
+
+    done = 0
+    while done < rounds:
+        todo = min(every, rounds - done)
+        pending = []
+        for _ in range(todo):
+            out = step(state)
+            if track_lost:
+                state, lost = out
+                acc = acc + lost
+            else:
+                state = out
+            if curve_fn is not None:
+                pending.append(curve_fn(state))
+        done += todo
+        checkpoint(done, pending)
+    if rounds <= 0:
+        if curve_fn is not None and not isinstance(curve, dict) \
+                and not curve:
+            # no segment ran: ask curve_fn once for its channel names, so
+            # a dict-valued one still yields a dict of (empty) channels
+            probe = _stack([curve_fn(state)])
+            if curve_reduce is not None:
+                probe = curve_reduce(probe)
+            if isinstance(probe, dict):
+                keys = list(probe)
+                host = dict(zip(keys, _fetch(list(probe.values()))))
+            else:
+                host = _fetch([probe])[0]
+            row = _curve_rows(curve_value, host, 1)[0]
+            if isinstance(row, dict):
+                curve = {k: [] for k in row}
+        checkpoint(0, [])
+    if curve_fn is None:
+        return state
+    return state, curve
+
+
+def _device_of(state) -> torch.device:
+    for v in state:
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return torch.device("cpu")

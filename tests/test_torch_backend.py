@@ -154,6 +154,32 @@ def test_refusals_are_loud(proto, topo, run, fault, match):
         run_simulation(proto, topo, run, fault, device="cpu")
 
 
+@pytest.mark.parametrize("plane_stack", [False, True])
+def test_fused_churn_refusal_is_the_reference_word_for_word(plane_stack):
+    """The single-device fused route refuses a fault program in the
+    reference's words (its list of plane surfaces with ``--checkpoint``),
+    and ``plane_stack`` (``run --engine fused --checkpoint``,
+    ``churn-sweep --engine fused``) takes it on one device, as the
+    reference's does."""
+    from gossip_tpu.backend import _fused_ineligible_reason
+    from gossip_tpu_torch.backend import fused_ineligible_reason
+    churn = dict(events=((1, 1, 4),), partitions=((0, 3, N // 2),))
+    jf = JC.FaultConfig(churn=JC.ChurnConfig(**churn))
+    tf = FaultConfig(churn=ChurnConfig(**churn))
+    want = _fused_ineligible_reason(JC.ProtocolConfig(mode="pull"),
+                                    JC.TopologyConfig(n=N), jf, 1,
+                                    plane_stack=plane_stack)
+    got = fused_ineligible_reason(PULL, TOPO, RunConfig(), tf, 1,
+                                  plane_stack=plane_stack)
+    if plane_stack:
+        # the reference's one reason left is its device check ("needs a
+        # TPU"), which the port's list leaves to the device it runs on
+        assert got is None and "needs a TPU" in want
+    else:
+        assert got == want
+        assert "(--devices > 1, --checkpoint, churn-sweep" in got
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_cfg=MeshConfig(n_devices=2, exchange="sparse")),
      "engine='fused'.*implements no exchange"),
