@@ -14,8 +14,8 @@ the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
 card under gloo), SWIM, rumor and the payloads among them, the sparse
 all_to_all and halo ppermute exchanges, the fused rumor planes, the
 sweep axis (seed ensembles, config grids, churn sweeps), checkpoints
-and resume, and the roofline tool through the port's own entry
-points, and measures them.  One JSON line per phase:
+and resume, the streamed planner at 100M nodes, and the roofline tool
+through the port's own entry points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
@@ -256,7 +256,31 @@ points, and measures them.  One JSON line per phase:
    rank launching 4 x the rounds it ran.  Each run's ms a round beside
    the straight loop's, each save's device-to-host and write ms and
    bytes, the load's ms, the kill and resume rounds;
-22. ``roofline_checks`` and ``roofline``  the three calibration
+22. ``scale``  the streamed planner (``gossip_tpu_torch.planner``) at the
+   README's commands (README.md:591-593; ``SC_CASES``): SC100M, 100M
+   nodes x 64 rumors, ``plan --hbm-gb 6`` forcing 2 tiles of 1 word
+   (the README's 8 chips cut to the card), 8 rounds in segments of 4
+   (the README's 32 and 16 cut for time), and SC100M-CH, the same under
+   the MIXED program:
+   the host's initial words against the card's packed init; the
+   streamed run through ``scale-run``'s body with ``--check-bitwise
+   --measure-memory`` (bitwise the untiled run, the card's peak of
+   allocated memory at most the plan's prediction), the ``--no-overlap``
+   leg (through the library), and the first segment alone under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in it),
+   resumed by ``run --plan --resume`` to the end; every leg's final
+   words, msgs and coverage the JAX package's (``SC_JAX``; dropped
+   within a float32 ulp of the total a round, ROADMAP queue 3 item 3), no
+   kernel of the port launched; SC10M-K2 (the node mesh) and SC10M-S2
+   (two slices) on two gloo ranks sharing the card, in one spawn, each
+   rank's verdict against its rows' untiled run and rank 0's words
+   against the one-device untiled run, every rank's peak at most the
+   prediction.  Each run's ms a round beside the untiled run's, each
+   tile's put, dispatch, wait and copy ms, the segments' walls, the
+   saves' and the load's ms and bytes, the host's peak RSS, the
+   measured and predicted peaks; then the card's memory and its
+   machine's RAM (the planner's defaults);
+23. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
    i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
@@ -4301,6 +4325,345 @@ def phase_sweeps(dev, smi: str):
     return cf_launches
 
 
+# The streamed planner (phase `scale`): the README's `plan`, `scale-run`
+# and `run --plan` commands (README.md:591-593) at 100M nodes x 64 rumors,
+# fanout 1, seed 0, cut to the one card: `--chips 8` to 1, and `--hbm-gb 6`
+# in place of the card's 79 GiB, which forces 2 tiles of 1 word (at the
+# card's memory the plan is 1 tile).  Depth cut for the script's time
+# limit (the phase took 160.6 s of a 1110.6 s script at 16 rounds): the
+# README's `--max-rounds 32 --segment-every 16` to 8 rounds, a checkpoint
+# every 4.  SC100M-CH: the same under tests/test_planner.py's MIXED
+# program (`--scenario`, `--drop 0.05`, `--fault-seed 2`); the kill after
+# the first segment lands after its partition window [1, 4), its crash
+# and its recovery.  SC10M-K2 (`--chips 2`, the node mesh) and SC10M-S2
+# (`--chips 2 --slices 2`): two gloo ranks sharing the card, n cut to 10M
+# (gloo copies through the host), `--hbm-gb` forcing 2 tiles, 8 rounds
+# every 4.  SC_JAX holds the JAX package's values for the two 100M cells
+# (the SHA-256 of the final uint32[n, 2] words, msgs, dropped, coverage),
+# jax 0.9.0 on the CPU through its `untiled_reference`.  Past 2^24 nodes
+# the JAX package's per-round lost count is a float32 sum in XLA's
+# reduction order and the port's an integer count rounded once (ROADMAP
+# queue 3 item 3): `dropped` is held to the JAX package's within one
+# float32 ulp of the total a round (SC100M-CH: 89989400.0 against
+# 89989384.0, two ulps); the words, msgs and coverage are bitwise.
+N_SCALE = 100_000_000
+_SC = ["--n", str(N_SCALE), "--rumors", "64", "--fanout", "1", "--seed", "0",
+       "--chips", "1", "--hbm-gb", "6"]
+SC_CASES = {
+    "SC100M": [*_SC, "--max-rounds", "8", "--segment-every", "4"],
+    "SC100M-CH": [*_SC, "--max-rounds", "8", "--segment-every", "4",
+                  "--drop", "0.05", "--fault-seed", "2", "--scenario",
+                  "event=3:1:4;event=9:2;partition=1:4:256;"
+                  "ramp=0:3:0.0:0.15"]}
+SC_JAX = {
+    "SC100M": ("daaf1703900d4643b178a6406b4cbae5"
+               "0a016987949724b18008b2ebbac7b983",
+               1600000000.0, 0.0, 9e-08),
+    "SC100M-CH": ("bb1a8218ea5142af04691dcceea4ba35"
+                  "a4dd744dc5694dad2658bd9315a01eb2",
+                  1420021248.0, 89989384.0, 1.00000001e-08)}
+_SC10 = ["--n", str(N), "--rumors", "64", "--max-rounds", "8",
+         "--segment-every", "4"]
+SC_MESH = {"SC10M-K2": [*_SC10, "--chips", "2", "--hbm-gb", "0.4"],
+           "SC10M-S2": [*_SC10, "--chips", "2", "--slices", "2",
+                        "--hbm-gb", "0.6"]}
+
+
+class _RssPeak:
+    """The process's peak resident set over a window, sampled every 10 ms
+    from /proc/self/status (read only)."""
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = self._rss()
+        self._stop = False
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop = True
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _sample(self):
+        while not self._stop:
+            self.peak = max(self.peak, self._rss())
+            time.sleep(0.01)
+
+
+def _sc_plan(argv, path: str):
+    """The ``plan`` command's file for ``argv`` (its line captured) and
+    the plan."""
+    import contextlib
+    import io
+
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.planner import budget as PB
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(["plan", *argv, "--out", path])
+    check(code == 0, f"plan {' '.join(argv)} exited {code}")
+    with open(path) as f:
+        return json.loads(buf.getvalue()), PB.plan_from_dict(json.load(f))
+
+
+def _sc_leg(path: str, **kw):
+    """One ``scale-run`` / ``run --plan`` leg through the commands' shared
+    body (``cli.run_plan_file``): ``(its printed line, stats, seconds, the
+    process's peak RSS in bytes, kernel launches in it)``."""
+    import contextlib
+    import io
+
+    from gossip_tpu_torch import cli
+    stats, buf = [], io.StringIO()
+    before = _launch_counts()
+    with _RssPeak() as rss, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        code = cli.run_plan_file(path, stats=stats, **kw)
+        s = time.perf_counter() - t0
+    after = _launch_counts()
+    check(code == 0, f"run_plan_file {path} {kw} exited {code}")
+    return (json.loads(buf.getvalue()), stats, s, rss.peak,
+            {k: after[k] - before[k] for k in after})
+
+
+def _words_sha(path: str) -> str:
+    """SHA-256 of a scale checkpoint's final words (uint32[n, W])."""
+    import hashlib
+
+    import numpy as np
+    with np.load(path) as z:
+        return hashlib.sha256(np.ascontiguousarray(z["seen"]).tobytes()
+                              ).hexdigest()
+
+
+def _sc_walls(stats) -> dict:
+    """A leg's tile walls (ms, each tile of each segment), segment walls,
+    saves and load."""
+    tiles = [s for s in stats if s["event"] == "tile_stream"]
+    segs = [s for s in stats if s["event"] == "scale_segment"]
+    out = {k: [round(t[k], 3) for t in tiles]
+           for k in ("put_ms", "dispatch_ms", "wait_ms", "copy_ms")}
+    out.update(segment_ms=[round(s["wall_ms"], 3) for s in segs],
+               save_ms=[round(s["save_ms"], 3) for s in segs
+                        if s["save_ms"] is not None],
+               bytes=sorted({s["bytes"] for s in segs if s["bytes"]}),
+               load_ms=[round(s["ms"], 3) for s in stats
+                        if s["event"] == "load"],
+               untiled_ms=[round(s["ms"], 3) for s in stats
+                           if s["event"] == "untiled"])
+    return out
+
+
+def _sc_case(dev, smi: str, name: str, tmp: str) -> dict:
+    """One 100M cell: the plan; the straight streamed run (bitwise the
+    untiled run, measured peak against predicted); the --no-overlap leg;
+    the first segment alone under the sync debug mode, then ``run --plan
+    --resume`` to the end; every leg's final words the JAX package's."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.models.state import init_state
+    from gossip_tpu_torch.config import ProtocolConfig, RunConfig
+    from gossip_tpu_torch.ops.bitpack import pack
+    from gossip_tpu_torch.planner import stream as PS
+    plan_line, plan = _sc_plan(SC_CASES[name], f"{tmp}/{name}.json")
+    pf = f"{tmp}/{name}.json"
+    check(plan.tiles == 2 and plan.bucket_words == 1,
+          f"{name}: the plan has {plan.tiles} tiles of {plan.bucket_words}")
+    want_sha, want_msgs, want_dropped, want_cov = SC_JAX[name]
+    out = {"plan": plan_line, "predicted_peak_device_bytes":
+           plan.predicted_peak_device_bytes,
+           "components": plan.to_dict()["budget"]["components"]}
+    if name == "SC100M":
+        # the host's initial words against the card's init, packed in
+        # chunks of rows (packing widens the bools to int64)
+        seen = init_state(RunConfig(seed=0), ProtocolConfig(
+            mode="pull", rumors=64), N_SCALE, dev).seen
+        host = PS.host_init_packed(N_SCALE, 64, 0)
+        step = 1 << 22
+        check(all(np.array_equal(host[lo:lo + step], pack(
+            seen[lo:lo + step]).cpu().numpy().view(np.uint32))
+            for lo in range(0, N_SCALE, step)),
+              "host_init_packed differs from the card's init")
+        del seen, host
+        torch.cuda.empty_cache()
+    # the straight run through the command's body, its segments
+    # published; the serial leg through the library, its words read back
+    ck = f"{tmp}/{name}_straight.npz"
+    line, stats, s, rss, launches = _sc_leg(
+        pf, checkpoint=ck, check_bitwise=True, measure_memory=True)
+    sha = _words_sha(ck)
+    os.remove(ck)
+    legs = {"straight": (line, stats, s, rss, launches, sha)}
+    stats, before = [], _launch_counts()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        res = PS.run_at_scale(plan, overlap=False, keep_state=True,
+                              stats=stats)
+        s = time.perf_counter() - t0
+    after = _launch_counts()
+    legs["no_overlap"] = (res.to_dict(), stats, s, rss.peak,
+                          {k: after[k] - before[k] for k in after},
+                          hashlib.sha256(np.ascontiguousarray(
+                              res.final_state).tobytes()).hexdigest())
+    del res
+    for leg, (line, stats, s, rss, launches, sha) in legs.items():
+        check(sum(launches.values()) == 0,
+              f"{name} {leg}: kernels launched {launches}")
+        walls = _sc_walls(stats)
+        legs[leg] = {"line": line, "s": s, "ms_per_round":
+                     sum(walls["segment_ms"]) / plan.max_rounds,
+                     "rss_peak_bytes": rss, "sha256": sha, **walls}
+    # the first segment alone, no host sync in it (the debug mode raises
+    # on one), then the command's resume to the end
+    ck = f"{tmp}/{name}_resumed.npz"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            first = PS.run_at_scale(plan, checkpoint_path=ck,
+                                    halt_after_segments=1, stats=[])
+            s_first = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(first.halted and first.rounds == plan.segment_every,
+          f"{name}: halted at {first.rounds}")
+    line, stats, s, rss2, launches = _sc_leg(pf, checkpoint=ck, resume=True)
+    check(sum(launches.values()) == 0, f"{name} resume: {launches}")
+    legs["resumed"] = {"line": line, "first_segment_s": s_first, "s": s,
+                       "rss_peak_bytes": max(rss.peak, rss2),
+                       "sha256": _words_sha(ck), "sync_free_segment": True,
+                       **_sc_walls(stats)}
+    os.remove(ck)
+    st = legs["straight"]["line"]
+    check(st["bitwise_equal"] is True, f"{name}: not the untiled run")
+    check(st["measured_loop_bytes"] is not None
+          and st["measured_loop_bytes"] <= plan.predicted_peak_device_bytes,
+          f"{name}: measured {st['measured_loop_bytes']} > predicted "
+          f"{plan.predicted_peak_device_bytes}")
+    check(legs["resumed"]["line"]["resumed"] is True
+          and legs["resumed"]["line"]["rounds"] == plan.max_rounds,
+          f"{name}: the resume ended at {legs['resumed']['line']['rounds']}")
+    for leg, rec in legs.items():
+        ln = rec["line"]
+        check(rec["sha256"] == want_sha, f"{name} {leg}: final words "
+              f"{rec['sha256']} are not the JAX package's {want_sha}")
+        ulps = plan.max_rounds * float(np.spacing(np.float32(want_dropped)))
+        check((ln["msgs"], ln["coverage"]) == (want_msgs, want_cov)
+              and abs(ln["dropped"] - want_dropped) <= ulps
+              and ln["dropped"] == legs["straight"]["line"]["dropped"],
+              f"{name} {leg}: {ln['msgs']} / {ln['dropped']} / "
+              f"{ln['coverage']} are not the JAX package's {SC_JAX[name]}")
+    untiled_ms = legs["straight"]["untiled_ms"][0] / plan.max_rounds
+    out.update(legs=legs, jax=SC_JAX[name],
+               dropped_minus_jax=st["dropped"] - want_dropped,
+               untiled_ms_per_round=untiled_ms,
+               streamed_over_untiled=legs["straight"]["ms_per_round"]
+               / untiled_ms)
+    return out
+
+
+def _sc_mesh_rank(plans, group):
+    """One rank of the SC10M cells (every plan in one spawn): each run's
+    result (rank 0 keeps the gathered words), stats, seconds, peak
+    allocated memory and this rank's kernel launches."""
+    import torch
+    from gossip_tpu_torch.planner import stream as PS
+    out = {}
+    for name, plan in plans.items():
+        torch.cuda.empty_cache()
+        before, stats = _launch_counts(), []
+        t0 = time.perf_counter()
+        res = PS.run_at_scale(plan, group=group, check_bitwise=True,
+                              measure_memory=True, keep_state=True,
+                              stats=stats)
+        s = time.perf_counter() - t0
+        after = _launch_counts()
+        out[name] = (res, stats, s,
+                     {k: after[k] - before[k] for k in after})
+    return out
+
+
+def phase_scale(dev, smi: str):
+    """The streamed planner at the README's 100M x 64 (``SC_CASES``) and
+    on two ranks sharing the card (``SC_MESH``): each run's ms a round
+    beside the untiled run's, its tile walls and overlap efficiency, the
+    measured and predicted peaks, the host's peak RSS, the saves' and the
+    load's ms, no kernel of the port launched."""
+    import hashlib
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.planner import stream as PS
+    t_phase = time.perf_counter()
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chip_scale")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        for name in SC_CASES:
+            rec = _sc_case(dev, smi, name, tmp)
+            emit("scale", run=name, **rec, card=smi)
+            torch.cuda.empty_cache()
+        plans = {name: _sc_plan(argv, f"{tmp}/{name}.json")[1]
+                 for name, argv in SC_MESH.items()}
+        for name, plan in plans.items():
+            check(plan.tiles == 2, f"{name}: {plan.tiles} tiles")
+        ranks = GR.launch(_sc_mesh_rank, 2, plans, shared_card=True)
+        for name, plan in plans.items():
+            res, stats, s, _ = ranks[0][name]
+            t0 = time.perf_counter()
+            ref, msgs, dropped = PS.untiled_reference(plan)
+            single_s = time.perf_counter() - t0
+            check(res.bitwise_equal is True and np.array_equal(
+                res.final_state, ref) and (res.msgs, res.dropped)
+                == (msgs, dropped), f"{name}: not the one-device run")
+            for r in ranks:
+                check(sum(r[name][3].values()) == 0,
+                      f"{name}: a rank launched {r[name][3]}")
+                m = r[name][0].measured_loop_bytes
+                check(m is not None
+                      and m <= plan.predicted_peak_device_bytes,
+                      f"{name}: a rank measured {m} > "
+                      f"{plan.predicted_peak_device_bytes}")
+            walls = _sc_walls(stats)
+            emit("scale", run=name, line=res.to_dict(),
+                 sha256=hashlib.sha256(np.ascontiguousarray(
+                     res.final_state).tobytes()).hexdigest(),
+                 ms_per_round=sum(walls["segment_ms"]) / plan.max_rounds,
+                 run_s=s,
+                 single_device_untiled_ms_per_round=single_s * 1e3
+                 / plan.max_rounds,
+                 rank_measured_bytes=[r[name][0].measured_loop_bytes
+                                      for r in ranks],
+                 predicted_peak_device_bytes=plan.predicted_peak_device_bytes,
+                 **walls, card=smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the planner's defaults (planner/budget): this card's memory and its
+    # machine's RAM
+    with open("/proc/meminfo") as f:
+        mem_total = next(int(ln.split()[1]) * 1024 for ln in f
+                         if ln.startswith("MemTotal"))
+    emit("scale_phase", phase_s=time.perf_counter() - t_phase,
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
+         host_mem_total=mem_total, card=smi)
+
+
 def _words(rng, shape, sparsity: int):
     """uint32 words, each bit set at rate 2^-sparsity (the AND of that
     many random words; 0: all bits random), as int32 bits."""
@@ -4534,6 +4897,7 @@ def main(argv=None) -> int:
     if only:
         phases = {"sweeps": phase_sweeps, "roofline": phase_roofline,
                   "checkpoints": phase_checkpoints,
+                  "scale": phase_scale,
                   "mesh_path": phase_mesh_path,
                   "mesh_fused_planes": phase_mesh_fused_planes,
                   "mr_parts": phase_mr_parts,
@@ -4638,6 +5002,7 @@ def main(argv=None) -> int:
     planes_launches = phase_mesh_fused_planes(dev, smi)
     sweeps_launches = phase_sweeps(dev, smi)
     ck_launches = phase_checkpoints(dev, smi)
+    phase_scale(dev, smi)
     mr_kernels[0]["launches_by_path"] = {
         "mr_main_path": mr_kernels[0]["launches"],
         "mesh_fused_planes": planes_launches,

@@ -1,8 +1,8 @@
 """Command line of the port: ``python -m gossip_tpu_torch
-run|grid|churn-sweep|crdt|log|txn``.
+run|grid|churn-sweep|crdt|log|txn|plan|scale-run``.
 
 The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
-``crdt``, ``log`` and ``txn`` commands::
+``crdt``, ``log``, ``txn``, ``plan`` and ``scale-run`` commands::
 
     python -m gossip_tpu_torch run --mode pull --n 10000000 [--engine E] \\
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
@@ -18,6 +18,8 @@ The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
         [--devices K [--exchange dense|sparse|halo] [--share-card]]
         [--ensemble S] [--checkpoint PATH [--checkpoint-every E]
         [--resume]] [--device cpu]
+    python -m gossip_tpu_torch run --plan FILE [--checkpoint PATH
+        [--resume]] [--share-card] [--device cpu]
     python -m gossip_tpu_torch grid [--modes M...] [--fanouts F...] \\
         [--drops P...] [--periods T...] [--seeds S...] [--n N | --ns N...]
         [--rumors R...] [--family F | --families F...] [--k K] [--p P]
@@ -47,12 +49,26 @@ The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
         [the crdt command's topology, run, churn and byz flags]
         [--curve] [--save-curve PATH] [--devices K [--share-card]]
         [--device cpu]
+    python -m gossip_tpu_torch plan [--n N] [--rumors R] [--fanout F] \\
+        [--engine packed|dense|fused] [--max-rounds M] [--seed S]
+        [--origin O] [--chips C] [--hbm-gb G] [--slices S]
+        [--host-ram-gb G] [--segment-every E] [--reserve F] [--death D]
+        [--drop P] [--fault-seed S] [--scenario SPEC] [--out FILE]
+        [--validate FILE]
+    python -m gossip_tpu_torch scale-run --plan FILE [--checkpoint PATH] \\
+        [--resume] [--check-bitwise] [--measure-memory] [--no-overlap]
+        [--share-card] [--device cpu]
 
 ``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
 ``--engine`` one of ``auto|xla|fused`` (default ``auto``:
 ``backend.run_simulation``'s rule, the fused kernel on a card where it is
 eligible, the xla engine otherwise and on the CPU).  The flags, their defaults and their parse
 are the JAX command's (``--drop-prob`` is another name for ``--drop``;
+``plan``'s ``--hbm-gb`` defaults to one H100's memory,
+``planner/budget.H100_HBM_BYTES`` = 85,017,493,504 bytes, and its
+``--host-ram-gb`` to the card machine's host RAM,
+``planner/budget.HOST_RAM_BYTES`` = 108,447,924,224 bytes, where the
+JAX command's are a TPU chip's 16 GiB and a 64 GiB host;
 ``--swim-suspect-rounds 0`` is ``suggested_suspect_rounds(n, fanout)``
 for SWIM and 4 otherwise).  The topology and the fault take ``--seed``
 as their seeds too, as the JAX command sets them.  The three churn flags
@@ -112,6 +128,19 @@ It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
 the run needs a CUDA device.
+
+``plan`` (:mod:`gossip_tpu_torch.planner.budget`) prints the JAX
+command's plan document, byte for byte for the packed and dense engines
+(the fused engine's adds the port's ``lane_major_pingpong`` term), or
+its one-line refusal naming the binding constraint with exit code 2;
+``--validate FILE`` checks a plan file.  ``scale-run --plan FILE`` and
+``run --plan FILE`` execute a plan through the streamed driver
+(:mod:`gossip_tpu_torch.planner.stream`), word-plane tiles streamed
+host to card per checkpoint segment, and print the JAX command's line
+with ``plan_fingerprint`` (exit 1 when ``--check-bitwise`` finds a
+difference); ``--share-card`` runs a plan's ranks on one card.  ``run
+--plan`` refuses every run-shape flag changed from its default, in the
+reference's words.  Without ``--device cpu`` they need a CUDA device.
 
 ``crdt``, ``log`` and ``txn`` (:mod:`gossip_tpu_torch.models.crdt`,
 :mod:`gossip_tpu_torch.models.log`,
@@ -634,6 +663,25 @@ def cmd_ensemble(a) -> int:
 
 
 def cmd_run(a) -> int:
+    if a.plan:
+        # the plan file IS the run configuration; a run-shape flag changed
+        # from its default would be silently discarded, so it is refused
+        # (the reference's words)
+        changed = [f"--{k.replace('_', '-')}"
+                   for k, d in a.plan_guard_defaults.items()
+                   if getattr(a, k) != d]
+        if a.ensemble > 1 or a.curve or a.save_curve:
+            return _refuse("--plan executes the streamed scale driver; "
+                           "drop --ensemble/--parity-check/--curve/"
+                           "--save-curve")
+        if changed:
+            return _refuse("--plan takes the run shape from the plan "
+                           f"file; drop {' '.join(sorted(changed))} "
+                           "(regenerate the plan with `gossip_tpu plan` "
+                           "to change them)")
+        return run_plan_file(a.plan, checkpoint=a.checkpoint,
+                             resume=a.resume, device=a.device,
+                             share_card=a.share_card)
     if a.ensemble > 1:
         return cmd_ensemble(a)
     if a.resume and not a.checkpoint:
@@ -1085,6 +1133,120 @@ def cmd_churn_sweep(a) -> int:
     return 0
 
 
+def _device_spec_from_flags(a):
+    from gossip_tpu_torch.planner.budget import (H100_HBM_BYTES,
+                                                 HOST_RAM_BYTES, DeviceSpec)
+    return DeviceSpec(
+        chips=a.chips,
+        hbm_bytes_per_chip=(H100_HBM_BYTES if a.hbm_gb is None
+                            else int(a.hbm_gb * 1024**3)),
+        slices=a.slices,
+        host_ram_bytes=(HOST_RAM_BYTES if a.host_ram_gb is None
+                        else int(a.host_ram_gb * 1024**3)))
+
+
+def _plan_fault_from_flags(a):
+    ch = parse_scenario(a.scenario) if a.scenario else None
+    if ch is None and a.death == 0.0 and a.drop == 0.0:
+        return None
+    return FaultConfig(node_death_rate=a.death, drop_prob=a.drop,
+                       seed=a.fault_seed, churn=ch)
+
+
+def cmd_plan(a) -> int:
+    """``plan``: capacity planning without a device — print (or
+    validate) a ScalePlan as JSON, the word-plane tiling, segment
+    schedule and mesh shape that fit N on the given devices, or refuse
+    naming the binding constraint (:mod:`gossip_tpu_torch.planner.budget`;
+    the reference's output and refusals, exit 2)."""
+    from gossip_tpu_torch.planner import budget as PB
+    if a.validate:
+        try:
+            with open(a.validate) as f:
+                doc = json.load(f)
+            plan = PB.plan_from_dict(doc)
+        except (OSError, ValueError) as e:
+            return _refuse(str(e))
+        print(json.dumps({"plan_valid": True, "n": plan.n,
+                          "tiles": plan.tiles,
+                          "bucket_words": plan.bucket_words,
+                          "fingerprint": PB.plan_fingerprint(
+                              plan.to_dict())}))
+        return 0
+    try:
+        fault = _plan_fault_from_flags(a)
+        reserve = (PB.DEFAULT_RESERVE_FRAC if a.reserve is None
+                   else a.reserve)
+        plan = PB.plan_scale(
+            a.n, rumors=a.rumors, device=_device_spec_from_flags(a),
+            engine=a.engine, fanout=a.fanout, max_rounds=a.max_rounds,
+            seed=a.seed, origin=a.origin, fault=fault,
+            segment_every=a.segment_every, reserve_frac=reserve)
+    except ValueError as e:
+        # InfeasiblePlanError among them: the refusal IS the product
+        # here, one line, constraint named
+        return _refuse(str(e))
+    text = plan.to_json()
+    if a.out:
+        with open(a.out, "w") as f:
+            f.write(text + "\n")
+        print(json.dumps({"plan_written": a.out, "n": plan.n,
+                          "tiles": plan.tiles,
+                          "bucket_words": plan.bucket_words,
+                          "predicted_peak_device_bytes":
+                          plan.predicted_peak_device_bytes,
+                          "binding": plan.binding}))
+    else:
+        print(text)
+    return 0
+
+
+def run_plan_file(path: str, *, checkpoint=None, resume=False,
+                  check_bitwise=False, measure_memory=False, overlap=True,
+                  device=None, share_card=False, stats=None) -> int:
+    """Load a plan file and execute it through the streamed driver
+    (:func:`~gossip_tpu_torch.planner.stream.run_at_scale`), printing
+    the reference's line and the plan's fingerprint — shared by
+    ``scale-run`` and ``run --plan`` so the two surfaces cannot drift.
+    Exit 2 on a refusal, 1 when ``check_bitwise`` finds a difference.
+    ``stats`` gets the run's walls."""
+    from gossip_tpu_torch.planner import budget as PB
+    from gossip_tpu_torch.planner.stream import run_at_scale
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        plan = PB.plan_from_dict(doc)
+    except (OSError, ValueError) as e:
+        return _refuse(str(e))
+    if resume and not checkpoint:
+        return _refuse("--resume needs --checkpoint PATH")
+    try:
+        res = run_at_scale(plan, checkpoint_path=checkpoint, resume=resume,
+                           check_bitwise=check_bitwise,
+                           measure_memory=measure_memory, overlap=overlap,
+                           device=device, shared_card=share_card,
+                           stats=stats)
+    except ValueError as e:
+        return _refuse(str(e))
+    out = res.to_dict()
+    out["plan_fingerprint"] = PB.plan_fingerprint(plan.to_dict())
+    print(json.dumps(out))
+    if check_bitwise and res.bitwise_equal is not True:
+        return 1
+    return 0
+
+
+def cmd_scale_run(a) -> int:
+    """``scale-run``: execute a ScalePlan, word-plane tiles streamed
+    through the packed pull round per checkpoint segment
+    (:mod:`gossip_tpu_torch.planner.stream`)."""
+    return run_plan_file(a.plan, checkpoint=a.checkpoint, resume=a.resume,
+                         check_bitwise=a.check_bitwise,
+                         measure_memory=a.measure_memory,
+                         overlap=not a.no_overlap, device=a.device,
+                         share_card=a.share_card)
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The command line's parser; each command sets ``fn``."""
     ap = argparse.ArgumentParser(
@@ -1192,10 +1354,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="load --checkpoint PATH and continue to "
                         "max_rounds total rounds")
+    p.add_argument("--plan", default=None, metavar="FILE",
+                   help="execute a ScalePlan (from `plan`) through the "
+                        "streamed word-plane tile driver instead of the "
+                        "flag-configured run; composes with --checkpoint/"
+                        "--resume, --device and --share-card (the plan "
+                        "carries n/rumors/fanout/faults/segments)")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cpu runs the plain versions (default: cuda, which "
                         "must be present)")
-    p.set_defaults(fn=cmd_run)
+    # flags that compose with --plan; every other run flag is run shape
+    # the plan file carries, refused by cmd_run when changed from its
+    # default (the defaults are read from this parser, so a flag added
+    # later is guarded too)
+    composable = {"plan", "checkpoint", "resume", "ensemble", "curve",
+                  "save_curve", "device", "share_card"}
+    p.set_defaults(fn=cmd_run, plan_guard_defaults={
+        k: v for k, v in vars(p.parse_args([])).items()
+        if k not in composable})
 
     p = sub.add_parser("grid", help="batched config sweep: cartesian "
                        "product of modes/fanouts/drops/seeds as one batch")
@@ -1349,6 +1525,80 @@ def build_parser() -> argparse.ArgumentParser:
     _add_byz_flags(p)
     _add_tail_flags(p, "txn-convergence")
     p.set_defaults(fn=run_txn)
+
+    p = sub.add_parser(
+        "plan", help="device-memory budget model: what word-plane tiling "
+        "fits N on these devices? (prints a ScalePlan as JSON, or refuses "
+        "naming the binding constraint; pure host arithmetic)")
+    p.add_argument("--n", type=int, default=100_000_000,
+                   help="target node count")
+    p.add_argument("--rumors", type=int, default=64)
+    p.add_argument("--fanout", type=int, default=1)
+    p.add_argument("--engine", default="packed",
+                   choices=("packed", "dense", "fused"),
+                   help="engine byte model (only 'packed' is executable "
+                        "by scale-run)")
+    p.add_argument("--max-rounds", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--origin", type=int, default=0)
+    p.add_argument("--chips", type=int, default=1, help="total chip count")
+    p.add_argument("--hbm-gb", type=float, default=None,
+                   help="device memory per chip (GiB; fractional values "
+                        "allowed; default: one H100's, planner/budget."
+                        "H100_HBM_BYTES)")
+    p.add_argument("--slices", type=int, default=1,
+                   help="slices (chips/slices = the node mesh inside a "
+                        "slice; >1 emits the hybrid mesh)")
+    p.add_argument("--host-ram-gb", type=float, default=None,
+                   help="host RAM (GiB; default: the card machine's, "
+                        "planner/budget.HOST_RAM_BYTES)")
+    p.add_argument("--segment-every", type=int, default=None,
+                   help="checkpoint segment length in rounds")
+    p.add_argument("--reserve", type=float, default=None,
+                   help="device-memory fraction held back from the plan "
+                        "(default: planner/budget.DEFAULT_RESERVE_FRAC, "
+                        "0.08)")
+    p.add_argument("--death", type=float, default=0.0)
+    p.add_argument("--drop", type=float, default=0.0)
+    p.add_argument("--fault-seed", type=int, default=0)
+    p.add_argument("--scenario", default=None,
+                   help="fault program spec, the churn-sweep syntax: "
+                        "'event=N:D[:R];partition=S:E:C;ramp=S:E:P0:P1'")
+    p.add_argument("--out", default=None, metavar="FILE",
+                   help="write the plan JSON here instead of stdout")
+    p.add_argument("--validate", default=None, metavar="FILE",
+                   help="validate an existing plan file instead of "
+                        "planning")
+    p.set_defaults(fn=cmd_plan)
+
+    p = sub.add_parser(
+        "scale-run", help="execute a ScalePlan: stream word-plane tiles "
+        "through the packed pull round per checkpoint segment")
+    p.add_argument("--plan", required=True, metavar="FILE",
+                   help="plan JSON from `plan`")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="publish an atomic npz checkpoint per segment")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from --checkpoint (refuses a mismatched "
+                        "plan or fault-program fingerprint)")
+    p.add_argument("--check-bitwise", action="store_true",
+                   help="also run the untiled in-memory reference and "
+                        "gate byte equality (exit 1 on mismatch)")
+    p.add_argument("--measure-memory", action="store_true",
+                   help="the card's peak of allocated memory over the "
+                        "first segment, against the plan's prediction")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="drain each tile synchronously instead of "
+                        "running the three-stage copy pipeline (the "
+                        "serial leg; trajectories are bitwise identical "
+                        "either way)")
+    p.add_argument("--share-card", action="store_true",
+                   help="run a plan's ranks on one card under gloo (a "
+                        "test mode: NCCL takes one card a rank)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="cpu runs the plain versions (default: cuda, which "
+                        "must be present)")
+    p.set_defaults(fn=cmd_scale_run)
     return ap
 
 
@@ -1360,8 +1610,9 @@ def main(argv=None) -> int:
         # no-op without its variables)
         from gossip_tpu_torch.parallel.multislice import \
             maybe_init_distributed
-        joined = maybe_init_distributed(
-            "gloo" if a.device == "cpu" or a.share_card else None)
+        if a.cmd != "plan":
+            joined = maybe_init_distributed(
+                "gloo" if a.device == "cpu" or a.share_card else None)
         if a.cmd in PAYLOAD_COMMANDS:
             print(json.dumps(a.fn(a, keep_state=False)[0]))
             return 0

@@ -60,14 +60,24 @@ def pull_merge_packed(packed_all: torch.Tensor, partners: torch.Tensor,
 def make_packed_round(proto: ProtocolConfig, topo: Topology,
                       fault: Optional[FaultConfig] = None, origin: int = 0,
                       sampler: str = "threefry", sampler_seed: int = 0,
-                      device=None, schedule: Optional[NE.Schedule] = None):
+                      device=None, schedule: Optional[NE.Schedule] = None,
+                      chunks: int = 1):
     """Packed pull / anti-entropy round step on ``device`` (default: the
     topology's table's, or CUDA): ``SimState -> SimState``, or under a
     schedule (``fault.churn``, or ``schedule``) ``SimState -> (SimState,
     lost)``, as :func:`gossip_tpu_torch.models.si.make_si_round`.  Under
     a schedule the kernel sampler draws the partners and the threefry
     coin, the cut and the alive rows act on them, as the reference's
-    ``sampler="pallas"`` branch does."""
+    ``sampler="pallas"`` branch does.  The step reads ``schedule``'s
+    tensors when it runs, so new content copied into them in place is
+    the next round's program.
+
+    ``chunks`` (pull on the complete graph with the threefry sampler):
+    the rows draw, pull and
+    merge in that many node chunks, so the draw's transient tensors are
+    a chunk's, not the table's.  Every draw is keyed by its node's id,
+    so the trajectory is bitwise the one-chunk round's; the counts add
+    in integers and round to float32 once."""
     n, k = topo.n, proto.fanout
     mode = proto.mode
     if mode not in (C.PULL, C.ANTI_ENTROPY):
@@ -80,6 +90,11 @@ def make_packed_round(proto: ProtocolConfig, topo: Topology,
     if sampler == "kernel" and not topo.implicit:
         raise ValueError("the kernel sampler draws on the implicit "
                          "complete graph only")
+    if chunks < 1 or (chunks > 1 and (mode != C.PULL or not topo.implicit
+                                       or sampler != "threefry")):
+        raise ValueError(f"chunks={chunks}: the rows split into chunks "
+                         "in threefry pull rounds on the complete graph "
+                         "only")
     NE.check_supported(fault, engine="si-packed")
     dev = si_mod.topology_device(topo, device)
     sched = si_mod.round_schedule(fault, n, dev, schedule)
@@ -87,7 +102,8 @@ def make_packed_round(proto: ProtocolConfig, topo: Topology,
     drop_prob = 0.0 if fault is None else fault.drop_prob
     base_alive = (NE.base_alive_or_ones(fault, n, origin, dev) if churn
                   else alive_mask(fault, n, origin, dev))
-    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    rows = -(-n // chunks)
+    spans = [(lo, min(lo + rows, n)) for lo in range(0, n, rows)]
     mfac = 3.0 if mode == C.ANTI_ENTROPY else 2.0
     # the round key is one threefry of a single key: some 150 tiny
     # launches, skipped where nothing draws from it
@@ -109,31 +125,49 @@ def make_packed_round(proto: ProtocolConfig, topo: Topology,
         packed = state.seen
         visible = packed if alive is None else torch.where(
             alive[:, None], packed, 0)
-        if sampler == "kernel":
-            partners0 = sample_peers_fast(sampler_seed, state.round, n, n,
-                                          k, proto.exclude_self, device=dev)
-        else:
-            qkey = threefry.fold_in(rkey, si_mod.PULL_TAG)
-            partners0 = sample_peers(qkey, ids, topo, k, proto.exclude_self)
-        partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, ids, partners0,
-                              dp, n, force=churn)
+        qkey = (threefry.fold_in(rkey, si_mod.PULL_TAG)
+                if sampler == "threefry" else None)
+        cut = NE.cut_at(sched, state.round) if churn else None
+        seen = None if len(spans) == 1 else torch.empty_like(packed)
+        req = pre = post = 0
+        for lo, hi in spans:
+            ids = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+            al = None if alive is None else alive[lo:hi]
+            if sampler == "kernel":
+                partners0 = sample_peers_fast(sampler_seed, state.round, n,
+                                              n, k, proto.exclude_self,
+                                              device=dev)
+            else:
+                partners0 = sample_peers(qkey, ids, topo, k,
+                                         proto.exclude_self)
+            partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, ids,
+                                  partners0, dp, n, force=churn)
+            if churn:
+                partners = NE.partition_targets(cut, ids, partners, n)
+            pulled = pull_merge_packed(visible, partners, n)
+            if al is not None:
+                partners = torch.where(al[:, None], partners, n)
+            req = req + (partners < n).sum()
+            if churn:
+                # the nemesis's losses (NE.lost_count), counted in
+                # integers across chunks
+                pre = pre + ((partners0 < n) & al[:, None]).sum()
+                post = post + ((partners < n) & al[:, None]).sum()
+            if mode == C.ANTI_ENTROPY:
+                # the initiator's digest scatters back into the partner's
+                # row
+                pulled = pulled | pack(push_delta(
+                    n, partners, unpack(visible, proto.rumors)))
+            if al is not None:
+                pulled = torch.where(al[:, None], pulled, 0)
+            if seen is None:
+                seen = packed | pulled
+            else:
+                torch.bitwise_or(packed[lo:hi], pulled, out=seen[lo:hi])
+        out = nxt._replace(seen=seen,
+                           msgs=state.msgs + mfac * si_mod.f32(req))
         if churn:
-            partners = NE.partition_targets(NE.cut_at(sched, state.round),
-                                            ids, partners, n)
-        pulled = pull_merge_packed(visible, partners, n)
-        if alive is not None:
-            partners = torch.where(alive[:, None], partners, n)
-        n_req = si_mod.f32((partners < n).sum())
-        if mode == C.ANTI_ENTROPY:
-            # the initiator's digest scatters back into the partner's row
-            pulled = pulled | pack(push_delta(n, partners,
-                                              unpack(visible, proto.rumors)))
-        if alive is not None:
-            pulled = torch.where(alive[:, None], pulled, 0)
-        out = nxt._replace(seen=packed | pulled,
-                           msgs=state.msgs + mfac * n_req)
-        if churn:
-            return out, NE.lost_count(partners0, partners, alive, n)
+            return out, si_mod.f32(pre) - si_mod.f32(post)
         return out
 
     return step

@@ -56,11 +56,14 @@ def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 (20 rounds) of counter words ``(x0, x1)`` under key
     words ``(k0, k1)``; all four int64 tensors (or ints) in ``[0, 2^32)``
     that broadcast together.  Returns the two output words."""
-    dev = next((t.device for t in (k0, k1, x0, x1)
-                if isinstance(t, torch.Tensor)), None)
-    k0, k1, x0, x1 = torch.broadcast_tensors(
-        *(torch.as_tensor(t, dtype=torch.int64, device=dev)
-          for t in (k0, k1, x0, x1)))
+    words = (k0, k1, x0, x1)
+    if not any(isinstance(t, torch.Tensor) for t in words):
+        words = tuple(torch.as_tensor(t, dtype=torch.int64) for t in words)
+    # an int stays a Python scalar (a tensor made of it on a card would be
+    # a blocking host-to-device copy); the first round's mixing broadcasts
+    # both words to the operands' common shape
+    k0, k1, x0, x1 = (t.to(torch.int64) if isinstance(t, torch.Tensor)
+                      else int(t) for t in words)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -191,7 +194,8 @@ def bernoulli(k: torch.Tensor, p, shape) -> torch.Tensor:
     (a per-round probability read from a schedule table: 0-d, or one a
     batch point shaped ``[S, 1, ..., 1]``)."""
     if not isinstance(p, torch.Tensor):
-        p = torch.tensor(np.float32(p), device=k.device)
+        # a CPU scalar: a kernel argument on a card, with no copy
+        p = torch.tensor(np.float32(p))
     elif p.dtype != torch.float32:
         raise ValueError(f"p must be a float32 tensor, got {p.dtype} "
                          f"of shape {tuple(p.shape)}")

@@ -89,7 +89,8 @@ class _Rows:
     neighbour rows."""
 
     def __init__(self, topo: Topology, group: Group,
-                 fault: Optional[FaultConfig], origin: int):
+                 fault: Optional[FaultConfig], origin: int,
+                 schedule: Optional[NE.Schedule] = None):
         n = topo.n
         dev = group.device
         self.n_pad, self.nl, self.lo = group.rows(n)
@@ -97,8 +98,12 @@ class _Rows:
         self.sl = sl
         self.gids = torch.arange(self.lo, self.lo + self.nl,
                                  dtype=torch.int64, device=dev)
-        self.sched = (NE.build(fault, n, self.n_pad, device=dev)
-                      if NE.get(fault) is not None else None)
+        if schedule is not None and NE.get(fault) is not None:
+            # the caller's tables, read when the step runs
+            self.sched = schedule
+        else:
+            self.sched = (NE.build(fault, n, self.n_pad, device=dev)
+                          if NE.get(fault) is not None else None)
         self.drop_prob = 0.0 if fault is None else fault.drop_prob
         if self.sched is not None:
             self.base_pad = pad_rows(
@@ -128,10 +133,12 @@ class _Rows:
             return self.static_full
         return NE.alive_rows(self.sched, self.base_pad, round_)
 
-    def sample(self, key, topo: Topology, k: int, exclude_self: bool):
-        """int64[nl, k] peers of this rank's rows, keyed by global id."""
+    def sample(self, key, topo: Topology, k: int, exclude_self: bool,
+               rows: slice = slice(None)):
+        """int64[nl, k] peers of this rank's rows (on the complete graph,
+        of its ``rows`` alone), keyed by global id."""
         if self.nbrs is None:
-            return sample_peers_complete(key, self.gids, topo.n, k,
+            return sample_peers_complete(key, self.gids[rows], topo.n, k,
                                          exclude_self)
         return sample_peers_table(key, self.gids, self.nbrs, self.deg, k,
                                   sentinel=topo.n)

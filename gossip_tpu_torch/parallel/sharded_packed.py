@@ -44,21 +44,34 @@ from gossip_tpu_torch.topology.generators import Topology
 def make_sharded_packed_round(proto: ProtocolConfig, topo: Topology,
                               group: Group,
                               fault: Optional[FaultConfig] = None,
-                              origin: int = 0):
+                              origin: int = 0,
+                              schedule: Optional[NE.Schedule] = None,
+                              chunks: int = 1):
     """This rank's packed pull / anti-entropy step on ``state.seen`` of
     shape ``[nl, W]`` (:func:`init_sharded_packed_state`): ``SimState ->
     SimState``, or under a fault program ``SimState -> (SimState, lost)``
-    (:func:`~gossip_tpu_torch.parallel.sharded.make_sharded_si_round`)."""
+    (:func:`~gossip_tpu_torch.parallel.sharded.make_sharded_si_round`).
+    ``schedule`` (the program's tables over the padded rows) and
+    ``chunks`` (pull on the complete graph: the rank's rows draw, pull
+    and merge in that many chunks) are
+    :func:`~gossip_tpu_torch.models.si_packed.make_packed_round`'s."""
     n, k = topo.n, proto.fanout
     mode = proto.mode
     if mode not in (C.PULL, C.ANTI_ENTROPY):
         raise ValueError("packed rounds support pull/antientropy only")
+    if chunks < 1 or (chunks > 1 and (mode != C.PULL
+                                       or not topo.implicit)):
+        raise ValueError(f"chunks={chunks}: the rows split into chunks "
+                         "in pull rounds on the complete graph only")
     NE.check_supported(fault, engine="si-packed")
-    rows = _Rows(topo, group, fault, origin)
+    rows = _Rows(topo, group, fault, origin, schedule)
     churn = rows.sched is not None
     n_pad, gids = rows.n_pad, rows.gids
     dev = group.device
     mfac = 3.0 if mode == C.ANTI_ENTROPY else 2.0
+    step_rows = -(-rows.nl // chunks)
+    spans = [(lo, min(lo + step_rows, rows.nl))
+             for lo in range(0, rows.nl, step_rows)]
 
     def step(state: SimState):
         nxt = state._replace(round=state.round + 1)
@@ -73,27 +86,40 @@ def make_sharded_packed_round(proto: ProtocolConfig, topo: Topology,
         visible = torch.where(alive_l[:, None], packed, 0)
         packed_all = group.all_gather(visible)
         qkey = threefry.fold_in(rkey, si_mod.PULL_TAG)
-        partners0 = rows.sample(qkey, topo, k, proto.exclude_self)
-        partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, gids, partners0,
-                              dp, n, force=churn)
-        if churn:
-            partners = NE.partition_targets(cut, gids, partners, n)
-        pulled = pull_merge_packed(packed_all, partners, n)
-        partners = torch.where(alive_l[:, None], partners, n)
-        n_req = si_mod.f32((partners < n).sum())
-        lost = (NE.lost_count(partners0, partners, alive_l, n) if churn
-                else zero)
-        if mode == C.ANTI_ENTROPY:
-            # the reverse delta scatters bool contributions, adds them
-            # across ranks (OR = count > 0) and packs them again
-            back = push_counts(n_pad, torch.where(partners < n, partners,
-                                                  n_pad),
-                               unpack(visible, proto.rumors))
-            pulled = pulled | pack(group.reduce_scatter_sum(back) > 0)
-        pulled = torch.where(alive_l[:, None], pulled, 0)
-        total, lost_all = group.combine_f32(torch.stack([mfac * n_req,
-                                                         lost]))
-        out = nxt._replace(seen=packed | pulled, msgs=state.msgs + total)
+        seen = None if len(spans) == 1 else torch.empty_like(packed)
+        req = pre = post = 0
+        for lo, hi in spans:
+            ids, al = gids[lo:hi], alive_l[lo:hi]
+            partners0 = rows.sample(qkey, topo, k, proto.exclude_self,
+                                    slice(lo, hi))
+            partners = apply_drop(rkey, si_mod.PULL_DROP_TAG, ids,
+                                  partners0, dp, n, force=churn)
+            if churn:
+                partners = NE.partition_targets(cut, ids, partners, n)
+            pulled = pull_merge_packed(packed_all, partners, n)
+            partners = torch.where(al[:, None], partners, n)
+            req = req + (partners < n).sum()
+            if churn:
+                # the nemesis's losses (NE.lost_count), counted in
+                # integers across chunks
+                pre = pre + ((partners0 < n) & al[:, None]).sum()
+                post = post + ((partners < n) & al[:, None]).sum()
+            if mode == C.ANTI_ENTROPY:
+                # the reverse delta scatters bool contributions, adds them
+                # across ranks (OR = count > 0) and packs them again
+                back = push_counts(n_pad, torch.where(partners < n,
+                                                      partners, n_pad),
+                                   unpack(visible, proto.rumors))
+                pulled = pulled | pack(group.reduce_scatter_sum(back) > 0)
+            pulled = torch.where(al[:, None], pulled, 0)
+            if seen is None:
+                seen = packed | pulled
+            else:
+                torch.bitwise_or(packed[lo:hi], pulled, out=seen[lo:hi])
+        lost = si_mod.f32(pre) - si_mod.f32(post) if churn else zero
+        total, lost_all = group.combine_f32(
+            torch.stack([mfac * si_mod.f32(req), lost]))
+        out = nxt._replace(seen=seen, msgs=state.msgs + total)
         return (out, lost_all) if churn else out
 
     return step

@@ -64,7 +64,8 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.sharded_log", "parallel.sharded_register",
                  "parallel.sharded_sparse", "parallel.halo",
                  "parallel.sharded_fused", "parallel.multislice",
-                 "parallel.sweep", "utils.checkpoint"):
+                 "parallel.sweep", "utils.checkpoint", "planner",
+                 "planner.budget", "planner.stream"):
         assert f"gossip_tpu_torch.{name}" in out["imported"]
     assert out["forbidden"] == []
 
