@@ -280,6 +280,33 @@ through the port's own entry points, and measures them.  One JSON line per phase
    saves' and the load's ms and bytes, the host's peak RSS, the
    measured and predicted peaks; then the card's memory and its
    machine's RAM (the planner's defaults);
+22b. ``records``  the run's records: the flagship run (N = 10M, pull,
+   fanout 1, seed 0) through ``python -m gossip_tpu_torch run
+   --profile`` with ``GOSSIP_TELEMETRY`` set, in a child process: its
+   rounds and coverage the main path's, the ledger's provenance,
+   ``kernel_build`` (every library a store hit) and ``driver_timing``,
+   the Chrome trace holding ``fused_round_kernel`` once a round, the
+   line's ``compile_cache`` and ``profile_logdir``; a cold build of
+   every source under ``--no-compile-cache`` (1M nodes, a child); the
+   crashloop (below) in a third child, the three started at once; the
+   profiler's overhead, the flagship line with and without
+   ``--profile`` in this process, alternated; a ledger event's write,
+   fsynced and flush-only;
+   FP256k1 (10M x 256, K = 1 under NCCL) with and without round metrics:
+   the planes bitwise equal, the event's first ``RECORDS_REPLAY`` rounds
+   the plain replay's ``newly``, ``msgs`` and ``front``, ``sum(newly)``
+   the final count less the start count, two instrumented rounds under
+   ``set_sync_debug_mode("error")``; configuration 5 under
+   ``churn_heal`` (10M x 32, K = 1, 40 rounds) with and without them, its
+   event the JAX package's (``CFG5_HEAL_RM``; past 2^24 ``newly`` and
+   ``dup`` within four ulps, ROADMAP queue 3 item 7) with ``sum(newly)``
+   the recorder's count gain, the legs alternated, two instrumented
+   rounds of the XLA engine's step under the sync debug mode; and
+   ``tools/crashloop`` at 10M, push-pull, the mixed program, one kill,
+   bitwise the uninterrupted run; each part's seconds and the rounds'
+   ms with and without metrics.  The ``scale`` phase's SC100M straight
+   leg runs under the ledger, whose ``scale_*`` and ``budget_xcheck``
+   events must equal the leg's ``stats``;
 23. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
@@ -312,6 +339,7 @@ prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -3730,21 +3758,23 @@ N_SW = 100_000            # ES32, ER32: swim and rumor ensembles of 32
 N_GRID = 4_096            # GR12 and GRP: grid's default n
 N_GRF = 100_000           # GRF: the families grid
 N_CS = 65_536             # CS8: the JAX bench's churn_sweep family
-EN10M_SEEDS, EN10M_ROUNDS = 8, 32
-GRID10M_ROUNDS = 20       # cut from 40 to make room for checkpoints
-CS10M_ROUNDS = 48
+EN10M_SEEDS, EN10M_ROUNDS = 8, 16  # cut from 32 (24) for the records phase
+GRID10M_ROUNDS = 8        # cut from 40 (checkpoints), 20, 12 (records)
+CS10M_ROUNDS = 16         # cut from 48 (32) for the records phase
 CF_RUMORS = 256
-EN32_ARGS = ["--mode", "pushpull", "--n", str(N_EN), "--ensemble", "32"]
-ES32_ARGS = ["--mode", "swim", "--n", str(N_SW), "--ensemble", "32"]
+EN32_ARGS = ["--mode", "pushpull", "--n", str(N_EN), "--ensemble", "32",
+             "--max-rounds", "32"]   # cut from 256 for the records phase
+ES32_ARGS = ["--mode", "swim", "--n", str(N_SW), "--ensemble", "32",
+             "--max-rounds", "64"]   # cut from 256 for the records phase
 ER32_ARGS = ["--mode", "rumor", "--n", str(N_SW), "--rumor-k", "2",
-             "--ensemble", "32"]
+             "--ensemble", "32", "--max-rounds", "64"]  # cut from 256
 GR12_ARGS = ["--modes", "push", "pull", "pushpull", "--fanouts", "1", "2",
-             "--drops", "0", "0.1"]
+             "--drops", "0", "0.1", "--max-rounds", "32"]  # cut from 64
 GRF_ARGS = ["--modes", "pull", "pushpull", "--fanouts", "1", "2",
             "--families", "erdos_renyi", "watts_strogatz", "power_law",
-            "--n", str(N_GRF)]
+            "--n", str(N_GRF), "--max-rounds", "32"]  # cut from 64
 GRP_ARGS = ["--modes", "push", "pull", "pushpull", "antientropy",
-            "--fanouts", "1", "2"]
+            "--fanouts", "1", "2", "--max-rounds", "32"]  # cut from 64
 # CS10M: the churn_heal program (JAX bench.py run_churn_heal) and three
 # one-fault programs at 10M
 CS10M_SCENARIOS = (
@@ -4464,6 +4494,38 @@ def _sc_walls(stats) -> dict:
     return out
 
 
+def _sc_ledger_matches(path: str, line: dict, stats: list) -> dict:
+    """The streamed leg's ledger against what it printed and its
+    ``stats``: ``scale_plan`` the line's shape, every ``tile_stream``,
+    ``scale_segment``, ``scale_run`` and ``budget_xcheck`` the record of
+    the same name, field for field.  Returns the events' counts."""
+    events = _ledger_events(path)
+    kinds = ("tile_stream", "scale_segment", "scale_run", "budget_xcheck")
+    by = {k: [{f: v for f, v in e.items() if f not in ("ev", "ts", "run")}
+              for e in events if e["ev"] == k] for k in kinds}
+    want = {k: [{f: v for f, v in r.items() if f != "event"}
+                for r in stats if r["event"] == k] for k in kinds}
+    # the segment and run records carry more than the reference's events
+    keep = {"scale_segment": ("round", "tiles", "dropped", "wall_ms"),
+            "scale_run": ("rounds", "wall_ms", "wait_ms",
+                          "measured_loop_bytes")}
+    ok = all(
+        [{f: e[f] for f in keep.get(k, e)} for e in by[k]]
+        == [{f: r[f] for f in keep.get(k, r)} for r in want[k]]
+        for k in kinds)
+    (plan,) = [e for e in events if e["ev"] == "scale_plan"]
+    (run,) = by["scale_run"]
+    ok = (ok and events[0]["ev"] == "provenance"
+          and plan["tiles"] == line["tiles"]
+          and plan["bucket_words"] == line["bucket_words"]
+          and plan["plan_fingerprint"] == line["plan_fingerprint"]
+          and all(run[k] == line[k] for k in ("rounds", "coverage", "msgs",
+                                              "dropped", "bitwise_equal")))
+    check(ok, f"the streamed leg's ledger does not match its stats "
+              f"({[e['ev'] for e in events]})")
+    return {k: len(v) for k, v in by.items()}
+
+
 def _sc_case(dev, smi: str, name: str, tmp: str) -> dict:
     """One 100M cell: the plan; the straight streamed run (bitwise the
     untiled run, measured peak against predicted); the --no-overlap leg;
@@ -4502,8 +4564,13 @@ def _sc_case(dev, smi: str, name: str, tmp: str) -> dict:
     # the straight run through the command's body, its segments
     # published; the serial leg through the library, its words read back
     ck = f"{tmp}/{name}_straight.npz"
-    line, stats, s, rss, launches = _sc_leg(
-        pf, checkpoint=ck, check_bitwise=True, measure_memory=True)
+    led = f"{tmp}/{name}.jsonl"
+    leg = functools.partial(_sc_leg, pf, checkpoint=ck, check_bitwise=True,
+                            measure_memory=True)
+    line, stats, s, rss, launches = (_under_ledger(led, leg)
+                                     if name == "SC100M" else leg())
+    ledger = _sc_ledger_matches(led, line, stats) if name == "SC100M" \
+        else None
     sha = _words_sha(ck)
     os.remove(ck)
     legs = {"straight": (line, stats, s, rss, launches, sha)}
@@ -4567,7 +4634,7 @@ def _sc_case(dev, smi: str, name: str, tmp: str) -> dict:
               f"{name} {leg}: {ln['msgs']} / {ln['dropped']} / "
               f"{ln['coverage']} are not the JAX package's {SC_JAX[name]}")
     untiled_ms = legs["straight"]["untiled_ms"][0] / plan.max_rounds
-    out.update(legs=legs, jax=SC_JAX[name],
+    out.update(legs=legs, jax=SC_JAX[name], ledger_events=ledger,
                dropped_minus_jax=st["dropped"] - want_dropped,
                untiled_ms_per_round=untiled_ms,
                streamed_over_untiled=legs["straight"]["ms_per_round"]
@@ -4672,6 +4739,533 @@ def _words(rng, shape, sparsity: int):
     for _ in range(sparsity - 1):
         words &= rng.integers(0, 2**32, size=shape, dtype=np.uint32)
     return words.view(np.int32)
+
+
+# the JAX package's round_metrics event (less ts, run, fn) of
+# configuration 5 under churn_heal, 40 rounds, on its 1-device mesh (its
+# simulate_until_packed_sharded on the CPU, jax 0.9.0), and its result
+CFG5_HEAL_JAX = [40, 0.0, 668494080.0]
+CFG5_HEAL_RM = json.loads("""
+{"driver": "simulate_until_packed_sharded", "rounds": 40, "shards": 1,
+"newly": [11.0, 16.0, 39.0, 41.0, 64.0, 85.0, 242.0, 451.0, 879.0, 1654.0,
+3088.0, 5841.0, 11338.0, 21398.0, 40739.0, 77585.0, 147357.0, 279223.0,
+528979.0, 999222.0, 1875411.0, 3484449.0, 6360761.0, 11211488.0,
+18617068.0, 28109604.0, 37192832.0, 42424888.0, 42649808.0, 38336784.0,
+30458608.0, 21014672.0, 12399424.0, 7042336.0, 4273568.0, 1929536.0,
+439008.0, 55008.0, 5760.0, 640.0], "dup": [160134832.0, 155932144.0,
+152022016.0, 148028272.0, 144000192.0, 143993904.0, 287964416.0,
+288008896.0, 287995168.0, 288024832.0, 287967616.0, 287989536.0,
+287986112.0, 287983712.0, 287972576.0, 287941856.0, 287827808.0,
+287696960.0, 287461792.0, 287021248.0, 286148640.0, 284511968.0,
+281661248.0, 276765472.0, 269430048.0, 259887328.0, 250786176.0,
+245516224.0, 245323568.0, 249680112.0, 257581840.0, 266951024.0,
+275580608.0, 280909536.0, 283753056.0, 286073536.0, 287556896.0,
+287931680.0, 287945088.0, 287957376.0], "msgs": [10008428.0, 9745760.0,
+9501378.0, 9251770.0, 9000016.0, 8999624.0, 17997792.0, 18000584.0,
+17999752.0, 18001656.0, 17998168.0, 17999712.0, 17999840.0, 18000320.0,
+18000832.0, 18001216.0, 17998448.0, 17998512.0, 17999424.0, 18001280.0,
+18001504.0, 17999776.0, 18001376.0, 17998560.0, 18002944.0, 17999808.0,
+17998688.0, 17996320.0, 17998336.0, 18001056.0, 18002528.0, 17997856.0,
+17998752.0, 17996992.0, 18001664.0, 18000192.0, 17999744.0, 17999168.0,
+17996928.0, 17997376.0], "bytes": [40000004.0, 40000004.0, 40000004.0,
+40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0,
+40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0,
+40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0,
+40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0,
+40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0,
+40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0, 40000004.0,
+40000004.0], "alive": [10000000.0, 9999999.0, 9999998.0, 9999998.0,
+9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0,
+9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0,
+9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0,
+9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0,
+9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0,
+9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0, 9999999.0],
+"cut_pairs": [25000000094208.0, 24999995899904.0, 24999989608448.0,
+24999989608448.0, 24999995899904.0, 24999995899904.0, 0.0, 0.0, 0.0, 0.0,
+0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+0.0], "dropped": [4995786.0, 5127119.0, 5249309.0, 5374114.0, 5499990.0,
+5500188.0, 1001102.0, 999707.0, 1000122.0, 999171.0, 1000912.0, 1000142.0,
+1000077.0, 999840.0, 999579.0, 999390.0, 1000774.0, 1000747.0, 1000282.0,
+999359.0, 999254.0, 1000116.0, 999317.0, 1000712.0, 998520.0, 1000094.0,
+1000661.0, 1001838.0, 1000830.0, 999467.0, 998740.0, 1001073.0, 1000615.0,
+1001508.0, 999166.0, 999915.0, 1000115.0, 1000408.0, 1001549.0,
+1001298.0], "front": [[0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0001],
+[0.0001], [0.0002], [0.0004], [0.0007], [0.0012], [0.0024], [0.0045],
+[0.0086], [0.0162], [0.0306], [0.0573], [0.1059], [0.1912], [0.3303],
+[0.5293], [0.7537], [0.9207], [0.9864], [0.9985], [0.9998], [1.0], [1.0],
+[1.0], [1.0], [1.0], [1.0], [1.0], [1.0], [1.0], [1.0], [1.0], [1.0],
+[1.0]], "totals": {"newly": 309999872.0, "dup": 10385905664.0, "msgs":
+668494080.0, "bytes": 1600000128.0, "dropped": 65752904.0}, "front_final":
+[1.0]}""")
+# the records phase's crashloop: the README's 10M nodes, push-pull under
+# the mixed program (tools/crashloop), one kill, 40 rounds every 5 (cut
+# from the tool's default 60 for the script's time: the cut closes at
+# round 20, and push-pull at fanout 2 squares the uncovered share a
+# round after it)
+CL_N, CL_ROUNDS, CL_EVERY = N, 40, 5
+# FP256k1's rounds held against the plain replay (FP_REPLAY's depth)
+RECORDS_REPLAY = 8
+# configuration 5's legs with and without round metrics: two alternated
+# pairs (a run is about 3 s; the planes' legs take RECORDS_ORDER's eight)
+CFG5_ORDER = ("on", "off", "off", "on")
+# BASELINE.json's configuration 5 under churn_heal (the packed sharded
+# while-loop, 10M x 32 rumors, K = 1), its command line, cut from 256
+# rounds to 40: rumor 2 starts at node 2, which no puller reaches before
+# its crash at round 2, so the loop never stops early; the front is 1.0
+# from round 27
+_CFG5_HEAL = ["run", "--mode", "pull", "--rumors", str(RUMORS), "--n",
+              str(N), "--engine", "xla", "--max-rounds", "40", *_HEAL_CUT]
+
+
+# the order of the records phase's legs with and without a record:
+# alternated pairs, so neither leg always runs first (warm-up); eight
+# of each, a run of the flagship or of FP256k1 taking well under 0.1 s
+RECORDS_ORDER = ("on", "off", "off", "on") * 4
+
+
+def _spread(xs) -> dict:
+    """Median, least and most of a leg's readings, in the order taken."""
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "all": list(xs)}
+
+
+def _ledger_events(path: str, kind=None) -> list:
+    from gossip_tpu_torch.utils import telemetry as PT
+    events = PT.load_ledger(path, strict=True)
+    return [e for e in events if kind is None or e["ev"] == kind]
+
+
+def _under_ledger(path: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with a run ledger at ``path`` active."""
+    from gossip_tpu_torch.utils import telemetry as PT
+    led = PT.Ledger(path)
+    prev = PT.activate(led)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PT.activate(prev)
+        led.close()
+
+
+def _strip_event(e: dict) -> dict:
+    return {k: v for k, v in e.items()
+            if k not in ("ev", "ts", "run", "fn")}
+
+
+FLAGSHIP = ["run", "--mode", "pull", "--n", str(N), "--fanout", "1",
+            "--seed", str(SEED), "--engine", "fused"]
+
+
+def _records_children(tmp: str) -> dict:
+    """The records phase's three child processes, started at once (each
+    spends most of its wall starting up, and they run side by side on
+    the host's cores and the card): the flagship run under the ledger
+    and ``--profile`` (its kernels loaded from the store the build phase
+    filled: ``kernel_build`` hits), a cold build of every source under
+    ``--no-compile-cache`` at 1M nodes, and ``tools/crashloop``'s one
+    kill at 10M.  Each child's output goes to a file; returns each
+    child's last JSON line and its wall, start to exit."""
+    import os
+    argvs = {
+        "profiled": (["gossip_tpu_torch", *FLAGSHIP, "--profile",
+                      f"{tmp}/prof"], f"{tmp}/flag.jsonl"),
+        "cold": (["gossip_tpu_torch", *FLAGSHIP, "--n", str(N_SMALL),
+                  "--no-compile-cache"], f"{tmp}/cold.jsonl"),
+        "crashloop": (["gossip_tpu_torch.tools.crashloop", "--n", str(CL_N),
+                       "--max-rounds", str(CL_ROUNDS), "--every",
+                       str(CL_EVERY), "--kills", "1", "--workdir",
+                       f"{tmp}/crashloop"], None)}
+    procs, done = {}, {}
+    try:
+        for name, (argv, led) in argvs.items():
+            env = dict(os.environ)
+            if led is not None:
+                env["GOSSIP_TELEMETRY"] = led
+            with open(f"{tmp}/{name}.out", "w") as fo, \
+                    open(f"{tmp}/{name}.err", "w") as fe:
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, "-m", *argv], stdout=fo, stderr=fe,
+                    env=env), time.perf_counter())
+        deadline = time.perf_counter() + 900
+        while len(done) < len(procs):
+            check(time.perf_counter() < deadline,
+                  f"records: children still running: "
+                  f"{sorted(set(procs) - set(done))}")
+            for name, (p, t0) in procs.items():
+                if name not in done and p.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for name, (p, _) in procs.items():
+        with open(f"{tmp}/{name}.err") as f:
+            err = f.read()
+        check(p.returncode == 0,
+              f"records {name}: exit {p.returncode}: {err[-3000:]}")
+        with open(f"{tmp}/{name}.out") as f:
+            line = json.loads(f.read().strip().splitlines()[-1])
+        out[name] = {"line": line, "process_s": done[name]}
+    return out
+
+
+def _records_flagship(tmp: str, main: dict, children: dict) -> dict:
+    """The profiled flagship child and the cold build's
+    (:func:`_records_children`): their ledgers, lines and the trace;
+    then the profiler's overhead (:func:`_profiler_overhead`)."""
+    import os
+
+    from gossip_tpu_torch.ops import _kernels
+    out = {}
+    for leg, led in (("profiled", f"{tmp}/flag.jsonl"),
+                     ("cold", f"{tmp}/cold.jsonl")):
+        events = _ledger_events(led)
+        builds = [e for e in events if e["ev"] == "kernel_build"]
+        check(events[0]["ev"] == "provenance"
+              and any(e["ev"] == "driver_timing" for e in events)
+              and len(builds) == 5,
+              f"records {leg}: the ledger holds "
+              f"{[e['ev'] for e in events]}")
+        out[leg] = {**children[leg],
+                    "kernel_build": [{k: e[k] for k in ("kernel", "cache",
+                                                        "build_s")}
+                                     for e in builds]}
+    flag = out["profiled"]["line"]
+    check(flag["rounds"] == main["rounds"]
+          and flag["coverage"] == main["coverage"],
+          f"records: the profiled flagship run {flag['rounds']} / "
+          f"{flag['coverage']}, the main path's {main['rounds']} / "
+          f"{main['coverage']}")
+    check(flag["compile_cache"] == str(_kernels.BUILD_DIR)
+          and flag["profile_logdir"] == f"{tmp}/prof",
+          f"records: the line's compile_cache {flag['compile_cache']}, "
+          f"profile_logdir {flag['profile_logdir']}")
+    check(all(b["cache"] == "hit" for b in out["profiled"]["kernel_build"]),
+          f"records: {out['profiled']['kernel_build']}")
+    cold = out["cold"]
+    check(cold["line"]["compile_cache"] is None
+          and all(b["cache"] == "disabled" for b in cold["kernel_build"]),
+          f"records: the cold build {cold['kernel_build']}")
+    # kernel 1's launches in the Chrome trace, one a round, by its symbol
+    (name,) = os.listdir(f"{tmp}/prof")
+    with open(f"{tmp}/prof/{name}") as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "fused_round_kernel" in e.get("name", "")]
+    check(len(k1) == flag["rounds"],
+          f"records: {len(k1)} fused_round_kernel launches in the trace for "
+          f"{flag['rounds']} rounds")
+    out["trace"] = {"fused_round_kernel_launches": len(k1),
+                    "kernel_events": sum(e.get("cat") == "kernel"
+                                         for e in events),
+                    "symbol": k1[0]["name"] if k1 else None,
+                    "bytes": os.path.getsize(f"{tmp}/prof/{name}")}
+    out["cold_build_s"] = max(b["build_s"] for b in cold["kernel_build"])
+    out["profiler_overhead"] = _profiler_overhead(tmp, FLAGSHIP, flag)
+    return out
+
+
+def _profiler_overhead(tmp: str, argv: list, flag: dict) -> dict:
+    """The profiler's cost on the flagship run, like for like: the same
+    command line with and without ``--profile``, both in this process
+    (kernels loaded), in alternated pairs (``RECORDS_ORDER``).  Each
+    run's steady wall (the line's ``steady_wall_s``) and its whole call
+    (the trace's export included)."""
+    steady, call = {"on": [], "off": []}, {"on": [], "off": []}
+    for i, leg in enumerate(RECORDS_ORDER):
+        extra = ["--profile", f"{tmp}/prof_{i}"] if leg == "on" else []
+        t0 = time.perf_counter()
+        (line,) = _cli_lines(argv + extra)
+        call[leg].append(time.perf_counter() - t0)
+        check((line["rounds"], line["coverage"])
+              == (flag["rounds"], flag["coverage"]),
+              f"records: the flagship run in this process {line['rounds']} "
+              f"/ {line['coverage']}")
+        steady[leg].append(line["meta"]["steady_wall_s"])
+    return {"order": list(RECORDS_ORDER),
+            "steady_s": {k: _spread(v) for k, v in steady.items()},
+            "call_s": {k: _spread(v) for k, v in call.items()},
+            "steady_ratio": (statistics.median(steady["on"])
+                             / statistics.median(steady["off"]))}
+
+
+def _records_planes(dev, tmp: str) -> dict:
+    """FP256 at K = 1 under NCCL with and without round metrics, in
+    alternated pairs (``RECORDS_ORDER``): the planes bitwise equal, the
+    event's first ``RECORDS_REPLAY`` rounds of ``newly``, ``msgs`` and
+    ``front`` those of the plain round-by-round replay (the Philox
+    stream of ``_planes_replay``), ``sum(newly)`` the final count less
+    the start count, each leg's ms a round; then two rounds and the
+    recorder's fill under ``set_sync_debug_mode("error")``."""
+    import numpy as np
+    import torch
+    from gossip_tpu_torch.ops import fused_mr_round as MR
+    from gossip_tpu_torch.ops import round_metrics as RM
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded_fused as SF
+    proto, tc, run, fault = _planes_configs("FP256")
+    n, led = tc.n, f"{tmp}/fp.jsonl"
+    out = {}
+    with GR.local(dev) as g:
+        runs, ms = {}, {"on": [], "off": []}
+        for leg in RECORDS_ORDER:
+            timing = {}
+            fn = (functools.partial(_under_ledger, led) if leg == "on"
+                  else lambda f, *a, **k: f(*a, **k))
+            res = fn(SF.simulate_until_sharded_fused, n, proto.rumors, run,
+                     g, 1, fault, timing)
+            ms[leg].append(timing["steady_s"] * 1e3 / res[0])
+            first = runs.setdefault(leg, res)
+            check(res[:3] == first[:3] and torch.equal(res[3], first[3]),
+                  f"records: FP256's runs differ ({leg})")
+            del res, first
+        same = torch.equal(runs["on"][3], runs["off"][3])
+        check(same and runs["on"][:3] == runs["off"][:3],
+              "records: FP256's planes differ with round metrics")
+        out["ms_per_round"] = {k: _spread(v) for k, v in ms.items()}
+        out["order"] = list(RECORDS_ORDER)
+        final = runs["on"][3]
+        start = SF.init_plane_state(n, proto.rumors, g, run.origin)
+        count0 = int(RM.count_planes(start))
+        final_count = int(RM.count_planes(final))
+        del runs, final
+        evs = _ledger_events(led, "round_metrics")
+        check(len(evs) == RECORDS_ORDER.count("on")
+              and all(_strip_event(e) == _strip_event(evs[0]) for e in evs),
+              "records: FP256's round_metrics events differ between runs")
+        ev = evs[0]
+        check(sum(ev["newly"]) == final_count - count0,
+              f"records: FP256's newly sums to {sum(ev['newly'])}, the "
+              f"counts to {final_count - count0}")
+        # the plain replay of the first rounds
+        plain = start.transpose(1, 2).contiguous()
+        prev, same_rows = count0, True
+        inv = np.float32(1) / np.float32(n)
+        for r in range(RECORDS_REPLAY):
+            plain = torch.stack([MR.fused_mr_round_lanes_plain(
+                p, run.seed, r, n, 1, None, 0, None, None) for p in plain])
+            per = torch.stack([MR.rumor_counts(p.t(), 32) for p in plain])
+            count = int(per.sum())
+            front = round(float(np.float32(int(per.min())) * inv), 4)
+            same_rows = (same_rows and ev["newly"][r] == count - prev
+                         and ev["msgs"][r] == 2.0 * n
+                         and ev["front"][r] == [front])
+            prev = count
+        check(same_rows, "records: FP256's round metrics are not the plain "
+                         "replay's")
+        # an instrumented segment: the loop's round and the recorder
+        lanes = start.transpose(1, 2).contiguous()
+        del start, plain
+        rec = SF.PlaneRecorder("sync_check", n, proto.rumors, 1, g, 2,
+                               lanes)
+        spare = torch.empty_like(lanes)
+        ops = SF._Operands(n, fault, run.origin, dev)
+        pops = torch.zeros(2, lanes.shape[0], 32, dtype=torch.int32,
+                           device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for r in range(2):
+                lanes, spare = SF._round(lanes, spare, pops[r], run.seed, r,
+                                         n, 1, ops.round_args(r))
+            rec.finish(pops, 2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del lanes, spare
+    out.update(rounds=ev["rounds"], replayed_rounds=RECORDS_REPLAY,
+               newly_sum=sum(ev["newly"]), count_gain=final_count - count0,
+               sync_free_segment=True, front_final=ev["front_final"])
+    return out
+
+
+def _records_cfg5(dev, tmp: str) -> dict:
+    """Configuration 5 under churn_heal at K = 1 (NCCL) on the packed
+    sharded loop, with and without round metrics in alternated pairs
+    (``CFG5_ORDER``): the same run, the event the JAX package's
+    (``CFG5_HEAL_RM``), and ``sum(newly)`` the recorder's count of the
+    final table less the start's (the port's side exact past 2^24, where
+    the reference's rounds); then two instrumented rounds of the loop's
+    step under ``set_sync_debug_mode("error")``."""
+    import torch
+    from gossip_tpu_torch import cli
+    from gossip_tpu_torch.ops import bitpack
+    from gossip_tpu_torch.parallel import group as GR
+    from gossip_tpu_torch.parallel import sharded as SH
+    from gossip_tpu_torch.parallel import sharded_packed as SP
+    from gossip_tpu_torch.topology import generators as G
+    proto, tc, run, fault = cli.run_configs(
+        cli.build_parser().parse_args(_CFG5_HEAL))
+    led, out = f"{tmp}/cfg5.jsonl", {}
+    with GR.local(dev) as g:
+        topo = G.build(tc, dev)
+        results, ms = {}, {"on": [], "off": []}
+        for leg in CFG5_ORDER:
+            t0 = time.perf_counter()
+            if leg == "on":
+                res = _under_ledger(led, SP.simulate_until_packed_sharded,
+                                    proto, topo, run, g, fault)
+            else:
+                res = SP.simulate_until_packed_sharded(proto, topo, run, g,
+                                                       fault)
+            torch.cuda.synchronize(dev)
+            ms[leg].append((time.perf_counter() - t0) * 1e3 / res[0])
+            first = results.setdefault(leg, res)
+            check(res[:3] == first[:3]
+                  and torch.equal(res[3].seen, first[3].seen),
+                  f"records: configuration 5's runs differ ({leg})")
+            del res, first
+        check(results["on"][:3] == results["off"][:3]
+              and torch.equal(results["on"][3].seen,
+                              results["off"][3].seen),
+              "records: configuration 5's run differs with round metrics")
+        out["ms_per_round"] = {k: _spread(v) for k, v in ms.items()}
+        out["order"] = list(CFG5_ORDER)
+        out["result"] = list(results["on"][:3])
+        check(out["result"] == CFG5_HEAL_JAX,
+              f"records: configuration 5 under churn_heal {out['result']}, "
+              f"the JAX package's {CFG5_HEAL_JAX}")
+        evs = _ledger_events(led, "round_metrics")
+        check(len(evs) == CFG5_ORDER.count("on")
+              and all(_strip_event(e) == _strip_event(evs[0]) for e in evs),
+              "records: configuration 5's round_metrics events differ "
+              "between runs")
+        ev = evs[0]
+        # an instrumented segment of the XLA engine: step and recorder
+        state = SP.init_sharded_packed_state(run, proto, topo, g)
+        n_pad, nl, _ = g.rows(tc.n)
+        rec = SH.SIRecorder(
+            "sync_check", proto, tc.n, g, fault, run.origin, 2,
+            SH.exchange_bytes(proto, 4.0 + 4.0 * nl * bitpack.n_words(
+                proto.rumors), 4.0 * n_pad * proto.rumors), packed=True)
+        rec.start(state)
+        # the witness that the port's newly is exact: its sum is the
+        # recorder's count of the final table less that of the start
+        gain = int(rec._count(results["on"][3].seen)) - int(rec.prev)
+        check(sum(ev["newly"]) == gain,
+              f"records: configuration 5's newly sums to {sum(ev['newly'])}"
+              f", the counts to {gain}")
+        out.update(newly_sum=sum(ev["newly"]), count_gain=gain)
+        del results
+        step = rec.wrap(SP.make_sharded_packed_round(
+            proto, topo, g, fault, run.origin), True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                state = step(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del state
+    got = _strip_event(ev)
+    out.update(rounds=ev["rounds"], sync_free_segment=True,
+               totals=ev["totals"], **_rm_against_jax(
+                   got, CFG5_HEAL_RM, tc.n * proto.rumors, proto.rumors))
+    if not out["equals_jax"]:
+        out["event"] = got
+    return out
+
+
+def _rm_against_jax(got: dict, want: dict, entries: int,
+                    start: int) -> dict:
+    """A round_metrics event against the JAX package's (ROADMAP queue 3
+    item 7): every field equal, except that once the running count of
+    entries passes 2^24 the reference's float32 sums round, so there
+    ``newly`` and ``dup`` (and their totals) are held within four float32
+    ulps of ``entries``.  Returns ``equals_jax`` and the largest
+    differences."""
+    import numpy as np
+    loose = ("newly", "dup", "totals")
+    same = {k: v for k, v in got.items() if k not in loose} == {
+        k: v for k, v in want.items() if k not in loose}
+    tol = 4 * float(np.spacing(np.float32(entries)))
+    # the rounds whose count (at most ``start`` entries before round 0)
+    # stays below 2^24, where both sums are exact
+    exact_rounds = np.cumsum(got["newly"]) + start < 2 ** 24
+    worst = {}
+    for k in ("newly", "dup"):
+        d = np.abs(np.asarray(got[k]) - np.asarray(want[k]))
+        same = (same and len(d) == got["rounds"]
+                and not d[exact_rounds].any() and bool((d <= tol).all()))
+        worst[k] = float(d.max()) if len(d) else 0.0
+    for k, v in want["totals"].items():
+        a = got["totals"].get(k)
+        lim = (4 * float(np.spacing(np.float32(v))) if k in ("newly", "dup")
+               else 0.0)
+        same = same and a is not None and abs(a - v) <= lim
+    return {"equals_jax": same, "max_abs_diff_past_2_24": worst,
+            "tolerance": tol}
+
+
+def _records_event_cost(tmp: str, events: int = 200) -> dict:
+    """A ledger event's write on this machine's disk: ``events`` fsynced
+    events (the default) and as many flush-only ones (``sync=False``,
+    the timed windows' kind), microseconds each."""
+    from gossip_tpu_torch.utils import telemetry as PT
+    out = {}
+    with PT.Ledger(f"{tmp}/cost.jsonl") as led:
+        for sync in (True, False):
+            t0 = time.perf_counter()
+            for i in range(events):
+                led.event("probe", sync=sync, i=i)
+            out["fsynced_us" if sync else "flushed_us"] = (
+                (time.perf_counter() - t0) * 1e6 / events)
+        check(led.fsyncs == events + 1, f"records: {led.fsyncs} fsyncs")
+    return {"event_write": out, "events": events}
+
+
+def _records_crashloop(children: dict) -> dict:
+    """``tools/crashloop``'s one kill at 10M (:func:`_records_children`)."""
+    line = children["crashloop"]["line"]
+    check(line["ok"] and line["kills"] == 1 and line["coverage"] == 1.0,
+          f"records crashloop: {line}")
+    return {**line, "wall_s": children["crashloop"]["process_s"]}
+
+
+def phase_records(dev, smi: str, main: dict):
+    """The run's records on the card (``records``): the flagship route
+    under the ledger and ``--profile`` (kernel 1 in the trace once a
+    round, ``kernel_build`` hits, the line's keys), a cold build of
+    every source under ``--no-compile-cache`` and the crashloop, three
+    child processes at once; the profiler's overhead; FP256
+    at K = 1 with round metrics (planes bitwise, the plain replay's
+    metrics, no host sync in an instrumented segment, ms a round on and
+    off); configuration 5 under churn_heal at K = 1 (its metrics the JAX
+    package's, no host sync); the crashloop's one kill at 10M.  Files
+    go to ``chip_records/``, removed at the end."""
+    import os
+    import shutil
+    t_phase = time.perf_counter()
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chip_records")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        t0 = time.perf_counter()
+        children = _records_children(tmp)
+        emit("records", part="children", part_s=time.perf_counter() - t0,
+             process_s={k: v["process_s"] for k, v in children.items()},
+             card=smi)
+        for part, fn in (("flagship",
+                          lambda: _records_flagship(tmp, main, children)),
+                         ("crashloop", lambda: _records_crashloop(children)),
+                         ("ledger", lambda: _records_event_cost(tmp)),
+                         ("planes", lambda: _records_planes(dev, tmp)),
+                         ("cfg5_heal", lambda: _records_cfg5(dev, tmp))):
+            t0 = time.perf_counter()
+            rec = fn()
+            emit("records", part=part, part_s=time.perf_counter() - t0,
+                 **rec, card=smi)
+            check(rec.get("equals_jax", True),
+                  "records: configuration 5's round metrics are not the JAX "
+                  "package's (CFG5_HEAL_RM)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("records_phase", phase_s=time.perf_counter() - t_phase, card=smi)
 
 
 def phase_roofline_checks(dev):
@@ -4901,6 +5495,13 @@ def main(argv=None) -> int:
                   "mesh_path": phase_mesh_path,
                   "mesh_fused_planes": phase_mesh_fused_planes,
                   "mr_parts": phase_mr_parts,
+                  "records": lambda dev, smi: phase_records(
+                      dev, smi, run_simulation(
+                          ProtocolConfig(mode="pull", fanout=1),
+                          TopologyConfig(family="complete", n=N),
+                          RunConfig(seed=SEED, target_coverage=0.99,
+                                    engine="fused"),
+                          device="cuda").to_dict()),
                   "mr_checks": lambda dev, smi: emit(
                       "mr_checks", cases=phase_mr_checks(dev, N)[0],
                       card=smi)}
@@ -5003,6 +5604,7 @@ def main(argv=None) -> int:
     sweeps_launches = phase_sweeps(dev, smi)
     ck_launches = phase_checkpoints(dev, smi)
     phase_scale(dev, smi)
+    phase_records(dev, smi, report.to_dict())
     mr_kernels[0]["launches_by_path"] = {
         "mr_main_path": mr_kernels[0]["launches"],
         "mesh_fused_planes": planes_launches,

@@ -20,6 +20,11 @@ times that loop under the JAX package's ``churn_heal`` fault program,
 and :func:`run_churn_sweep` (``--churn-sweep``) its ``churn_sweep``
 family, eight fault programs as one batch.
 
+``GOSSIP_PROFILE=<dir>`` captures the measured leg as a
+``torch.profiler`` Chrome trace into that directory
+(:func:`~gossip_tpu_torch.utils.trace.profile`); a profiled leg's walls
+carry the profiler's overhead.
+
 There is no CPU row: without a CUDA device it prints nothing and exits
 non-zero.  There is no ``vs_baseline`` either: the JAX package derives
 that figure for a TPU v4-8.
@@ -38,6 +43,7 @@ from gossip_tpu_torch.ops import fused_round as FR
 from gossip_tpu_torch.ops.common import resolve_device
 from gossip_tpu_torch.utils.provenance import card_info
 from gossip_tpu_torch.utils.timing import steady_timed
+from gossip_tpu_torch.utils.trace import profile
 
 N_FLAGSHIP = 10_000_000
 TARGET = 0.99
@@ -201,18 +207,22 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if a.churn_sweep:
-        sweep = run_churn_sweep(device="cuda")
+        with profile("bench:cuda", "cuda"):
+            sweep = run_churn_sweep(device="cuda")
         print(json.dumps({"churn_sweep": {k: v for k, v in sweep.items()
                                           if k not in ("first", "warm")},
                           "card": card["name"],
                           "power_limit": card["power_limit"]}))
         return 0
+    with profile("bench:cuda", "cuda"):
+        if a.churn_heal:
+            rounds, _, _, seconds = run_churn_heal(a.n, "cuda", a.churn_heal)
+        else:
+            rounds, seconds = run_fused(a.n, "cuda")
     if a.churn_heal:
-        rounds, _, _, seconds = run_churn_heal(a.n, "cuda", a.churn_heal)
         line = measurement_line(a.n, rounds, seconds, card,
                                 f"bit-packed {a.churn_heal}, churn_heal")
     else:
-        rounds, seconds = run_fused(a.n, "cuda")
         line = measurement_line(a.n, rounds, seconds, card)
     print(json.dumps(line))
     return 0

@@ -154,16 +154,39 @@ K`` above 1 runs K ranks of the node-sharded payload drivers
 ``sharded_register``), as ``run`` does: NCCL with a card a rank, gloo
 with ``--device cpu`` or ``--share-card``, or inside a ``torchrun``
 group as the launched rank; the report adds the process group, each
-collective's time and every rank's peak memory.  The JAX commands'
-``--compile-cache`` / ``--no-compile-cache`` configure its XLA
-executable store, which the port does not have: they are not taken,
-and ``compile_cache`` is null.
+collective's time and every rank's peak memory.
+
+The run's records (the reference's): ``GOSSIP_TELEMETRY=PATH`` opens
+the run ledger (:mod:`gossip_tpu_torch.utils.telemetry`) for every
+command, whose lines are the provenance, one ``kernel_build`` a CUDA
+library built or loaded, one ``driver_timing`` a timed driver call,
+the round metrics of an instrumented driver
+(:mod:`gossip_tpu_torch.ops.round_metrics`, ``GOSSIP_ROUND_METRICS=0``
+turns them off), a checkpoint's flight record and the streamed
+planner's ``scale_*`` and ``budget_xcheck`` events; under ``--devices
+K`` rank 0 writes.  ``run --profile LOGDIR`` captures the run with
+``torch.profiler`` into a Chrome trace under LOGDIR (on a card, with
+its CUDA kernels; a capture without them fails the command) and adds
+``profile_logdir`` to the line.  ``--compile-cache DIR`` and
+``--no-compile-cache`` (on ``run``, ``grid``, ``churn-sweep``,
+``crdt``, ``log``, ``txn`` and ``scale-run``, the reference's commands
+that the port has) name the port's only build cache, the store of the
+kernels' ``nvcc`` libraries (``ops/_kernels``): DIR defaults to
+``$GOSSIP_COMPILE_CACHE``, else ``gossip_tpu_torch/_build/``, and
+``--no-compile-cache`` (or an empty DIR) builds into a fresh temporary
+directory removed at exit, so ``build_s`` is a cold build.  The
+reference's ``compile_cache`` key (``run``'s single-run and checkpointed
+lines, ``crdt``, ``log``, ``txn``; not ``--ensemble``'s) is the
+directory, or null with the cache off.  The reference's XLA
+``xla_compile`` event becomes ``kernel_build``; its ``JitCompileMonitor``
+has no counterpart, since nothing is compiled again at run time.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Optional
 
@@ -175,6 +198,42 @@ from gossip_tpu_torch.config import (ByzConfig, ChurnConfig, CrdtConfig,
 
 
 PAYLOAD_COMMANDS = ("crdt", "log", "txn")
+
+
+def _add_cache_flags(p) -> None:
+    """The reference's two build-cache flags (module doc); the default
+    is read when the command runs."""
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="the kernels' nvcc library store (default "
+                        "$GOSSIP_COMPILE_CACHE, else "
+                        "gossip_tpu_torch/_build/)")
+    p.add_argument("--no-compile-cache", action="store_true",
+                   help="build the kernels into a fresh temporary "
+                        "directory (a cold nvcc build)")
+
+
+def _enable_compile_cache(a) -> None:
+    """Point the kernel store at the command's choice (module doc)."""
+    if not hasattr(a, "no_compile_cache"):
+        return
+    from gossip_tpu_torch.ops import _kernels
+    if a.compile_cache is None:
+        a.compile_cache = os.environ.get(_kernels.CACHE_ENV,
+                                         str(_kernels.BUILD_DIR))
+    if a.no_compile_cache or not a.compile_cache:
+        a.no_compile_cache = True
+        _kernels.use_fresh_build_dir()
+    else:
+        _kernels.set_build_dir(a.compile_cache)
+
+
+def _cache_stamp(a):
+    """The report's ``compile_cache``: the store's directory, or None with
+    the cache off."""
+    if not hasattr(a, "no_compile_cache") or a.no_compile_cache or \
+            not a.compile_cache:
+        return None
+    return a.compile_cache
 
 
 def _parse_churn(a) -> Optional[ChurnConfig]:
@@ -405,7 +464,7 @@ def run_crdt(a, keep_state: bool = True):
            "type": a.type, "n": a.n, "rounds": rounds, "value_conv": vc,
            "converged": vc >= a.target, "truth_value": result[-1],
            "msgs": msgs, "wall_s": round(wall, 4), "devices": a.devices,
-           "engine": _engine(a, "crdt"), "compile_cache": None}
+           "engine": _engine(a, "crdt"), "compile_cache": _cache_stamp(a)}
     if fault is not None and fault.churn is not None:
         out["fault_program"] = True
     if byz is not None:
@@ -429,7 +488,7 @@ def run_log(a, keep_state: bool = True):
            "rounds": rounds, "log_conv": lc, "converged": lc >= a.target,
            "truth": result[-1], "msgs": msgs, "wall_s": round(wall, 4),
            "devices": a.devices, "engine": _engine(a, "log"),
-           "compile_cache": None}
+           "compile_cache": _cache_stamp(a)}
     if fault is not None and fault.churn is not None:
         out["fault_program"] = True
     return _finish(a, out, result, want_curve, extra)
@@ -451,7 +510,8 @@ def run_txn(a, keep_state: bool = True):
            "converged": tcv >= a.target, "truth": result[-1],
            "msgs": msgs, "wall_s": round(wall, 4), "devices": a.devices,
            "engine": _engine(a, "txn"), "zipf_alpha": a.zipf_alpha,
-           "hot_key": a.hot_key, "load": a.load, "compile_cache": None}
+           "hot_key": a.hot_key, "load": a.load,
+           "compile_cache": _cache_stamp(a)}
     if fault is not None and fault.churn is not None:
         out["fault_program"] = True
     if byz is not None:
@@ -658,6 +718,8 @@ def cmd_ensemble(a) -> int:
     if a.curve:
         out["curve_mean"] = [float(c) for c in ens.curves.mean(axis=0)]
     out.update({"devices": a.devices, **getattr(ens, "meta", {}), **keys})
+    if a.profile:
+        out["profile_logdir"] = a.profile
     print(json.dumps(out))
     return 0
 
@@ -682,21 +744,28 @@ def cmd_run(a) -> int:
         return run_plan_file(a.plan, checkpoint=a.checkpoint,
                              resume=a.resume, device=a.device,
                              share_card=a.share_card)
+    from gossip_tpu_torch.utils.trace import trace
     if a.ensemble > 1:
-        return cmd_ensemble(a)
+        with trace(a.profile, a.device or "cuda"):
+            return cmd_ensemble(a)
     if a.resume and not a.checkpoint:
         print("error: --resume needs --checkpoint PATH (the file to "
               "continue from)", file=sys.stderr)
         return 2
     if a.checkpoint:
-        return cmd_run_checkpointed(a)
+        with trace(a.profile, a.device or "cuda"):
+            return cmd_run_checkpointed(a)
     from gossip_tpu_torch.backend import run_simulation
     mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
                        shared_card=a.share_card) if a.devices > 1 else None)
     want_curve = a.curve or bool(a.save_curve)
-    report = run_simulation(*run_configs(a), want_curve=want_curve,
-                            device=a.device, mesh_cfg=mesh)
+    with trace(a.profile, a.device or "cuda"):
+        report = run_simulation(*run_configs(a), want_curve=want_curve,
+                                device=a.device, mesh_cfg=mesh)
     out = report.to_dict()
+    out["compile_cache"] = _cache_stamp(a)
+    if a.profile:
+        out["profile_logdir"] = a.profile
     if a.save_curve:
         from gossip_tpu_torch.utils.metrics import dump_curve_jsonl
         meta = dict(out)
@@ -715,8 +784,6 @@ def _refuse(msg: str) -> int:
 def _resume_checks(a, fingerprint, fault_fp, want_curve):
     """The reference's refusals of a ``--resume``: ``(exit code or None,
     the saved meta's extra)``."""
-    import os
-
     from gossip_tpu_torch.utils.checkpoint import load_meta
     if not os.path.exists(a.checkpoint):
         return _refuse(f"--resume: no checkpoint at {a.checkpoint}"), None
@@ -941,13 +1008,16 @@ def run_checkpointed(a):
            "rounds": rounds, "coverage": cov, "msgs": msgs,
            "checkpoint": a.checkpoint,
            "checkpoint_every": a.checkpoint_every, "resumed": a.resume,
-           "engine": label, "devices": n_dev, "compile_cache": None}
+           "engine": label, "devices": n_dev,
+           "compile_cache": _cache_stamp(a)}
     if NE.get(fault) is not None:
         final_extra = load_meta(a.checkpoint).get("extra", {})
         if "dropped" in final_extra:
             out["dropped"] = final_extra["dropped"]
         out["fault_program"] = fault_fp
     out.update(extra)
+    if a.profile:
+        out["profile_logdir"] = a.profile
     curve_list = curve["coverage"] if isinstance(curve, dict) else curve
     if a.save_curve:
         from gossip_tpu_torch.utils.metrics import dump_curve_jsonl
@@ -1367,8 +1437,14 @@ def build_parser() -> argparse.ArgumentParser:
     # the plan file carries, refused by cmd_run when changed from its
     # default (the defaults are read from this parser, so a flag added
     # later is guarded too)
+    p.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="capture a torch.profiler trace of the run into "
+                        "LOGDIR (a Chrome trace; on a card with its CUDA "
+                        "kernels)")
+    _add_cache_flags(p)
     composable = {"plan", "checkpoint", "resume", "ensemble", "curve",
-                  "save_curve", "device", "share_card"}
+                  "save_curve", "device", "share_card", "compile_cache",
+                  "no_compile_cache"}
     p.set_defaults(fn=cmd_run, plan_guard_defaults={
         k: v for k, v in vars(p.parse_args([])).items()
         if k not in composable})
@@ -1415,6 +1491,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "mode: NCCL takes one card a rank)")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cpu runs the plain versions (default: cuda)")
+    _add_cache_flags(p)
     p.set_defaults(fn=cmd_grid)
 
     p = sub.add_parser("churn-sweep", help="run K fault programs (churn/"
@@ -1456,6 +1533,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "mode: NCCL takes one card a rank)")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cpu runs the plain versions (default: cuda)")
+    _add_cache_flags(p)
     p.set_defaults(fn=cmd_churn_sweep)
 
     p = sub.add_parser("crdt", help="run a commutative-merge CRDT payload "
@@ -1478,6 +1556,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="set element universe size E")
     _add_byz_flags(p)
     _add_tail_flags(p, "value-convergence")
+    _add_cache_flags(p)
     p.set_defaults(fn=run_crdt)
 
     p = sub.add_parser("log", help="run a replicated kafka-style log on "
@@ -1496,6 +1575,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="scripted commit (repeatable; default: one commit "
                         "per key at round 4)")
     _add_tail_flags(p, "log-convergence")
+    _add_cache_flags(p)
     p.set_defaults(fn=run_log)
 
     p = sub.add_parser("txn", help="run totally-available transactions "
@@ -1524,6 +1604,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "default program)")
     _add_byz_flags(p)
     _add_tail_flags(p, "txn-convergence")
+    _add_cache_flags(p)
     p.set_defaults(fn=run_txn)
 
     p = sub.add_parser(
@@ -1598,13 +1679,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cpu runs the plain versions (default: cuda, which "
                         "must be present)")
+    _add_cache_flags(p)
     p.set_defaults(fn=cmd_scale_run)
     return ap
 
 
+def _open_ledger():
+    """The run ledger of this process (``GOSSIP_TELEMETRY``), or None
+    when the variable is unset (a caller's ambient ledger stays).  Inside
+    a launcher's group only rank 0 opens the file, and it decides for the
+    group: one broadcast says whether its ledger is active, and the other
+    ranks are peers only then (a round-metrics flush is a collective of
+    every rank, so a rank 0 that failed to open its file must not leave
+    its peers recording)."""
+    import torch
+    import torch.distributed as dist
+
+    from gossip_tpu_torch.utils import telemetry
+    if os.environ.get(telemetry.ENV_VAR) is None:
+        return None
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return telemetry.from_env(argv=sys.argv)
+    rank = dist.get_rank()
+    led = telemetry.from_env(argv=sys.argv) if rank == 0 else None
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    on = torch.tensor([int(getattr(led, "active", False))], device=dev)
+    dist.broadcast(on, 0)
+    if rank == 0:
+        return led
+    return telemetry.PeerLedger() if int(on) else telemetry.NullLedger()
+
+
 def main(argv=None) -> int:
+    from gossip_tpu_torch.utils import telemetry
     a = build_parser().parse_args(argv)
     joined = False
+    led = prev = None
     try:
         # multi-host runs: join the launcher's process group first (a
         # no-op without its variables)
@@ -1613,6 +1725,10 @@ def main(argv=None) -> int:
         if a.cmd != "plan":
             joined = maybe_init_distributed(
                 "gloo" if a.device == "cpu" or a.share_card else None)
+        led = _open_ledger()
+        if led is not None:
+            prev = telemetry.activate(led)
+        _enable_compile_cache(a)
         if a.cmd in PAYLOAD_COMMANDS:
             print(json.dumps(a.fn(a, keep_state=False)[0]))
             return 0
@@ -1621,6 +1737,9 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     finally:
+        if led is not None:
+            telemetry.activate(prev)
+            led.close()
         if joined:
             import torch.distributed as dist
             dist.destroy_process_group()

@@ -11,16 +11,28 @@ point returns an error, and counts its launches in a plain integer.
 
 Nothing here is built or launched for a CPU tensor; a build starts at
 the first launch (or :func:`build_all`), never at import.
+
+The library store is the port's only build cache (the counterpart of the
+reference's XLA executable store): :func:`build_dir` is the directory
+set by :func:`set_build_dir` (the commands' ``--compile-cache DIR``), else
+``$GOSSIP_COMPILE_CACHE`` when it names one, else ``_build/``;
+:func:`use_fresh_build_dir` (``--no-compile-cache``) builds into a new
+temporary directory removed at exit, so every build is a cold ``nvcc``.
+Each library built or loaded writes one ``kernel_build`` event to the
+ambient run ledger: ``kernel``, ``library``, ``cache``
+(``hit|miss|disabled``) and ``build_s``.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,6 +48,39 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+CACHE_ENV = "GOSSIP_COMPILE_CACHE"
+_STORE = {"dir": None, "fresh": False}
+
+
+def build_dir() -> Path:
+    """The directory the libraries are built into and loaded from
+    (module doc)."""
+    if _STORE["dir"] is not None:
+        return _STORE["dir"]
+    env = os.environ.get(CACHE_ENV)
+    return Path(env) if env else BUILD_DIR
+
+
+def set_build_dir(path) -> Path:
+    """Build into and load from ``path`` from now on (not yet loaded
+    kernels only); the environment variable is set too, so spawned ranks
+    use the same store."""
+    _STORE["dir"], _STORE["fresh"] = Path(path).resolve(), False
+    os.environ[CACHE_ENV] = str(_STORE["dir"])
+    return _STORE["dir"]
+
+
+def use_fresh_build_dir() -> Path:
+    """Build into a new temporary directory, removed at exit: the cache
+    is off, every library a cold ``nvcc`` build (``cache``
+    ``disabled``)."""
+    tmp = tempfile.mkdtemp(prefix="gossip_kernels_")
+    atexit.register(shutil.rmtree, tmp, True)
+    set_build_dir(tmp)
+    _STORE["fresh"] = True
+    return _STORE["dir"]
+
+
 
 
 def _nvcc() -> str:
@@ -80,7 +125,7 @@ class Kernel:
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for path in self.sources():
             digest.update(path.name.encode() + b"\0" + path.read_bytes())
-        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
+        return build_dir() / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
 
     def start_build(self):
         """Start nvcc for this source; None when the library is built.
@@ -89,7 +134,7 @@ class Kernel:
         lib = self.library()
         if lib.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
@@ -162,6 +207,7 @@ def build_all(kernels=KERNELS):
     """Build every given kernel that is not loaded yet, one nvcc per
     source (entry points of one source share its build), all started
     together; then load them."""
+    from gossip_tpu_torch.utils import telemetry
     todo = [k for k in kernels if k._fn is None]
     t0 = time.perf_counter()
     builds = {}
@@ -172,6 +218,12 @@ def build_all(kernels=KERNELS):
         first, started = builds[k.library()]
         k.finish_build(started if k is first else None, t0)
         k.ptxas = first.ptxas
+        if k is first:
+            cache = ("disabled" if _STORE["fresh"]
+                     else "miss" if started is not None else "hit")
+            telemetry.current().event(
+                "kernel_build", kernel=k.name, library=str(k.library()),
+                cache=cache, build_s=k.build_s)
 
 
 def _check(name: str, t, rows: int, shape=None):

@@ -327,18 +327,27 @@ def honest_component_mask(cfg: CrdtConfig, n: int, origin: int,
     return honest[torch.arange(s, device=dev) % n]
 
 
-def byz_converged_count(cfg: CrdtConfig, rows: torch.Tensor,
-                        truth: torch.Tensor, alive_honest: torch.Tensor,
-                        comp_mask: torch.Tensor) -> int:
-    """Honest eventually-alive nodes whose honest-owned components equal
-    the truth bitwise (the ``byz_conv`` numerator)."""
+def byz_converged_tensor(cfg: CrdtConfig, rows: torch.Tensor,
+                         truth: torch.Tensor, alive_honest: torch.Tensor,
+                         comp_mask: torch.Tensor) -> torch.Tensor:
+    """int64 0-d: honest eventually-alive nodes whose honest-owned
+    components equal the truth bitwise (the ``byz_conv`` numerator), on
+    the device."""
     if cfg.kind in CRDT_SET_KINDS:
         eq = ((rows & comp_mask[None, :])
               == (truth & comp_mask)[None, :]).all(dim=-1)
     else:
         eq = torch.where(comp_mask[None, :], rows == truth[None, :],
                          True).all(dim=-1)
-    return int((eq & alive_honest).sum())
+    return (eq & alive_honest).sum()
+
+
+def byz_converged_count(cfg: CrdtConfig, rows: torch.Tensor,
+                        truth: torch.Tensor, alive_honest: torch.Tensor,
+                        comp_mask: torch.Tensor) -> int:
+    """:func:`byz_converged_tensor` as an int."""
+    return int(byz_converged_tensor(cfg, rows, truth, alive_honest,
+                                    comp_mask))
 
 
 # -- injection lowering ------------------------------------------------
@@ -580,14 +589,34 @@ def converged_count(rows: torch.Tensor, truth: torch.Tensor,
 
 def payload_count(cfg: CrdtConfig, rows: torch.Tensor,
                   alive: torch.Tensor) -> torch.Tensor:
-    """float32 0-d: the payload mass over alive rows (counter shard sums
-    or set bits), counted in integers and rounded once.  Equal to the
-    reference's float32 sum only while the mass stays below 2^24, where
-    that sum is exact; above, the reference's value depends on its
-    summation order and this one is the correctly rounded mass."""
-    live = rows[alive]
+    """int64 0-d: the payload mass over alive rows (counter shard sums
+    or set bits), exact, with no host read (the round metrics'
+    ``newly`` integrand).  Equal to the reference's float32 sum while
+    the mass stays below 2^24, where that sum is exact; above, the
+    reference's value depends on its summation order and this one is
+    the exact mass (its float32 rounding, correctly rounded once)."""
+    live = torch.where(alive[:, None], rows.to(torch.int64), 0)
     if cfg.kind in CRDT_SET_KINDS:
-        bits = (live.to(torch.int64)[..., None] >> torch.arange(
-            32, device=rows.device)) & 1
-        return bits.sum().to(torch.float32)
-    return live.to(torch.int64).sum().to(torch.float32)
+        live = live & 0xFFFFFFFF
+        return ((live[..., None] >> torch.arange(32, device=rows.device))
+                & 1).sum()
+    return live.sum()
+
+
+def value_conv_frac(rows: torch.Tensor, truth: torch.Tensor,
+                    alive: torch.Tensor) -> torch.Tensor:
+    """float32 0-d: the converged fraction of the alive rows, the
+    reference's in-loop ``value_conv`` column (pinned readouts use
+    :func:`converged_count` and divide on the host)."""
+    return (converged_count(rows, truth, alive).to(torch.float32)
+            / torch.clamp(alive.sum().to(torch.float32), min=1.0))
+
+
+def byz_conv_frac(cfg: CrdtConfig, rows: torch.Tensor, truth: torch.Tensor,
+                  alive_honest: torch.Tensor,
+                  comp_mask: torch.Tensor) -> torch.Tensor:
+    """float32 0-d: the ``byz_conv`` column, the honest converged
+    fraction (the :func:`value_conv_frac` rule)."""
+    return (byz_converged_tensor(cfg, rows, truth, alive_honest, comp_mask)
+            .to(torch.float32)
+            / torch.clamp(alive_honest.sum().to(torch.float32), min=1.0))

@@ -207,15 +207,14 @@ def committed_of(cfg: LogConfig, rows: torch.Tensor) -> torch.Tensor:
 
 def payload_count(cfg: LogConfig, rows: torch.Tensor,
                   alive: torch.Tensor) -> torch.Tensor:
-    """float32 0-d: filled entry slots plus committed counts over alive
-    rows, counted in integers and rounded once (equal to the reference's
-    float32 sum only while the mass stays below 2^24, as
+    """int64 0-d: filled entry slots plus committed counts over alive
+    rows, exact and with no host read (equal to the reference's float32
+    sum while the mass stays below 2^24, as
     :func:`~gossip_tpu_torch.ops.crdt.payload_count`)."""
-    live = rows[alive]
-    ent = live[:, :cfg.keys * cfg.capacity]
-    filled = (ent != 0).sum().to(torch.float32)
-    return filled + committed_of(cfg, live).to(torch.int64).sum().to(
-        torch.float32)
+    a = alive[:, None]
+    filled = ((rows[:, :cfg.keys * cfg.capacity] != 0) & a).sum()
+    return filled + torch.where(a, committed_of(cfg, rows).to(torch.int64),
+                                0).sum()
 
 
 def truth_summary(cfg: LogConfig, truth: torch.Tensor) -> dict:

@@ -256,6 +256,22 @@ def partition_targets(cut: torch.Tensor, src_gids: torch.Tensor,
     return torch.where(same_side(cut, src, targets), targets, sentinel)
 
 
+def observables(sched: Schedule, alive: torch.Tensor, round_: int):
+    """``(alive count, cut pairs)`` at ``round_``, float32 0-d tensors:
+    the round metrics' nemesis observables (the reference's
+    ``observables``).  ``alive`` is the round's padded liveness (padding
+    rows dead); ``cut_pairs`` counts the alive pairs the open cut
+    separates, ``|A| * |B|`` in float32, and 0 while no window is
+    open."""
+    cut = cut_at(sched, round_)
+    a = alive.sum().to(torch.float32)
+    ids = torch.arange(alive.shape[0], dtype=torch.int64,
+                       device=alive.device)
+    hi = (alive & (ids >= cut)).sum().to(torch.float32)
+    pairs = torch.where(cut >= 0, (a - hi) * hi, torch.zeros_like(a))
+    return a, pairs
+
+
 def _f32_count(mask: torch.Tensor) -> torch.Tensor:
     """The count over the last two axes (a batch point's), as float32."""
     return mask.sum(dim=(-2, -1)).to(torch.float32)

@@ -54,7 +54,8 @@ from gossip_tpu_torch.ops.crdt import (NO_ROUND, _applied_mask, _gather,
 from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.ops.common import resolve_device
 
-__all__ = ["alive_at_fn", "apply_injections", "byz_converged_count",
+__all__ = ["alive_at_fn", "apply_injections", "byz_conv_frac",
+           "byz_converged_count", "byz_converged_tensor", "payload_count",
            "check_ts_packable", "converged_count", "eventual_alive_crdt",
            "ground_truth", "honest_key_mask", "inject_args",
            "injection_rounds", "merge_lww", "pack_ts", "pull_merge_reg",
@@ -197,14 +198,46 @@ def honest_key_mask(cfg: TxnConfig, inj: tuple, fault, n: int, origin: int,
     return (best == 0) | honest[owner]
 
 
+def byz_converged_tensor(cfg: TxnConfig, rows: torch.Tensor,
+                         truth: torch.Tensor, alive_honest: torch.Tensor,
+                         key_mask: torch.Tensor) -> torch.Tensor:
+    """int64 0-d: honest eventually-alive rows equal to the truth on
+    every honest-won key, both planes (the ``byz_conv`` numerator), on
+    the device."""
+    m2 = torch.cat([key_mask, key_mask])
+    eq = torch.where(m2[None, :], rows == truth[None, :], True).all(dim=-1)
+    return (eq & alive_honest).sum()
+
+
 def byz_converged_count(cfg: TxnConfig, rows: torch.Tensor,
                         truth: torch.Tensor, alive_honest: torch.Tensor,
                         key_mask: torch.Tensor) -> int:
-    """Honest eventually-alive rows equal to the truth on every
-    honest-won key, both planes (the ``byz_conv`` numerator)."""
-    m2 = torch.cat([key_mask, key_mask])
-    eq = torch.where(m2[None, :], rows == truth[None, :], True).all(dim=-1)
-    return int((eq & alive_honest).sum())
+    """:func:`byz_converged_tensor` as an int."""
+    return int(byz_converged_tensor(cfg, rows, truth, alive_honest,
+                                    key_mask))
+
+
+def byz_conv_frac(cfg: TxnConfig, rows: torch.Tensor, truth: torch.Tensor,
+                  alive_honest: torch.Tensor,
+                  key_mask: torch.Tensor) -> torch.Tensor:
+    """float32 0-d: the ``byz_conv`` column, the honest converged
+    fraction (the reference's in-loop form; pinned readouts use the
+    integer count)."""
+    return (byz_converged_tensor(cfg, rows, truth, alive_honest, key_mask)
+            .to(torch.float32)
+            / torch.clamp(alive_honest.sum().to(torch.float32), min=1.0))
+
+
+def payload_count(cfg: TxnConfig, rows: torch.Tensor,
+                  alive: torch.Tensor) -> torch.Tensor:
+    """int64 0-d: the timestamp mass over alive rows (the round metrics'
+    ``newly`` integrand: timestamps only grow under the LWW join), exact
+    and with no host read.  The reference sums it in float32, which is
+    exact only while the mass stays below 2^24; past it the reference's
+    value depends on its summation order and this one is the exact
+    mass."""
+    return torch.where(alive[:, None], rows[..., cfg.keys:].to(torch.int64),
+                       0).sum()
 
 
 # -- the skewed default traffic program (closed forms, no RNG) ---------

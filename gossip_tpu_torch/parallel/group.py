@@ -273,10 +273,14 @@ def _to_host(x):
 
 
 def _rank_main(rank, size, backend, device, init_method, fn, args, kwargs,
-               results):
+               results, ledger=None):
     """One spawned rank: join the group, run ``fn(*args, group=...)``,
-    send its result (or its error) to the launcher."""
+    send its result (or its error) to the launcher.  ``ledger`` is the
+    launcher's run ledger hand-off (rank 0 writes, the others are peers:
+    :func:`~gossip_tpu_torch.utils.telemetry.adopt`)."""
+    from gossip_tpu_torch.utils import telemetry
     try:
+        telemetry.adopt(ledger, rank)
         group = _init(rank, size, backend, torch.device(device),
                       init_method)
         out = fn(*args, group=group, **kwargs)
@@ -298,16 +302,21 @@ def launch(fn, size: int, *args, device=None, shared_card: bool = False,
     module-level function (it is pickled by name); its result comes back
     with every tensor on the CPU.  A rank that raises makes this raise:
     a ``ValueError`` as itself, anything else as a ``RuntimeError`` with
-    the rank's traceback."""
+    the rank's traceback.  Under a run ledger, rank 0 writes into it
+    and the other ranks write nothing."""
     import torch.multiprocessing as mp
+
+    from gossip_tpu_torch.utils import telemetry
     backend, devices = plan(size, device, shared_card)
+    ledger = telemetry.handoff()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="gossip_mesh_") as tmp:
         init_method = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, size, backend, str(devices[r]),
-                                   init_method, fn, args, kwargs, results))
+                                   init_method, fn, args, kwargs, results,
+                                   ledger))
                  for r in range(size)]
         for p in procs:
             p.start()

@@ -21,7 +21,9 @@ collectives become ``torch.distributed`` ones:
 
 Padding rows (node ids ``n .. n_pad - 1``) are dead: they never sample,
 send or receive, and no coverage counts them, so the sharded coverage is
-always the alive-weighted quotient.  The reference's compiled loops see
+always the alive-weighted quotient.  Under an active run ledger the
+drivers record the reference's round metrics (:class:`SIRecorder`,
+:mod:`gossip_tpu_torch.ops.round_metrics`).  The reference's compiled loops see
 that quotient's denominator as a constant, and multiply by its float32
 reciprocal, only where the alive set is every real node (no deaths, no
 fault program: :func:`sharded_folded`); its dense churn loop takes the
@@ -43,6 +45,7 @@ from gossip_tpu_torch.models import si as si_mod
 from gossip_tpu_torch.models.state import (SimState, alive_mask,
                                            state_from_numpy, state_to_numpy)
 from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops import round_metrics as RM
 from gossip_tpu_torch.ops import threefry
 from gossip_tpu_torch.ops.bitpack import rumor_count_tensor
 from gossip_tpu_torch.ops.common import f32_fraction, f32_mean
@@ -301,6 +304,128 @@ class Coverage:
         return f32_fraction(self.count(seen_l), self.total)
 
 
+def dense_round_bytes(proto: ProtocolConfig, n_pad: int, nl: int):
+    """``round -> float32`` per-device egress of one dense round (the
+    reference's ``_dense_round_bytes``): the push's count table
+    ``4 * n_pad * R``, the pull's all_gather ``nl * R`` bool bytes, the
+    msgs sum 4, and anti-entropy's reverse table on exchange rounds
+    only."""
+    r, mode = proto.rumors, proto.mode
+    base = 4.0
+    if mode in (C.PUSH, C.PUSH_PULL):
+        base += 4.0 * n_pad * r
+    if mode in (C.PULL, C.PUSH_PULL, C.ANTI_ENTROPY, C.FLOOD):
+        base += 1.0 * nl * r
+    return exchange_bytes(proto, base, 4.0 * n_pad * r)
+
+
+def exchange_bytes(proto: ProtocolConfig, base: float, reverse: float,
+                   off: Optional[float] = None):
+    """``round -> float32``: ``base``, plus anti-entropy's ``reverse`` on
+    its exchange rounds, in the reference's float32 arithmetic; with
+    ``off`` the round's bytes are ``base + reverse`` on exchange rounds
+    and ``off`` on quiescent ones (the sparse exchange's)."""
+    def per_round(round_: int) -> np.float32:
+        if off is not None:
+            return np.float32(RM.gate_on_exchange_rounds(
+                base, proto.period if proto.mode == C.ANTI_ENTROPY else 1,
+                round_, off))
+        b = np.float32(base)
+        if proto.mode == C.ANTI_ENTROPY:
+            b = b + np.float32(RM.gate_on_exchange_rounds(
+                reverse, proto.period, round_))
+        return b
+
+    return per_round
+
+
+class SIRecorder:
+    """The in-loop metrics row of the node-sharded SI drivers: the
+    reference's ``_dense_recorder`` on bool rows, and with ``packed`` its
+    ``_packed_recorder`` and ``_sparse_recorder`` on packed words, with
+    the churn observables (:func:`~gossip_tpu_torch.ops.nemesis.
+    observables` and the step's ``lost``) under a fault program.  This
+    rank's count and front column are device readouts of the rows after
+    the step; the previous count rides as one tensor.  ``bytes_of`` maps
+    the round to its float32 bytes."""
+
+    def __init__(self, label: str, proto: ProtocolConfig, n: int,
+                 group: Group, fault: Optional[FaultConfig], origin: int,
+                 max_rounds: int, bytes_of, packed: bool = False,
+                 n_shards: Optional[int] = None, alive_l=None,
+                 per_msg: Optional[float] = None, **stack_kw):
+        dev = group.device
+        n_pad, nl, lo = group.rows(n)
+        self.alive_l = (metric_alive_pad(fault, n, n_pad, origin,
+                                         dev)[lo:lo + nl]
+                        if alive_l is None else alive_l)
+        self.packed = packed
+        if per_msg is None:
+            per_msg = proto.rumors * RM.payload_factor(proto.mode)
+        self.offered = float(np.float32(per_msg))
+        self.bytes_of = bytes_of
+        self.sched = None
+        if NE.get(fault) is not None:
+            self.sched = NE.build(fault, n, n_pad, device=dev)
+            self.base_pad = pad_rows(
+                NE.base_alive_or_ones(fault, n, origin, dev), n_pad, False)
+        self.m = RM.init(max_rounds, n_shards or group.size, label, dev,
+                         nemesis=self.sched is not None, group=group,
+                         local_shards=1, **stack_kw)
+        self.prev = None
+
+    def _count(self, seen):
+        count = RM.count_packed if self.packed else RM.count_bool
+        return count(seen, self.alive_l)
+
+    def start(self, state: SimState) -> None:
+        self.prev = self._count(state.seen)
+
+    def nemesis(self, s0, lost) -> dict:
+        """The churn observables of the round ``s0`` started."""
+        if self.sched is None:
+            return {}
+        alive = NE.alive_rows(self.sched, self.base_pad, s0.round)
+        a, pairs = NE.observables(self.sched, alive, s0.round)
+        return dict(alive=a, cut_pairs=pairs, dropped=lost)
+
+    def __call__(self, s0: SimState, s1: SimState, lost=None) -> None:
+        count = self._count(s1.seen)
+        msgs = s1.msgs - s0.msgs
+        front = RM.front_packed if self.packed else RM.front_bool
+        RM.record(self.m, newly=count - self.prev, msgs=msgs,
+                  offered=msgs * self.offered, bytes=self.bytes_of(s0.round),
+                  front=front(s1.seen, self.alive_l),
+                  **self.nemesis(s0, lost))
+        self.prev = count
+
+    def wrap(self, step, churn: bool):
+        """The step with the row recorded after it (returning the state
+        alone, as :func:`~gossip_tpu_torch.ops.nemesis.drop_lost`)."""
+        def recorded(s0, **kw):
+            msgs0 = s0.msgs            # s0's buffers may be donated
+            out = step(s0, **kw)
+            s1, lost = out if churn else (out, None)
+            self(s0._replace(msgs=msgs0), s1, lost)
+            return s1
+
+        return recorded
+
+
+def instrumented(step, state: SimState, fault: Optional[FaultConfig],
+                 make_recorder):
+    """``(step, recorder or None)``: the driver's step with the round
+    metrics recorded when they are wanted (``make_recorder()`` builds the
+    :class:`SIRecorder`; its start count is read from ``state``), else
+    with the fault program's ``lost`` dropped."""
+    churn = NE.get(fault) is not None
+    if not RM.wanted():
+        return NE.drop_lost(step, NE.get(fault)), None
+    rec = make_recorder()
+    rec.start(state)
+    return rec.wrap(step, churn), rec
+
+
 def run_until(step, state: SimState, cov: Coverage, run: RunConfig):
     """The reference's while-loop: step while the compiled coverage is
     below the float32 target and the round below ``run.max_rounds``.
@@ -319,9 +444,11 @@ def simulate_curve_sharded(proto: ProtocolConfig, topo: Topology,
     """Exactly ``run.max_rounds`` rounds, recording the coverage (as the
     reference's scan computes it) and the cumulative msgs after each.
     Returns ``(coverage float32[T], msgs float32[T], final_state)``."""
-    step = NE.drop_lost(make_sharded_si_round(proto, topo, group, fault,
-                                              run.origin), NE.get(fault))
     state = init_sharded_state(run, proto, topo, group)
+    step, rec = instrumented(
+        make_sharded_si_round(proto, topo, group, fault, run.origin), state,
+        fault, lambda: _dense_recorder("simulate_curve_sharded", proto,
+                                       topo.n, group, fault, run))
     cov = Coverage(fault, topo.n, run.origin, group)
     covs, msgs = [], []
     for _ in range(run.max_rounds):
@@ -329,8 +456,16 @@ def simulate_curve_sharded(proto: ProtocolConfig, topo: Topology,
         covs.append(cov.compiled(state.seen))
         msgs.append(state.msgs)
     msgs = [float(m.item()) for m in msgs]
+    RM.deliver(rec and rec.m)
     return (np.asarray(covs, np.float32), np.asarray(msgs, np.float32),
             state)
+
+
+def _dense_recorder(label: str, proto: ProtocolConfig, n: int, group: Group,
+                    fault: Optional[FaultConfig], run: RunConfig):
+    n_pad, nl, _ = group.rows(n)
+    return SIRecorder(label, proto, n, group, fault, run.origin,
+                      run.max_rounds, dense_round_bytes(proto, n_pad, nl))
 
 
 def simulate_until_sharded(proto: ProtocolConfig, topo: Topology,
@@ -339,11 +474,15 @@ def simulate_until_sharded(proto: ProtocolConfig, topo: Topology,
     """The sharded while-loop to ``run.target_coverage`` or
     ``run.max_rounds``.  Returns ``(rounds, coverage, msgs,
     final_state)``; ``final_state`` holds this rank's rows."""
-    step = NE.drop_lost(make_sharded_si_round(proto, topo, group, fault,
-                                              run.origin), NE.get(fault))
     state = init_sharded_state(run, proto, topo, group)
+    step, rec = instrumented(
+        make_sharded_si_round(proto, topo, group, fault, run.origin), state,
+        fault, lambda: _dense_recorder("simulate_until_sharded", proto,
+                                       topo.n, group, fault, run))
     cov = Coverage(fault, topo.n, run.origin, group)
-    return run_until(step, state, cov, run)
+    out = run_until(step, state, cov, run)
+    RM.deliver(rec and rec.m)
+    return out
 
 
 def state_to_rank(seen, round_, key_data, msgs, rank: int, size: int,

@@ -39,18 +39,21 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
+from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import (CrdtConfig, FaultConfig, ProtocolConfig,
                                      RunConfig)
 from gossip_tpu_torch.models import crdt as M
 from gossip_tpu_torch.models.si import PULL_DROP_TAG, PULL_TAG, f32
 from gossip_tpu_torch.ops import crdt as CR
 from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops import round_metrics as RM
 from gossip_tpu_torch.ops import threefry
 from gossip_tpu_torch.ops.sampling import apply_drop
 from gossip_tpu_torch.parallel.group import Group, pad_rows
-from gossip_tpu_torch.parallel.sharded import _Rows
+from gossip_tpu_torch.parallel.sharded import SIRecorder, _Rows
 from gossip_tpu_torch.topology.generators import Topology
 
 
@@ -116,18 +119,80 @@ def eventual_rows(eventual: torch.Tensor, group: Group) -> torch.Tensor:
     return pad_rows(eventual, n_pad, False)[lo:lo + nl]
 
 
-def curve_loop(step, init, truth, eventual, run: RunConfig, group: Group):
+class PayloadRecorder(SIRecorder):
+    """The reference's ``_crdt_recorder``, ``sharded_log._log_recorder``
+    and ``sharded_register._txn_recorder``: ``newly`` the growth of the
+    payload's merged mass (``mass(rows, alive)``, exact: it only grows
+    under the join), ``offered`` a pull's full-state response of
+    ``width`` columns, ``bytes`` the state all_gather ``4 * nl * width``
+    and the msgs sum, ``front`` each shard's eventual-alive nodes holding
+    anything, and ``kind``'s converged fraction (with ``byz`` the honest
+    one, ``(count_fn, honest mask)``) from this rank's converged counts,
+    summed at the flush and divided by the total as the reference's
+    compiled loop does: a product with the float32 reciprocal of its
+    compile-time total.  A payload starts from all-zero rows: mass 0."""
+
+    def __init__(self, label: str, kind: str, n: int, group: Group, fault,
+                 origin: int, max_rounds: int, width: int, mass, truth,
+                 eventual, byz=None):
+        _, nl, _ = group.rows(n)
+        b = np.float32(4.0 + 4.0 * nl * width)
+        honest = None if byz is None else eventual & byz[1]
+        super().__init__(
+            label, ProtocolConfig(mode=C.PULL), n, group, fault, origin,
+            max_rounds, lambda round_: b,
+            alive_l=eventual_rows(eventual, group),
+            per_msg=width * RM.payload_factor(C.PULL), **{kind: True},
+            byz=byz is not None, conv_total=int(eventual.sum()),
+            byz_total=0 if honest is None else int(honest.sum()),
+            folded=True)
+        self.mass, self.truth = mass, truth
+        self.byz_count = None if byz is None else byz[0]
+        self.honest_l = (None if honest is None
+                         else eventual_rows(honest, group))
+        self.prev = 0
+
+    def __call__(self, s0, s1, lost=None) -> None:
+        count = self.mass(s1.val, self.alive_l)
+        msgs = s1.msgs - s0.msgs
+        kw = {}
+        if self.byz_count is not None:
+            kw["byz"] = self.byz_count(s1.val, self.truth, self.honest_l)
+        RM.record(self.m, newly=count - self.prev, msgs=msgs,
+                  offered=msgs * self.offered, bytes=self.bytes_of(s0.round),
+                  front=RM.front_packed(s1.val, self.alive_l),
+                  conv=CR.converged_count(s1.val, self.truth, self.alive_l),
+                  **kw, **self.nemesis(s0, lost))
+        self.prev = count
+
+
+def payload_step(step, fault, make_recorder):
+    """``(step, recorder or None)``: a sharded payload round with the
+    round metrics recorded when they are wanted
+    (:func:`~gossip_tpu_torch.parallel.sharded.instrumented` for the
+    payloads, whose rows start at zero)."""
+    if not RM.wanted():
+        return NE.drop_lost(step, NE.get(fault)), None
+    rec = make_recorder()
+    return rec.wrap(step, NE.get(fault) is not None), rec
+
+
+def curve_loop(step, init, truth, eventual, run: RunConfig, group: Group,
+               rec=None):
     """Exactly ``run.max_rounds`` sharded rounds: ``(conv float64[T],
     msgs float32[T], final_state)``, the converged counts summed over
-    the ranks and divided once on the host."""
+    the ranks and divided once on the host; ``rec``'s stack goes to the
+    chokepoint."""
     denom = max(1, int(eventual.sum()))
     counts, msgs, state = M.run_curve(step, init, truth,
                                       eventual_rows(eventual, group),
                                       run.max_rounds, group)
+    RM.deliver(rec and rec.m)
     return counts / denom, msgs, state
 
 
-def until_loop(step, init, truth, eventual, run: RunConfig, group: Group):
+def until_loop(step, init, truth, eventual, run: RunConfig, group: Group,
+               rec=None):
     """Sharded rounds until the converged count over the ranks reaches
     the integer target or ``run.max_rounds``: ``(rounds, conv, msgs,
     final_state)``."""
@@ -136,6 +201,7 @@ def until_loop(step, init, truth, eventual, run: RunConfig, group: Group):
                                eventual_rows(eventual, group),
                                M._conv_target_count(run, denom),
                                run.max_rounds, group)
+    RM.deliver(rec and rec.m)
     return state.round, count / denom, float(state.msgs.item()), state
 
 
@@ -158,17 +224,31 @@ def init_sharded_crdt_state(run: RunConfig, cfg: CrdtConfig, topo: Topology,
                      group)
 
 
-def _setup(cfg, proto, topo, run, group, fault, defend):
+def _setup(cfg, proto, topo, run, group, fault, defend, label):
     M.check_injections_reachable(cfg, run)
     dev, n = group.device, topo.n
-    step = NE.drop_lost(make_sharded_crdt_round(cfg, proto, topo, group,
-                                                fault, run.origin, defend),
-                        NE.get(fault))
     truth = CR.ground_truth(cfg, CR.inject_args(cfg, n, dev), fault, n,
                             run.origin, dev)
     eventual = CR.eventual_alive_crdt(fault, n, run.origin, dev)
+
+    def recorder():
+        byz = None
+        if NE.get_byz(fault) is not None:
+            honest = NE.honest_mask(fault, n, dev)
+            comp = CR.honest_component_mask(cfg, n, run.origin, honest)
+            byz = (lambda val, t, h: CR.byz_converged_tensor(cfg, val, t, h,
+                                                             comp), honest)
+        return PayloadRecorder(
+            label, "crdt", n, group, fault, run.origin, run.max_rounds,
+            CR.state_width(cfg, n),
+            lambda val, alive: CR.payload_count(cfg, val, alive), truth,
+            eventual, byz)
+
+    step, rec = payload_step(
+        make_sharded_crdt_round(cfg, proto, topo, group, fault, run.origin,
+                                defend), fault, recorder)
     init = functools.partial(init_sharded_crdt_state, run, cfg, topo, group)
-    return step, init, truth, eventual
+    return step, init, truth, eventual, rec
 
 
 def simulate_curve_crdt_sharded(cfg: CrdtConfig, proto: ProtocolConfig,
@@ -178,9 +258,11 @@ def simulate_curve_crdt_sharded(cfg: CrdtConfig, proto: ProtocolConfig,
     """Exactly ``run.max_rounds`` sharded rounds.  Returns ``(value_conv
     float64[T], msgs float32[T], final_state, truth_value)``, the state
     this rank's rows."""
-    step, init, truth, eventual = _setup(cfg, proto, topo, run, group,
-                                         fault, defend)
-    conv, msgs, state = curve_loop(step, init, truth, eventual, run, group)
+    step, init, truth, eventual, rec = _setup(
+        cfg, proto, topo, run, group, fault, defend,
+        "simulate_curve_crdt_sharded")
+    conv, msgs, state = curve_loop(step, init, truth, eventual, run, group,
+                                   rec)
     return conv, msgs, state, M.truth_scalar(cfg, truth, topo.n)
 
 
@@ -191,7 +273,8 @@ def simulate_until_crdt_sharded(cfg: CrdtConfig, proto: ProtocolConfig,
     """Sharded rounds until the converged-node count reaches the integer
     target or ``run.max_rounds``.  Returns ``(rounds, value_conv, msgs,
     final_state, truth_value)``, the state this rank's rows."""
-    step, init, truth, eventual = _setup(cfg, proto, topo, run, group,
-                                         fault, defend)
-    return until_loop(step, init, truth, eventual, run, group) + (
+    step, init, truth, eventual, rec = _setup(
+        cfg, proto, topo, run, group, fault, defend,
+        "simulate_until_crdt_sharded")
+    return until_loop(step, init, truth, eventual, run, group, rec) + (
         M.truth_scalar(cfg, truth, topo.n),)

@@ -54,6 +54,11 @@ the same rounds and operands, the planes lane-major between checkpoints
 and written in the reference's ``[W, rows, 128]`` layout, all ranks'
 planes in one file.
 
+Under an active run ledger the two loops record the reference's round
+metrics (:class:`PlaneRecorder`) from the kernel's per-rumor counters,
+which the loops already keep for the stop test, in one pass after the
+loop: no second pass over the planes and no work inside the loop.
+
 :func:`assert_prng_invariant` checks on every rank that the partner
 stream is the same: one identically keyed round on one deterministic
 plane, digested and gathered.  A differing rank raises.
@@ -70,6 +75,7 @@ import torch
 from gossip_tpu_torch.config import RunConfig
 from gossip_tpu_torch.ops import fused_mr_round as MR
 from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops import round_metrics as RM
 from gossip_tpu_torch.ops.common import (f32_fraction, f32_mean, from_words,
                                          to_words)
 from gossip_tpu_torch.ops.fused_round import BITS, LANES, drop_threshold_for
@@ -382,6 +388,48 @@ class _Operands:
         return _fraction(count, self.n, self.total)
 
 
+class PlaneRecorder:
+    """The reference's ``_plane_recorder``, read after the loop from the
+    kernel counters it already keeps, ``pops[r]`` (int32[W_local, 32],
+    every plane's count of each bit after round ``r``): a round's count
+    is their sum (every set bit, the all-ones rumor padding a constant
+    that cancels in ``newly``), this rank's front its least count times
+    ``float32(1 / n)``.  ``msgs`` is the driver's ``2 * fanout * n``;
+    ``offered`` every delivered digest bit (``fanout * n`` times the
+    mesh's ``W * 32``); ``bytes`` 4, the stop test's reduction, the only
+    traffic between ranks.  The loop itself records nothing: the stack
+    is filled in one pass over the rounds run (:meth:`finish`)."""
+
+    def __init__(self, label: str, n: int, rumors: int, fanout: int, group,
+                 max_rounds: int, planes: torch.Tensor):
+        w = plane_count(rumors, group.size)
+        self.n = n
+        self.offered = float(np.float32(fanout * n) * np.float32(w * BITS))
+        self.msgs = 2.0 * fanout * n
+        self.start = RM.count_planes(planes).reshape(1)
+        self.m = RM.init(max(max_rounds, 1), group.size, label, group.device,
+                         group=group, local_shards=1)
+
+    def finish(self, pops: torch.Tensor, rounds: int) -> RM.RoundMetrics:
+        """The stack of the loop's first ``rounds`` rounds, from their
+        counters ``pops[:rounds]`` (device arithmetic, no host read)."""
+        p = pops[:rounds]
+        RM.record_rounds(
+            self.m, rounds,
+            newly=torch.diff(p.to(torch.int64).sum((1, 2)),
+                             prepend=self.start),
+            front=RM.front_counts(p.amin((1, 2)), self.n)[:, None],
+            msgs=self.msgs, offered=self.offered, bytes=4.0)
+        return self.m
+
+
+def _recorder(label, n, rumors, fanout, group, run, lanes):
+    if not RM.wanted():
+        return None
+    return PlaneRecorder(label, n, rumors, fanout, group, run.max_rounds,
+                         lanes)
+
+
 def _init_and_masks(n: int, rumors: int, run: RunConfig, group, fault):
     """``(lanes, operands, least start count)``: this rank's start planes
     transposed to the kernel's lane-major layout ``int32[W_local, 128,
@@ -437,6 +485,8 @@ def simulate_until_sharded_fused(n: int, rumors: int, run: RunConfig, group,
     # the start's stop test, outside the timed loop: its reduction also
     # waits for the slowest rank's set-up
     cov = ops.fraction(int(_global_min(group, least.reshape(1))[0]))
+    rec = _recorder("simulate_until_sharded_fused", n, rumors, fanout,
+                    group, run, lanes)
 
     def loop(lanes, cov):
         target = np.float32(run.target_coverage)
@@ -450,6 +500,7 @@ def simulate_until_sharded_fused(n: int, rumors: int, run: RunConfig, group,
             m = _global_min(group, ops.least(pops[r], lanes).reshape(1))
             cov = ops.fraction(int(m[0]))
             r += 1
+        RM.deliver(rec and rec.finish(pops, r))
         return lanes, r, cov        # the spare buffer is freed here
 
     (lanes, rounds, cov), steady = steady_timed(dev, loop, lanes, cov)
@@ -465,6 +516,8 @@ def simulate_curve_sharded_fused(n: int, rumors: int, run: RunConfig, group,
     reduction over the ranks at the end turns them into the curve."""
     dev = group.device
     lanes, ops, _ = _timed_init(n, rumors, run, group, fault, timing)
+    rec = _recorder("simulate_curve_sharded_fused", n, rumors, fanout,
+                    group, run, lanes)
 
     def loop(lanes):
         rounds = run.max_rounds
@@ -476,6 +529,7 @@ def simulate_curve_sharded_fused(n: int, rumors: int, run: RunConfig, group,
             lanes, spare = _round(lanes, spare, pops[r], run.seed, r, n,
                                   fanout, ops.round_args(r))
             least[r] = ops.least(pops[r], lanes)
+        RM.deliver(rec and rec.finish(pops, rounds))
         counts = _global_min(group, least).tolist() if rounds else []
         return lanes, [ops.fraction(c) for c in counts]
 

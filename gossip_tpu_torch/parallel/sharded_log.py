@@ -19,7 +19,6 @@ from gossip_tpu_torch.config import (FaultConfig, LogConfig, ProtocolConfig,
                                      RunConfig)
 from gossip_tpu_torch.models import log as M
 from gossip_tpu_torch.ops import logs as LG
-from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.parallel import sharded_crdt as SC
 from gossip_tpu_torch.parallel.group import Group
 from gossip_tpu_torch.topology.generators import Topology
@@ -42,17 +41,21 @@ def init_sharded_log_state(run: RunConfig, cfg: LogConfig, topo: Topology,
     return SC.zero_rows(M.LogState, run, LG.state_width(cfg), topo.n, group)
 
 
-def _setup(cfg, proto, topo, run, group, fault):
+def _setup(cfg, proto, topo, run, group, fault, label):
     M.check_injections_reachable(cfg, run)
     dev, n = group.device, topo.n
-    step = NE.drop_lost(make_sharded_log_round(cfg, proto, topo, group,
-                                               fault, run.origin),
-                        NE.get(fault))
     truth = LG.ground_truth(cfg, LG.inject_args(cfg, n, dev), fault, n,
                             run.origin)
     eventual = LG.eventual_alive_crdt(fault, n, run.origin, dev)
+    step, rec = SC.payload_step(
+        make_sharded_log_round(cfg, proto, topo, group, fault, run.origin),
+        fault, lambda: SC.PayloadRecorder(
+            label, "log", n, group, fault, run.origin, run.max_rounds,
+            LG.state_width(cfg),
+            lambda val, alive: LG.payload_count(cfg, val, alive), truth,
+            eventual))
     init = functools.partial(init_sharded_log_state, run, cfg, topo, group)
-    return step, init, truth, eventual
+    return step, init, truth, eventual, rec
 
 
 def simulate_curve_log_sharded(cfg: LogConfig, proto: ProtocolConfig,
@@ -61,10 +64,10 @@ def simulate_curve_log_sharded(cfg: LogConfig, proto: ProtocolConfig,
     """Exactly ``run.max_rounds`` sharded rounds.  Returns ``(log_conv
     float64[T], msgs float32[T], final_state, truth_summary)``, the
     state this rank's rows."""
-    step, init, truth, eventual = _setup(cfg, proto, topo, run, group,
-                                         fault)
+    step, init, truth, eventual, rec = _setup(
+        cfg, proto, topo, run, group, fault, "simulate_curve_log_sharded")
     conv, msgs, state = SC.curve_loop(step, init, truth, eventual, run,
-                                      group)
+                                      group, rec)
     return conv, msgs, state, LG.truth_summary(cfg, truth)
 
 
@@ -74,7 +77,7 @@ def simulate_until_log_sharded(cfg: LogConfig, proto: ProtocolConfig,
     """Sharded rounds until the converged count reaches the integer
     target or ``run.max_rounds``.  Returns ``(rounds, log_conv, msgs,
     final_state, truth_summary)``, the state this rank's rows."""
-    step, init, truth, eventual = _setup(cfg, proto, topo, run, group,
-                                         fault)
-    return SC.until_loop(step, init, truth, eventual, run, group) + (
+    step, init, truth, eventual, rec = _setup(
+        cfg, proto, topo, run, group, fault, "simulate_until_log_sharded")
+    return SC.until_loop(step, init, truth, eventual, run, group, rec) + (
         LG.truth_summary(cfg, truth),)

@@ -29,13 +29,17 @@ from gossip_tpu_torch.models.si_packed import pull_merge_packed
 from gossip_tpu_torch.models.state import SimState
 from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.ops import threefry
-from gossip_tpu_torch.ops.bitpack import pack, rumor_count_tensor, unpack
+from gossip_tpu_torch.ops import round_metrics as RM
+from gossip_tpu_torch.ops.bitpack import (n_words, pack, rumor_count_tensor,
+                                          unpack)
 from gossip_tpu_torch.ops.common import f32_fraction, f32_mean
 from gossip_tpu_torch.ops.propagate import push_counts
 from gossip_tpu_torch.ops.sampling import apply_drop
 from gossip_tpu_torch.parallel.group import Group
-from gossip_tpu_torch.parallel.sharded import (Coverage, _Rows,
+from gossip_tpu_torch.parallel.sharded import (Coverage, SIRecorder, _Rows,
+                                               exchange_bytes,
                                                init_sharded_state,
+                                               instrumented,
                                                metric_alive_pad, run_until,
                                                sharded_folded)
 from gossip_tpu_torch.topology.generators import Topology
@@ -138,12 +142,24 @@ def simulate_until_packed_sharded(proto: ProtocolConfig, topo: Topology,
                                   fault: Optional[FaultConfig] = None):
     """The packed sharded while-loop to ``run.target_coverage`` or
     ``run.max_rounds``.  Returns ``(rounds, coverage, msgs,
-    final_state)``; ``final_state`` holds this rank's words."""
-    step = NE.drop_lost(make_sharded_packed_round(proto, topo, group, fault,
-                                                  run.origin), NE.get(fault))
+    final_state)``; ``final_state`` holds this rank's words.  Under an
+    active run ledger the loop records the reference's round metrics
+    (its ``_packed_recorder``: the packed all_gather's ``4 * nl * W``
+    bytes a round, anti-entropy's reverse count table on exchange
+    rounds)."""
     state = init_sharded_packed_state(run, proto, topo, group)
+    n_pad, nl, _ = group.rows(topo.n)
+    step, rec = instrumented(
+        make_sharded_packed_round(proto, topo, group, fault, run.origin),
+        state, fault, lambda: SIRecorder(
+            "simulate_until_packed_sharded", proto, topo.n, group, fault,
+            run.origin, run.max_rounds, exchange_bytes(
+                proto, 4.0 + 4.0 * nl * n_words(proto.rumors),
+                4.0 * n_pad * proto.rumors), packed=True))
     cov = Coverage(fault, topo.n, run.origin, group, proto.rumors)
-    return run_until(step, state, cov, run)
+    out = run_until(step, state, cov, run)
+    RM.deliver(rec and rec.m)
+    return out
 
 
 def sharded_checkpoint_ineligible_reason(proto: ProtocolConfig,

@@ -44,18 +44,31 @@ def init_sharded_reg_state(run: RunConfig, cfg: TxnConfig, topo: Topology,
     return SC.zero_rows(M.RegState, run, RG.state_width(cfg), topo.n, group)
 
 
-def _setup(cfg, proto, topo, run, group, fault, defend):
+def _setup(cfg, proto, topo, run, group, fault, defend, label):
     M.check_writes_reachable(cfg, run)
     dev, n = group.device, topo.n
-    step = NE.drop_lost(make_sharded_register_round(cfg, proto, topo, group,
-                                                    fault, run.origin,
-                                                    defend),
-                        NE.get(fault))
-    truth = RG.ground_truth(cfg, RG.inject_args(cfg, n, dev), fault, n,
-                            run.origin)
+    inj = RG.inject_args(cfg, n, dev)
+    truth = RG.ground_truth(cfg, inj, fault, n, run.origin)
     eventual = RG.eventual_alive_crdt(fault, n, run.origin, dev)
+
+    def recorder():
+        byz = None
+        if NE.get_byz(fault) is not None:
+            honest = NE.honest_mask(fault, n, dev)
+            km = RG.honest_key_mask(cfg, inj, fault, n, run.origin, honest)
+            byz = (lambda val, t, h: RG.byz_converged_tensor(cfg, val, t, h,
+                                                             km), honest)
+        return SC.PayloadRecorder(
+            label, "txn", n, group, fault, run.origin, run.max_rounds,
+            RG.state_width(cfg),
+            lambda val, alive: RG.payload_count(cfg, val, alive), truth,
+            eventual, byz)
+
+    step, rec = SC.payload_step(
+        make_sharded_register_round(cfg, proto, topo, group, fault,
+                                    run.origin, defend), fault, recorder)
     init = functools.partial(init_sharded_reg_state, run, cfg, topo, group)
-    return step, init, truth, eventual
+    return step, init, truth, eventual, rec
 
 
 def simulate_curve_txn_sharded(cfg: TxnConfig, proto: ProtocolConfig,
@@ -65,10 +78,11 @@ def simulate_curve_txn_sharded(cfg: TxnConfig, proto: ProtocolConfig,
     """Exactly ``run.max_rounds`` sharded rounds.  Returns ``(txn_conv
     float64[T], msgs float32[T], final_state, truth_summary)``, the
     state this rank's rows."""
-    step, init, truth, eventual = _setup(cfg, proto, topo, run, group,
-                                         fault, defend)
+    step, init, truth, eventual, rec = _setup(
+        cfg, proto, topo, run, group, fault, defend,
+        "simulate_curve_txn_sharded")
     conv, msgs, state = SC.curve_loop(step, init, truth, eventual, run,
-                                      group)
+                                      group, rec)
     return conv, msgs, state, RG.truth_summary(cfg, truth, topo.n)
 
 
@@ -79,7 +93,8 @@ def simulate_until_txn_sharded(cfg: TxnConfig, proto: ProtocolConfig,
     """Sharded rounds until the converged count reaches the integer
     target or ``run.max_rounds``.  Returns ``(rounds, txn_conv, msgs,
     final_state, truth_summary)``, the state this rank's rows."""
-    step, init, truth, eventual = _setup(cfg, proto, topo, run, group,
-                                         fault, defend)
-    return SC.until_loop(step, init, truth, eventual, run, group) + (
+    step, init, truth, eventual, rec = _setup(
+        cfg, proto, topo, run, group, fault, defend,
+        "simulate_until_txn_sharded")
+    return SC.until_loop(step, init, truth, eventual, run, group, rec) + (
         RG.truth_summary(cfg, truth, topo.n),)

@@ -40,12 +40,15 @@ from gossip_tpu_torch.models.rumor import (RUMOR_DROP_TAG, RUMOR_PUSH_TAG,
                                            RumorState)
 from gossip_tpu_torch.models.si import f32
 from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops import round_metrics as RM
 from gossip_tpu_torch.ops import threefry
 from gossip_tpu_torch.ops.common import f32_fraction, f32_mean
 from gossip_tpu_torch.ops.propagate import push_counts
 from gossip_tpu_torch.ops.sampling import apply_drop
 from gossip_tpu_torch.parallel.group import Group
-from gossip_tpu_torch.parallel.sharded import (_Rows, init_sharded_state,
+from gossip_tpu_torch.parallel.sharded import (SIRecorder, _Rows,
+                                               init_sharded_state,
+                                               instrumented,
                                                metric_alive_pad,
                                                sharded_folded)
 from gossip_tpu_torch.topology.generators import Topology
@@ -150,6 +153,50 @@ class _Counts:
         return torch.cat([held, hot]).to(torch.int64)
 
 
+class RumorRecorder(SIRecorder):
+    """The reference's ``_rumor_recorder``: the SI row plus the hit
+    counters' growth (``contacts``), which is ``dup`` itself for the
+    feedback variant (the counter grows by exactly the contacts whose
+    recipient already knew) and ``contacts - newly`` for blind; the
+    bytes are the count table's reduce-scatter, feedback's seen
+    all_gather and the msgs sum."""
+
+    def __init__(self, label: str, proto: ProtocolConfig, n: int,
+                 group: Group, fault, origin: int, max_rounds: int):
+        n_pad, nl, _ = group.rows(n)
+        r = proto.rumors
+        self.feedback = proto.rumor_variant == "feedback"
+        b = 4.0 * n_pad * r + (1.0 * nl * r if self.feedback else 0.0) + 4.0
+        super().__init__(label, proto, n, group, fault, origin, max_rounds,
+                         lambda round_: b)
+
+    def _hits(self, state: RumorState) -> torch.Tensor:
+        return torch.where(self.alive_l[:, None], state.cnt, 0).sum()
+
+    def start(self, state: RumorState) -> None:
+        self.prev = RM.count_bool(state.seen, self.alive_l)
+        self.prev_hits = self._hits(state)
+
+    def __call__(self, s0: RumorState, s1: RumorState, lost=None) -> None:
+        count = RM.count_bool(s1.seen, self.alive_l)
+        hits = self._hits(s1)
+        RM.record(self.m, newly=count - self.prev, msgs=s1.msgs - s0.msgs,
+                  contacts=hits - self.prev_hits,
+                  contacts_exact=self.feedback,
+                  bytes=self.bytes_of(s0.round),
+                  front=RM.front_bool(s1.seen, self.alive_l),
+                  **self.nemesis(s0, lost))
+        self.prev, self.prev_hits = count, hits
+
+
+def _rumor_step(label, proto, topo, run, group, fault, state):
+    return instrumented(
+        make_sharded_rumor_round(proto, topo, group, fault, run.origin),
+        state, fault, lambda: RumorRecorder(label, proto, topo.n, group,
+                                            fault, run.origin,
+                                            run.max_rounds))
+
+
 def simulate_until_rumor_sharded(proto: ProtocolConfig, topo: Topology,
                                  run: RunConfig, group: Group,
                                  fault: Optional[FaultConfig] = None):
@@ -158,9 +205,9 @@ def simulate_until_rumor_sharded(proto: ProtocolConfig, topo: Topology,
     coverage, residue, msgs, final_state)``: the coverage of the
     (eventual) alive set, the reference's eager quotient, and
     ``residue = 1 - coverage``; ``final_state`` holds this rank's rows."""
-    step = NE.drop_lost(make_sharded_rumor_round(proto, topo, group, fault,
-                                                 run.origin), NE.get(fault))
     state = init_sharded_rumor_state(run, proto, topo, group)
+    step, rec = _rumor_step("simulate_until_rumor_sharded", proto, topo, run,
+                            group, fault, state)
     counts = _Counts(fault, topo.n, run.origin, group)
 
     def any_hot(s):
@@ -171,6 +218,7 @@ def simulate_until_rumor_sharded(proto: ProtocolConfig, topo: Topology,
         state = step(state)
     held = group.all_reduce_sum(counts.local(state))[:-1]
     cov = f32_fraction(int(held.min()), counts.total)
+    RM.deliver(rec and rec.m)
     return (state.round, cov, 1.0 - cov, float(state.msgs.item()), state)
 
 
@@ -181,9 +229,9 @@ def simulate_curve_rumor_sharded(proto: ProtocolConfig, topo: Topology,
     of the coverage, the hot fraction and msgs after each round, as the
     reference's scan computes them (the counts summed over the ranks
     once, at the end), and this rank's final state."""
-    step = NE.drop_lost(make_sharded_rumor_round(proto, topo, group, fault,
-                                                 run.origin), NE.get(fault))
     state = init_sharded_rumor_state(run, proto, topo, group)
+    step, rec = _rumor_step("simulate_curve_rumor_sharded", proto, topo, run,
+                            group, fault, state)
     counts = _Counts(fault, topo.n, run.origin, group)
     frac = f32_mean if sharded_folded(fault) else f32_fraction
     per_round, msgs = [], []
@@ -191,6 +239,7 @@ def simulate_curve_rumor_sharded(proto: ProtocolConfig, topo: Topology,
         state = step(state)
         per_round.append(counts.local(state))
         msgs.append(state.msgs)
+    RM.deliver(rec and rec.m)
     table = group.all_reduce_sum(torch.stack(per_round)).cpu().tolist()
     covs = [frac(min(row[:-1]), counts.total) for row in table]
     hots = [frac(row[-1], counts.total) for row in table]

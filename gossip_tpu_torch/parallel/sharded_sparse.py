@@ -56,11 +56,14 @@ from gossip_tpu_torch.models.si import f32
 from gossip_tpu_torch.models.si_packed import init_packed_state
 from gossip_tpu_torch.models.state import SimState
 from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops import round_metrics as RM
 from gossip_tpu_torch.ops import threefry
 from gossip_tpu_torch.ops.bitpack import n_words, pack, unpack
 from gossip_tpu_torch.ops.common import resolve_device
 from gossip_tpu_torch.parallel.group import Group, pad_rows, pad_to_mesh
-from gossip_tpu_torch.parallel.sharded import (Coverage, _Rows, run_until,
+from gossip_tpu_torch.parallel.sharded import (Coverage, SIRecorder, _Rows,
+                                               exchange_bytes, instrumented,
+                                               run_until,
                                                sharded_alive)
 from gossip_tpu_torch.parallel.sharded_packed import init_sharded_packed_state
 from gossip_tpu_torch.topology import generators as G
@@ -536,24 +539,40 @@ def _zero(group: Group) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=group.device)
 
 
+def _recorder(label: str, proto: ProtocolConfig, n: int, run: RunConfig,
+              group: Group, fault, meta: SparseMeta) -> SIRecorder:
+    """The reference's ``_sparse_recorder``: the packed SI row, with the
+    exchange's own per-device bytes (its :class:`SparseMeta`) and the
+    msgs sum on exchange rounds, the msgs sum alone on quiescent
+    anti-entropy rounds."""
+    return SIRecorder(label, proto, n, group, fault, run.origin,
+                      run.max_rounds,
+                      exchange_bytes(proto, float(meta.sparse_bytes) + 4.0,
+                                     0.0, off=4.0), packed=True)
+
+
 def simulate_curve_sparse(proto: ProtocolConfig, n: int, run: RunConfig,
                           group: Group,
                           fault: Optional[FaultConfig] = None):
     """Exactly ``run.max_rounds`` rounds of the complete-graph sparse
     exchange.  Returns ``(coverage float32[T], msgs float32[T],
     final_state, SparseMeta)``."""
-    step = NE.drop_lost(make_sparse_pull_round(proto, n, group, fault,
-                                               run.origin), NE.get(fault))
     state = init_sparse_state(run, proto, n, group)
+    meta = _meta(proto, n, group)
+    step, rec = instrumented(
+        make_sparse_pull_round(proto, n, group, fault, run.origin), state,
+        fault, lambda: _recorder("simulate_curve_sparse", proto, n, run,
+                                 group, fault, meta))
     cov = Coverage(fault, n, run.origin, group, proto.rumors)
     covs, msgs = [], []
     for _ in range(run.max_rounds):
         state = step(state)
         covs.append(cov.compiled(state.seen))
         msgs.append(state.msgs)
+    RM.deliver(rec and rec.m)
     return (np.asarray(covs, np.float32),
             np.asarray([float(m.item()) for m in msgs], np.float32), state,
-            _meta(proto, n, group))
+            meta)
 
 
 def simulate_until_sparse(proto: ProtocolConfig, n: int, run: RunConfig,
@@ -562,11 +581,16 @@ def simulate_until_sparse(proto: ProtocolConfig, n: int, run: RunConfig,
     """The complete-graph sparse exchange's while-loop to
     ``run.target_coverage`` or ``run.max_rounds``.  Returns ``(rounds,
     coverage, msgs, final_state, SparseMeta)``."""
-    step = NE.drop_lost(make_sparse_pull_round(proto, n, group, fault,
-                                               run.origin), NE.get(fault))
     state = init_sparse_state(run, proto, n, group)
+    meta = _meta(proto, n, group)
+    step, rec = instrumented(
+        make_sparse_pull_round(proto, n, group, fault, run.origin), state,
+        fault, lambda: _recorder("simulate_until_sparse", proto, n, run,
+                                 group, fault, meta))
     cov = Coverage(fault, n, run.origin, group, proto.rumors)
-    return run_until(step, state, cov, run) + (_meta(proto, n, group),)
+    out = run_until(step, state, cov, run)
+    RM.deliver(rec and rec.m)
+    return out + (meta,)
 
 
 def _meta(proto: ProtocolConfig, n: int, group: Group,
@@ -590,18 +614,27 @@ def simulate_curve_topo_sparse(proto: ProtocolConfig, topo: Topology,
     step = make_sparse_topo_pull_round(proto, topo, group, fault,
                                        run.origin, cap)
     state = init_sparse_state(run, proto, topo.n, group)
+    meta = _meta(proto, topo.n, group, cap)
+    rec = None
+    if RM.wanted():
+        rec = _recorder("simulate_curve_topo_sparse", proto, topo.n, run,
+                        group, fault, meta)
+        rec.start(state)
     cov = Coverage(fault, topo.n, run.origin, group, proto.rumors)
     ovf = _zero(group)
     covs, msgs, ovfs = [], [], []
     for _ in range(run.max_rounds):
+        s0 = state
         state, ovf = step(state, ovf)
+        if rec is not None:
+            rec(s0, state)
         covs.append(cov.compiled(state.seen))
         msgs.append(state.msgs)
         ovfs.append(ovf)
+    RM.deliver(rec and rec.m)
     return (np.asarray(covs, np.float32),
             np.asarray([float(m.item()) for m in msgs], np.float32), state,
-            _meta(proto, topo.n, group, cap),
-            np.asarray([float(o.item()) for o in ovfs], np.float32))
+            meta, np.asarray([float(o.item()) for o in ovfs], np.float32))
 
 
 def simulate_until_topo_sparse(proto: ProtocolConfig, topo: Topology,
@@ -615,11 +648,17 @@ def simulate_until_topo_sparse(proto: ProtocolConfig, topo: Topology,
                                          run.origin, cap)
     ovf = [_zero(group)]
 
-    def step(state: SimState) -> SimState:
+    def plain(state: SimState) -> SimState:
         state, ovf[0] = round_(state, ovf[0])
         return state
 
     state = init_sparse_state(run, proto, topo.n, group)
+    meta = _meta(proto, topo.n, group, cap)
+    step, rec = instrumented(
+        plain, state, fault, lambda: _recorder(
+            "simulate_until_topo_sparse", proto, topo.n, run, group, fault,
+            meta))
     cov = Coverage(fault, topo.n, run.origin, group, proto.rumors)
-    return run_until(step, state, cov, run) + (
-        _meta(proto, topo.n, group, cap), float(ovf[0].item()))
+    out = run_until(step, state, cov, run)
+    RM.deliver(rec and rec.m)
+    return out + (meta, float(ovf[0].item()))

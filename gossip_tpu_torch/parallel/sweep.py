@@ -62,6 +62,14 @@ bytes an element of a draw), so a batch peaks near S times its solo
 round.  Where a batch would pass :data:`BATCH_BYTES`, the drivers run
 it in chunks of points, one after another (value-invariant);
 ``meta['batch_chunks']`` says how many.
+
+The reference's sweep-end cache gauges (its ``sweep.py``
+``_emit_pod_sweep_cache_telemetry``: the pod-sweep scan memo's entries,
+hits and evictions) report a memo of compiled scans that this module
+does not keep: a batch here is plain torch rounds, built again each
+call.  So no gauge is written for them; the batches' ``driver_timing``
+events come from the chokepoint
+(:func:`~gossip_tpu_torch.utils.timing.steady_timed`).
 """
 
 from __future__ import annotations

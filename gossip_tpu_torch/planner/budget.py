@@ -15,9 +15,8 @@ differ:
   ``torch.cuda.get_device_properties(0).total_memory``) and the card
   machine's host RAM (:data:`HOST_RAM_BYTES`, its ``MemTotal``), where
   the reference's default is a TPU chip's 16 GiB and a 64 GiB host;
-* :func:`crosscheck_peak` returns its verdict without the run ledger's
-  ``budget_xcheck`` event (the port has no ledger yet), and its measured
-  peak is the port's ``torch.cuda.max_memory_allocated``.
+* :func:`crosscheck_peak`'s measured peak is the port's
+  ``torch.cuda.max_memory_allocated``.
 
 What the forms count, engine by engine:
 
@@ -469,7 +468,8 @@ def crosscheck_peak(predicted_bytes, measured_bytes, *,
     """The measured<=predicted drift gate, as ONE reusable cross-check:
     the port's measured peak (``torch.cuda.max_memory_allocated`` over
     one segment's tiles, planner/stream) against this module's closed
-    forms.  Returns the reference's verdict dict.
+    forms.  Returns the reference's verdict dict and writes it as one
+    ``budget_xcheck`` event to the ambient run ledger.
 
     ``measured_bytes=None`` (the CPU, which reports no device peak)
     records explicit nulls with ``ok=None`` — the verdict is never
@@ -490,8 +490,9 @@ def crosscheck_peak(predicted_bytes, measured_bytes, *,
                "measured_bytes": measured, "ok": ok,
                "headroom_frac": headroom, "source": source,
                "plan_fingerprint": plan_fingerprint}
-    # the run ledger's budget_xcheck event (ROADMAP item 6d) is emitted
-    # here, unsynced, once the port has the ledger
+    # unsynced: the streamed driver calls this inside its first segment
+    from gossip_tpu_torch.utils import telemetry
+    telemetry.current().event("budget_xcheck", sync=False, **verdict)
     return verdict
 
 

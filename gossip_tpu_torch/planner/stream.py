@@ -58,9 +58,12 @@ Execution contract:
   their plan fingerprints agree; ``resume`` refuses a file of another
   plan or fault program, in the reference's words.
 
-The run ledger's events (``scale_plan``, ``tile_stream``,
-``scale_segment``, ``scale_run``) are ROADMAP item 6d's; their places
-are marked below, and their numbers go out through ``stats``.
+The run ledger gets the reference's events, with the numbers ``stats``
+carries: ``scale_plan`` once, ``tile_stream`` a tile (unsynced),
+``scale_segment`` a published segment, ``scale_run`` at the end, and
+:func:`~gossip_tpu_torch.planner.budget.crosscheck_peak`'s
+``budget_xcheck``.  Under several ranks rank 0 writes them, its own
+tiles' ``tile_stream`` among them.
 
 Scope refusals (the reference's): engine != packed, mode != pull, more
 slices than the world has.
@@ -89,6 +92,7 @@ from gossip_tpu_torch.planner.budget import (WORD_BITS, ScalePlan,
                                              crosscheck_peak,
                                              plan_fingerprint)
 from gossip_tpu_torch.topology import generators as G
+from gossip_tpu_torch.utils import telemetry
 
 # node chunks a tile step draws its rows in: the draw's transient
 # tensors (int64 ids, keys, threefry words and partners; a bare draw
@@ -645,7 +649,14 @@ def _run_rank(plan: ScalePlan, *, group, device, checkpoint_path, resume,
         c0 = t * bucket
         return c0, min(c0 + bucket, w_total)
 
-    # the run ledger's scale_plan event (ROADMAP item 6d) goes here
+    led = telemetry.current()
+    if led.active:
+        led.event("scale_plan", n=n, tiles=tiles, bucket_words=bucket,
+                  total_words=w_total, segments=plan.segment_count,
+                  dcn_slices=n_slices, overlap=overlap,
+                  predicted_peak_device_bytes=(
+                      plan.predicted_peak_device_bytes),
+                  plan_fingerprint=plan_fp, resumed=resumed)
     stage = _Stage(nl, bucket, dev)
     key = _device_key(plan.seed, dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -724,13 +735,13 @@ def _run_rank(plan: ScalePlan, *, group, device, checkpoint_path, resume,
                     "trajectory-independent")
             wait_ms = (t1 - t0) * 1e3
             wait_total_ms += wait_ms
-            # the run ledger's tile_stream event (item 6d) goes here
-            stats.append({"event": "tile_stream", "round": seg_round,
-                          "tile": t, "slice": rk.slice_index,
-                          "put_ms": rec["put_ms"],
-                          "dispatch_ms": rec["dispatch_ms"],
-                          "wait_ms": wait_ms,
-                          "copy_ms": (t2 - t1) * 1e3})
+            tile = {"round": seg_round, "tile": t, "slice": rk.slice_index,
+                    "put_ms": rec["put_ms"],
+                    "dispatch_ms": rec["dispatch_ms"], "wait_ms": wait_ms,
+                    "copy_ms": (t2 - t1) * 1e3}
+            stats.append({"event": "tile_stream", **tile})
+            if led.active:
+                led.event("tile_stream", sync=False, **tile)
 
         pending = None
         for i, t in enumerate(mine):
@@ -774,8 +785,10 @@ def _run_rank(plan: ScalePlan, *, group, device, checkpoint_path, resume,
                      save_state)
             rec["save_ms"] = (time.perf_counter() - t0) * 1e3
             rec["bytes"] = os.path.getsize(checkpoint_path)
-        # the run ledger's scale_segment event (item 6d) goes here
         stats.append(rec)
+        if checkpoint_path and led.active:
+            led.event("scale_segment", round=done, tiles=tiles,
+                      dropped=dropped, wall_ms=seg_wall_ms)
         if halt_after_segments is not None \
                 and segments_run >= halt_after_segments \
                 and done < plan.max_rounds:
@@ -817,10 +830,16 @@ def _run_rank(plan: ScalePlan, *, group, device, checkpoint_path, resume,
     final = None
     if keep_state:
         final = host[:real] if rk.world is None else _row0_state(rk, host, n)
-    # the run ledger's scale_run event (item 6d) goes here
     stats.append({"event": "scale_run", "rounds": done,
                   "wall_ms": wall_total_ms, "wait_ms": wait_total_ms,
                   "measured_loop_bytes": measured})
+    if led.active:
+        led.event("scale_run", rounds=done, coverage=cov, msgs=msgs,
+                  dropped=dropped, tiles=tiles, halted=halted,
+                  bitwise_equal=bitwise, dcn_slices=n_slices,
+                  overlap=overlap, overlap_efficiency=efficiency,
+                  wall_ms=wall_total_ms, wait_ms=wait_total_ms,
+                  measured_loop_bytes=measured)
     result = ScaleRunResult(
         n=n, rounds=done, coverage=cov, msgs=msgs, dropped=dropped,
         tiles=tiles, bucket_words=bucket, segments_run=segments_run,

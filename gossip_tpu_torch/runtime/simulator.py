@@ -44,6 +44,7 @@ from gossip_tpu_torch.models.si import (coverage, least_count, make_si_round,
                                         topology_device)
 from gossip_tpu_torch.models.state import SimState, init_state
 from gossip_tpu_torch.ops import nemesis as NE
+from gossip_tpu_torch.ops import round_metrics as RM
 from gossip_tpu_torch.ops.common import f32_fraction, f32_mean
 from gossip_tpu_torch.topology.generators import Topology, complete
 
@@ -162,7 +163,60 @@ def _swim_setup(proto: ProtocolConfig, n: int, rounds: int, dead_nodes,
                                    proto.swim_rotate, epoch_rounds, dev)
         return SW.detection_counts(s.wire, dead, observers, window)
 
-    return step, init, counts if dead else None
+    return step, init, counts if dead else None, observers
+
+
+class SwimRecorder:
+    """The reference's ``_swim_recorder``, the failure-detection reading
+    of the round metrics: ``newly`` the newly confirmed-dead (observer,
+    subject) wire entries among the observers, ``front`` each shard's
+    fraction of observers holding any confirmed death, ``offered`` the
+    dissemination bound ``fanout * n * S``, ``bytes`` the wire merge's
+    ``4 * n_pad * S`` table and the msgs sum on a mesh (0 on one
+    device).  ``observers`` is this rank's rows of the metric's
+    observers."""
+
+    def __init__(self, label: str, proto: ProtocolConfig, n: int,
+                 max_rounds: int, observers: torch.Tensor, group=None):
+        s_subj = proto.swim_subjects
+        k = 1 if group is None else group.size
+        n_pad = n if group is None else group.rows(n)[0]
+        self.observers = observers
+        self.offered = float(np.float32(proto.fanout * n * s_subj))
+        self.bytes = 0.0 if k == 1 else 4.0 * n_pad * s_subj + 4.0
+        self.m = RM.init(max(max_rounds, 1), k, label, observers.device,
+                         group=group, local_shards=1)
+        self.prev = None
+
+    def _dead(self, state):
+        return state.wire == SW.DEAD_WIRE
+
+    def start(self, state) -> None:
+        self.prev = RM.count_bool(self._dead(state), self.observers)
+
+    def wrap(self, step):
+        def recorded(s0):
+            s1 = step(s0)
+            dead = self._dead(s1)
+            count = RM.count_bool(dead, self.observers)
+            RM.record(self.m, newly=count - self.prev,
+                      msgs=s1.msgs - s0.msgs, offered=self.offered,
+                      bytes=self.bytes,
+                      front=RM.front_bool(dead, self.observers))
+            self.prev = count
+            return s1
+
+        return recorded
+
+
+def _swim_recorded(label, proto, n, rounds, step, state, observers, group):
+    """``(step, recorder or None)``: the SWIM step with its round metrics
+    recorded when they are wanted."""
+    if not RM.wanted():
+        return step, None
+    rec = SwimRecorder(label, proto, n, rounds, observers, group)
+    rec.start(state)
+    return rec.wrap(step), rec
 
 
 def simulate_swim_curve(proto: ProtocolConfig, n: int, rounds: int,
@@ -175,14 +229,17 @@ def simulate_swim_curve(proto: ProtocolConfig, n: int, rounds: int,
     the final state.  With a ``group`` (the reference's ``mesh``) the
     sharded round runs, the state is this rank's rows, and the counts
     are summed over the ranks once, at the end."""
-    step, state, counts = _swim_setup(proto, n, rounds, dead_nodes,
-                                      fail_round, fault, topo, seed, device,
-                                      group)
+    step, state, counts, observers = _swim_setup(
+        proto, n, rounds, dead_nodes, fail_round, fault, topo, seed, device,
+        group)
+    step, rec = _swim_recorded("simulate_swim_curve", proto, n, rounds, step,
+                               state, observers, group)
     per_round = []
     for _ in range(rounds):
         state = step(state)
         if counts is not None:
             per_round.append(torch.stack(counts(state)))
+    RM.deliver(rec and rec.m)
     if counts is None:
         return np.zeros(rounds, np.float32), state
     table = torch.stack(per_round) if per_round else None
@@ -205,9 +262,11 @@ def simulate_swim_until(proto: ProtocolConfig, n: int, max_rounds: int,
     falls back once the window has left the dead node's epoch).  With a
     ``group``: as :func:`simulate_swim_curve`, the counts summed over the
     ranks every round."""
-    step, state, counts = _swim_setup(proto, n, max_rounds, dead_nodes,
-                                      fail_round, fault, topo, seed, device,
-                                      group)
+    step, state, counts, observers = _swim_setup(
+        proto, n, max_rounds, dead_nodes, fail_round, fault, topo, seed,
+        device, group)
+    step, rec = _swim_recorded("simulate_swim_until", proto, n, max_rounds,
+                               step, state, observers, group)
 
     def detection(s):
         c = torch.stack(counts(s))
@@ -221,6 +280,7 @@ def simulate_swim_until(proto: ProtocolConfig, n: int, max_rounds: int,
         state = step(state)
         det = detection(state) if counts is not None else 0.0
         peak = max(peak, det)
+    RM.deliver(rec and rec.m)
     return state.round, det, peak, state
 
 
@@ -285,7 +345,7 @@ def checkpointed_swim(proto: ProtocolConfig, n: int, run: RunConfig,
     0)."""
     from gossip_tpu_torch.utils.checkpoint import (on_device,
                                                    run_with_checkpoints)
-    step, state, counts = _swim_setup(proto, n, run.max_rounds, dead_nodes,
+    step, state, counts, _ = _swim_setup(proto, n, run.max_rounds, dead_nodes,
                                       fail_round, fault, topo, run.seed,
                                       device, group)
     if resume_state is not None:

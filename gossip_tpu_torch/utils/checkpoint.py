@@ -40,7 +40,10 @@ Crash contract (the reference's):
 rounds, each a plain loop of rounds that reads the host once at its end
 (:func:`_fetch`: the curve, the ``dropped`` carry and the state for the
 save together).  The reference's jitted segment runners and their
-executable caches have no counterpart here.
+executable caches have no counterpart here.  Each published checkpoint
+writes one ``checkpoint`` event to the ambient run ledger (``path``,
+``round`` and, with ``track_lost``, ``dropped``): the flight record that
+``tools/crashloop`` checks its kills against.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from gossip_tpu_torch.models.swim import SwimState
 from gossip_tpu_torch.ops import threefry
 from gossip_tpu_torch.ops.common import resolve_device
 from gossip_tpu_torch.ops.fused_round import FusedState
+from gossip_tpu_torch.utils import telemetry
 
 KEY_IMPL = "threefry2x32"
 
@@ -454,6 +458,18 @@ def run_with_checkpoints(step, state: State, rounds: int, path: str,
             stats.append({"round": base_round + done, "d2h_ms": d2h_ms,
                           "write_ms": (time.perf_counter() - t1) * 1e3,
                           "bytes": os.path.getsize(path)})
+        flight_record(base_round + done)
+
+    def flight_record(round_):
+        # one ledger event a published checkpoint (fsynced): a SIGKILLed
+        # run's ledger shows the round cursor, and under a fault program
+        # the exact dropped total, of its last durable state
+        led = telemetry.current()
+        if led.active:
+            fields = {"path": path, "round": int(round_)}
+            if track_lost:
+                fields["dropped"] = dropped
+            led.event("checkpoint", **fields)
 
     done = 0
     while done < rounds:

@@ -4,6 +4,13 @@ chain of steps.
 There is no compile on this side: the CUDA kernels are built once, at
 first use, and that build is reported as ``build_s`` in place of the
 reference's ``compile_s``.
+
+:func:`steady_timed` is the port's chokepoint, the counterpart of the
+reference's ``utils/trace.maybe_aot_timed``: every timed driver call goes
+through it, and after its stop event, outside the timed window, it
+writes the ``driver_timing`` event to the ambient run ledger and flushes
+the round-metrics stacks the call delivered
+(:mod:`gossip_tpu_torch.ops.round_metrics`).
 """
 
 from __future__ import annotations
@@ -96,20 +103,44 @@ def steady_timed(device, fn, /, *args, **kwargs):
     On a CUDA device the time is read from CUDA events recorded around
     the call, between two synchronizes: the call's device work and the
     host's waits inside it, not just the enqueue.  On the CPU it is the
-    host clock."""
+    host clock.  Then, outside the timed window, the call's records
+    (:func:`_records`)."""
+    from gossip_tpu_torch.ops import round_metrics as RM
     device = torch.device(device)
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        return out, time.perf_counter() - t0
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn(*args, **kwargs)
-    stop.record()
-    torch.cuda.synchronize(device)
-    return out, start.elapsed_time(stop) / 1e3
+    with RM.collecting() as stacks:
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds = time.perf_counter() - t0
+        else:
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            torch.cuda.synchronize(device)
+            seconds = start.elapsed_time(stop) / 1e3
+    _records(fn, seconds, stacks)
+    return out, seconds
+
+
+def _records(fn, seconds: float, stacks: list) -> None:
+    """The chokepoint's ledger half: one ``driver_timing`` event (flush
+    only: a caller may be timing this call) with the function's name, its
+    module as the label and the steady wall, then every round-metrics
+    stack the call delivered, read to the host once
+    (:func:`~gossip_tpu_torch.ops.round_metrics.emit`; under a group a
+    collective of every rank)."""
+    from gossip_tpu_torch.ops import round_metrics as RM
+    from gossip_tpu_torch.utils import telemetry
+    led = telemetry.current()
+    name = getattr(fn, "__name__", None) or type(fn).__name__
+    led.event("driver_timing", sync=False, fn=name,
+              label=getattr(fn, "__module__", "").rsplit(".", 1)[-1] or None,
+              steady_s=seconds)
+    if stacks:
+        RM.emit([(m, f or name) for m, f in stacks], led)
 
 
 def timing_meta(build_s: float, steady_s: float, wall_s: float) -> dict:

@@ -36,6 +36,7 @@ from gossip_tpu.topology import generators as JG
 from gossip_tpu_torch import cli
 from gossip_tpu_torch import config as TC
 from gossip_tpu_torch.models import crdt as M
+from gossip_tpu_torch.ops import _kernels
 from gossip_tpu_torch.ops import crdt as CR
 from gossip_tpu_torch.topology import generators as G
 
@@ -550,10 +551,15 @@ def test_cli_crdt_error_paths(capsys):
     assert json.loads(capsys.readouterr().out)["engine"] == "crdt-sharded"
     with pytest.raises(SystemExit):
         cli.main(["crdt", "--type", "vclock", "--device", "cpu"])
-    for flag in (["--no-compile-cache"], ["--compile-cache", "d"]):
-        with pytest.raises(SystemExit) as e:   # no executable store
-            cli.main(["crdt", "--device", "cpu"] + flag)
-        assert e.value.code == 2
+    # the build-cache flags name the kernels' library store
+    for flag, want in ((["--no-compile-cache"], None),
+                       (["--compile-cache", "d"], "d")):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(_kernels, "_STORE", {"dir": None, "fresh": False})
+            mp.setenv(_kernels.CACHE_ENV, "")
+            assert cli.main(["crdt", "--n", "32", "--device", "cpu"]
+                            + flag) == 0
+        assert json.loads(capsys.readouterr().out)["compile_cache"] == want
 
 
 def test_cr1_command_line_matches_reference(capsys):
