@@ -14,8 +14,9 @@ the node-sharded drivers at K = 1 (NCCL) and K = 2 (two ranks on the
 card under gloo), SWIM, rumor and the payloads among them, the sparse
 all_to_all and halo ppermute exchanges, the fused rumor planes, the
 sweep axis (seed ensembles, config grids, churn sweeps), checkpoints
-and resume, the streamed planner at 100M nodes, and the roofline tool
-through the port's own entry points, and measures them.  One JSON line per phase:
+and resume, the streamed planner at 100M nodes, the serving stack
+(batched and solo requests through the sidecar's handlers), and the
+roofline tool through the port's own entry points, and measures them.  One JSON line per phase:
 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
@@ -307,6 +308,29 @@ through the port's own entry points, and measures them.  One JSON line per phase
    ms with and without metrics.  The ``scale`` phase's SC100M straight
    leg runs under the ledger, whose ``scale_*`` and ``budget_xcheck``
    events must equal the leg's ``stats``;
+22c. ``serving``  the serving stack in this process, without grpc (a
+   line says whether grpc imports here): sixteen ``Run`` requests as
+   JSON bytes, each from its own thread, through the sidecar's handler
+   under a batching core (``ServingConfig(tick_ms=20, max_batch=64)``):
+   BASELINE.json configuration 4's scale (n 600,000 to 1,048,576, one
+   2^20 bucket), the complete graph, the four batchable modes, fanout 2,
+   rumors 1-4, drops 0 / 0.02 / 0.05, two under ``churn_heal`` scaled to
+   their n, 24 rounds with the curve; every reply batched and bitwise
+   its solo run (``simulate_curve``, the curve driver of
+   ``run_simulation(engine='xla', want_curve=True)``: curve, msgs,
+   rounds, coverage, the final state's digest), with the ticks, lanes,
+   the batch's ms a round and its peak memory; the flagship ``Run``
+   (10M, pull, fanout 1, ``engine: auto``) through the handler, labeled
+   with the reference's reason and launching ``csrc/fused_round.cu`` 27
+   times, equal to a direct ``run_simulation``; the same at 32 rumors
+   (kernel 2); two flagships at once, 27 launches each; an ``Ensemble``
+   of eight seeds (push-pull, 1M, 24 rounds) batched, equal to
+   ``run_ensemble``; a malformed body, an unknown field, an oversized
+   ensemble, a full queue and an expired deadline, each with the
+   reference's code and a one-line message; and the burst requests/s
+   with the median and largest latency of the sixteen requests sent at
+   once, solo (no batcher) and batched, warm, in two alternated pairs
+   (medians and ranges; a smoke reading, sixteen samples a leg);
 23. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
@@ -344,6 +368,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 N = 10_000_000
@@ -5445,6 +5470,306 @@ def phase_roofline(dev, smi: str):
                      for name, k in docs[N]["kernels"].items()}
 
 
+# The serving phase (PR 20): sixteen Run requests at BASELINE.json
+# configuration 4's scale (the 2^20 bucket, n 600,000 to 1,048,576; the
+# complete graph, the four batchable modes, fanout 2, rumors 1-4, drops 0 /
+# 0.02 / 0.05, two under churn_heal scaled to their n; 24 rounds with the
+# curve), the request mix docs/SERVING.md's batcher coalesces.
+SERVE_ROUNDS = 24
+SERVE_MODES = ("push", "pull", "pushpull", "antientropy")
+SERVE_DROPS = (0.0, 0.02, 0.05)
+# two alternated pairs (cut from three for the script's time limit)
+SERVE_PAIRS = ("solo", "batched", "batched", "solo")
+
+
+def _serve_requests() -> list:
+    """The sixteen requests as JSON dicts (module comment above)."""
+    reqs = []
+    for i in range(16):
+        n = (600_000 + (i * 29_917) % ((1 << 20) - 600_000 + 1)
+             if i < 15 else 1 << 20)
+        mode = SERVE_MODES[i % 4]
+        proto = {"mode": mode, "fanout": 2, "rumors": 1 + i % 4}
+        if mode == "antientropy":
+            proto["period"] = 2
+        req = {"backend": "jax-tpu", "proto": proto,
+               "topology": {"family": "complete", "n": n},
+               "run": {"max_rounds": SERVE_ROUNDS, "seed": 100 + i,
+                       "engine": "xla"}, "curve": True}
+        drop = SERVE_DROPS[i % 3]
+        if i in (5, 10):
+            req["fault"] = {"drop_prob": 0.02, "seed": i, "churn": {
+                "events": [[1, 1, 4], [2, 2, -1]],
+                "partitions": [[0, 6, n // 2]], "ramp": [0, 4, 0.0, 0.1]}}
+        elif drop:
+            req["fault"] = {"drop_prob": drop, "seed": i}
+        reqs.append(req)
+    return reqs
+
+
+def _serve_leg(handler, reqs, batcher, dev, timeout=None):
+    """Each request from its own thread through ``handler``: (replies,
+    latencies in ms, wall in s).  A refusal fails the leg."""
+    from gossip_tpu_torch.rpc import sidecar as SC
+    out, lat, errs = [None] * len(reqs), [None] * len(reqs), []
+
+    def go(i):
+        t0 = time.perf_counter()
+        try:
+            out[i] = json.loads(handler(json.dumps(reqs[i]).encode(),
+                                        SC.LocalContext(timeout), batcher,
+                                        dev))
+        except SC.Aborted as e:
+            errs.append(f"{e.code.value}: {e.message}")
+        lat[i] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errs, f"serving leg refused: {errs[:2]}")
+    return out, lat, time.perf_counter() - t0
+
+
+def _same_reply(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in ("curve", "msgs", "rounds",
+                                      "coverage"))
+
+
+def _serve_errors(dev) -> dict:
+    """The five refusals under a core that never ticks on its own: a
+    malformed body, an unknown field, an oversized ensemble, a full
+    queue (two expired requests hold it) and the expired deadline, each
+    with the reference's code and a one-line message."""
+    from gossip_tpu_torch.config import ServingConfig
+    from gossip_tpu_torch.rpc import batcher as B
+    from gossip_tpu_torch.rpc import sidecar as SC
+    small = {"backend": "jax-tpu", "proto": {"mode": "pull", "fanout": 1},
+             "topology": {"family": "complete", "n": 8},
+             "run": {"max_rounds": 2, "engine": "xla"}}
+    b = B.Batcher(ServingConfig(tick_ms=10_000, max_batch=4, max_queue=2),
+                  dev)
+    got = {}
+
+    def refusal(name, handler, body, ctx):
+        try:
+            handler(body, ctx, b, dev)
+        except SC.Aborted as e:
+            got[name] = {"code": e.code.value, "message": e.message}
+
+    held = [threading.Thread(target=refusal, args=(
+        f"expired_{i}", SC._run, json.dumps(small).encode(),
+        SC.LocalContext(0.0))) for i in range(2)]
+    try:
+        refusal("malformed", SC._run, b'{"proto": ', SC.LocalContext())
+        refusal("unknown_field", SC._run,
+                json.dumps({**small, "nope": 1}).encode(), SC.LocalContext())
+        refusal("oversized", SC._ensemble,
+                json.dumps({**small, "ensemble": 8}).encode(),
+                SC.LocalContext())
+        for t in held:
+            t.start()
+        deadline = time.monotonic() + 30
+        while len(b._queue) < 2 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        refusal("queue_full", SC._run, json.dumps(small).encode(),
+                SC.LocalContext())
+    finally:
+        b.close()
+        for t in held:
+            t.join()
+    want = {"malformed": ("INVALID_ARGUMENT", "Expecting value"),
+            "unknown_field": ("INVALID_ARGUMENT",
+                              "unknown request fields: ['nope']"),
+            "oversized": ("INVALID_ARGUMENT",
+                          "request needs 8 megabatch lanes but max_batch "
+                          "is 4; split the ensemble or raise the server's "
+                          "batch cap"),
+            "queue_full": ("RESOURCE_EXHAUSTED",
+                           "admission queue full (2/2 lanes); back off and "
+                           "retry"),
+            "expired_0": ("DEADLINE_EXCEEDED",
+                          "deadline expired before the batch tick ran")}
+    for name, (code, words) in want.items():
+        e = got.get(name)
+        check(e is not None and e["code"] == code
+              and words in e["message"] and "\n" not in e["message"],
+              f"serving refusal {name}: {e}")
+    return got
+
+
+def phase_serving(dev, smi: str):
+    """The serving stack in the script's own process, without grpc
+    (``gossip_tpu_torch.rpc``'s handlers and batcher): the sixteen-request
+    megabatch against each request's solo run, the flagship and the
+    32-rumor ``Run`` through the handler (the kernels' routes, two at
+    once), a batched ensemble against ``run_ensemble``, the five
+    refusals, and requests/s and latency solo against batched."""
+    import importlib.util
+
+    import torch
+
+    from gossip_tpu_torch.backend import (request_to_args, run_ensemble,
+                                          run_simulation)
+    from gossip_tpu_torch.config import (ProtocolConfig, RunConfig,
+                                         ServingConfig, TopologyConfig)
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.parallel.sweep import state_digest
+    from gossip_tpu_torch.rpc import batcher as B
+    from gossip_tpu_torch.rpc import sidecar as SC
+    from gossip_tpu_torch.runtime.simulator import simulate_curve
+    from gossip_tpu_torch.topology import generators as G
+    from gossip_tpu_torch.utils.telemetry import percentile
+    spec = importlib.util.find_spec("grpc")
+    version = None
+    if spec is not None:
+        import grpc
+        version = getattr(grpc, "__version__", None)
+    emit("serving_grpc", importable=spec is not None, version=version,
+         card=smi)
+    t_phase = time.perf_counter()
+    reqs = _serve_requests()
+    cfg = ServingConfig(tick_ms=20, max_batch=64)
+
+    # the megabatch, then each request's solo run (the curve driver that
+    # run_simulation(engine='xla', want_curve=True) runs, for its state)
+    batcher = B.Batcher(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        batched, _, batch_wall = _serve_leg(SC._run, reqs, batcher, dev)
+    finally:
+        batcher.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    groups = {}
+    for rep in batched:
+        b = rep["meta"]["batch"]
+        check(b["batched"] is True, f"request not batched: {b}")
+        groups[b["tick"], b["rumor_bucket"]] = {
+            "tick": b["tick"], "rumor_bucket": b["rumor_bucket"],
+            "lanes": b["size"], "run_ms": b["run_ms"],
+            "ms_per_round": b["run_ms"] / SERVE_ROUNDS}
+    solo_digest_equal = 0
+    for req, rep in zip(reqs, batched):
+        args = request_to_args(req)
+        res = simulate_curve(args["proto"], G.complete(args["tc"].n),
+                             args["run"], args["fault"], dev)
+        curve = [float(c) for c in res.coverage]
+        check(rep["curve"] == curve and rep["msgs"] == float(res.msgs[-1])
+              and rep["rounds"] == res.rounds_to_target
+              and rep["coverage"] == curve[-1],
+              f"batched reply != solo run for n={args['tc'].n} "
+              f"{args['proto'].mode}")
+        check(rep["meta"]["state_digest"] == state_digest(
+            res.state.seen, args["tc"].n, args["proto"].rumors),
+            f"state digest != solo for n={args['tc'].n}")
+        solo_digest_equal += 1
+        del res
+    run_ms = sum(g["run_ms"] for g in groups.values())
+    emit("serving_megabatch", requests=len(reqs),
+         ticks=len({t for t, _ in groups}), groups=list(groups.values()),
+         rounds=SERVE_ROUNDS, batches_run_ms=run_ms,
+         ms_per_round=run_ms / SERVE_ROUNDS, leg_wall_s=batch_wall,
+         peak_mem_bytes=peak,
+         solo_equal=solo_digest_equal,
+         cache=sorted({r["meta"]["batch"]["cache"] for r in batched}),
+         card=smi)
+
+    # the kernels' routes through the handler: the flagship (27 launches
+    # of fused_round), the 32-rumor run (kernel 2), two flagships at once
+    routes = {}
+    batcher = B.Batcher(cfg, dev)
+    try:
+        for name, rumors in (("flagship", 1), ("rumors32", 32)):
+            req = {"proto": {"mode": "pull", "fanout": 1, "rumors": rumors},
+                   "topology": {"family": "complete", "n": N},
+                   "run": {"seed": SEED, "engine": "auto"}}
+            (rep,), _, wall = _serve_leg(SC._run, [req], batcher, dev)
+            direct = run_simulation(
+                ProtocolConfig(mode="pull", fanout=1, rumors=rumors),
+                TopologyConfig(family="complete", n=N),
+                RunConfig(seed=SEED, engine="auto"), device=dev)
+            kernel = "fused_round" if rumors == 1 else "fused_mr_round"
+            check(rep["meta"]["batch"] == {
+                "batched": False,
+                "reason": "engine=auto routes to the fused engine"},
+                f"{name} batch label {rep['meta']['batch']}")
+            check(rep["meta"]["launches"][kernel] == rep["rounds"] > 0
+                  and sum(rep["meta"]["launches"].values()) == rep["rounds"],
+                  f"{name} launches {rep['meta']['launches']}")
+            check(rep["rounds"] == direct.rounds
+                  and rep["coverage"] == direct.coverage
+                  and rep["msgs"] == direct.msgs,
+                  f"{name} reply != direct run_simulation")
+            routes[name] = {"rounds": rep["rounds"],
+                            "launches": rep["meta"]["launches"],
+                            "coverage": rep["coverage"], "msgs": rep["msgs"],
+                            "wall_s": rep["wall_s"], "handler_s": wall}
+        check(routes["flagship"]["launches"]["fused_round"] == 27,
+              f"flagship launched {routes['flagship']['launches']}")
+        flag = {"proto": {"mode": "pull", "fanout": 1},
+                "topology": {"family": "complete", "n": N},
+                "run": {"seed": SEED, "engine": "auto"}}
+        pair, lat, _ = _serve_leg(SC._run, [flag, flag], batcher, dev)
+        for rep in pair:
+            check(rep["meta"]["launches"]["fused_round"] == 27,
+                  f"concurrent flagship launched {rep['meta']['launches']}")
+        routes["two_flagships"] = {
+            "launches": [r["meta"]["launches"]["fused_round"] for r in pair],
+            "wall_s": [r["wall_s"] for r in pair], "latency_ms": lat}
+
+        # a batched ensemble: eight seeds, pushpull at 1M
+        ens_req = {"proto": {"mode": "pushpull"},
+                   "topology": {"family": "complete", "n": N_SMALL},
+                   "run": {"max_rounds": SERVE_ROUNDS, "engine": "xla"},
+                   "ensemble": 8}
+        (ens,), _, ens_wall = _serve_leg(SC._ensemble, [ens_req], batcher,
+                                         dev)
+    finally:
+        batcher.close()
+    solo_ens, _ = run_ensemble(ProtocolConfig(mode="pushpull"),
+                               TopologyConfig(n=N_SMALL),
+                               RunConfig(max_rounds=SERVE_ROUNDS,
+                                         engine="xla"), count=8, device=dev)
+    check(ens["batch"]["batched"] is True and ens["batch"]["size"] == 8
+          and ens["ensemble"] == solo_ens.summary(),
+          f"batched ensemble {ens} != run_ensemble {solo_ens.summary()}")
+    emit("serving_routes", **routes, ensemble=ens["ensemble"],
+         ensemble_wall_s=ens_wall, card=smi)
+    errors = _serve_errors(dev)
+
+    # burst throughput: the same sixteen requests at once, solo (no
+    # batcher: they wait on the device lock) and batched, warm, in
+    # alternated pairs.  Sixteen readings a leg give a median and a
+    # largest (their p95 and p99 would both be the largest): a smoke
+    # reading, not a steady arrival rate
+    legs = {"solo": [], "batched": []}
+    for kind in SERVE_PAIRS:
+        core = B.Batcher(cfg, dev) if kind == "batched" else None
+        try:
+            out, lat, wall = _serve_leg(SC._run, reqs, core, dev)
+        finally:
+            if core is not None:
+                core.close()
+        for rep, want in zip(out, batched):
+            check(_same_reply(rep, want), f"{kind} leg reply changed")
+        leg = {"burst_rps": len(reqs) / wall, "wall_s": wall,
+               "p50_ms": percentile(lat, 0.50), "max_ms": max(lat)}
+        if kind == "batched":
+            # each group's ms a round, warm, by rumor bucket
+            for rep in out:
+                b = rep["meta"]["batch"]
+                leg[f"bucket{b['rumor_bucket']}_ms_per_round"] = \
+                    b["run_ms"] / SERVE_ROUNDS
+        legs[kind].append(leg)
+    summary = {kind: {key: _spread([leg[key] for leg in runs])
+                      for key in runs[0]} for kind, runs in legs.items()}
+    emit("serving_throughput", order=list(SERVE_PAIRS), legs=legs,
+         summary=summary, errors=errors, phase_s=time.perf_counter() - t_phase,
+         build_events=_kernels.build_events(), card=smi)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # ``--only sweeps,roofline``: those phases alone, after the device and
@@ -5495,6 +5820,7 @@ def main(argv=None) -> int:
                   "mesh_path": phase_mesh_path,
                   "mesh_fused_planes": phase_mesh_fused_planes,
                   "mr_parts": phase_mr_parts,
+                  "serving": phase_serving,
                   "records": lambda dev, smi: phase_records(
                       dev, smi, run_simulation(
                           ProtocolConfig(mode="pull", fanout=1),
@@ -5508,6 +5834,15 @@ def main(argv=None) -> int:
         for p in only:
             phases[p](dev, smi)
         return 0
+
+    # each step's wall since the one before it (the "walls" line), to see
+    # where the script's time limit goes
+    walls, last = {}, [time.perf_counter()]
+
+    def mark(step):
+        now = time.perf_counter()
+        walls[step] = now - last[0]
+        last[0] = now
 
     # 3. kernel against plain, then times at the main path's shape
     results, max_err, table = phase_checks(dev, N)
@@ -5533,6 +5868,7 @@ def main(argv=None) -> int:
          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
          bound_by=bound_by, generic_f2_deaths_drop=generic,
          sass_static=round_sass(_kernels.FUSED_ROUND), card=smi)
+    mark("checks")
 
     # 4. the main path, counts from 0
     for k in _kernels.KERNELS:
@@ -5579,32 +5915,51 @@ def main(argv=None) -> int:
     line = bench.measurement_line(N, b_rounds, seconds, bench.card_info())
     check(b_rounds == rounds, f"bench ran {b_rounds} rounds, not {rounds}")
     emit("bench", line=line)
+    mark("main_path_and_bench")
 
     mr_kernels = phase_mr(dev, smi)
+    mark("mr")
     mr_parts = phase_mr_parts(dev, smi)
+    mark("mr_parts")
 
     sampler = phase_sampler_checks(dev, smi)
     threefry_round_ms = phase_xla_main_path(dev, smi)
     xla_sampler_launches = phase_xla_sampler_path(dev, smi,
                                                   threefry_round_ms)
+    mark("sampler_and_xla_paths")
     churn_launches = phase_churn_path(dev, smi)
+    mark("churn_path")
     single_runs = dict(phase_swim_rumor_path(dev, smi))
+    mark("swim_rumor_path")
     crdt_runs, cr4_single = phase_crdt_log_path(dev, smi)
     single_runs.update(crdt_runs, CR4_direct=cr4_single)
+    mark("crdt_log_path")
     txn_runs, tx10m_single = phase_txn_path(dev, smi)
     single_runs.update(txn_runs, TX10M_direct=tx10m_single)
+    mark("txn_path")
     sampler.update(launches=churn_launches, path="churn_path",
                    launches_by_path={"xla_sampler_path": xla_sampler_launches,
                                      "churn_path": churn_launches})
     phase_fused_deaths(dev, smi)
+    mark("fused_deaths")
     cfg5_ms = phase_mesh_path(dev, smi)
+    mark("mesh_path")
     phase_mesh_models(dev, smi, single_runs)
+    mark("mesh_models")
     phase_mesh_exchanges(dev, smi, cfg5_ms)
+    mark("mesh_exchanges")
     planes_launches = phase_mesh_fused_planes(dev, smi)
+    mark("mesh_fused_planes")
     sweeps_launches = phase_sweeps(dev, smi)
+    mark("sweeps")
     ck_launches = phase_checkpoints(dev, smi)
+    mark("checkpoints")
     phase_scale(dev, smi)
+    mark("scale")
     phase_records(dev, smi, report.to_dict())
+    mark("records")
+    phase_serving(dev, smi)
+    mark("serving")
     mr_kernels[0]["launches_by_path"] = {
         "mr_main_path": mr_kernels[0]["launches"],
         "mesh_fused_planes": planes_launches,
@@ -5626,6 +5981,8 @@ def main(argv=None) -> int:
             "bound_ms": mr_parts["bound_ms"]["f2"],
             **_kernels.fused_mr_occupancy(2, True, True, False, thr)}}
     cal_kernels, floors = phase_roofline(dev, smi)
+    mark("roofline")
+    emit("walls", steps_s=walls, total_s=sum(walls.values()), card=smi)
 
     kernels = [{
         "name": "fused_round", "route": "cuda",

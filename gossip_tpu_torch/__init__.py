@@ -38,7 +38,11 @@ Layout:
   - :mod:`gossip_tpu_torch.runtime.simulator`  the bool rounds' and SWIM's
     loops
   - :mod:`gossip_tpu_torch.ops._kernels`     build, binding and launch
-  - :mod:`gossip_tpu_torch.backend`          ``run_simulation``
+  - :mod:`gossip_tpu_torch.backend`          ``run_simulation`` and the
+    serving wire (``request_to_args``, ``dispatch``)
+  - :mod:`gossip_tpu_torch.rpc`              serving: the admission
+    batcher, the sidecar's handlers and gRPC transport, the failover
+    router
   - :mod:`gossip_tpu_torch.cli`              ``python -m gossip_tpu_torch``
   - :mod:`gossip_tpu_torch.bench`            the node-rounds/s line
   - :mod:`gossip_tpu_torch.ops.calibrate`    the calibration microkernels

@@ -249,7 +249,10 @@ def _device_name(dev: torch.device) -> str:
 
 
 def _launch_counts() -> Dict[str, int]:
-    return {k.name: k.launches for k in _kernels.ROUND_KERNELS}
+    """The calling thread's launches of each round kernel: a report's
+    ``launches`` is a difference of two of these, so runs in other
+    threads of a serving process never land in it."""
+    return _kernels.thread_launches()
 
 
 def _run_fused(proto: ProtocolConfig, topo: TopologyConfig, run: RunConfig,
@@ -873,3 +876,96 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
             rep.meta["engine_auto"] = "fused"
         return rep
     return _run_xla(proto, topo, run, fault, want_curve, dev)
+
+
+# -- the serving wire (the reference's request format) ----------------------
+
+# The backend names on the wire are the reference's, so a client written for
+# it sends the same bytes: "jax-tpu" names the simulator of the serving
+# process, this package's on its device (a report's ``backend`` says which,
+# torch-cuda or torch-cpu).
+BACKENDS = ("jax-tpu", "go-native")
+GO_NATIVE_NOT_PORTED = ("backend 'go-native' (the reference's C++ event "
+                        "core) is not ported yet: it is the next slice "
+                        "(ROADMAP queue 1, item 7b); use 'jax-tpu'")
+
+_CFG_TYPES = {"proto": ProtocolConfig, "topology": TopologyConfig,
+              "run": RunConfig, "fault": FaultConfig,
+              "mesh": MeshConfig, "log": C.LogConfig, "txn": C.TxnConfig}
+_ARG_NAMES = {"proto": "proto", "topology": "tc", "run": "run",
+              "fault": "fault", "mesh": "mesh_cfg", "log": "log_cfg",
+              "txn": "txn_cfg"}
+
+
+def request_to_args(req: Dict[str, Any]) -> Dict[str, Any]:
+    """A JSON request dict -> the keyword arguments of :func:`dispatch`,
+    the reference's parse and words: unknown fields are refused.  A
+    request's ``run`` takes the reference's default engine, ``auto``
+    (this package's ``RunConfig`` defaults to ``fused``)."""
+    known_top = set(_CFG_TYPES) | {"backend", "curve"}
+    bad_top = set(req) - known_top
+    if bad_top:
+        raise ValueError(f"unknown request fields: {sorted(bad_top)}")
+    curve = req.get("curve", False)
+    if not isinstance(curve, bool):
+        raise ValueError(f"curve must be a bool, got {curve!r}")
+    out: Dict[str, Any] = {"backend": req.get("backend", "jax-tpu"),
+                           "want_curve": curve}
+    for key, cls in _CFG_TYPES.items():
+        val = req.get(key)
+        if val is None:
+            cfg = None
+        else:
+            known = {f.name for f in dataclasses.fields(cls)}
+            bad = set(val) - known
+            if bad:
+                raise ValueError(f"unknown {key} fields: {sorted(bad)}")
+            cfg = cls(**({"engine": "auto", **val} if cls is RunConfig
+                         else val))
+        out[_ARG_NAMES[key]] = cfg
+    if out["proto"] is None:
+        out["proto"] = ProtocolConfig()
+    if out["tc"] is None:
+        out["tc"] = TopologyConfig()
+    if out["run"] is None:
+        out["run"] = RunConfig(engine="auto")
+    return out
+
+
+def fused_auto_ok(proto: ProtocolConfig, tc: TopologyConfig,
+                  fault: Optional[FaultConfig], device=None) -> bool:
+    """Whether ``engine='auto'`` takes the fused route for this
+    single-device run: it is eligible and the device is CUDA
+    (:func:`run_simulation`'s rule).  On the CPU never, so there auto
+    requests batch, as the reference's do off its TPU."""
+    if fused_ineligible_reason(proto, tc, RunConfig(), fault) is not None:
+        return False
+    dev = torch.device("cuda" if device is None else device)
+    return dev.type == "cuda"
+
+
+def dispatch(backend: str, proto: ProtocolConfig, tc: TopologyConfig,
+             run: RunConfig, fault: Optional[FaultConfig] = None,
+             mesh_cfg: Optional[MeshConfig] = None,
+             want_curve: bool = False, log_cfg=None, txn_cfg=None,
+             device=None) -> RunReport:
+    """The reference's ``run_simulation(backend, ...)`` on the wire's
+    arguments (:func:`request_to_args`): its payload checks in its words,
+    ``jax-tpu`` to :func:`run_simulation` on ``device``, ``go-native``
+    refused (not ported yet), any other name the reference's "unknown
+    backend"."""
+    # the reference's words
+    if log_cfg is not None and txn_cfg is not None:
+        raise ValueError("a request carries at most one payload "
+                         "workload; pick 'log' or 'txn'")
+    for name, cfg in (("txn", txn_cfg), ("log", log_cfg)):
+        if cfg is not None and backend != "jax-tpu":
+            raise ValueError(f"the {name} workload needs the jax-tpu "
+                             "backend")
+    if backend == "go-native":
+        raise ValueError(GO_NATIVE_NOT_PORTED)
+    if backend != "jax-tpu":
+        raise ValueError(f"unknown backend {backend!r}; choose from "
+                         f"{BACKENDS}")
+    return run_simulation(proto, tc, run, fault, want_curve, device,
+                          mesh_cfg, log_cfg, txn_cfg)

@@ -1,8 +1,9 @@
 """Command line of the port: ``python -m gossip_tpu_torch
-run|grid|churn-sweep|crdt|log|txn|plan|scale-run``.
+run|grid|churn-sweep|crdt|log|txn|plan|scale-run|serve|route|fleet-status``.
 
 The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
-``crdt``, ``log``, ``txn``, ``plan`` and ``scale-run`` commands::
+``crdt``, ``log``, ``txn``, ``plan``, ``scale-run``, ``serve``,
+``route`` and ``fleet-status`` commands::
 
     python -m gossip_tpu_torch run --mode pull --n 10000000 [--engine E] \\
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
@@ -58,6 +59,14 @@ The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
     python -m gossip_tpu_torch scale-run --plan FILE [--checkpoint PATH] \\
         [--resume] [--check-bitwise] [--measure-memory] [--no-overlap]
         [--share-card] [--device cpu]
+    python -m gossip_tpu_torch serve [--port P] [--workers W] \\
+        [--no-batching] [--batch-tick-ms T] [--batch-max B]
+        [--batch-queue Q] [--devices 1] [--device cpu]
+    python -m gossip_tpu_torch route [--replicas N] [--port P] \\
+        [--workers W] [--probe-interval-ms T] [--down-after D]
+        [--up-after U] [--max-inflight M] [--no-batching] [--device cpu]
+    python -m gossip_tpu_torch fleet-status HOST:PORT [--watch] \\
+        [--interval S] [--timeout S] [--json] [--out PATH]
 
 ``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
 ``--engine`` one of ``auto|xla|fused`` (default ``auto``:
@@ -180,6 +189,24 @@ lines, ``crdt``, ``log``, ``txn``; not ``--ensemble``'s) is the
 directory, or null with the cache off.  The reference's XLA
 ``xla_compile`` event becomes ``kernel_build``; its ``JitCompileMonitor``
 has no counterpart, since nothing is compiled again at run time.
+
+``serve``, ``route`` and ``fleet-status`` (:mod:`gossip_tpu_torch.rpc`)
+take the JAX commands' flags, defaults and exit codes, plus ``--device``
+on ``serve`` and ``route``: ``serve`` starts the sidecar (admission
+batching on unless ``--no-batching``) and prints ``{"serving": true,
+"port": ...}``; ``route`` spawns ``--replicas`` sidecars (each with the
+command's ``--device``) behind the failover router and prints
+``{"routing": true, ...}``, or exits 1 when not every replica was
+admitted within 60 s; ``fleet-status HOST:PORT`` renders a router's or a
+replica's ``Metrics`` reply and exits 0 (healthy), 1 (degraded) or 2
+(unreachable).  They need the ``grpc`` package (without it, an
+ImportError naming it).  ``serve --devices`` and ``route
+--devices-per-replica`` above 1 (the reference's request-axis mesh) are
+refused: not ported yet.  The reference's ``--coordinator``,
+``--num-processes``, ``--process-id`` (one replica over several
+processes) are refused above one process, and its ``route
+--replica-platform`` (the replicas' JAX platform pin) has no
+counterpart: the replicas take ``--device``.
 """
 
 from __future__ import annotations
@@ -188,16 +215,19 @@ import argparse
 import json
 import os
 import sys
-from typing import Optional
+from typing import List, Optional
 
 from gossip_tpu_torch import config as C
 from gossip_tpu_torch.config import (ByzConfig, ChurnConfig, CrdtConfig,
-                                     FaultConfig, LogConfig, MeshConfig,
-                                     ProtocolConfig, RunConfig,
-                                     TopologyConfig, TxnConfig)
+                                     FaultConfig, FleetConfig, LogConfig,
+                                     MeshConfig, ProtocolConfig, RunConfig,
+                                     ServingConfig, TopologyConfig,
+                                     TxnConfig)
 
 
 PAYLOAD_COMMANDS = ("crdt", "log", "txn")
+# commands that never join a launcher's process group
+SINGLE_PROCESS_COMMANDS = ("plan", "serve", "route", "fleet-status")
 
 
 def _add_cache_flags(p) -> None:
@@ -1317,6 +1347,247 @@ def cmd_scale_run(a) -> int:
                          share_card=a.share_card)
 
 
+def cmd_serve(a) -> int:
+    """``serve``: the gRPC sidecar (:func:`gossip_tpu_torch.rpc.sidecar.
+    serve`)."""
+    from gossip_tpu_torch.rpc.sidecar import serve
+    batching = None
+    if not a.no_batching:
+        batching = ServingConfig(tick_ms=a.batch_tick_ms,
+                                 max_batch=a.batch_max,
+                                 max_queue=a.batch_queue,
+                                 devices=a.devices,
+                                 coordinator=a.coordinator,
+                                 num_processes=a.num_processes,
+                                 process_id=a.process_id)
+    server, port = serve(a.port, a.workers, batching=batching,
+                         device=a.device)
+    print(json.dumps({"serving": True, "port": port,
+                      "batching": batching is not None,
+                      "devices": (batching.devices
+                                  if batching is not None else 1)}),
+          flush=True)
+    server.wait_for_termination()
+    return 0
+
+
+def cmd_route(a) -> int:
+    """``route``: spawn sidecar replicas behind the failover router
+    (:class:`gossip_tpu_torch.rpc.router.Fleet`)."""
+    from gossip_tpu_torch.rpc.router import Fleet, fleet_env
+    cfg = FleetConfig(replicas=a.replicas,
+                      probe_interval_ms=a.probe_interval_ms,
+                      down_after=a.down_after, up_after=a.up_after,
+                      max_inflight=a.max_inflight,
+                      devices_per_replica=a.devices_per_replica)
+    replica_argv = ["--no-batching"] if a.no_batching else []
+    if a.device is not None:
+        replica_argv += ["--device", a.device]
+    fleet = Fleet(cfg=cfg, port=a.port, max_workers=a.workers,
+                  replica_argv=replica_argv, env=fleet_env())
+    try:
+        if not fleet.router.wait_healthy(a.replicas, timeout_s=60):
+            print(f"error: only {fleet.router.healthy_count()}/"
+                  f"{a.replicas} replicas admitted within 60s (see "
+                  f"the replica logs under {fleet.workdir})",
+                  file=sys.stderr)
+            return 1
+        print(json.dumps({
+            "routing": True, "port": fleet.port,
+            "replicas": [r.address for r in fleet.router.replicas],
+            "healthy": fleet.router.healthy_count()}), flush=True)
+        fleet.server.wait_for_termination()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        fleet.close()
+    return 0
+
+
+def _fleet_degraded(m: dict) -> List[str]:
+    """Why a ``Metrics`` reply is degraded (empty: healthy), the
+    reference's reasons."""
+    reasons = []
+    if m.get("router"):
+        if m.get("healthy", 0) < m.get("replicas", 0):
+            reasons.append(f"{m.get('healthy', 0)}/"
+                           f"{m.get('replicas', 0)} replicas healthy")
+        for row in m.get("fleet", ()):
+            if not row.get("healthy"):
+                reasons.append(f"replica {row.get('replica')} "
+                               f"{(row.get('state') or 'down')}")
+            elif "error" in row:
+                reasons.append(f"replica {row.get('replica')} metrics "
+                               f"unreachable: {row['error']}")
+    elif not m.get("ok"):
+        reasons.append("replica reports not ok")
+    return reasons
+
+
+def _window_text(w: dict) -> str:
+    return (f"rps {w.get('rps', 0)} p50 {w.get('p50_ms', 0)}ms "
+            f"p99 {w.get('p99_ms', 0)}ms")
+
+
+def _render_fleet_status(m: dict) -> str:
+    """The fleet table of one poll (the reference's): a router's reply
+    renders its fleet, a replica's its own window."""
+    if not m.get("router"):
+        return (f"replica | {_window_text(m.get('window', {}))}"
+                f" | inflight {m.get('inflight', 0)} compiles "
+                f"{m.get('compiles_total')} (+{m.get('compiles_delta')})"
+                f" devices {m.get('serving_devices')}")
+    c = m.get("counters", {})
+    lines = [f"fleet {m.get('healthy', 0)}/{m.get('replicas', 0)} "
+             f"healthy | {_window_text(m.get('window', {}))} | dispatched "
+             f"{c.get('dispatched', 0)} failovers "
+             f"{c.get('failovers', 0)} sheds {c.get('sheds', 0)}"]
+    for row in m.get("fleet", ()):
+        state = "up" if row.get("healthy") \
+            else (row.get("state") or "down").upper()
+        line = (f"  r{row.get('replica')} {row.get('address', ''):<21}"
+                f" {state:<5} epoch {row.get('epoch')} "
+                f"inflight {row.get('inflight')}")
+        rm = row.get("metrics")
+        if rm:
+            line += (f" | {_window_text(rm.get('window', {}))} | compiles "
+                     f"{rm.get('compiles_total')} "
+                     f"(+{rm.get('compiles_delta')}) devices "
+                     f"{rm.get('serving_devices')}")
+        elif "error" in row:
+            line += f" | error: {row['error']}"
+        lines.append(line)
+    return "\n".join(lines)
+
+
+def cmd_fleet_status(a) -> int:
+    """``fleet-status``: live fleet health over ``Metrics``; exit 0
+    healthy, 1 degraded, 2 the target unreachable."""
+    import time
+
+    from gossip_tpu_torch.rpc.sidecar import SidecarClient
+    from gossip_tpu_torch.utils import telemetry
+    client = SidecarClient(a.address, max_attempts=1)
+    rc = 2
+    try:
+        while True:
+            try:
+                m = client.metrics(timeout=a.timeout_s)
+            except (client._grpc.RpcError, ValueError) as e:
+                code = e.code() if callable(getattr(e, "code", None)) \
+                    else None
+                print(f"error: {a.address} unreachable "
+                      f"({code or type(e).__name__})", file=sys.stderr)
+                rc, m = 2, None
+            if m is not None:
+                reasons = _fleet_degraded(m)
+                rc = 1 if reasons else 0
+                if a.as_json:
+                    print(json.dumps({"degraded": bool(reasons),
+                                      "reasons": reasons,
+                                      "metrics": m}), flush=True)
+                else:
+                    print(_render_fleet_status(m), flush=True)
+                    for reason in reasons:
+                        print(f"  DEGRADED: {reason}", flush=True)
+                if a.out:
+                    with open(a.out, "w") as f:
+                        json.dump({"provenance": telemetry.provenance(),
+                                   "degraded": bool(reasons),
+                                   "reasons": reasons, "metrics": m},
+                                  f, indent=1)
+            if not a.watch:
+                return rc
+            time.sleep(a.interval_s)
+    except KeyboardInterrupt:
+        return rc
+    finally:
+        client.close()
+
+
+def _add_serving_parsers(sub) -> None:
+    """``serve``, ``route`` and ``fleet-status``: the JAX commands' flags
+    and help, plus ``--device``."""
+    device_help = ("cpu serves the plain versions (default: cuda, which "
+                   "must be present)")
+    p = sub.add_parser("serve", help="start the gRPC sidecar")
+    p.add_argument("--port", type=int, default=50051)
+    p.add_argument("--workers", type=int, default=16)
+    p.add_argument("--no-batching", action="store_true",
+                   help="disable the admission-batching serving layer "
+                        "(per-request solo dispatch)")
+    p.add_argument("--batch-tick-ms", type=float, default=20.0,
+                   help="admission collector cadence")
+    p.add_argument("--batch-max", type=int, default=64,
+                   help="per-tick per-key megabatch lane cap")
+    p.add_argument("--batch-queue", type=int, default=256,
+                   help="backpressure cap: admissions past this depth "
+                        "get RESOURCE_EXHAUSTED")
+    p.add_argument("--devices", type=int, default=1,
+                   help="megabatch mesh width (power of two); above 1 "
+                        "refused: the request-axis mesh is not ported "
+                        "yet")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="coordinator address when one replica spans "
+                        "processes (refused: not ported yet)")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="process count of one replica (1: one process)")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="this process's rank in [0, num-processes)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help=device_help)
+    _add_cache_flags(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("route", help="front N sidecar replicas with the "
+                       "health-gated failover router")
+    p.add_argument("--replicas", type=int, default=2,
+                   help="sidecar replica processes to spawn")
+    p.add_argument("--port", type=int, default=50051,
+                   help="router port (replicas pick free ports)")
+    p.add_argument("--workers", type=int, default=16)
+    p.add_argument("--probe-interval-ms", type=float, default=250.0,
+                   help="health-probe cadence per replica")
+    p.add_argument("--down-after", type=int, default=2,
+                   help="consecutive probe failures before a replica "
+                        "leaves rotation")
+    p.add_argument("--up-after", type=int, default=3,
+                   help="consecutive healthy probes before a downed "
+                        "replica re-enters rotation (flap hysteresis)")
+    p.add_argument("--max-inflight", type=int, default=8,
+                   help="per-replica in-flight cap; past it the router "
+                        "sheds with RESOURCE_EXHAUSTED")
+    p.add_argument("--no-batching", action="store_true",
+                   help="disable admission batching in the replicas")
+    p.add_argument("--devices-per-replica", type=int, default=1,
+                   help="megabatch mesh width per replica (power of "
+                        "two); above 1 refused: not ported yet")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="the replicas' device: " + device_help)
+    p.set_defaults(fn=cmd_route)
+
+    p = sub.add_parser(
+        "fleet-status", help="live fleet metrics table over the Metrics "
+        "RPC; exits nonzero on a degraded replica")
+    p.add_argument("address", metavar="HOST:PORT",
+                   help="router address (renders the whole fleet) or a "
+                        "single replica address (renders its window)")
+    p.add_argument("--watch", action="store_true",
+                   help="re-render every --interval seconds until ^C "
+                        "(exit code reflects the LAST poll)")
+    p.add_argument("--interval", dest="interval_s", type=float,
+                   default=2.0, help="--watch poll cadence, seconds")
+    p.add_argument("--timeout", dest="timeout_s", type=float,
+                   default=10.0, help="per-poll Metrics RPC timeout")
+    p.add_argument("--json", dest="as_json", action="store_true",
+                   help="one JSON document per poll instead of the "
+                        "table")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="also write the latest poll as a provenance-"
+                        "stamped fleet_status JSON document")
+    p.set_defaults(fn=cmd_fleet_status)
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The command line's parser; each command sets ``fn``."""
     ap = argparse.ArgumentParser(
@@ -1681,6 +1952,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "must be present)")
     _add_cache_flags(p)
     p.set_defaults(fn=cmd_scale_run)
+    _add_serving_parsers(sub)
     return ap
 
 
@@ -1722,7 +1994,7 @@ def main(argv=None) -> int:
         # no-op without its variables)
         from gossip_tpu_torch.parallel.multislice import \
             maybe_init_distributed
-        if a.cmd != "plan":
+        if a.cmd not in SINGLE_PROCESS_COMMANDS:
             joined = maybe_init_distributed(
                 "gloo" if a.device == "cpu" or a.share_card else None)
         led = _open_ledger()

@@ -769,3 +769,113 @@ class MeshConfig:
         if self.exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {self.exchange!r}; "
                              f"choose from {EXCHANGES}")
+
+
+# The serving layer's refusal of what this package does not run yet: the
+# reference's request-axis mesh and its multi-process replicas.
+MESH_NOT_PORTED = ("the request-axis megabatch mesh is not ported yet "
+                   "(ROADMAP queue 1, item 7d); serve with one device")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Admission-batching knobs of the serving sidecar
+    (:mod:`gossip_tpu_torch.rpc.batcher`), the reference's fields,
+    defaults and checks:
+
+    * ``tick_ms``: the collector cadence; each tick the queue drains and
+      each batch-key group runs as one megabatch;
+    * ``max_batch``: per-tick per-key cap on coalesced lanes (ensemble
+      members count one each); the rest wait for the next tick;
+    * ``max_queue``: the backpressure cap; an admission past it is
+      refused with RESOURCE_EXHAUSTED;
+    * ``devices``, ``coordinator``, ``num_processes``, ``process_id``:
+      the reference's request-axis mesh and its multi-process replica.
+      Checked as the reference checks them, then refused above one
+      device or one process (:data:`MESH_NOT_PORTED`)."""
+
+    tick_ms: float = 20.0
+    max_batch: int = 64
+    max_queue: int = 256
+    devices: int = 1
+    coordinator: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
+
+    def __post_init__(self):
+        # the reference's words
+        if self.tick_ms <= 0:
+            raise ValueError("tick_ms must be > 0")
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if self.devices < 1 or (self.devices & (self.devices - 1)):
+            raise ValueError(
+                "devices must be a power of two >= 1 (pow2 lane "
+                "buckets must divide the mesh so dispatch never "
+                f"fragments the executable cache), got {self.devices}")
+        if self.num_processes < 1:
+            raise ValueError("num_processes must be >= 1")
+        if not 0 <= self.process_id < self.num_processes:
+            raise ValueError("process_id must be in [0, num_processes)")
+        if self.num_processes > 1 and not self.coordinator:
+            raise ValueError(
+                "a multi-process replica (num_processes > 1) needs a "
+                "coordinator address (host:port) for "
+                "jax.distributed.initialize")
+        if self.devices > 1:
+            raise ValueError(f"devices={self.devices}: {MESH_NOT_PORTED}")
+        if self.num_processes > 1:
+            raise ValueError(f"num_processes={self.num_processes}: a "
+                             f"replica spanning processes is part of "
+                             f"the same slice; {MESH_NOT_PORTED}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Replicated-serving knobs of the failover router
+    (:mod:`gossip_tpu_torch.rpc.router`), the reference's fields,
+    defaults and checks: ``replicas`` (spawned fleets), the probe
+    cadence and deadline, ``down_after`` consecutive failed probes
+    before a replica leaves rotation, ``up_after`` consecutive healthy
+    probes before a downed one returns (the flap hysteresis),
+    ``max_inflight`` per replica before the router sheds,
+    ``control_capacity`` (each replica's control-plane log ring) and
+    ``devices_per_replica`` (refused above 1, :data:`MESH_NOT_PORTED`)."""
+
+    replicas: int = 2
+    probe_interval_ms: float = 250.0
+    probe_timeout_s: float = 2.0
+    down_after: int = 2
+    up_after: int = 3
+    max_inflight: int = 8
+    control_capacity: int = 64
+    devices_per_replica: int = 1
+
+    def __post_init__(self):
+        # the reference's words
+        if self.replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if (self.devices_per_replica < 1
+                or (self.devices_per_replica
+                    & (self.devices_per_replica - 1))):
+            raise ValueError(
+                "devices_per_replica must be a power of two >= 1, "
+                f"got {self.devices_per_replica}")
+        if self.probe_interval_ms <= 0:
+            raise ValueError("probe_interval_ms must be > 0")
+        if self.probe_timeout_s <= 0:
+            raise ValueError("probe_timeout_s must be > 0")
+        if self.down_after < 1:
+            raise ValueError("down_after must be >= 1")
+        if self.up_after < 1:
+            raise ValueError("up_after must be >= 1")
+        if self.max_inflight < 1:
+            raise ValueError("max_inflight must be >= 1")
+        if self.control_capacity < 4:
+            raise ValueError("control_capacity must be >= 4")
+        if self.devices_per_replica > 1:
+            raise ValueError(f"devices_per_replica="
+                             f"{self.devices_per_replica}: "
+                             f"{MESH_NOT_PORTED}")

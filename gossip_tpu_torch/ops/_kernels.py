@@ -7,7 +7,15 @@ the source, every ``csrc/`` header it includes and the flags, so an
 edited source or header never loads a stale build) and bound with
 ``ctypes``.  A wrapper checks device, dtype, shape and
 contiguity, launches on PyTorch's current stream, raises if the entry
-point returns an error, and counts its launches in a plain integer.
+point returns an error, and counts its launches twice: in a plain
+process-wide integer (``Kernel.launches``) and in a tally of the calling
+thread (:func:`thread_launches`), so a run report counts its own
+launches only.  In a serving process the device lock
+(``rpc/batcher.DEVICE_LOCK``) already makes the global difference
+per-call; the tally is for library callers that run drivers from
+several threads without that lock.
+:func:`build_all` builds under one process-wide lock: two first requests
+never start ``nvcc`` on the same library twice.
 
 Nothing here is built or launched for a CPU tensor; a build starts at
 the first launch (or :func:`build_all`), never at import.
@@ -33,6 +41,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -50,6 +59,9 @@ _U = ctypes.c_uint
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 CACHE_ENV = "GOSSIP_COMPILE_CACHE"
 _STORE = {"dir": None, "fresh": False}
+_BUILD_LOCK = threading.Lock()
+_BUILD_EVENTS = [0]       # kernel_build events written by this process
+_TALLY = threading.local()
 
 
 def build_dir() -> Path:
@@ -206,24 +218,51 @@ _OCC = ctypes.POINTER(ctypes.c_int)
 def build_all(kernels=KERNELS):
     """Build every given kernel that is not loaded yet, one nvcc per
     source (entry points of one source share its build), all started
-    together; then load them."""
+    together; then load them.  One call at a time in a process: a
+    second caller waits, then finds the kernels loaded."""
     from gossip_tpu_torch.utils import telemetry
-    todo = [k for k in kernels if k._fn is None]
-    t0 = time.perf_counter()
-    builds = {}
-    for k in todo:
-        if k.library() not in builds:
-            builds[k.library()] = (k, k.start_build())
-    for k in todo:
-        first, started = builds[k.library()]
-        k.finish_build(started if k is first else None, t0)
-        k.ptxas = first.ptxas
-        if k is first:
-            cache = ("disabled" if _STORE["fresh"]
-                     else "miss" if started is not None else "hit")
-            telemetry.current().event(
-                "kernel_build", kernel=k.name, library=str(k.library()),
-                cache=cache, build_s=k.build_s)
+    with _BUILD_LOCK:
+        todo = [k for k in kernels if k._fn is None]
+        t0 = time.perf_counter()
+        builds = {}
+        for k in todo:
+            if k.library() not in builds:
+                builds[k.library()] = (k, k.start_build())
+        for k in todo:
+            first, started = builds[k.library()]
+            k.finish_build(started if k is first else None, t0)
+            k.ptxas = first.ptxas
+            if k is first:
+                cache = ("disabled" if _STORE["fresh"]
+                         else "miss" if started is not None else "hit")
+                _BUILD_EVENTS[0] += 1
+                telemetry.current().event(
+                    "kernel_build", kernel=k.name,
+                    library=str(k.library()), cache=cache,
+                    build_s=k.build_s)
+
+
+def build_events() -> int:
+    """How many ``kernel_build`` events this process has written: the
+    serving layer's compile count (a request that built or loaded
+    nothing ran warm)."""
+    return _BUILD_EVENTS[0]
+
+
+def count_launch(kernel: Kernel) -> None:
+    """Count one launch of ``kernel``: process-wide and in the calling
+    thread's tally."""
+    kernel.launches += 1
+    tally = _TALLY.__dict__.setdefault("counts", {})
+    tally[kernel.name] = tally.get(kernel.name, 0) + 1
+
+
+def thread_launches(kernels=None) -> dict:
+    """The calling thread's launches of each kernel (default: every
+    round kernel) since the thread started."""
+    tally = _TALLY.__dict__.get("counts", {})
+    return {k.name: tally.get(k.name, 0)
+            for k in (ROUND_KERNELS if kernels is None else kernels)}
 
 
 def _check(name: str, t, rows: int, shape=None):
@@ -263,7 +302,7 @@ def _launch(kernel: Kernel, dev, *args):
         err = fn(*args, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{kernel.entry} failed: CUDA error {err}")
-    kernel.launches += 1
+    count_launch(kernel)
 
 
 def fused_round(table, n: int, fanout: int, key, drop_threshold: int,

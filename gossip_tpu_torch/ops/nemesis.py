@@ -213,6 +213,31 @@ def build_or_static(fault: Optional[FaultConfig], n: int,
                             dtype=torch.float32, device=dev))
 
 
+def build_request_stack(faults, ns, n_pad: int, device=None) -> Schedule:
+    """K per-request ``(fault, n)`` pairs as one :class:`Schedule` with a
+    leading request axis, the serving megabatch's operand
+    (:func:`gossip_tpu_torch.parallel.sweep.request_sweep_curves`): an
+    entry without a program takes :func:`build_or_static`'s steady
+    tables, each request's events are checked against its own ``n``,
+    and every table is padded to the stack's largest canonical horizon.
+    The reference's ``placeholder_trace_inputs`` (its memoized traces'
+    stand-in inputs) has no counterpart: the port traces nothing."""
+    faults, ns = tuple(faults), tuple(ns)
+    # the reference's words
+    if not faults:
+        raise ValueError("build_request_stack needs at least one entry")
+    if len(faults) != len(ns):
+        raise ValueError(f"{len(faults)} faults vs {len(ns)} sizes")
+    t_pad = max([SCHED_T_MIN] + [canonical_horizon(f.churn)
+                                 for f in faults if get(f) is not None])
+    cpu = torch.device("cpu")
+    scheds = [build_or_static(f, n, n_pad, t_pad, cpu)
+              for f, n in zip(faults, ns)]
+    dev = resolve_device(device)
+    return Schedule(*(torch.stack([s[i] for s in scheds]).to(dev)
+                      for i in range(4)))
+
+
 def _idx(tbl: torch.Tensor, round_: int) -> torch.Tensor:
     """The clamped lookup on the last axis (exact past the horizon: the
     last row is the steady state): a 0-d tensor, or one a scenario of a

@@ -31,6 +31,11 @@ table (:mod:`gossip_tpu_torch.ops.propagate`).
   columns.  :func:`config_sweep_curves_partitioned` runs one batch per
   mode bucket, :func:`config_sweep_curves_2d` shards configs over one
   axis of a hybrid mesh and nodes over the other;
+* :func:`request_sweep_curves`: K serving requests
+  (:class:`RequestSpec`) in one batch, the admission batcher's
+  megabatch: each request's mode, period, seed, origin, target, n
+  within a power-of-two bucket, rumors, static deaths and fault program
+  are per-lane tensors under one shared draw width;
 * :func:`ensemble_rumor_curves`, :func:`ensemble_swim_curves`: seed
   ensembles of rumor mongering and SWIM on their own batched rounds
   (:func:`~gossip_tpu_torch.models.rumor.make_rumor_round_batched`,
@@ -75,6 +80,7 @@ events come from the chokepoint
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -86,6 +92,7 @@ from gossip_tpu_torch.models import si as si_mod
 from gossip_tpu_torch.models.state import SimState, alive_mask, init_state
 from gossip_tpu_torch.ops import nemesis as NE
 from gossip_tpu_torch.ops import threefry
+from gossip_tpu_torch.ops.common import resolve_device
 from gossip_tpu_torch.ops.propagate import pull_merge, push_counts
 from gossip_tpu_torch.ops.sampling import (drop_mask, node_keys,
                                            sample_peers_complete,
@@ -525,13 +532,17 @@ def _b(x: torch.Tensor) -> torch.Tensor:
 def _sweep_round_delta(rkey, round_: int, gids, visible, alive, peers,
                        k_max: int, fl: _Flags, n: int, have_ae: bool,
                        scatter_n: int, count_reduce, gather,
-                       need_push: bool = True, need_pull: bool = True):
+                       need_push: bool = True, need_pull: bool = True,
+                       cut: Optional[torch.Tensor] = None,
+                       want_lost: bool = False):
     """One config-sweep round of a row block: ``(delta, msgs_push,
     msgs_pull)``, ``delta`` ``bool[S, nl, R]`` and the two msgs terms
-    ``float32[S]``.  Shared by the single-device batch and the pod
-    sweep, which differ in how scatter counts reduce (``count_reduce``),
-    how the digest table is assembled (``gather``) and the scatter's
-    node range (``scatter_n``).
+    ``float32[S]``.  Shared by the single-device batch, the pod sweep
+    and the request megabatch, which differ in how scatter counts reduce
+    (``count_reduce``), how the digest table is assembled (``gather``),
+    the scatter's node range (``scatter_n``) and the partner draw
+    (``peers``: the request megabatch bounds each point's draw on the
+    complete graph by its own n, the reference's ``peer_bound``).
 
     Both halves are computed and masked by the points' mode flags;
     ``need_push`` / ``need_pull`` / ``have_ae`` leave out a half no
@@ -539,24 +550,33 @@ def _sweep_round_delta(rkey, round_: int, gids, visible, alive, peers,
     nothing else).  Each point draws ``k_max`` columns and masks those
     at or past its fanout; the drop coins are drawn at each point's own
     probability (not at all where every point's is 0: the mask would be
-    all False)."""
+    all False).
+
+    ``cut`` (``int32[S]``, -1 closed): each point's partition cut this
+    round, applied after the drop coins, in the solo churn round's
+    order.  ``want_lost`` adds a fourth output, ``float32[S]``: the
+    messages the drop coins and the open cut destroyed, counted as the
+    solo churn round counts them."""
     col = torch.arange(k_max, dtype=torch.int64, device=visible.device)
     fan = _b(fl.fanout)
     delta = torch.zeros_like(visible)
     zero = torch.zeros(visible.shape[0], dtype=torch.float32,
                        device=visible.device)
-    msgs_push = msgs_pull = zero
+    msgs_push = msgs_pull = lost = zero
 
     def drawn(tag, dtag):
-        t = peers(threefry.fold_in(rkey, tag))
-        t = torch.where(col < fan, t, n)
+        t0 = peers(threefry.fold_in(rkey, tag))
+        t0 = torch.where(col < fan, t0, n)
+        t = t0
         if fl.any_drop:
             dropped = drop_mask(rkey, dtag, gids, k_max, _b(fl.drop))
             t = torch.where(dropped, n, t)
-        return t
+        if cut is not None:
+            t = NE.partition_targets(_b(cut), gids, t, n)
+        return t0, t
 
     if need_push:
-        targets = drawn(si_mod.PUSH_TAG, si_mod.PUSH_DROP_TAG)
+        targets0, targets = drawn(si_mod.PUSH_TAG, si_mod.PUSH_DROP_TAG)
         sender_active = visible.any(dim=-1)
         valid = (targets < n) & sender_active[..., None]
         counts = push_counts(scatter_n,
@@ -564,14 +584,20 @@ def _sweep_round_delta(rkey, round_: int, gids, visible, alive, peers,
         delta = (count_reduce(counts) > 0) & _b(fl.do_push)
         msgs_push = torch.where(fl.do_push,
                                 si_mod.f32(valid.sum(dim=(-2, -1))), zero)
+        if want_lost:
+            lost = lost + torch.where(fl.do_push, NE.lost_count(
+                targets0, targets, sender_active, n), zero)
 
     if need_pull:
         seen_all = gather(visible)
-        partners = drawn(si_mod.PULL_TAG, si_mod.PULL_DROP_TAG)
+        partners0, partners = drawn(si_mod.PULL_TAG, si_mod.PULL_DROP_TAG)
         pulled = pull_merge(seen_all, partners, n)
         partners = torch.where(alive[..., None], partners, n)
         n_req = si_mod.f32((partners < n).sum(dim=(-2, -1)))
         on = fl.do_pull & (round_ % fl.period == 0)
+        if want_lost:
+            lost = lost + torch.where(on, NE.lost_count(
+                partners0, partners, alive, n), zero)
         delta = delta | (pulled & _b(on))
         if have_ae:
             back = push_counts(scatter_n, torch.where(partners < n, partners,
@@ -579,7 +605,8 @@ def _sweep_round_delta(rkey, round_: int, gids, visible, alive, peers,
             delta = delta | ((count_reduce(back) > 0) & _b(on & fl.do_ae))
         mfac = torch.where(fl.do_ae, 3.0, 2.0)
         msgs_pull = torch.where(on, mfac * n_req, zero)
-    return delta & alive[..., None], msgs_push, msgs_pull
+    out = delta & alive[..., None], msgs_push, msgs_pull
+    return out + (lost,) if want_lost else out
 
 
 def _normalize_topos(topo, points):
@@ -817,6 +844,291 @@ def config_sweep_curves_partitioned(points, topo, run: RunConfig,
                              target=run.target_coverage,
                              meta={"batch_chunks": chunks,
                                    "mode_buckets": len(buckets)})
+
+
+# -- the request megabatch (the serving batcher's driver) -------------------
+
+@dataclasses.dataclass(frozen=True)
+class RequestSpec:
+    """One serving request, megabatch-shaped: everything but
+    ``proto.fanout`` (the shared draw width), ``proto.exclude_self``,
+    ``run.max_rounds`` and the topology or n-bucket is a per-lane
+    operand of one batched round (mode flags, period, seed, origin,
+    target, n within the bucket, rumors within the rumor bucket, drop
+    table, static deaths, the whole fault program)."""
+    proto: ProtocolConfig
+    run: RunConfig
+    fault: Optional[FaultConfig]
+    n: int
+
+    def __post_init__(self):
+        # the reference's words
+        if self.proto.mode not in _MODE_FLAGS:
+            raise ValueError(
+                f"request batching supports {sorted(_MODE_FLAGS)}; got "
+                f"{self.proto.mode!r} (flood/swim/rumor change the round "
+                "structure — dispatch them solo)")
+        if not self.proto.exclude_self:
+            raise ValueError("request batching samples with the shared "
+                             "exclude_self=True contract")
+        if self.proto.period > 1 and self.proto.mode != C.ANTI_ENTROPY:
+            raise ValueError("period > 1 is the anti-entropy cadence")
+        if self.n < 2:
+            raise ValueError("request batching needs n >= 2 (the traced "
+                             "peer bound's self-exclusion shift)")
+
+
+@dataclasses.dataclass
+class RequestSweepResult:
+    """K requests through one batch: ``curves`` / ``msgs`` / ``dropped``
+    ``float32[K, T]``, ``counts`` the exact integers behind the curves,
+    and ``state_digests``, the sha256 of each request's final
+    ``seen[:n, :rumors]`` as C-contiguous numpy bool bytes (the bytes the
+    reference hashes)."""
+    specs: tuple
+    curves: np.ndarray
+    msgs: np.ndarray
+    dropped: np.ndarray
+    rounds_to_target: np.ndarray
+    state_digests: tuple
+    counts: Optional[np.ndarray] = None
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    def metrics_rows(self):
+        """Each request's round metrics as plain lists (the reference's
+        rows)."""
+        return [{"mode": spec.proto.mode, "n": spec.n,
+                 "rounds": int(self.curves.shape[1]),
+                 "coverage": [float(c) for c in self.curves[i]],
+                 "msgs": [float(m) for m in self.msgs[i]],
+                 "dropped": [float(d) for d in self.dropped[i]],
+                 "dropped_total": float(self.dropped[i].sum()),
+                 "rounds_to_target": int(self.rounds_to_target[i])}
+                for i, spec in enumerate(self.specs)]
+
+
+def _pow2_at_least(x: int, lo: int = 1) -> int:
+    """The smallest power of two >= max(x, lo): the serving buckets
+    (n, rumors, lanes)."""
+    x = max(int(x), lo)
+    return 1 << (x - 1).bit_length()
+
+
+def state_digest(seen: torch.Tensor, n: int, rumors: int) -> str:
+    """sha256 of ``seen[:n, :rumors]`` as C-contiguous numpy bool bytes:
+    a request's final state, comparable across packages."""
+    block = np.ascontiguousarray(seen[:n, :rumors].cpu().numpy())
+    return hashlib.sha256(block.tobytes()).hexdigest()
+
+
+class _RequestFlags(_Flags):
+    """A request batch's per-lane operands: the config sweep's flags
+    with the shared fanout, and a drop probability that the round sets
+    from each lane's table."""
+
+    def __init__(self, specs, pad: int, k: int, any_drop: bool, dev):
+        def t(vals, dummy, dtype):
+            return torch.tensor(list(vals) + [dummy] * pad, dtype=dtype,
+                                device=dev)
+        modes = [sp.proto.mode for sp in specs]
+        self.do_push = t((_MODE_FLAGS[m][0] for m in modes), False,
+                         torch.bool)
+        self.do_pull = t((_MODE_FLAGS[m][1] for m in modes), False,
+                         torch.bool)
+        self.do_ae = t((m == C.ANTI_ENTROPY for m in modes), False,
+                       torch.bool)
+        self.fanout = t((k for _ in specs), k, torch.int64)
+        self.period = t((sp.proto.period for sp in specs), 1, torch.int64)
+        self.drop = None
+        self.any_drop = any_drop
+
+
+def _request_batch(specs, pad: int, n_pad: int, r_max: int, k: int,
+                   rounds: int, topo: Optional[Topology], need_push: bool,
+                   need_pull: bool, have_ae: bool, dev):
+    """One chunk of lanes through ``rounds`` batched rounds:
+    ``(counts, msgs, lost, final seen)``, the first three ``[S, T]``
+    numpy."""
+    lanes = len(specs) + pad
+    ids = torch.arange(n_pad, dtype=torch.int64, device=dev)
+    seen0 = torch.zeros(lanes, n_pad, r_max, dtype=torch.bool, device=dev)
+    base_alive = torch.zeros(lanes, n_pad, dtype=torch.bool, device=dev)
+    weight = torch.zeros(lanes, n_pad, dtype=torch.bool, device=dev)
+    for i, sp in enumerate(specs):
+        cols = torch.arange(sp.proto.rumors, device=dev)
+        seen0[i, (sp.run.origin + cols) % sp.n, cols] = True
+        am = alive_mask(sp.fault, sp.n, sp.run.origin, dev)
+        base_alive[i, :sp.n] = True if am is None else am
+        ma = NE.metric_alive(sp.fault, sp.n, sp.run.origin, dev)
+        weight[i, :sp.n] = True if ma is None else ma
+    sched = NE.build_request_stack([sp.fault for sp in specs],
+                                   [sp.n for sp in specs], n_pad, dev)
+    if pad:
+        die = torch.full((pad, n_pad), NE.NEVER, dtype=torch.int32,
+                         device=dev)
+        t_pad = sched.cut_tbl.shape[1]
+        sched = NE.Schedule(
+            torch.cat([sched.die, die]), torch.cat([sched.rec, die]),
+            torch.cat([sched.cut_tbl, torch.full(
+                (pad, t_pad), -1, dtype=torch.int32, device=dev)]),
+            torch.cat([sched.drop_tbl, torch.zeros(
+                (pad, t_pad), dtype=torch.float32, device=dev)]))
+    fl = _RequestFlags(specs, pad, k,
+                       bool((sched.drop_tbl > 0).any()), dev)
+    real = (torch.arange(r_max, device=dev)[None]
+            < torch.tensor([sp.proto.rumors for sp in specs] + [1] * pad,
+                           device=dev)[:, None])
+    if topo is not None:
+        nbrs, deg = topo.nbrs.to(dev), topo.deg.to(dev)
+
+        def peers(key):
+            return sample_peers_table(key, ids, nbrs, deg, k, n_pad)
+    else:
+        bound = _b(torch.tensor([sp.n for sp in specs] + [2] * pad,
+                                dtype=torch.int64, device=dev))
+
+        def peers(key):
+            return sample_peers_complete(key, ids, bound, k, True)
+
+    def step(state):
+        r = state.round
+        alive = base_alive & ~((sched.die <= r) & (sched.rec > r))
+        fl.drop = NE.drop_at(sched, r)
+        rkey = threefry.fold_in(state.key, r)
+        delta, mp, mq, lost = _sweep_round_delta(
+            rkey[:, None], r, ids, alive[..., None] & state.seen, alive,
+            peers, k, fl, n_pad, have_ae, n_pad, lambda c: c, lambda v: v,
+            need_push, need_pull, cut=NE.cut_at(sched, r), want_lost=True)
+        return SimState(seen=state.seen | delta, round=r + 1, key=state.key,
+                        msgs=(state.msgs + mp) + mq), lost
+
+    seeds = [sp.run.seed for sp in specs] + [0] * pad
+    counts, msgs, lost, final = _scan(
+        step, _batch_state(seen0, _keys(seeds, dev)), rounds,
+        lambda seen: _min_count(seen, weight, real), lost=True)
+    return counts, msgs, lost, final.seen
+
+
+def request_sweep_curves(specs, topo: Optional[Topology] = None,
+                         n_pad: Optional[int] = None, mesh=None,
+                         lanes: Optional[int] = None,
+                         timing: Optional[dict] = None,
+                         device=None) -> RequestSweepResult:
+    """K heterogeneous serving requests as one batch, exactly
+    ``max_rounds`` rounds (the admission batcher's megabatch,
+    :mod:`gossip_tpu_torch.rpc.batcher`).  Request i's curve, msgs,
+    rounds to its target and final state are its solo
+    ``runtime/simulator.simulate_curve``'s, bit for bit: its draws are
+    keyed by global node id (so the bucket's padding rows are inert),
+    its drop coins and cut come in the solo round's order, and its msgs
+    add in the solo order (the push term, then the pull term).
+
+    ``topo`` None is the implicit complete graph (requests may differ in
+    n within the pow2 ``n_pad`` bucket, each draw bounded by its own n);
+    a :class:`Topology` is one shared explicit table (every request's n
+    must be its n).  ``lanes`` pads the batch with inert lanes (no mode
+    flag set, every node dead) to that many (default: the request
+    count, no inert lane).  The push, pull and anti-entropy halves are
+    built only where some request's mode runs them.  The reference pads
+    to a power of two and keeps every half on (its ``full``) to hold one
+    XLA executable a batch key; the port compiles nothing, so it pays
+    for neither (ROADMAP queue 3).
+
+    Coverage leaves the device as an exact integer count per lane and
+    round, read once, and becomes a fraction on the host as the solo
+    loops make it: the product with ``float32(1 / n)`` without an alive
+    set, the quotient under static deaths, and under a fault program
+    without random deaths the product with the reciprocal of the
+    eventual alive count (``ops/nemesis.folded_denominator``).  The
+    reference's megabatch divides in that last case, which its own solo
+    run does not (ROADMAP queue 3); ``counts`` holds the integers.
+    ``mesh`` (the reference's request-axis mesh) is refused: not ported
+    yet.  ``timing`` gets ``steady_s``, the batch's device time
+    (:func:`~gossip_tpu_torch.utils.timing.steady_timed`, which writes
+    its ``driver_timing`` event)."""
+    from gossip_tpu_torch.config import MESH_NOT_PORTED
+    from gossip_tpu_torch.utils.timing import steady_timed
+    specs = tuple(specs)
+    if not specs:
+        raise ValueError("need at least one RequestSpec")
+    if mesh is not None:
+        raise ValueError(f"mesh=: {MESH_NOT_PORTED}")
+    # the reference's words
+    kset = {sp.proto.fanout for sp in specs}
+    if len(kset) > 1:
+        raise ValueError(
+            f"request batch mixes fanouts {sorted(kset)}: the draw "
+            "width is the one static the solo-bitwise contract pins "
+            "(group by fanout in the batch key)")
+    k = kset.pop()
+    mrset = {sp.run.max_rounds for sp in specs}
+    if len(mrset) > 1:
+        raise ValueError(
+            f"request batch mixes max_rounds {sorted(mrset)}: the scan "
+            "length is static (group by max_rounds in the batch key)")
+    max_rounds = mrset.pop()
+    if topo is not None:
+        bad = [sp.n for sp in specs if sp.n != topo.n]
+        if bad:
+            raise ValueError(
+                f"explicit-table requests must match the shared "
+                f"topology's n={topo.n}; got {bad}")
+        if n_pad is not None and n_pad != topo.n:
+            raise ValueError("explicit-table batches keep n_pad == n")
+        n_pad = topo.n
+    else:
+        want = _pow2_at_least(max(sp.n for sp in specs), 2)
+        n_pad = want if n_pad is None else n_pad
+        if n_pad < want:
+            raise ValueError(f"n_pad={n_pad} below the batch's pow2 "
+                             f"bucket {want}")
+    r_max = _pow2_at_least(max(sp.proto.rumors for sp in specs))
+    kn = len(specs)
+    lanes = kn if lanes is None else lanes
+    if lanes < kn:
+        raise ValueError(f"lanes={lanes} below the batch size {kn}")
+    need_push = any(_MODE_FLAGS[sp.proto.mode][0] for sp in specs)
+    need_pull = any(_MODE_FLAGS[sp.proto.mode][1] for sp in specs)
+    have_ae = any(sp.proto.mode == C.ANTI_ENTROPY for sp in specs)
+    dev = (si_mod.topology_device(topo, device) if topo is not None
+           else resolve_device(device))
+
+    def run_chunks():
+        point = n_pad * (k * DRAW_BYTES * 2 + 8 * r_max)
+        outs = []
+        for sl in _chunks(lanes, point):
+            mine = specs[sl.start:min(sl.stop, kn)]
+            if not mine:
+                break                 # inert lanes only: nothing to read
+            pad = (sl.stop - sl.start) - len(mine)
+            outs.append(_request_batch(mine, pad, n_pad, r_max, k,
+                                       max_rounds, topo, need_push,
+                                       need_pull, have_ae, dev))
+        return outs
+
+    outs, steady = steady_timed(dev, run_chunks)
+    if timing is not None:
+        timing["steady_s"] = steady
+    counts = np.concatenate([o[0] for o in outs])[:kn]
+    msgs = np.concatenate([o[1] for o in outs])[:kn]
+    lost = np.concatenate([o[2] for o in outs])[:kn]
+    finals = [s for o in outs for s in o[3]][:kn]
+    curves = np.empty(counts.shape, np.float32)
+    rtt = np.full(kn, -1, np.int64)
+    for i, sp in enumerate(specs):
+        _, total, folded = ensemble_readout(sp.fault, sp.n, sp.run.origin,
+                                            dev)
+        curves[i] = _fractions(counts[i], total, folded)
+        rtt[i] = _rounds_to_target(curves[i:i + 1],
+                                   sp.run.target_coverage)[0]
+    digests = tuple(state_digest(seen, sp.n, sp.proto.rumors)
+                    for seen, sp in zip(finals, specs))
+    return RequestSweepResult(specs=specs, curves=curves, msgs=msgs,
+                              dropped=lost, rounds_to_target=rtt,
+                              state_digests=digests, counts=counts,
+                              meta={"lanes": lanes, "n_pad": n_pad,
+                                    "rumor_bucket": r_max,
+                                    "batch_chunks": len(outs)})
 
 
 def config_sweep_curves_2d(points, topo, run: RunConfig, mesh,

@@ -41,6 +41,7 @@ import os
 import sys
 import threading
 import time
+import uuid
 from typing import IO, Iterator, Optional
 
 from gossip_tpu_torch.utils.provenance import SCHEMA_VERSION, provenance
@@ -49,7 +50,8 @@ ENV_VAR = "GOSSIP_TELEMETRY"
 
 __all__ = ["SCHEMA_VERSION", "ENV_VAR", "Ledger", "NullLedger", "PeerLedger",
            "EchoLedger", "current", "activate", "handoff", "adopt",
-           "from_env", "artifact_ledger", "device_memory_stats", "percentile", "MetricsWindow",
+           "from_env", "artifact_ledger", "device_memory_stats", "percentile",
+           "MetricsWindow", "new_trace_id",
            "parse_dryrun_table", "load_ledger", "provenance"]
 
 
@@ -404,6 +406,13 @@ def artifact_ledger(path: str, rewrite: bool = True, fsync: bool = False,
         sys.stderr.write(f"telemetry: cannot open artifact ledger "
                          f"{path!r} ({e}); recording disabled\n")
         return NullLedger()
+
+
+def new_trace_id() -> str:
+    """A fresh request correlation id (16 hex characters), minted once a
+    logical request by the outermost client and carried in the call's
+    metadata through the router and the batcher (the reference's)."""
+    return uuid.uuid4().hex[:16]
 
 
 def percentile(values, q: float) -> float:

@@ -66,9 +66,47 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.sharded_fused", "parallel.multislice",
                  "parallel.sweep", "utils.checkpoint", "planner",
                  "planner.budget", "planner.stream", "utils.telemetry",
-                 "utils.trace", "ops.round_metrics", "tools.crashloop"):
+                 "utils.trace", "ops.round_metrics", "tools.crashloop",
+                 "rpc", "rpc.batcher", "rpc.sidecar", "rpc.router"):
         assert f"gossip_tpu_torch.{name}" in out["imported"]
     assert out["forbidden"] == []
+
+
+NO_GRPC = """
+import importlib, json, pkgutil, sys
+sys.modules["grpc"] = None          # an installation without grpc
+import gossip_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    gossip_tpu_torch.__path__, "gossip_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+from gossip_tpu_torch.rpc import sidecar
+errors = []
+for call in (lambda: sidecar.serve(port=0, device="cpu"),
+             lambda: sidecar.SidecarClient("127.0.0.1:1")):
+    try:
+        call()
+    except ImportError as e:
+        errors.append(str(e))
+print(json.dumps({"imported": names, "errors": errors}))
+"""
+
+
+def test_every_module_imports_without_grpc():
+    """The serving modules import grpc only inside the transport
+    functions: with grpc missing every module imports, and the transport
+    raises an ImportError that names grpc."""
+    import json
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", NO_GRPC], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("rpc", "rpc.batcher", "rpc.sidecar", "rpc.router"):
+        assert f"gossip_tpu_torch.{name}" in out["imported"]
+    assert len(out["errors"]) == 2
+    assert all("grpc" in e for e in out["errors"])
 
 
 def _sources():
