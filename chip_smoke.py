@@ -21,7 +21,8 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
 1. ``device``  the card, as ``nvidia-smi`` and torch name it;
 2. ``build``   every kernel's build (seven entry points from five
    sources, and the measurement variants of ``csrc/fused_mr_parts.cu``,
-   one ``nvcc`` per source, started together);
+   one ``nvcc`` per source, started together), and beside them the
+   go-native event core and the Maelstrom router (one ``g++`` each);
 3. ``checks``  one kernel round against the plain version on the card,
    bitwise (tolerance 0), at N = 10M and 10M - 37, once for every
    instantiation the launcher picks: fanout 1, plane sharing 1 on the
@@ -118,12 +119,24 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    RM1-RM3 (feedback, blind, and under ``churn_heal``) must give the JAX
    package's rounds, coverage and msgs (``SWIM_CASES``,
    ``RUMOR_CASES``) with no kernel launched, SW1 and RM1 again through
-   ``python -m gossip_tpu_torch run``; the card against the CPU at
+   ``python -m gossip_tpu_torch run``'s ``main`` in this process, on the
+   phase's one power-law table; the card against the CPU at
    10,000 nodes, every state field (SWIM with the rotating window and
    the packed rng under drops; rumor under the four mixed scenario
    shapes); each run's ms a round and node-rounds/s, and one SWIM
    round's parts at SW1's shape (draws, each dissemination lowering, the
    detection read);
+15b. ``baseline_sweep``, ``baseline_parity`` and ``baseline``  the five
+   BASELINE.json rows through ``python -m gossip_tpu_torch sweep --scale
+   1.0``'s ``main`` in this process (rows 1-4 and row 1's go-native
+   reference the JAX package's values, ``BASELINE_JAX``; row 5, 10M x 8
+   rumors, one ``fused_mr_round`` launch a round and within 2 rounds of
+   the JAX package's; each row's wall, steady wall and ms a round), ``run
+   --mode flood --parity-check`` on a 65,536-node grid and a
+   100,000-node power-law graph (``PARITY_CASES``: the flood rounds on the
+   card, the C++ event core built with ``g++``), and ``maelstrom-check
+   --n 5 --ops 30 --partition`` on the Python and the C++ router, each
+   holding its invariant;
 16. ``crdt_log_path``  the JAX package's ``crdt`` and ``log`` command
    lines (``CRDT_LOG_CASES``: counters and an OR-set at their documents'
    sizes, CR4's G-counter at n = 65,536 (two ``int32[n, n]`` states,
@@ -163,7 +176,7 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    --devices 2 --share-card`` for BASELINE.json's configuration 5 (10M x
    32 rumors, the packed loop; from this process, the command spawning
    its own ranks) and the dense curve at 10M (30 rounds, the command's
-   ``main`` in the ranks of one spawn, as ``torchrun`` runs it), which
+   ``main`` in the two shared ranks, as ``torchrun`` runs it), which
    must print the JAX package's values on its 2-device mesh
    (``MESH_CFG5``, ``MESH_CURVE``), and the same runs through the library
    API, whose final states must equal the single-device port runs'; each
@@ -172,9 +185,9 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    ``mesh_models``, the sharded SWIM, rumor and payload drivers: K = 2
    ranks on this card through ``--devices 2 --share-card`` for TX1 (its
    curve too; from this process, the payload command spawning its own
-   ranks), SW1, RM1, CR3 and LG1 (in the ranks of one spawn), each
+   ranks), SW1, RM1, CR3 and LG1 (in the two shared ranks), each
    printing the JAX package's values on its 2-device mesh (``MESH_*``);
-   TX10M, BZ2d, SW1 and RM1 through the library API in one spawn, each
+   TX10M, BZ2d, SW1 and RM1 through the library API in the same job, each
    rank's SHA-256 of its padded final rows equal to the single-device
    state's window (the earlier phases' runs); CR4 and TX10M at K = 1
    under NCCL, CR4's peak allocated memory at most 4.1 states; each run's
@@ -183,14 +196,14 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    and the largest G-counter n the gather design allows; then
    ``mesh_exchanges``, the
    sparse and halo exchanges at K = 2 ranks on this card: the command
-   lines of ``EXCHANGE_CASES`` in the ranks of one spawn (SP5
+   lines of ``EXCHANGE_CASES`` in the two shared ranks (SP5
    ``BASELINE.json`` configuration 5 and SPCH its ``churn_heal`` program
    on the sparse all_to_all exchange, SPAE anti-entropy with 33 rumors,
    TS3 configuration 3's
    Watts-Strogatz table on the capacity-capped buckets, HL1 the 1M-node
    halo ring), each printing the JAX package's values on its 2-device
    mesh (``MESH_SP5`` ... ``MESH_HL1``, TS3's overflow and bucket cap
-   too); the same runs through the library API in one spawn, each
+   too); the same runs through the library API in the same job, each
    rank's SHA-256 of its padded final rows equal to the window of the
    single-device state on the card (the sparse twin at p = 2, HL1's XLA
    run); each run's ms a round, collectives by name, bytes a round and
@@ -204,8 +217,8 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    multi-rumor loop on each plane and FP256's rounds the planes' largest
    rounds to the target; ``run --engine fused --devices 2 --share-card``
    for the three (FP256 from this process, the command spawning its own
-   ranks; FPD and FPCH in the ranks of one spawn) and the same through
-   the library API in one spawn (FP256's curve beside them), every rank's
+   ranks; FPD and FPCH in the two shared ranks) and the same through
+   the library API in the same job (FP256's curve beside them), every rank's
    plane digests equal to K = 1's and every rank launching
    ``fused_mr_round`` 4 x its rounds and nothing else; FPD's first two
    rounds and FPCH's first eight (every
@@ -273,7 +286,7 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    words, msgs and coverage the JAX package's (``SC_JAX``; dropped
    within a float32 ulp of the total a round, ROADMAP queue 3 item 3), no
    kernel of the port launched; SC10M-K2 (the node mesh) and SC10M-S2
-   (two slices) on two gloo ranks sharing the card, in one spawn, each
+   (two slices) on the two shared gloo ranks, in one job, each
    rank's verdict against its rows' untiled run and rank 0's words
    against the one-device untiled run, every rank's peak at most the
    prediction.  Each run's ms a round beside the untiled run's, each
@@ -347,12 +360,19 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    round (single rumor at plane sharing 1 and 2, the value round, the
    staged round) at least 95% of its calibrated floor.
 
-The command lines at K = 2 of phases 19 (``mesh_path``, ``mesh_models``,
-``mesh_exchanges``, ``mesh_fused_planes``) run through the command's
-``main`` in one spawn of two ranks a phase, each rank the launched rank
-(the path ``torchrun`` takes); the checkpoints phase's K = 2 children
-and ``sweeps``' CF256 line spawn their ranks themselves, as
-``--share-card`` does alone.
+The K = 2 work of phases 19-22 (``mesh_path``, ``mesh_models``,
+``mesh_exchanges``, ``mesh_fused_planes``, ``sweeps``, ``scale``) runs on
+two gloo ranks sharing the card, spawned once before ``fused_deaths`` and
+kept until ``scale`` ends (``_Ranks``): a phase's command lines (each
+rank calling the command's ``main`` as the launched rank, the path
+``torchrun`` takes) and its library runs are one job of theirs.  One
+command line a phase (configuration 5, TX1, FP256) spawns its own ranks
+from this process, as a user's command does; the checkpoints phase's
+K = 2 children and ``sweeps``' CF256 line spawn theirs too.  The command
+lines run in a child process of their own (phases 16-17 and ``sweeps``)
+start with their phase and wait to be released, so their start-up
+overlaps the phase's work.  The ``walls`` line, before the ``kernels``
+line, gives each step's seconds.
 
 Then the ``kernels`` line (each round kernel with its calibrated floor
 ``floor_ms`` from the 10M document), and last ``{"ok": true, "device":
@@ -363,6 +383,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -1744,36 +1765,77 @@ def _swim_fault(kind):
                                          ramp=(0, 4, 0.0, 0.05)))
 
 
-def _port_lines(*commands) -> list:
-    """Every JSON line of each command line of ``python -m
-    gossip_tpu_torch`` in ``commands`` (argument lists), run one after
-    another in one child process from this checkout: a list of line
-    lists, in order."""
-    import os
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
-    driver = ("import json, sys\n"
-              "from gossip_tpu_torch import cli\n"
-              "for argv in json.loads(sys.argv[1]):\n"
-              "    rc = cli.main(argv)\n"
-              "    print(json.dumps({'_rc': rc}), flush=True)\n")
-    proc = subprocess.run([sys.executable, "-c", driver,
-                           json.dumps([list(c) for c in commands])],
-                          capture_output=True, text=True, cwd=root, env=env,
-                          timeout=900)
-    check(proc.returncode == 0, f"{commands}: {proc.stderr}")
-    out, cur = [], []
-    for ln in proc.stdout.strip().splitlines():
-        row = json.loads(ln)
-        if "_rc" in row:
-            check(row["_rc"] == 0, f"{commands[len(out)]}: exit "
-                  f"{row['_rc']}: {proc.stderr}")
-            out.append(cur)
-            cur = []
-        else:
-            cur.append(row)
-    return out
+_LINES_DRIVER = """
+import json, os, sys, time
+from gossip_tpu_torch import cli
+import torch
+if torch.cuda.is_available():
+    torch.cuda.init()
+parent, go = os.getppid(), sys.argv[2]
+while not os.path.exists(go):
+    if os.getppid() != parent:
+        sys.exit(3)
+    time.sleep(0.02)
+for argv in json.loads(sys.argv[1]):
+    rc = cli.main(argv)
+    print(json.dumps({'_rc': rc}), flush=True)
+"""
+
+
+class _PortLines:
+    """The command lines ``commands`` (argument lists of ``python -m
+    gossip_tpu_torch``) in one child process from this checkout, started
+    at once: the child imports the port and reaches the card, then waits
+    for :meth:`result`'s go, so its start-up overlaps the phase's other
+    work and no line runs beside it.  A child whose parent is gone exits,
+    and one left at exit is killed."""
+
+    def __init__(self, *commands):
+        import atexit
+        import os
+        import tempfile
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+        self.commands = [list(c) for c in commands]
+        fd, self.go = tempfile.mkstemp(prefix="chip_lines_go_")
+        os.close(fd)
+        os.unlink(self.go)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _LINES_DRIVER,
+             json.dumps(self.commands), self.go],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root, env=env)
+        atexit.register(self._kill)
+
+    def _kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self) -> list:
+        """Every JSON line of each command, in order: a list of line
+        lists."""
+        with open(self.go, "w"):
+            pass
+        try:
+            stdout, stderr = self.proc.communicate(timeout=900)
+        finally:
+            self._kill()
+            import os
+            os.unlink(self.go)
+        check(self.proc.returncode == 0, f"{self.commands}: {stderr}")
+        out, cur = [], []
+        for ln in stdout.strip().splitlines():
+            row = json.loads(ln)
+            if "_rc" in row:
+                check(row["_rc"] == 0, f"{self.commands[len(out)]}: exit "
+                      f"{row['_rc']}: {stderr}")
+                out.append(cur)
+                cur = []
+            else:
+                cur.append(row)
+        return out
 
 
 def _cli_lines(argv) -> list:
@@ -1793,32 +1855,203 @@ def _cli_lines(argv) -> list:
             if ln.startswith("{")]
 
 
+@contextlib.contextmanager
+def _tables_once():
+    """Inside: the topology constructor (``topology.generators.build``)
+    builds each power-law table once on each device and hands the same
+    table to every later use (SWIM's 1M power-law table takes seconds to
+    build, and the phases run many runs on it); outside, every table is
+    built anew and none is held."""
+    import torch
+    from gossip_tpu_torch.topology import generators as G
+    build, tables = G.build, {}
+
+    def once(tc, device=None):
+        if tc.family != "power_law":
+            return build(tc, device)
+        d = None if device is None else torch.device(device)
+        if d is not None and d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        key = (tc, str(d))
+        if key not in tables:
+            tables[key] = build(tc, device)
+        return tables[key]
+
+    G.build = once
+    try:
+        yield
+    finally:
+        G.build = build
+        tables.clear()
+
+
 def _lines_rank(commands, group):
-    """One rank of :func:`_port_lines_k2`: each command line through
-    :func:`_cli_lines` as this rank of ``group`` (the path ``torchrun``
-    takes: the process group is up, so the command runs as its rank).
-    Rank 0 returns its lines."""
+    """Each command line through :func:`_cli_lines` as this rank of
+    ``group`` (the path ``torchrun`` takes: the process group is up, so
+    the command runs as its rank).  Rank 0 returns its lines."""
     out = [_cli_lines(argv) for argv in commands]
     return out if group.rank == 0 else None
 
 
-def _port_lines_k2(*commands) -> list:
-    """:func:`_port_lines` for command lines of ``--devices 2
-    --share-card``: one spawn of two gloo ranks on the card runs them
-    all, each rank calling the command's ``main`` as the launched rank,
-    in place of one spawn a line (a spawn's start-up is most of a short
-    line's wall)."""
+def _phase_rank(commands, fn_name, args, group):
+    """One rank's whole K = 2 share of a phase, one job of :class:`_Ranks`:
+    the command lines ``commands`` as the launched rank
+    (:func:`_lines_rank`), then the library runs of the function of this
+    file named ``fn_name`` on ``args``, the power-law tables built once
+    for both (:func:`_tables_once`).  ``(lines, library result, walls)``:
+    the lines and the walls on rank 0."""
+    walls, t0 = {}, time.perf_counter()
+    with _tables_once():
+        lines = _lines_rank(commands, group) if commands else []
+        walls["cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lib = globals()[fn_name](*args, group=group) if fn_name else None
+        walls["library"] = time.perf_counter() - t0
+    return lines, lib, walls
+
+
+def _ranks_main(jobdir: str, group):
+    """The loop of one rank of :class:`_Ranks`: run job ``i`` (a pickled
+    ``(function name, arguments)`` of this file, ``None`` to stop) when
+    its file appears, write ``(ok, result or error)`` for the launcher,
+    free the card's cache, and wait for the next."""
+    import gc
+    import os
+    import pickle
+    import traceback
+
+    import torch
     from gossip_tpu_torch.parallel import group as GR
-    return GR.launch(_lines_rank, 2, [list(c) for c in commands],
-                     device="cuda", shared_card=True)[0]
+    _write_atomic(os.path.join(jobdir, f"ready.{group.rank}"), b"")
+    i = 0
+    while True:
+        path = os.path.join(jobdir, f"job{i}")
+        while not os.path.exists(path):
+            time.sleep(0.02)
+        with open(path, "rb") as f:
+            job = pickle.load(f)
+        if job is None:
+            return None
+        name, args = job
+        try:
+            out = (True, GR._to_host(globals()[name](*args, group=group)))
+        except BaseException as e:      # noqa: BLE001 - sent to the launcher
+            out = (False, (type(e).__name__, str(e), traceback.format_exc()))
+        _write_atomic(os.path.join(jobdir, f"out{i}.{group.rank}"),
+                      pickle.dumps(out))
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        i += 1
 
 
-def _lines_k2(first, *rest) -> list:
-    """The lines of command lines of ``--devices 2 --share-card``:
-    ``first`` through :func:`_cli_lines` in this process (the command
-    spawns its own two ranks, the route a user's command takes),
-    ``rest`` in one spawn of the two ranks (:func:`_port_lines_k2`)."""
-    return [_cli_lines(first)] + (_port_lines_k2(*rest) if rest else [])
+def _write_atomic(path: str, data: bytes) -> None:
+    import os
+    with open(path + ".tmp", "wb") as f:
+        f.write(data)
+    os.replace(path + ".tmp", path)
+
+
+class _Ranks:
+    """Two gloo ranks sharing the card, spawned once for every phase that
+    runs at K = 2 (``GR.launch`` of :func:`_ranks_main`, in a thread) and
+    kept until :meth:`close`: :meth:`run` hands both ranks one job and
+    returns every rank's result in rank order, as ``GR.launch`` does, with
+    no spawn of its own.  Their start-up (imports, the card, the group)
+    overlaps the work before the first job."""
+
+    def __init__(self, size: int = 2):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip_ranks_")
+        self.size, self.jobs, self.error = size, 0, None
+        self.spawned = time.time()
+        self.thread = threading.Thread(target=self._launch, daemon=True)
+        self.thread.start()
+
+    def _launch(self):
+        from gossip_tpu_torch.parallel import group as GR
+        try:
+            GR.launch(_ranks_main, self.size, self.dir, device="cuda",
+                      shared_card=True)
+        except BaseException as e:      # noqa: BLE001 - raised by run()
+            self.error = e
+
+    def ready_s(self):
+        """Seconds from the spawn to both ranks' group being up, or None
+        while one is not."""
+        import os
+        stamps = [os.path.join(self.dir, f"ready.{r}")
+                  for r in range(self.size)]
+        if not all(os.path.exists(p) for p in stamps):
+            return None
+        return max(os.path.getmtime(p) for p in stamps) - self.spawned
+
+    def run(self, fn, *args) -> list:
+        import os
+        import pickle
+        i, self.jobs = self.jobs, self.jobs + 1
+        _write_atomic(os.path.join(self.dir, f"job{i}"),
+                      pickle.dumps((fn.__name__, args)))
+        outs = [os.path.join(self.dir, f"out{i}.{r}")
+                for r in range(self.size)]
+        while not all(os.path.exists(p) for p in outs):
+            if self.error is not None or not self.thread.is_alive():
+                raise RuntimeError(f"the K = {self.size} ranks ended before "
+                                   f"job {fn.__name__}: {self.error}")
+            time.sleep(0.02)
+        results = []
+        for p in outs:
+            with open(p, "rb") as f:
+                ok, payload = pickle.load(f)
+            os.unlink(p)
+            if not ok:
+                kind, msg, tb = payload
+                if kind == "ValueError":
+                    raise ValueError(msg)
+                raise RuntimeError(f"{fn.__name__} on a rank: {kind}: {msg}"
+                                   f"\n{tb}")
+            results.append(payload)
+        return results
+
+    def close(self) -> float:
+        """Stop both ranks; the seconds their start-up took."""
+        import os
+        import pickle
+        import shutil
+        ready = self.ready_s()
+        _write_atomic(os.path.join(self.dir, f"job{self.jobs}"),
+                      pickle.dumps(None))
+        self.thread.join(timeout=120)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        check(self.error is None and not self.thread.is_alive(),
+              f"the K = {self.size} ranks did not stop: {self.error}")
+        return ready
+
+
+_K2 = {}
+
+
+def _k2() -> _Ranks:
+    """This run's two ranks sharing the card (started at first use)."""
+    if "ranks" not in _K2:
+        _K2["ranks"] = _Ranks(2)
+    return _K2["ranks"]
+
+
+def _close_k2() -> None:
+    """Stop :func:`_k2`'s ranks; their start-up's seconds go on the
+    ``walls`` line."""
+    if "ranks" in _K2:
+        _K2["ready_s"] = _K2.pop("ranks").close()
+
+
+def _k2_phase(commands, fn=None, *args):
+    """One phase's K = 2 share in one job of :func:`_k2`'s ranks
+    (:func:`_phase_rank`): ``(lines of each command, every rank's library
+    result, rank 0's walls)``."""
+    ranks = _k2().run(_phase_rank, [list(c) for c in commands],
+                      fn.__name__ if fn else None, args)
+    return ranks[0][0], [r[1] for r in ranks], ranks[0][2]
 
 
 def _same_fields(a, b, fields) -> bool:
@@ -1838,7 +2071,14 @@ def phase_swim_rumor_path(dev, smi: str, n_swim: int = N_SWIM, n: int = N,
     and msgs, every launch count 0 (the models run no kernel of the
     port); SW1 and RM1 again through the command line; the runs' ms a
     round and node-rounds/s, and one SWIM round's parts at SW1's
-    shape."""
+    shape.  The phase builds the 1M power-law table once
+    (:func:`_tables_once`), its command lines' ``main`` in this process
+    included."""
+    with _tables_once():
+        return _swim_rumor_path(dev, smi, n_swim, n, n_small)
+
+
+def _swim_rumor_path(dev, smi: str, n_swim: int, n: int, n_small: int):
     import torch
     from gossip_tpu_torch import bench
     from gossip_tpu_torch.backend import run_simulation
@@ -1938,15 +2178,16 @@ def phase_swim_rumor_path(dev, smi: str, n_swim: int = N_SWIM, n: int = N,
     wall_s["rumor_10m"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
-    # the command line, the JAX package's spelling
-    sw1, rm1 = _port_lines(
+    # the command line, the JAX package's spelling, its main in this
+    # process (SW1 on the phase's one power-law table)
+    sw1, rm1 = (_cli_lines(argv) for argv in (
         ["run", "--mode", "swim", "--n", str(n_swim), "--family",
          "power_law", "--k", "3", "--degree-cap", "256", "--fanout", "2",
          "--swim-subjects", "8", "--swim-proxies", "3",
          "--swim-suspect-rounds", "24", "--max-rounds", "80"],
         ["run", "--mode", "rumor", "--n", str(n), "--fanout", "1",
          "--rumor-k", "2", "--rumor-variant", "feedback", "--max-rounds",
-         "128"])
+         "128"]))
     cli = {"SW1": sw1[-1], "RM1": rm1[-1]}
     for name, out in cli.items():
         want = (SWIM_CASES.get(name) or RUMOR_CASES[name])[2]
@@ -2147,6 +2388,8 @@ def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
     import torch
 
     cases = CRDT_LOG_CASES if cases is None else cases
+    # the command lines' child starts now; it runs them at the end
+    lines_job = _PortLines(*(cases[name][0] for name in command_ids))
     on_card = dev.type == "cuda"
     runs, same, wall_s = _payload_runs(dev, cases, replays, ("BZ2d",))
     cr4 = None
@@ -2190,7 +2433,7 @@ def phase_crdt_log_path(dev, smi: str, cases=None, replays=CRDT_LOG_REPLAYS,
         torch.cuda.empty_cache()
     wall_s["round_split"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    outs = _port_lines(*(cases[name][0] for name in command_ids))
+    outs = lines_job.result()
     for name, lines_out in zip(command_ids, outs):
         want, out = cases[name][1], lines_out[-1]
         check(_payload_key(out) == want
@@ -2303,6 +2546,8 @@ def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
     import torch
 
     cases = TXN_CASES if cases is None else cases
+    # the command lines' child starts now; it runs them at the end
+    lines_job = _PortLines(*(cases[name][0] for name in command_ids))
     on_card = dev.type == "cuda"
     runs, same, wall_s = _payload_runs(dev, cases, replays)
     memory = None
@@ -2346,7 +2591,7 @@ def phase_txn_path(dev, smi: str, cases=None, replays=TXN_REPLAYS,
         torch.cuda.empty_cache()
     wall_s["round_split"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    outs = _port_lines(*(cases[name][0] for name in command_ids))
+    outs = lines_job.result()
     for name, lines_out in zip(command_ids, outs):
         want, out = cases[name][1], lines_out[-1]
         check(_payload_key(out) == want
@@ -2398,7 +2643,8 @@ def phase_mesh_path(dev, smi: str):
     ranks on this one card under gloo through ``python -m
     gossip_tpu_torch run --devices 2 --share-card``: configuration 5 (10M
     x 32; from this process, the command spawning its own ranks) and the
-    dense 10M curve (in the ranks of :func:`_port_lines_k2`'s spawn),
+    dense 10M curve (in :func:`_k2`'s ranks, one job with the library
+    runs),
     which must print the JAX package's values (``MESH_CFG5``,
     ``MESH_CURVE``), and the same two runs through the library API, whose
     final states must equal the single-device port runs'; (c) each run's
@@ -2445,9 +2691,13 @@ def phase_mesh_path(dev, smi: str):
 
     base = ["--devices", "2", "--share-card", "--mode", "pull", "--n",
             str(N), "--engine", "xla"]
-    cfg5, curve = (out[-1] for out in _lines_k2(
-        ["run", *base, "--rumors", str(RUMORS)],
-        ["run", *base, "--curve", "--max-rounds", str(MESH_CURVE_ROUNDS)]))
+    # configuration 5 through the command's own spawn; the curve's line
+    # and the library runs in one job of the two ranks
+    cfg5 = _cli_lines(["run", *base, "--rumors", str(RUMORS)])[-1]
+    (curve_lines,), ranks, k2_walls = _k2_phase(
+        [["run", *base, "--curve", "--max-rounds", str(MESH_CURVE_ROUNDS)]],
+        _mesh_rank, N)
+    curve = curve_lines[-1]
     got = (cfg5["rounds"], cfg5["coverage"], cfg5["msgs"])
     check(got == MESH_CFG5 and cfg5["meta"]["engine"] == "bit-packed"
           and cfg5["meta"]["devices"] == 2
@@ -2459,7 +2709,6 @@ def phase_mesh_path(dev, smi: str):
           and "engine" not in curve["meta"],
           f"dense curve at K = 2: {got_c}, want {MESH_CURVE}")
 
-    ranks = GR.launch(_mesh_rank, 2, N, device=dev, shared_card=True)
     single5, s5 = steady_timed(
         dev, simulate_until_packed, ProtocolConfig(mode="pull",
                                                     rumors=RUMORS),
@@ -2486,6 +2735,7 @@ def phase_mesh_path(dev, smi: str):
              "cfg5": s5 * 1e3 / single5[0],
              "curve": sc * 1e3 / MESH_CURVE_ROUNDS},
          states_equal_single_device={"cfg5": same5, "curve": same_c},
+         k2_job_walls_s=k2_walls,
          phase_s=time.perf_counter() - t_phase, card=smi)
     return _mesh_numbers(cfg5, cfg5["rounds"])["ms_per_round"]
 
@@ -2597,10 +2847,10 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
     """The node-sharded SWIM, rumor and payload drivers on the card:
     (a) K = 2 ranks sharing it under gloo through the port's command
     lines (``--devices 2 --share-card``): TX1 from this process (the
-    payload command spawning its own ranks), SW1, RM1, CR3 and LG1 in the ranks
-    of one spawn (:func:`_lines_k2`), each against the JAX package's
+    payload command spawning its own ranks), SW1, RM1, CR3 and LG1 on
+    :func:`_k2`'s ranks, each against the JAX package's
     values on its 2-device mesh (``MESH_*``, TX1's curve too); (b)
-    K = 2 through the library API in one spawn: TX10M, BZ2d, SW1 and
+    K = 2 through the library API in the same job: TX10M, BZ2d, SW1 and
     RM1, each against the same values and each rank's digest of its
     padded final rows against the single-device port run's (TX10M's and
     BZ2d's from the earlier phases, in ``single_runs``; SW1's and RM1's
@@ -2640,10 +2890,17 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
         "LG1": (CRDT_LOG_CASES["LG1"][0], MESH_LG1),
     }
     cli_runs = {}
-    # TX1 through the command's own spawn, the rest in one spawn
+    # TX1 through the command's own spawn; the rest and the library runs
+    # (b) in one job of the two ranks, the power-law table built once
     t0 = time.perf_counter()
-    outs = _lines_k2(*([*args, *share] for args, _ in commands.values()))
-    wall_s["cli"] = time.perf_counter() - t0
+    lines = [[*args, *share] for args, _ in commands.values()]
+    outs = [_cli_lines(lines[0])]
+    wall_s["cli_tx1"] = time.perf_counter() - t0
+    rest, ranks, k2_walls = _k2_phase(lines[1:], _mesh_models_rank, n,
+                                      n_swim)
+    outs += rest
+    wall_s["cli"] = k2_walls["cli"]
+    wall_s["library_spawn"] = k2_walls["library"]
     for (name, (args, want)), lines_out in zip(commands.items(), outs):
         out = lines_out[-1]
         if args[0] == "run":
@@ -2666,11 +2923,7 @@ def phase_mesh_models(dev, smi: str, single_runs: dict,
                           "single_device_ms_per_round":
                               single_runs.get(name, {}).get("ms_per_round")}
 
-    # (b) the library API, one spawn of two ranks on this card
-    t0 = time.perf_counter()
-    ranks = GR.launch(_mesh_models_rank, 2, n, n_swim, device=dev,
-                      shared_card=True)
-    wall_s["library_spawn"] = time.perf_counter() - t0
+    # (b) the library API, two ranks on this card (run above)
     t0 = time.perf_counter()
     swim_topo = G.build(TopologyConfig(family="power_law", n=n_swim, k=3,
                                        degree_cap=256), dev)
@@ -2868,10 +3121,10 @@ def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
     """The sparse and halo exchanges at K = 2 ranks on this card under
     gloo: (a) each of ``EXCHANGE_CASES`` through ``python -m
     gossip_tpu_torch run --devices 2 --share-card``'s ``main`` in the
-    ranks of one spawn (:func:`_port_lines_k2`), which must print the
+    ranks of :func:`_k2`, which must print the
     JAX package's values on its 2-device mesh (TS3 with its overflow and
     bucket cap) and the exchange's meta; (b) the same runs through the
-    library API in one spawn, each rank's SHA-256 of its padded final
+    library API in the same job, each rank's SHA-256 of its padded final
     rows against the window of the single-device state (the sparse twin
     at p = 2, HL1's XLA run) on the card; the dense exchange's TS3 and
     HL1 in that spawn; (c) each run's ms a round, each collective's ms a
@@ -2884,17 +3137,18 @@ def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
     :func:`_timed_group`; the single-device twins, run here, are counted
     apart."""
     import torch
-    from gossip_tpu_torch.parallel import group as GR
 
     t_phase, wall_s = time.perf_counter(), {}
     torch.cuda.empty_cache()
     share = ["--devices", "2", "--share-card"]
     cli_runs = {}
-    # every command line in one spawn of the two ranks
-    t0 = time.perf_counter()
-    outs = _port_lines_k2(*(["run", *args, *share]
-                            for args, _ in EXCHANGE_CASES.values()))
-    wall_s["cli"] = time.perf_counter() - t0
+    # every command line and the library runs (b) in one job of the two
+    # ranks
+    outs, ranks, k2_walls = _k2_phase(
+        [["run", *args, *share] for args, _ in EXCHANGE_CASES.values()],
+        _exchange_rank)
+    wall_s["cli"] = k2_walls["cli"]
+    wall_s["library_spawn"] = k2_walls["library"]
     for (name, (args, want)), lines_out in zip(EXCHANGE_CASES.items(), outs):
         out = lines_out[-1]
         got = (out["rounds"], out["coverage"], out["msgs"])
@@ -2916,9 +3170,6 @@ def phase_mesh_exchanges(dev, smi: str, cfg5_dense_ms=None):
                                     "bucket_cap", "band") if k in meta},
             **_mesh_run_numbers(meta, out["rounds"])}
 
-    t0 = time.perf_counter()
-    ranks = GR.launch(_exchange_rank, 2, device=dev, shared_card=True)
-    wall_s["library_spawn"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     library = {}
     twin_before = _launch_counts()
@@ -3112,10 +3363,10 @@ def phase_mesh_fused_planes(dev, smi: str):
     """The fused rumor planes at N = 10M x 256 rumors (8 planes):
     (a) ``python -m gossip_tpu_torch run --engine fused --devices 2
     --share-card`` for FP256 (from this process, the command spawning its
-    own ranks), FPD and FPCH (in the ranks of one spawn), each rank
+    own ranks), FPD and FPCH (in the two shared ranks), each rank
     launching ``fused_mr_round`` exactly 4 x its rounds and no other
     kernel (``meta.rank_launches``); (b) the same through the library API
-    in one spawn, FP256's curve beside them, each rank's plane digests, the
+    in the same job, FP256's curve beside them, each rank's plane digests, the
     replays of ``FP_REPLAY`` against the plain lane-major round, the PRNG
     invariant holding and failing on a rank keyed by another seed; (c)
     K = 1 under NCCL (8 planes on one rank), counts set to 0 just before
@@ -3213,11 +3464,17 @@ def phase_mesh_fused_planes(dev, smi: str):
 
     # (a) the command lines at K = 2
     cli_runs = {}
-    # FP256 through the command's own spawn, the rest in one spawn
+    # FP256 through the command's own spawn; the rest and the library
+    # runs (b) in one job of the two ranks
     t0 = time.perf_counter()
-    outs = _lines_k2(*(["run", *args, *share]
-                       for args in FP_CASES.values()))
-    wall_s["cli"] = time.perf_counter() - t0
+    lines = [["run", *args, *share] for args in FP_CASES.values()]
+    outs = [_cli_lines(lines[0])]
+    wall_s["cli_fp256"] = time.perf_counter() - t0
+    rest, ranks, k2_walls = _k2_phase(lines[1:], _planes_rank,
+                                      k1["FP256"]["result"][0])
+    outs += rest
+    wall_s["cli"] = k2_walls["cli"]
+    wall_s["library_spawn"] = k2_walls["library"]
     for (name, args), lines_out in zip(FP_CASES.items(), outs):
         out = lines_out[-1]
         meta = out["meta"]
@@ -3235,11 +3492,7 @@ def phase_mesh_fused_planes(dev, smi: str):
         cli_runs[name] = {"command": [*args, *share], "result": list(got),
                           **_mesh_run_numbers(meta, want[0])}
 
-    # (b) the library API at K = 2, one spawn
-    t0 = time.perf_counter()
-    ranks = GR.launch(_planes_rank, 2, k1["FP256"]["result"][0], device=dev,
-                      shared_card=True)
-    wall_s["library_spawn"] = time.perf_counter() - t0
+    # (b) the library API at K = 2 (run above)
     library = {}
     for name in FP_CASES:
         got = tuple(ranks[0][name][0])
@@ -3945,7 +4198,7 @@ def _sweep_line(name: str, nums: dict, rounds: int, points: int,
 
 
 def _sweeps_rank(group):
-    """One rank of the K = 2 library runs, one spawn: ES32's ensemble
+    """One rank of the K = 2 library runs, one job: ES32's ensemble
     (the seed axis), GRP on the 2 x 1 and 1 x 2 hybrid meshes, CF256's
     fused sweep (the plane axis) and each of its scenarios solo, with
     each run's numbers."""
@@ -4024,6 +4277,15 @@ def phase_sweeps(dev, smi: str):
 
     t_phase, wall_s = time.perf_counter(), {}
     torch.cuda.empty_cache()
+    # the command lines' child (GR12, CS8, CF256 at K = 2) starts now; it
+    # runs them at the end
+    lines_job = _PortLines(
+        ["grid", *GR12_ARGS],
+        ["churn-sweep", "--mode", "pull", "--fanout", "1", "--n", str(N_CS),
+         "--drop", "0.01", "--max-rounds", "32",
+         *_scenario_args(_spec(f) for f in _cs8_faults(0))],
+        ["churn-sweep", *CF_ARGS, *_scenario_args(CF_SCENARIOS),
+         "--devices", "2", "--share-card"])
     lines = {}
 
     def put(name, line):
@@ -4284,9 +4546,9 @@ def phase_sweeps(dev, smi: str):
     cf_k1 = res
     wall_s["CF256_k1"] = time.perf_counter() - t0
 
-    # the K = 2 runs: the library in one spawn, CF256 through the command
+    # the K = 2 runs: the library in one job, CF256 through the command
     t0 = time.perf_counter()
-    ranks = GR.launch(_sweeps_rank, 2, device=dev, shared_card=True)
+    ranks = _k2().run(_sweeps_rank)
     r0 = ranks[0]
     check(np.array_equal(r0["ES32"][0], k1["ES32"].curves)
           and np.array_equal(r0["ES32"][1], k1["ES32"].msgs),
@@ -4341,13 +4603,7 @@ def phase_sweeps(dev, smi: str):
     # the command lines, one process: GR12 and CS8 against the
     # library's runs, CF256 at K = 2 sharing the card
     t0 = time.perf_counter()
-    grid, cs8_cli, cf = _port_lines(
-        ["grid", *GR12_ARGS],
-        ["churn-sweep", "--mode", "pull", "--fanout", "1", "--n", str(N_CS),
-         "--drop", "0.01", "--max-rounds", "32",
-         *_scenario_args(_spec(f) for f in _cs8_faults(0))],
-        ["churn-sweep", *CF_ARGS, *_scenario_args(CF_SCENARIOS),
-         "--devices", "2", "--share-card"])
+    grid, cs8_cli, cf = lines_job.result()
     check([(g["rounds_to_target"], g["final_coverage"], g["msgs_total"])
            for g in grid]
           == [(int(r), float(c[-1]), float(m[-1])) for r, c, m in zip(
@@ -4668,7 +4924,7 @@ def _sc_case(dev, smi: str, name: str, tmp: str) -> dict:
 
 
 def _sc_mesh_rank(plans, group):
-    """One rank of the SC10M cells (every plan in one spawn): each run's
+    """One rank of the SC10M cells (every plan in one job): each run's
     result (rank 0 keeps the gathered words), stats, seconds, peak
     allocated memory and this rank's kernel launches."""
     import torch
@@ -4700,7 +4956,6 @@ def phase_scale(dev, smi: str):
 
     import numpy as np
     import torch
-    from gossip_tpu_torch.parallel import group as GR
     from gossip_tpu_torch.planner import stream as PS
     t_phase = time.perf_counter()
     tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4715,7 +4970,7 @@ def phase_scale(dev, smi: str):
                  for name, argv in SC_MESH.items()}
         for name, plan in plans.items():
             check(plan.tiles == 2, f"{name}: {plan.tiles} tiles")
-        ranks = GR.launch(_sc_mesh_rank, 2, plans, shared_card=True)
+        ranks = _k2().run(_sc_mesh_rank, plans)
         for name, plan in plans.items():
             res, stats, s, _ = ranks[0][name]
             t0 = time.perf_counter()
@@ -5770,6 +6025,180 @@ def phase_serving(dev, smi: str):
          build_events=_kernels.build_events(), card=smi)
 
 
+# The five BASELINE.json rows (phase `baseline`): `python -m
+# gossip_tpu_torch sweep --scale 1.0` on the card.  BASELINE_JAX holds the
+# JAX package's rounds, coverage and msgs for each row from `JAX_PLATFORMS=cpu
+# python -m gossip_tpu sweep --scale 1.0` (jax 0.9.0 on the CPU), and
+# BASELINE_GONATIVE row 1's `gonative_ref` (its wall aside).  Rows 1-4 run
+# the threefry XLA engine (SWIM for row 4), bitwise the JAX package's;
+# row 5 takes the fused multi-rumor kernel on the card (Philox against
+# the CPU's threefry: its rounds are held within 2, ROADMAP's statistical
+# comparison).
+BASELINE_JAX = {
+    "push-complete-64-goref": (10, 1.0, 265.0),
+    "pushpull-er-10k": (11, 0.9939999580383301, 238933.0),
+    "antientropy-ws-100k": (55, 0.9922999739646912, 8400000.0),
+    "swim-powerlaw-1m": (31, 0.9953849911689758, 163843776.0),
+    "multirumor-10m-sharded": (29, 0.9949251413345337, 580000000.0),
+}
+BASELINE_GONATIVE = {
+    "backend": "go-native", "mode": "flood", "n": 64, "rounds": 1,
+    "coverage": 1.0, "msgs": 7940.0, "curve": None,
+    "meta": {"clock": "hop-depth", "sim_time_s": 0.2480000000000002,
+             "deliveries": 64, "msgs_counts": "requests+acks",
+             "engine": "NativeGoSim"}}
+# `run --mode flood --parity-check` on the card for these graphs; the JAX
+# package's lines from `JAX_PLATFORMS=cpu python -m gossip_tpu run --mode
+# flood --parity-check` with the same flags (jax 0.9.0 on the CPU):
+# (curve_gap, hop_bound_violation, fixed_point_gap), its flood run's
+# (rounds, coverage, msgs) and the event core's (rounds, coverage, msgs,
+# sim_time_s, deliveries).  The grid (256 x 256, race-free along its
+# shells from the corner) meets the event curve exactly; the power-law
+# graph's hop bound is the float32 rounding of the flood curve (below
+# one node in n), the same in both packages.
+PARITY_CASES = {
+    "grid": (["--family", "grid", "--n", "65536", "--max-rounds", "1024"],
+             (0.0, 0.0, 0.0), (475, 1.0, 200801408.0),
+             (475, 1.0, 391172.0, 1.0229999999999986, 65536)),
+    "power_law": (["--family", "power_law", "--n", "100000"],
+                  (0.5894699790763855, 8.392334049922567e-10, 0.0),
+                  (3, 1.0, 201145088.0),
+                  (8, 1.0, 1383192.0, 22.22399999999856, 100000)),
+}
+MAELSTROM_CHECK = ["maelstrom-check", "--n", "5", "--ops", "30",
+                   "--partition"]
+
+
+def phase_baseline(dev, smi: str) -> int:
+    """The go-native backend, the Maelstrom runtime and ``sweep`` on the
+    card's machine: (a) ``sweep --scale 1.0`` through the port's command
+    in this process, counts set to 0 just before and read just after:
+    rows 1-4 and row 1's ``gonative_ref`` the JAX package's values bit
+    for bit, row 5 (10M x 8 rumors, ``engine='auto'``) on the fused
+    multi-rumor kernel, one launch a round and no other kernel, to 0.99,
+    within 2 rounds of the JAX package's; each row's wall, steady wall
+    and ms a round; (b) ``run --mode flood --parity-check`` on
+    ``PARITY_CASES`` (the flood rounds on the card, the C++ event core
+    on the host), every number the JAX package's, the grid's
+    ``curve_gap`` 0.0, both fixed points equal; (c) ``maelstrom-check
+    --n 5 --ops 30 --partition`` on the Python router and on the C++
+    router (built with ``g++``), each holding its invariant: two
+    ``python -m gossip_tpu_torch`` processes started with the phase, on
+    the host beside (a) and (b).
+    Returns the kernel's launches in the sweep."""
+    import os
+
+    import numpy as np
+    from gossip_tpu_torch.ops import _kernels
+    wall_s, t_phase = {}, time.perf_counter()
+    # the two Maelstrom checks (host processes: the harness and five
+    # nodes each) run beside the card's work, from their own command
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    checks = {router: subprocess.Popen(
+        [sys.executable, "-m", "gossip_tpu_torch", *MAELSTROM_CHECK,
+         "--router", router], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root, env=env)
+        for router in ("python", "native")}
+    t0 = time.perf_counter()
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    rows = _cli_lines(["sweep", "--scale", "1.0"])
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    wall_s["sweep"] = time.perf_counter() - t0
+    check([r["config"] for r in rows] == list(BASELINE_JAX),
+          f"sweep rows {[r['config'] for r in rows]}")
+    out = {}
+    for row in rows:
+        name, meta = row["config"], row["meta"]
+        got = (row["rounds"], row["coverage"], row["msgs"])
+        want = BASELINE_JAX[name]
+        if name == "multirumor-10m-sharded":
+            rounds = row["rounds"]
+            check(rounds > 0 and abs(rounds - want[0]) <= 2
+                  and row["coverage"] >= np.float32(0.99)
+                  and meta["engine"] == "fused-cuda"
+                  and meta["engine_auto"] == "fused"
+                  and meta["launches"] == {
+                      **{k: 0 for k in meta["launches"]},
+                      "fused_mr_round": rounds}
+                  and launches == {**{k: 0 for k in launches},
+                                   "fused_mr_round": rounds}
+                  and row["config_revision"] == 2,
+                  f"{name}: {got} on {meta.get('engine')}, launches "
+                  f"{meta['launches']} (sweep {launches}); the JAX "
+                  f"package's {want}")
+        else:
+            check(got == want and sum(meta["launches"].values()) == 0,
+                  f"{name}: {got}, want {want}; launches "
+                  f"{meta['launches']}")
+        if "gonative_ref" in row:
+            ref = {k: v for k, v in row["gonative_ref"].items()
+                   if k != "wall_s"}
+            check(ref == BASELINE_GONATIVE,
+                  f"{name} gonative_ref: {ref}, want {BASELINE_GONATIVE}")
+        steady = meta.get("steady_wall_s")
+        out[name] = {"result": list(got), "jax": list(want),
+                     "row_wall_s": row["row_wall_s"],
+                     "wall_s": row["wall_s"], "steady_wall_s": steady,
+                     "ms_per_round": (steady * 1e3 / row["rounds"]
+                                      if steady and row["rounds"] > 0
+                                      else None),
+                     "engine": meta.get("engine"),
+                     "launches": meta["launches"]}
+    emit("baseline_sweep", rows=out,
+         gonative_ref_equal=True, sweep_launches=launches, card=smi)
+    t0 = time.perf_counter()
+    parity = {}
+    for name, (flags, gaps, jax_run, gn_run) in PARITY_CASES.items():
+        t1 = time.perf_counter()
+        (line,) = _cli_lines(["run", "--mode", "flood", "--parity-check",
+                              *flags])
+        jr, gr = line["jax"], line["gonative"]
+        got = {"gaps": (line["curve_gap"], line["hop_bound_violation"],
+                        line["fixed_point_gap"]),
+               "flood": (jr["rounds"], jr["coverage"], jr["msgs"]),
+               "event": (gr["rounds"], gr["coverage"], gr["msgs"],
+                         gr["meta"]["sim_time_s"],
+                         gr["meta"]["deliveries"])}
+        check(got == {"gaps": gaps, "flood": jax_run, "event": gn_run}
+              and jr["backend"] == "torch-cuda"
+              and gr["meta"]["engine"] == "NativeGoSim"
+              and line["fixed_point_gap"] == 0.0
+              and line["hop_bound_violation"] < 1.0 / line["n"]
+              and (name != "grid" or line["curve_gap"] == 0.0),
+              f"parity {name}: {got}, the JAX package's {gaps} "
+              f"{jax_run} {gn_run}")
+        parity[name] = {**got, "flood_wall_s": jr["wall_s"],
+                        "event_wall_s": gr["wall_s"],
+                        "wall_s": time.perf_counter() - t1}
+    wall_s["parity"] = time.perf_counter() - t0
+    emit("baseline_parity", runs=parity, card=smi)
+    t0 = time.perf_counter()
+    maelstrom = {}
+    for router, proc in checks.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        check(proc.returncode == 0,
+              f"maelstrom-check --router {router}: exit {proc.returncode}: "
+              f"{err[-2000:]}")
+        stats = json.loads(out.strip().splitlines()[-1])
+        check(stats["invariant_ok"] is True and stats["partitioned"] is True
+              and stats["broadcast_ops"] == 30
+              and (router == "python"
+                   or stats["engine"] == "native-router"),
+              f"maelstrom-check --router {router}: {stats}")
+        maelstrom[router] = stats
+    wall_s["maelstrom_wait"] = time.perf_counter() - t0
+    emit("baseline", maelstrom_check=maelstrom, phase_wall_s=wall_s,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    return launches["fused_mr_round"]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # ``--only sweeps,roofline``: those phases alone, after the device and
@@ -5806,8 +6235,27 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     built = _kernels.KERNELS + (_kernels.FUSED_MR_PARTS,)
+    gxx = {}
+
+    def build_host_code():
+        # the go-native event core and the Maelstrom router (g++), beside
+        # the kernels' nvcc builds
+        from gossip_tpu_torch import native
+        from gossip_tpu_torch.runtime.native_router import build_router
+        t1 = time.perf_counter()
+        try:
+            native.load_eventsim()
+            build_router()
+        except ValueError as e:
+            gxx["error"] = str(e)
+        gxx["s"] = time.perf_counter() - t1
+
+    host_build = threading.Thread(target=build_host_code)
+    host_build.start()
     _kernels.build_all(built)
-    emit("build", build_s=time.perf_counter() - t0,
+    host_build.join()
+    check("error" not in gxx, f"g++: {gxx.get('error')}")
+    emit("build", build_s=time.perf_counter() - t0, gxx_build_s=gxx["s"],
          kernels={k.name: [ln.split(":", 1)[-1].strip()
                            for ln in k.ptxas.splitlines()
                            if any(w in ln for w in ("entry function",
@@ -5821,6 +6269,9 @@ def main(argv=None) -> int:
                   "mesh_fused_planes": phase_mesh_fused_planes,
                   "mr_parts": phase_mr_parts,
                   "serving": phase_serving,
+                  "baseline": lambda dev, smi: emit(
+                      "baseline_launches",
+                      fused_mr_round=phase_baseline(dev, smi)),
                   "records": lambda dev, smi: phase_records(
                       dev, smi, run_simulation(
                           ProtocolConfig(mode="pull", fanout=1),
@@ -5833,6 +6284,8 @@ def main(argv=None) -> int:
                       card=smi)}
         for p in only:
             phases[p](dev, smi)
+        _close_k2()
+        emit("only", k2_ranks_start_s=_K2.get("ready_s"))
         return 0
 
     # each step's wall since the one before it (the "walls" line), to see
@@ -5929,8 +6382,12 @@ def main(argv=None) -> int:
     mark("sampler_and_xla_paths")
     churn_launches = phase_churn_path(dev, smi)
     mark("churn_path")
-    single_runs = dict(phase_swim_rumor_path(dev, smi))
-    mark("swim_rumor_path")
+    with _tables_once():
+        # the baseline sweep's SWIM row takes the SWIM phase's 1M table
+        single_runs = dict(phase_swim_rumor_path(dev, smi))
+        mark("swim_rumor_path")
+        baseline_launches = phase_baseline(dev, smi)
+        mark("baseline")
     crdt_runs, cr4_single = phase_crdt_log_path(dev, smi)
     single_runs.update(crdt_runs, CR4_direct=cr4_single)
     mark("crdt_log_path")
@@ -5940,6 +6397,7 @@ def main(argv=None) -> int:
     sampler.update(launches=churn_launches, path="churn_path",
                    launches_by_path={"xla_sampler_path": xla_sampler_launches,
                                      "churn_path": churn_launches})
+    _k2()     # the two ranks of the K = 2 phases start up meanwhile
     phase_fused_deaths(dev, smi)
     mark("fused_deaths")
     cfg5_ms = phase_mesh_path(dev, smi)
@@ -5955,6 +6413,7 @@ def main(argv=None) -> int:
     ck_launches = phase_checkpoints(dev, smi)
     mark("checkpoints")
     phase_scale(dev, smi)
+    _close_k2()
     mark("scale")
     phase_records(dev, smi, report.to_dict())
     mark("records")
@@ -5964,7 +6423,8 @@ def main(argv=None) -> int:
         "mr_main_path": mr_kernels[0]["launches"],
         "mesh_fused_planes": planes_launches,
         "sweeps": sweeps_launches,
-        "checkpoints": ck_launches}
+        "checkpoints": ck_launches,
+        "baseline": baseline_launches}
     thr = mr_parts["threshold"]
     mr_kernels[0]["instantiations"] = {
         "mr_main_path": {"what": "fanout 1, the fast kernel",
@@ -5982,7 +6442,8 @@ def main(argv=None) -> int:
             **_kernels.fused_mr_occupancy(2, True, True, False, thr)}}
     cal_kernels, floors = phase_roofline(dev, smi)
     mark("roofline")
-    emit("walls", steps_s=walls, total_s=sum(walls.values()), card=smi)
+    emit("walls", steps_s=walls, total_s=sum(walls.values()),
+         k2_ranks_start_s=_K2.get("ready_s"), card=smi)
 
     kernels = [{
         "name": "fused_round", "route": "cuda",

@@ -11,7 +11,11 @@ packed loop can draw its partners with ``csrc/sampler.cu``; the XLA
 engine also runs the JAX package's fault programs (the nemesis: churn
 events, partition windows, drop ramps), SWIM failure detection, rumor
 mongering, the CRDT payloads (with the byzantine liar program), the
-replicated logs and the LWW registers' txn workload.  Its roofline
+replicated logs and the LWW registers' txn workload.  Beside them, the
+go-native backend (the reference node's event-driven model on a C++
+core built with ``g++``), the Maelstrom runtime (protocol node,
+harness, C++ router and txn checker) and the ``sweep`` of the five
+BASELINE rows.  Its roofline
 tool calibrates the card's rates with the microkernels of
 ``csrc/calibrate.cu`` and prices the round kernels' work with them.
 
@@ -37,6 +41,11 @@ Layout:
     register rounds and loops (``crdt``, ``log``, ``register``)
   - :mod:`gossip_tpu_torch.runtime.simulator`  the bool rounds' and SWIM's
     loops
+  - :mod:`gossip_tpu_torch.runtime.gonative`, ``native_sim``,
+    :mod:`gossip_tpu_torch.native`  the go-native event simulator, its
+    C++ core and the ``g++`` build
+  - :mod:`gossip_tpu_torch.runtime.maelstrom_node`, ``maelstrom_harness``,
+    ``native_router``, ``txn_checker``  the Maelstrom runtime (torch-free)
   - :mod:`gossip_tpu_torch.ops._kernels`     build, binding and launch
   - :mod:`gossip_tpu_torch.backend`          ``run_simulation`` and the
     serving wire (``request_to_args``, ``dispatch``)

@@ -62,6 +62,10 @@ the reference's words (the payloads shard through the library API,
 :mod:`~gossip_tpu_torch.parallel.sharded_register`, and the ``log`` and
 ``txn`` commands' ``--devices``).
 
+:func:`run_gonative` is the reference's go-native backend: the flood
+relay of the Go node on the event core of ``native/eventsim.cpp``, on the
+host (:func:`dispatch`'s ``go-native``, ``run --backend go-native``).
+
 The report carries the reference's ``RunReport`` fields and ``meta``
 keys, plus the device, every kernel's launches and, for the SI modes,
 the exact count behind the coverage
@@ -113,6 +117,95 @@ class RunReport:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+# go-native materializes every edge as Python objects; past this it is no
+# longer the quick parity fixture it exists to be (the reference's caps)
+_GONATIVE_MAX_NODES = 20_000
+# engine='native' raises the ceiling to the C++ core's
+_GONATIVE_NATIVE_MAX_NODES = 1_000_000
+
+
+def _build_topology(tc: TopologyConfig, for_gonative: bool):
+    """The run's topology table, on the CPU; for go-native an explicit
+    one (the event sim takes neighbor lists): the complete graph
+    materialized up to 2048 nodes (the reference's refusal past it)."""
+    from gossip_tpu_torch.topology import generators as G
+    if for_gonative and tc.family == C.COMPLETE:
+        if tc.n > 2048:
+            raise ValueError(
+                "go-native on a complete graph materializes n^2 edges; "
+                f"n={tc.n} is past sanity (use a sparse family or jax-tpu)")
+        return G.complete_table(tc.n, "cpu")
+    return G.build(tc, "cpu")
+
+
+def run_gonative(proto: ProtocolConfig, tc: TopologyConfig, run: RunConfig,
+                 fault: Optional[FaultConfig] = None,
+                 want_curve: bool = False) -> RunReport:
+    """The reference's event-driven run (flood relay, the only protocol
+    the Go node implements) on the C++ event core
+    (:mod:`gossip_tpu_torch.runtime.native_sim`), the reference's
+    ``run_gonative``: its caps (20,000 nodes for ``engine='auto'``,
+    1,000,000 for ``'native'``), its refusals in its words, its report.
+    Where the reference falls back to its Python engine without a
+    compiler, the build raises here."""
+    from gossip_tpu_torch.runtime.gonative import topology_from_table
+    from gossip_tpu_torch.runtime.native_sim import make_event_sim
+    if run.engine in ("xla", "fused"):
+        raise ValueError(
+            f"engine {run.engine!r} selects jax kernels; the go-native "
+            "backend takes engine 'auto' (C++ core when buildable, "
+            "Python otherwise) or 'native' (force the C++ core, 1M cap)")
+    force_native = run.engine == "native"
+    cap = _GONATIVE_NATIVE_MAX_NODES if force_native else _GONATIVE_MAX_NODES
+    if tc.n > cap:
+        raise ValueError(
+            f"go-native backend capped at {cap} nodes "
+            + ("(C++ event core ceiling); " if force_native else
+               "(parity fixture, not the scale path; engine='native' "
+               "raises the cap to 1M); ")
+            + f"got n={tc.n}")
+    if proto.mode != C.FLOOD:
+        raise ValueError(
+            "go-native reproduces the reference's relay-to-all-neighbors "
+            f"semantics (flood); mode {proto.mode!r} has no Go equivalent")
+    if fault is not None:
+        raise ValueError(
+            "go-native takes no FaultConfig: faults there are explicit "
+            "partition windows on the GoNativeSim API (Maelstrom-style), "
+            "not per-round masks")
+    topo = _build_topology(tc, for_gonative=True)
+    t0 = time.perf_counter()
+    sim = make_event_sim(topology_from_table(topo))
+    for r in range(proto.rumors):
+        sim.broadcast(origin=(run.origin + r) % tc.n, message=r)
+    sim.run()
+    wall = time.perf_counter() - t0
+    max_h = run.max_rounds
+    # one hop_depths pass a rumor serves the curve, the hop count and the
+    # final coverage; nodes first reached past max_h land in the overflow
+    # bucket and stay out of every curve entry
+    depths = [sim.hop_depths(r) for r in range(proto.rumors)]
+    curves = []
+    for dp in depths:
+        vals = np.fromiter(dp.values(), np.int64, count=len(dp))
+        hist = np.bincount(np.clip(vals, 0, max_h + 1),
+                           minlength=max_h + 2)
+        curves.append(hist[:max_h + 1].cumsum() / tc.n)
+    curve = [float(min(c[h] for c in curves)) for h in range(max_h + 1)]
+    hops = next((h for h in range(max_h + 1)
+                 if curve[h] >= run.target_coverage), -1)
+    final_cov = min(len(dp) / tc.n for dp in depths)
+    return RunReport(
+        backend="go-native", mode=C.FLOOD, n=tc.n,
+        rounds=hops, coverage=final_cov, msgs=float(sim.msgs_sent),
+        wall_s=round(wall, 4),
+        curve=curve[1:] if want_curve else None,
+        meta={"clock": "hop-depth", "sim_time_s": sim.now,
+              "deliveries": sim.delivery_count(),
+              "msgs_counts": "requests+acks",
+              "engine": type(sim).__name__})
 
 
 def _curve_summary(covs, msgs, target):
@@ -168,8 +261,10 @@ def fused_ineligible_reason(proto: ProtocolConfig, topo: TopologyConfig,
 def _refusal(proto, run, fault, mesh_cfg, log_cfg, txn_cfg):
     """Why no engine of the port runs this request yet, or None."""
     if run.engine == "native":
-        return ("engine='native' is the JAX package's go-native event "
-                "core; the port's engines are auto|xla|fused")
+        # the reference's words
+        return ("engine='native' is the go-native backend's C++ event "
+                "core; jax-tpu engines are auto|xla|fused (use --backend "
+                "go-native)")
     if log_cfg is not None and txn_cfg is not None:
         return ("a request carries at most one payload workload; pick "
                 "'log' or 'txn'")
@@ -885,9 +980,6 @@ def run_simulation(proto: ProtocolConfig, topo: TopologyConfig,
 # process, this package's on its device (a report's ``backend`` says which,
 # torch-cuda or torch-cpu).
 BACKENDS = ("jax-tpu", "go-native")
-GO_NATIVE_NOT_PORTED = ("backend 'go-native' (the reference's C++ event "
-                        "core) is not ported yet: it is the next slice "
-                        "(ROADMAP queue 1, item 7b); use 'jax-tpu'")
 
 _CFG_TYPES = {"proto": ProtocolConfig, "topology": TopologyConfig,
               "run": RunConfig, "fault": FaultConfig,
@@ -951,9 +1043,9 @@ def dispatch(backend: str, proto: ProtocolConfig, tc: TopologyConfig,
              device=None) -> RunReport:
     """The reference's ``run_simulation(backend, ...)`` on the wire's
     arguments (:func:`request_to_args`): its payload checks in its words,
-    ``jax-tpu`` to :func:`run_simulation` on ``device``, ``go-native``
-    refused (not ported yet), any other name the reference's "unknown
-    backend"."""
+    ``jax-tpu`` to :func:`run_simulation` on ``device``, ``go-native`` to
+    :func:`run_gonative` (on the host; ``engine`` ``auto`` or
+    ``native``), any other name the reference's "unknown backend"."""
     # the reference's words
     if log_cfg is not None and txn_cfg is not None:
         raise ValueError("a request carries at most one payload "
@@ -962,8 +1054,13 @@ def dispatch(backend: str, proto: ProtocolConfig, tc: TopologyConfig,
         if cfg is not None and backend != "jax-tpu":
             raise ValueError(f"the {name} workload needs the jax-tpu "
                              "backend")
+    if backend == "go-native" and run.engine not in ("auto", "native"):
+        raise ValueError(f"engine={run.engine!r} is a jax-tpu kernel "
+                         "selection; go-native takes 'auto' (C++ core "
+                         "when buildable, Python otherwise) or 'native' "
+                         "(force the C++ core, 1M node cap)")
     if backend == "go-native":
-        raise ValueError(GO_NATIVE_NOT_PORTED)
+        return run_gonative(proto, tc, run, fault, want_curve)
     if backend != "jax-tpu":
         raise ValueError(f"unknown backend {backend!r}; choose from "
                          f"{BACKENDS}")

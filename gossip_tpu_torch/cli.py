@@ -1,11 +1,11 @@
 """Command line of the port: ``python -m gossip_tpu_torch
-run|grid|churn-sweep|crdt|log|txn|plan|scale-run|serve|route|fleet-status``.
+run|sweep|grid|churn-sweep|crdt|log|txn|plan|scale-run|serve|route|
+fleet-status|maelstrom|maelstrom-check``.
 
-The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
-``crdt``, ``log``, ``txn``, ``plan``, ``scale-run``, ``serve``,
-``route`` and ``fleet-status`` commands::
+The port of every command of the JAX package but ``staticcheck``::
 
-    python -m gossip_tpu_torch run --mode pull --n 10000000 [--engine E] \\
+    python -m gossip_tpu_torch run [--backend jax-tpu|go-native] \\
+        --mode pull --n 10000000 [--engine auto|fused|xla|native] \\
         [--family F] [--k K] [--p P] [--degree-cap D] [--rumors R]
         [--fanout F] [--period T] [--seed S] [--origin O] [--target C]
         [--max-rounds M] [--drop P] [--death D] [--curve]
@@ -18,7 +18,10 @@ The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
         [--drop-ramp START:END:P0:P1] [--save-curve PATH]
         [--devices K [--exchange dense|sparse|halo] [--share-card]]
         [--ensemble S] [--checkpoint PATH [--checkpoint-every E]
-        [--resume]] [--device cpu]
+        [--resume]] [--parity-check] [--device cpu]
+    python -m gossip_tpu_torch sweep [--scale F] [--only NAME...] \\
+        [--devices K] [--curve] [--swim-diss scatter|sort|pack]
+        [--share-card] [--device cpu]
     python -m gossip_tpu_torch run --plan FILE [--checkpoint PATH
         [--resume]] [--share-card] [--device cpu]
     python -m gossip_tpu_torch grid [--modes M...] [--fanouts F...] \\
@@ -67,9 +70,17 @@ The port of the JAX package's ``run``, ``grid``, ``churn-sweep``,
         [--up-after U] [--max-inflight M] [--no-batching] [--device cpu]
     python -m gossip_tpu_torch fleet-status HOST:PORT [--watch] \\
         [--interval S] [--timeout S] [--json] [--out PATH]
+    python -m gossip_tpu_torch maelstrom [--workload W] \\
+        [--gossip-interval S]
+    python -m gossip_tpu_torch maelstrom-check [--n N] [--ops K] \\
+        [--rate R] [--latency S] [--topology line|grid] [--partition]
+        [--seed S] [--router python|native]
+        [--workload broadcast|counter|kafka|txn] [--gossip-interval S]
+        [--assert-msgs-per-op T] [--assert-latency-ms MS]
 
 ``--mode`` is one of the five SI modes, ``swim`` or ``rumor``, and
-``--engine`` one of ``auto|xla|fused`` (default ``auto``:
+``--engine`` one of ``auto|xla|fused`` (``native`` with ``--backend
+go-native`` only; default ``auto``:
 ``backend.run_simulation``'s rule, the fused kernel on a card where it is
 eligible, the xla engine otherwise and on the CPU).  The flags, their defaults and their parse
 are the JAX command's (``--drop-prob`` is another name for ``--drop``;
@@ -137,6 +148,26 @@ It prints the report's JSON on one line, as the JAX command does.  Any
 other flag or value is refused with exit code 2, and so is a run the
 backend refuses (with its reason on stderr).  Without ``--device cpu``
 the run needs a CUDA device.
+
+``run --backend go-native`` runs the reference node's event-driven
+model (``backend.run_gonative``: flood only, on the host, on the C++
+event core of ``native/eventsim.cpp``, built with ``g++`` into the
+kernels' store; ``--engine native`` raises its node cap from 20,000 to
+1,000,000) and prints the reference's report.  ``run --mode flood
+--parity-check`` runs the same topology through the flood rounds on
+``--device`` and the event core, and prints the reference's
+``curve_gap``, ``hop_bound_violation`` and ``fixed_point_gap`` with both
+reports.  ``sweep`` runs the five ``BASELINE.json`` rows (the reference's
+flags, plus ``--device`` and ``--share-card``; ``--devices`` defaults to
+the cards of the machine, or 1 with ``--device cpu``; row 5, 10M nodes x
+8 rumors, takes ``engine='auto'``, the fused multi-rumor kernel on a
+card, and runs on K ranks with ``--devices K``), one line a row with the
+reference's keys.  ``maelstrom`` runs the protocol node on stdio and
+``maelstrom-check`` a workload against real node processes
+(:mod:`gossip_tpu_torch.runtime`): every workload on the Python router,
+broadcast also on the C++ router (``native/router.cpp``), exit 1 when
+the invariant or a gate fails.  Without ``g++`` the event core and the
+router are an error (exit 2), not the reference's fallback to Python.
 
 ``plan`` (:mod:`gossip_tpu_torch.planner.budget`) prints the JAX
 command's plan document, byte for byte for the packed and dense engines
@@ -227,7 +258,11 @@ from gossip_tpu_torch.config import (ByzConfig, ChurnConfig, CrdtConfig,
 
 PAYLOAD_COMMANDS = ("crdt", "log", "txn")
 # commands that never join a launcher's process group
-SINGLE_PROCESS_COMMANDS = ("plan", "serve", "route", "fleet-status")
+SINGLE_PROCESS_COMMANDS = ("plan", "serve", "route", "fleet-status",
+                           "maelstrom", "maelstrom-check")
+# commands on the host alone, started at once: no run ledger, no kernel
+# store flags (the protocol node imports no torch)
+HOST_COMMANDS = ("maelstrom", "maelstrom-check")
 
 
 def _add_cache_flags(p) -> None:
@@ -762,7 +797,7 @@ def cmd_run(a) -> int:
         changed = [f"--{k.replace('_', '-')}"
                    for k, d in a.plan_guard_defaults.items()
                    if getattr(a, k) != d]
-        if a.ensemble > 1 or a.curve or a.save_curve:
+        if a.ensemble > 1 or a.parity_check or a.curve or a.save_curve:
             return _refuse("--plan executes the streamed scale driver; "
                            "drop --ensemble/--parity-check/--curve/"
                            "--save-curve")
@@ -775,23 +810,34 @@ def cmd_run(a) -> int:
                              resume=a.resume, device=a.device,
                              share_card=a.share_card)
     from gossip_tpu_torch.utils.trace import trace
+    if a.parity_check and a.ensemble > 1:
+        # the reference's words
+        return _refuse("--parity-check and --ensemble are separate run "
+                       "shapes; pick one")
     if a.ensemble > 1:
+        if a.backend != "jax-tpu":
+            return _refuse("--ensemble needs the jax-tpu backend")
         with trace(a.profile, a.device or "cuda"):
             return cmd_ensemble(a)
+    mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
+                       shared_card=a.share_card) if a.devices > 1 else None)
+    if a.parity_check:
+        return cmd_parity_check(a, mesh)
     if a.resume and not a.checkpoint:
         print("error: --resume needs --checkpoint PATH (the file to "
               "continue from)", file=sys.stderr)
         return 2
     if a.checkpoint:
+        if a.backend != "jax-tpu":
+            return _refuse("--checkpoint drives the jax-tpu engines only")
         with trace(a.profile, a.device or "cuda"):
             return cmd_run_checkpointed(a)
-    from gossip_tpu_torch.backend import run_simulation
-    mesh = (MeshConfig(n_devices=a.devices, exchange=a.exchange,
-                       shared_card=a.share_card) if a.devices > 1 else None)
+    from gossip_tpu_torch.backend import dispatch
     want_curve = a.curve or bool(a.save_curve)
+    proto, tc, run, fault = run_configs(a)
     with trace(a.profile, a.device or "cuda"):
-        report = run_simulation(*run_configs(a), want_curve=want_curve,
-                                device=a.device, mesh_cfg=mesh)
+        report = dispatch(a.backend, proto, tc, run, fault, mesh,
+                          want_curve=want_curve, device=a.device)
     out = report.to_dict()
     out["compile_cache"] = _cache_stamp(a)
     if a.profile:
@@ -809,6 +855,63 @@ def cmd_run(a) -> int:
 def _refuse(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 2
+
+
+def cmd_parity_check(a, mesh) -> int:
+    """``run --mode flood --parity-check``: the reference's backend parity
+    check.  The same topology through the port's flood rounds (on
+    ``--device``, the card by default) and the go-native event core (its
+    C++ engine, ``engine='native'`` above 20,000 nodes), then the
+    contract's three numbers: ``curve_gap`` (0 on race-free graphs),
+    ``hop_bound_violation`` (0 always: races only slow the event sim)
+    and ``fixed_point_gap`` (0 always: the same final coverage), with
+    both reports, their curves left out."""
+    import dataclasses
+
+    from gossip_tpu_torch.backend import (_GONATIVE_MAX_NODES, run_gonative,
+                                          run_simulation)
+    from gossip_tpu_torch.utils.metrics import curve_gap
+    from gossip_tpu_torch.utils.trace import trace
+    # the reference's refusals, in its words
+    if a.mode != C.FLOOD or a.backend != "jax-tpu":
+        return _refuse("--parity-check compares the jax-tpu flood rounds "
+                       "against go-native hop depths; use --backend "
+                       "jax-tpu --mode flood")
+    proto, tc, run, fault = run_configs(a)
+    if fault is not None:
+        return _refuse("--parity-check needs a fault-free run (go-native "
+                       "takes no FaultConfig)")
+    if a.curve or a.save_curve or a.checkpoint:
+        return _refuse("--parity-check is a self-contained artifact run; "
+                       "drop --curve/--save-curve/--checkpoint")
+    with trace(a.profile, a.device or "cuda"):
+        rep = run_simulation(proto, tc, run, None, want_curve=True,
+                             device=a.device, mesh_cfg=mesh)
+        ref = run_gonative(proto, tc, dataclasses.replace(
+            run, engine="native" if tc.n > _GONATIVE_MAX_NODES else "auto"),
+            want_curve=True)
+    if rep.rounds < 0:
+        # the event sim always runs to quiescence: a flood run cut off by
+        # --max-rounds would report a fixed_point_gap that reads as a
+        # divergence of the backends
+        return _refuse("the jax flood run did not reach --target within "
+                       f"--max-rounds={run.max_rounds}; raise --max-rounds "
+                       "past the graph diameter so the parity fixed point "
+                       "is the converged state")
+    m = min(len(rep.curve), len(ref.curve))
+    bound = max((ref.curve[t] - rep.curve[t] for t in range(m)),
+                default=0.0)
+    out = {"curve_gap": curve_gap(rep.curve, ref.curve),
+           "hop_bound_violation": max(0.0, bound),
+           "fixed_point_gap": abs(rep.coverage - ref.coverage),
+           "n": tc.n, "family": a.family,
+           "compile_cache": _cache_stamp(a),
+           "jax": {**rep.to_dict(), "curve": None},
+           "gonative": {**ref.to_dict(), "curve": None}}
+    if a.profile:
+        out["profile_logdir"] = a.profile
+    print(json.dumps(out))
+    return 0
 
 
 def _resume_checks(a, fingerprint, fault_fp, want_curve):
@@ -1233,6 +1336,249 @@ def cmd_churn_sweep(a) -> int:
     return 0
 
 
+# The five BASELINE.json configurations, scalable for CPU runs (the
+# reference's rows, each with its revision).
+def baseline_configs(scale: float, devices: int, shared_card: bool = False):
+    def sn(n):                       # scaled node count
+        return max(64, int(n * scale))
+    n2 = sn(10_000)
+    n3 = sn(100_000)
+    n4 = sn(1_000_000)
+    n5 = sn(10_000_000)
+    return [
+        dict(name="push-complete-64-goref", backend="jax-tpu",
+             proto=ProtocolConfig(mode="push", fanout=1),
+             tc=TopologyConfig(family="complete", n=64),
+             run=RunConfig(max_rounds=64, engine="auto"),
+             compare_gonative=True),
+        dict(name="pushpull-er-10k", backend="jax-tpu",
+             proto=ProtocolConfig(mode="pushpull", fanout=1),
+             tc=TopologyConfig(family="erdos_renyi", n=n2,
+                               p=min(1.0, 0.01 * 10_000 / n2)),
+             run=RunConfig(max_rounds=64, engine="auto")),
+        dict(name="antientropy-ws-100k", backend="jax-tpu",
+             proto=ProtocolConfig(mode="antientropy", fanout=1, period=2),
+             tc=TopologyConfig(family="watts_strogatz", n=n3, k=6, p=0.1),
+             run=RunConfig(max_rounds=256, engine="auto")),
+        dict(name="swim-powerlaw-1m", backend="jax-tpu",
+             proto=ProtocolConfig(mode="swim", fanout=2, swim_proxies=3,
+                                  swim_subjects=8, swim_suspect_rounds=24),
+             tc=TopologyConfig(family="power_law", n=n4, k=3,
+                               degree_cap=256),
+             run=RunConfig(max_rounds=80, engine="auto")),
+        # BASELINE.json configs[4], "10M-node multi-rumor broadcast,
+        # node-dim sharded": pull, so that on one device engine='auto'
+        # takes the fused multi-rumor kernel (on a card; the xla engine on
+        # the CPU) and over K ranks the node-sharded drivers; revision 2
+        # is the reference's mode change from pushpull
+        dict(name="multirumor-10m-sharded", backend="jax-tpu",
+             proto=ProtocolConfig(mode="pull", fanout=1, rumors=8),
+             tc=TopologyConfig(family="complete", n=n5),
+             run=RunConfig(max_rounds=64, engine="auto"),
+             mesh=MeshConfig(n_devices=devices, shared_card=shared_card),
+             revision=2),
+    ]
+
+
+def cmd_sweep(a) -> int:
+    """``sweep``: the five BASELINE rows, one JSON line each (the
+    reference's ``cmd_sweep``).  Row 1 adds ``gonative_ref``, the same
+    graph flooded on the go-native event core; each row adds
+    ``row_wall_s`` and ``row_overhead_s`` (the row's wall less the
+    engine's, the topology build's and the go-native run's)."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from gossip_tpu_torch.backend import dispatch
+    from gossip_tpu_torch.ops.common import resolve_device
+    dev = resolve_device(a.device)
+    devices = a.devices or (torch.cuda.device_count()
+                            if dev.type == "cuda" else 1)
+    configs = baseline_configs(a.scale, devices, a.share_card)
+    if a.only:
+        configs = [c for c in configs if c["name"] in a.only]
+    if a.swim_diss:
+        configs = [dict(cfg, proto=dataclasses.replace(
+            cfg["proto"], swim_diss=a.swim_diss))
+            if cfg["proto"].mode == C.SWIM else cfg for cfg in configs]
+    for cfg in configs:
+        t0_row = time.perf_counter()
+        report = dispatch(cfg["backend"], cfg["proto"], cfg["tc"],
+                          cfg["run"], None, cfg.get("mesh"),
+                          want_curve=a.curve, device=dev)
+        out = report.to_dict()
+        out["config"] = cfg["name"]
+        out["config_revision"] = cfg.get("revision", 1)
+        out["compile_cache"] = _cache_stamp(a)
+        if cfg.get("compare_gonative"):
+            ref = dispatch("go-native", ProtocolConfig(mode=C.FLOOD),
+                           cfg["tc"], cfg["run"], want_curve=a.curve)
+            out["gonative_ref"] = ref.to_dict()
+        # the row's wall is everything the row cost: the engine's wall,
+        # the topology build, the go-native run and what is left
+        row_wall = time.perf_counter() - t0_row
+        parts = (out["wall_s"]
+                 + (out.get("meta") or {}).get("topo_build_s", 0.0)
+                 + (out.get("gonative_ref") or {}).get("wall_s", 0.0))
+        out["row_wall_s"] = round(row_wall, 4)
+        out["row_overhead_s"] = round(max(0.0, row_wall - parts), 4)
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+def cmd_maelstrom(a) -> int:
+    """``maelstrom``: the Maelstrom protocol node on stdio."""
+    from gossip_tpu_torch.runtime.maelstrom_node import main as node_main
+    node_main(["--gossip-interval", str(a.gossip_interval),
+               "--workload", a.workload])
+    return 0
+
+
+def _node_argv(gossip_interval: float, workload: str = "broadcast"):
+    """The harnesses' node command; None keeps their default (the
+    immediate-relay broadcast node)."""
+    if gossip_interval <= 0 and workload == "broadcast":
+        return None
+    argv = [sys.executable, "-u", "-m",
+            "gossip_tpu_torch.runtime.maelstrom_node",
+            "--workload", workload]
+    if gossip_interval > 0:
+        argv += ["--gossip-interval", str(gossip_interval)]
+    return argv
+
+
+def cmd_maelstrom_check(a) -> int:
+    """``maelstrom-check``: a workload against ``--n`` node processes on
+    the Python router (every workload) or the C++ router (broadcast),
+    its invariant and the optional gates; exit 1 when one fails (the
+    reference's command)."""
+    import asyncio
+
+    from gossip_tpu_torch.runtime import maelstrom_harness as MH
+    argv = _node_argv(a.gossip_interval, a.workload)
+    kw = dict(rate=a.rate, latency=a.latency, topology=a.topology,
+              partition_mid=a.partition, seed=a.seed, argv=argv)
+    if a.workload != "broadcast" and a.router == "native":
+        # the reference's words
+        return _refuse(f"the {a.workload} workload runs on the python "
+                       "router (the C++ router speaks the broadcast "
+                       "envelope set only)")
+    if a.workload == "kafka":
+        stats = asyncio.run(MH.run_kafka_workload(a.n, a.ops, **kw))
+    elif a.workload == "txn":
+        stats = asyncio.run(MH.run_txn_workload(a.n, a.ops, **kw))
+    elif a.workload == "counter":
+        stats = asyncio.run(MH.run_counter_workload(a.n, a.ops, **kw))
+    elif a.router == "native":
+        from gossip_tpu_torch.runtime.native_router import \
+            run_native_workload
+        stats = run_native_workload(a.n, a.ops, **kw)
+    else:
+        stats = asyncio.run(MH.run_broadcast_workload(a.n, a.ops, **kw))
+    stats["workload"] = a.workload
+    stats["gossip_interval"] = a.gossip_interval
+    ok = stats["invariant_ok"]
+    if a.assert_msgs_per_op is not None:
+        # the Glomers-style efficiency gate: the report carries the target
+        # and the verdict, and the exit code enforces it
+        stats["msgs_per_op_target"] = a.assert_msgs_per_op
+        stats["msgs_per_op_ok"] = (stats["msgs_per_op"]
+                                   <= a.assert_msgs_per_op)
+        ok = ok and stats["msgs_per_op_ok"]
+    if a.assert_latency_ms is not None:
+        stats["op_latency_target_ms"] = a.assert_latency_ms
+        stats["op_latency_ok"] = (stats["op_latency_ms"]["max"]
+                                  <= a.assert_latency_ms)
+        ok = ok and stats["op_latency_ok"]
+    print(json.dumps(stats))
+    return 0 if ok else 1
+
+
+def _add_runtime_parsers(sub) -> None:
+    """``sweep``, ``maelstrom`` and ``maelstrom-check``: the reference's
+    flags, plus ``--device`` and ``--share-card`` on ``sweep``."""
+    p = sub.add_parser("sweep", help="run the 5 BASELINE benchmark configs")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="node-count scale factor (CPU smoke: 0.01)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="ranks for the sharded config (0 = every card; "
+                        "1 with --device cpu)")
+    p.add_argument("--only", nargs="*", default=None,
+                   help="subset of config names")
+    p.add_argument("--curve", action="store_true")
+    p.add_argument("--swim-diss", choices=("scatter", "sort", "pack"),
+                   default=None,
+                   help="override the SWIM config's dissemination "
+                        "lowering (equal results)")
+    p.add_argument("--share-card", action="store_true",
+                   help="run the --devices ranks on one card under gloo "
+                        "(a test mode: NCCL takes one card a rank)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="cpu runs on the CPU (default: cuda, which must "
+                        "be present)")
+    _add_cache_flags(p)
+    p.set_defaults(fn=cmd_sweep)
+
+    workloads = ("broadcast", "counter", "kafka", "txn")
+    p = sub.add_parser("maelstrom",
+                       help="run the Maelstrom protocol node on stdio")
+    p.add_argument("--gossip-interval", type=float, default=0.0,
+                   help="batch relays per neighbor every INTERVAL "
+                        "seconds (0 = immediate per-message fan-out)")
+    p.add_argument("--workload", default="broadcast", choices=workloads,
+                   help="node personality: broadcast log (the "
+                        "reference), Gossip Glomers counter (CRDT "
+                        "shards, merge = per-key max), the "
+                        "replicated kafka-style log (owner-assigned "
+                        "offsets, committed-offset max merge), or "
+                        "txn-rw-register (totally-available "
+                        "transactions over LWW registers)")
+    p.set_defaults(fn=cmd_maelstrom)
+
+    p = sub.add_parser("maelstrom-check",
+                       help="run a Maelstrom workload against N real node "
+                            "processes and check its invariant")
+    p.add_argument("--n", type=int, default=5)
+    p.add_argument("--ops", type=int, default=20)
+    p.add_argument("--rate", type=float, default=50.0, help="ops/sec")
+    p.add_argument("--latency", type=float, default=0.002,
+                   help="simulated link latency (s)")
+    p.add_argument("--topology", default="line", choices=("line", "grid"))
+    p.add_argument("--partition", action="store_true",
+                   help="cut a mid-cluster link for the middle third of "
+                        "the run (fault-tolerance variant)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--router", default="python",
+                   choices=("python", "native"),
+                   help="harness engine: the asyncio router or the C++ "
+                        "poll()-loop router (native/router.cpp, built at "
+                        "first use; without g++ an error)")
+    p.add_argument("--workload", default="broadcast", choices=workloads,
+                   help="broadcast (every value in every read), the "
+                        "Gossip Glomers counter (every node's final "
+                        "read == the sum of acked adds, through a "
+                        "--partition), kafka (acked sends exactly "
+                        "once per key in offset order, monotone "
+                        "committed offsets, gapless polls), or txn "
+                        "(txn-rw-register: no G0/G1a weak-isolation "
+                        "anomalies + cross-node LWW convergence)")
+    p.add_argument("--gossip-interval", type=float, default=0.0,
+                   help="run the nodes with interval-batched relays "
+                        "(seconds; 0 = the reference's immediate "
+                        "per-message fan-out)")
+    p.add_argument("--assert-msgs-per-op", type=float, default=None,
+                   metavar="T",
+                   help="efficiency gate: fail (exit 1) if msgs_per_op "
+                        "exceeds T; the report records the target and "
+                        "verdict")
+    p.add_argument("--assert-latency-ms", type=float, default=None,
+                   metavar="MS",
+                   help="fail if the max client-op latency exceeds MS")
+    p.set_defaults(fn=cmd_maelstrom_check)
+
+
 def _device_spec_from_flags(a):
     from gossip_tpu_torch.planner.budget import (H100_HBM_BYTES,
                                                  HOST_RAM_BYTES, DeviceSpec)
@@ -1595,6 +1941,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="gossip simulation on PyTorch and CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="run one simulation")
+    p.add_argument("--backend", default="jax-tpu",
+                   choices=("jax-tpu", "go-native"),
+                   help="jax-tpu: this package's simulator on --device; "
+                        "go-native: the reference node's event-driven "
+                        "model on the C++ core (flood only, on the host)")
     p.add_argument("--mode", default=C.PUSH, choices=C.MODES)
     p.add_argument("--rumor-k", type=int, default=2,
                    help="rumor mongering: remove a rumor after this many "
@@ -1602,8 +1953,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rumor-variant", default="feedback",
                    choices=C.RUMOR_VARIANTS)
     p.add_argument("--n", type=int, default=1024)
-    p.add_argument("--engine", default="auto", choices=("auto", "xla",
-                                                        "fused"))
+    p.add_argument("--engine", default="auto",
+                   choices=("auto", "fused", "xla", "native"),
+                   help="auto: the fused kernel on a card where it is "
+                        "eligible, else xla; fused: the CUDA round "
+                        "kernels; xla: the threefry engine; native: "
+                        "--backend go-native only, the C++ event core "
+                        "with the node cap raised to 1M")
     p.add_argument("--family", default=C.COMPLETE, choices=C.FAMILIES)
     p.add_argument("--k", type=int, default=4,
                    help="ring/WS neighbors; BA attachment edges")
@@ -1664,6 +2020,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-round coverage curve")
     p.add_argument("--save-curve", default=None, metavar="PATH",
                    help="write the coverage curve as JSONL (implies --curve)")
+    p.add_argument("--parity-check", action="store_true",
+                   help="flood only: run the same topology through the "
+                        "flood rounds and the go-native event core (its "
+                        "C++ engine above 20k nodes) and report "
+                        "curve_gap (0 on race-free graphs), "
+                        "hop_bound_violation and fixed_point_gap (0 "
+                        "always)")
     p.add_argument("--devices", type=int, default=1,
                    help="mesh size (one rank a device: NCCL with a card a "
                         "rank, gloo with --device cpu): node-dim sharding, "
@@ -1713,9 +2076,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "LOGDIR (a Chrome trace; on a card with its CUDA "
                         "kernels)")
     _add_cache_flags(p)
-    composable = {"plan", "checkpoint", "resume", "ensemble", "curve",
-                  "save_curve", "device", "share_card", "compile_cache",
-                  "no_compile_cache"}
+    composable = {"plan", "checkpoint", "resume", "ensemble",
+                  "parity_check", "curve", "save_curve", "device",
+                  "share_card", "compile_cache", "no_compile_cache"}
     p.set_defaults(fn=cmd_run, plan_guard_defaults={
         k: v for k, v in vars(p.parse_args([])).items()
         if k not in composable})
@@ -1953,6 +2316,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_cache_flags(p)
     p.set_defaults(fn=cmd_scale_run)
     _add_serving_parsers(sub)
+    _add_runtime_parsers(sub)
     return ap
 
 
@@ -1985,8 +2349,14 @@ def _open_ledger():
 
 
 def main(argv=None) -> int:
-    from gossip_tpu_torch.utils import telemetry
     a = build_parser().parse_args(argv)
+    if a.cmd in HOST_COMMANDS:
+        try:
+            return a.fn(a)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    from gossip_tpu_torch.utils import telemetry
     joined = False
     led = prev = None
     try:

@@ -731,8 +731,8 @@ class RunConfig:
     complete graph), ``xla`` (the threefry-keyed engine of the JAX
     package's XLA path: every SI mode, every topology, bit-packed for
     pull and anti-entropy), ``auto`` (fused where it is eligible, else
-    xla); ``native`` belongs to the JAX package's event simulator and is
-    refused."""
+    xla); ``native`` is the go-native backend's C++ event core
+    (``backend.run_gonative``), which the jax-tpu engines refuse."""
 
     target_coverage: float = 0.99
     max_rounds: int = 256

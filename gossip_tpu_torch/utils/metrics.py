@@ -1,14 +1,27 @@
-"""Curve files: one JSON object per round.
+"""Curve files, one JSON object per round, and the parity gap of two curves.
 
 The port's copy of the JAX package's ``utils/metrics.dump_curve_jsonl``,
 which the ``run``, ``crdt``, ``log`` and ``txn`` commands'
-``--save-curve`` writes, in the same format.
+``--save-curve`` writes, in the same format, and of its ``curve_gap``,
+which ``run --parity-check`` prints.
 """
 
 from __future__ import annotations
 
 import json
 from typing import Optional, Sequence
+
+
+def curve_gap(a: Sequence[float], b: Sequence[float]) -> float:
+    """Max absolute coverage gap between two curves (padded with their
+    final values): the flood rounds' curve against the go-native hop
+    curve gaps to 0 on race-free graphs (the parity contract of
+    :mod:`gossip_tpu_torch.runtime.gonative`)."""
+    la, lb = list(map(float, a)), list(map(float, b))
+    m = max(len(la), len(lb))
+    la += [la[-1]] * (m - len(la)) if la else [0.0] * m
+    lb += [lb[-1]] * (m - len(lb)) if lb else [0.0] * m
+    return max(abs(x - y) for x, y in zip(la, lb))
 
 
 def dump_curve_jsonl(path: str, coverage: Sequence[float],

@@ -146,7 +146,10 @@ def test_cli_runs_several_rumors():
      "cannot honor partition windows"),
     (PULL, TOPO, RunConfig(),
      FaultConfig(churn=ChurnConfig(events=((1, 1, 4),))), "churn"),
-    (PULL, TOPO, RunConfig(engine="native"), None, "go-native"),
+    (PULL, TOPO, RunConfig(engine="native"), None,
+     "^engine='native' is the go-native backend's C\\+\\+ event core; "
+     "jax-tpu engines are auto\\|xla\\|fused \\(use --backend "
+     "go-native\\)$"),
     (PULL, TopologyConfig(n=1 << 31), RunConfig(), None, "2\\^31"),
 ])
 def test_refusals_are_loud(proto, topo, run, fault, match):

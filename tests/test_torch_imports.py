@@ -67,7 +67,10 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.sweep", "utils.checkpoint", "planner",
                  "planner.budget", "planner.stream", "utils.telemetry",
                  "utils.trace", "ops.round_metrics", "tools.crashloop",
-                 "rpc", "rpc.batcher", "rpc.sidecar", "rpc.router"):
+                 "rpc", "rpc.batcher", "rpc.sidecar", "rpc.router",
+                 "native", "runtime.gonative", "runtime.native_sim",
+                 "runtime.native_router", "runtime.txn_checker",
+                 "runtime.maelstrom_node", "runtime.maelstrom_harness"):
         assert f"gossip_tpu_torch.{name}" in out["imported"]
     assert out["forbidden"] == []
 
@@ -127,3 +130,27 @@ def _imports(path: Path):
 def test_source_imports_nothing_of_jax(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
     assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_scan_covers_the_native_loader():
+    assert REPO / "gossip_tpu_torch" / "native" / "__init__.py" in _sources()
+
+
+def test_maelstrom_node_imports_no_torch():
+    """``python -m gossip_tpu_torch.runtime.maelstrom_node --help`` (the
+    command the harness spawns N times) imports neither torch nor JAX
+    nor anything of the JAX package: the interpreter's own import log
+    (``-X importtime``) of the real ``-m`` start names every module."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "gossip_tpu_torch.runtime.maelstrom_node", "--help"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "--workload" in proc.stdout
+    loaded = {ln.rsplit("|", 1)[-1].strip() for ln in proc.stderr.splitlines()
+              if ln.startswith("import time:")}
+    assert "gossip_tpu_torch.runtime" in loaded
+    bad = sorted(m for m in loaded
+                 if m.split(".")[0] in ("torch", "jax", "gossip_tpu"))
+    assert bad == []

@@ -381,17 +381,13 @@ DISPATCH_ERRORS = [
 @pytest.mark.parametrize("patch", DISPATCH_ERRORS,
                          ids=lambda p: str(p)[:40])
 def test_dispatch_refusals(patch):
-    """The reference's payload and backend words; go-native refused as
-    the next slice."""
+    """The reference's payload and backend words, go-native's among
+    them (a pull request: the event core runs flood only)."""
     from gossip_tpu.backend import request_to_args as jparse
     from gossip_tpu.backend import run_simulation as jrun
     req = {**BASE, **patch}
     got = _error(lambda: TB.dispatch(**TB.request_to_args(req), device=CPU))
-    if patch == {"backend": "go-native"}:
-        assert got == TB.GO_NATIVE_NOT_PORTED
-        assert "next slice" in got
-    else:
-        assert got == _error(lambda: jrun(**jparse(req)))
+    assert got == _error(lambda: jrun(**jparse(req)))
 
 
 SERVING_BAD = [dict(tick_ms=0), dict(max_batch=0), dict(max_queue=0),
@@ -632,6 +628,12 @@ def test_sidecar_error_hygiene_one_line_no_retry(tmp_path):
                 with pytest.raises(grpc.RpcError) as ei:
                     client._call_with_retry(client._run, payload, 30, "run")
                 assert ei.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+                if b"go-native" in payload:
+                    # the reference's reason for the same request
+                    from gossip_tpu.backend import request_to_args as jparse
+                    from gossip_tpu.backend import run_simulation as jrun
+                    assert ei.value.details() == _error(
+                        lambda: jrun(**jparse(json.loads(payload))))
                 assert "\n" not in ei.value.details()
                 assert "Traceback" not in ei.value.details()
                 assert time.monotonic() - t0 < 2.0
