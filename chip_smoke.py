@@ -231,10 +231,10 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    round, collectives by name, launches and peaks;
 20. ``sweeps``  the sweep axis (``gossip_tpu_torch.parallel.sweep``) at
    the README's commands: EN32 (``run --mode pushpull --n 10000
-   --ensemble 32``), EN10M (8 seeds of the 10M pull flagship, 32
+   --ensemble 32``), EN10M (8 seeds of the 10M pull flagship, 8
    rounds), ES32 and ER32 (SWIM and rumor ensembles of 32 at 100,000
    nodes), GR12 (``grid --modes push pull pushpull --fanouts 1 2 --drops
-   0 0.1``) at n = 4096 and at 10M (20 rounds), GRF (the families grid
+   0 0.1``) at n = 4096 and at 10M (4 rounds), GRF (the families grid
    at 100,000 nodes), GRP (the pod sweep on the 2 x 1 and 1 x 2 hybrid
    meshes), CS8 (the JAX bench's churn_sweep family) and CS10M (four
    programs at 10M), CF256 (``churn-sweep --engine fused`` at 10M x 256
@@ -252,15 +252,15 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    share, peaks, collectives, launches;
 21. ``checkpoints``  ``run --checkpoint/--resume`` and the checkpointed
    drivers at the README's commands (README.md:495-498; ``CK_*``), the
-   README's 8 devices cut to the card's ranks: CK-SI (1M push-pull, 500
-   rounds, then 800 from the file) and CK-CH (the XLA SI engine at 10M
+   README's 8 devices cut to the card's ranks: CK-SI (1M push-pull, 100
+   rounds, then 160 from the file) and CK-CH (the XLA SI engine at 10M
    under ``churn_heal``, 31 rounds, a child SIGKILLed after its first
    checkpoint and resumed) must print the JAX package's values
    (``CK_SI_JAX``, ``CK_CH_JAX``, its fault-program digest); CK-SW (SWIM
-   at 1M, K = 1 and 2) and CK-RM (RM1's deployment for 128 fixed
-   rounds: RM1's coverage, msgs and extinction round) resumed from the
-   middle equal their straight runs; CK-PL (the planes at 10M x 256,
-   256 rounds, a checkpoint every 50) and CK-PLCH (the same under
+   at 1M, K = 1 and, for 40 rounds, 2) and CK-RM (RM1's deployment for
+   128 fixed rounds: RM1's coverage, msgs and extinction round) resumed
+   from the middle equal their straight runs; CK-PL (the planes at 10M x 256,
+   128 rounds, a checkpoint every 50) and CK-PLCH (the same under
    ``churn_heal``, 16 rounds, every 4) at K = 1 under NCCL: the straight
    checkpointed run launches kernel 2 8 x its rounds and equals the
    straight loop (planes, curve; ``msgs`` the float32 carry), a child
@@ -280,7 +280,7 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    streamed run through ``scale-run``'s body with ``--check-bitwise
    --measure-memory`` (bitwise the untiled run, the card's peak of
    allocated memory at most the plan's prediction), the ``--no-overlap``
-   leg (through the library), and the first segment alone under
+   leg (through the library; SC100M only), and the first segment alone under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in it),
    resumed by ``run --plan --resume`` to the end; every leg's final
    words, msgs and coverage the JAX package's (``SC_JAX``; dropped
@@ -342,8 +342,25 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    ensemble, a full queue and an expired deadline, each with the
    reference's code and a one-line message; and the burst requests/s
    with the median and largest latency of the sixteen requests sent at
-   once, solo (no batcher) and batched, warm, in two alternated pairs
-   (medians and ranges; a smoke reading, sixteen samples a leg);
+   once, solo (no batcher) and batched, warm, one leg each (a smoke
+   reading, sixteen samples a leg);
+22d. ``serving_mesh``  the request-axis megabatch mesh and the serving
+   tools: a K = 2 replica (``serve(batching=ServingConfig(devices=2,
+   shared_card=True))``, its two gloo ranks on the card started after
+   ``serving``'s timed work) takes the sixteen requests, each reply bitwise its
+   ``serving`` reply (so its solo run), the batch meta saying 2 devices,
+   and one request alone (its group padded to two lanes, the second
+   rank's slice all padding); over gRPC its ``Health`` and ``Metrics``
+   say ``serving_devices`` 2, and the flagship and 32-rumor ``Run``
+   (``engine: auto``) go solo through it, launching kernels 1 and 2 once
+   a round, equal to their direct runs; closing it leaves neither rank
+   alive.  Then ``gossip_tpu_torch.tools.load_harness`` (``MESH_HARNESS``:
+   K = 1 and K = 2 legs over gRPC at a steady arrival rate, their rps,
+   p50, p95, p99, the gate's verdict and ``scaling_resolved``; replies
+   bitwise, none lost, no kernel build in a measured window) and
+   ``gossip_tpu_torch.tools.fleet_crashloop --smoke`` (two replicas on
+   the card, one SIGKILL: no lost acknowledgement, every reply bitwise
+   its solo run, the failover events, back to two healthy);
 23. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
    the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
@@ -1910,122 +1927,59 @@ def _phase_rank(commands, fn_name, args, group):
     return lines, lib, walls
 
 
-def _ranks_main(jobdir: str, group):
-    """The loop of one rank of :class:`_Ranks`: run job ``i`` (a pickled
-    ``(function name, arguments)`` of this file, ``None`` to stop) when
-    its file appears, write ``(ok, result or error)`` for the launcher,
-    free the card's cache, and wait for the next."""
+def _ranks_job(name: str, args, group):
+    """One job of :class:`_Ranks` on a rank: the function of this file
+    named ``name`` on ``args``, its result on the host, then the card's
+    cache freed for the next job."""
     import gc
-    import os
-    import pickle
-    import traceback
 
     import torch
     from gossip_tpu_torch.parallel import group as GR
-    _write_atomic(os.path.join(jobdir, f"ready.{group.rank}"), b"")
-    i = 0
-    while True:
-        path = os.path.join(jobdir, f"job{i}")
-        while not os.path.exists(path):
-            time.sleep(0.02)
-        with open(path, "rb") as f:
-            job = pickle.load(f)
-        if job is None:
-            return None
-        name, args = job
-        try:
-            out = (True, GR._to_host(globals()[name](*args, group=group)))
-        except BaseException as e:      # noqa: BLE001 - sent to the launcher
-            out = (False, (type(e).__name__, str(e), traceback.format_exc()))
-        _write_atomic(os.path.join(jobdir, f"out{i}.{group.rank}"),
-                      pickle.dumps(out))
-        del out
-        gc.collect()
-        torch.cuda.empty_cache()
-        i += 1
-
-
-def _write_atomic(path: str, data: bytes) -> None:
-    import os
-    with open(path + ".tmp", "wb") as f:
-        f.write(data)
-    os.replace(path + ".tmp", path)
+    out = GR._to_host(globals()[name](*args, group=group))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 class _Ranks:
     """Two gloo ranks sharing the card, spawned once for every phase that
-    runs at K = 2 (``GR.launch`` of :func:`_ranks_main`, in a thread) and
-    kept until :meth:`close`: :meth:`run` hands both ranks one job and
-    returns every rank's result in rank order, as ``GR.launch`` does, with
-    no spawn of its own.  Their start-up (imports, the card, the group)
-    overlaps the work before the first job."""
+    runs at K = 2 (a ``GR.Pool``, started in a thread so that its
+    start-up overlaps the work before the first job) and kept until
+    :meth:`close`: :meth:`run` hands both ranks one job and returns every
+    rank's result in rank order, under the pool's rules."""
 
     def __init__(self, size: int = 2):
-        import tempfile
-        self.dir = tempfile.mkdtemp(prefix="chip_ranks_")
-        self.size, self.jobs, self.error = size, 0, None
-        self.spawned = time.time()
-        self.thread = threading.Thread(target=self._launch, daemon=True)
+        self.size, self.pool, self.error, self.ready = size, None, None, None
+        self.spawned = time.perf_counter()
+        self.thread = threading.Thread(target=self._start, daemon=True)
         self.thread.start()
 
-    def _launch(self):
+    def _start(self):
         from gossip_tpu_torch.parallel import group as GR
         try:
-            GR.launch(_ranks_main, self.size, self.dir, device="cuda",
-                      shared_card=True)
+            self.pool = GR.Pool(self.size, "cuda", shared_card=True)
+            self.ready = time.perf_counter() - self.spawned
         except BaseException as e:      # noqa: BLE001 - raised by run()
             self.error = e
 
-    def ready_s(self):
-        """Seconds from the spawn to both ranks' group being up, or None
-        while one is not."""
-        import os
-        stamps = [os.path.join(self.dir, f"ready.{r}")
-                  for r in range(self.size)]
-        if not all(os.path.exists(p) for p in stamps):
-            return None
-        return max(os.path.getmtime(p) for p in stamps) - self.spawned
-
     def run(self, fn, *args) -> list:
-        import os
-        import pickle
-        i, self.jobs = self.jobs, self.jobs + 1
-        _write_atomic(os.path.join(self.dir, f"job{i}"),
-                      pickle.dumps((fn.__name__, args)))
-        outs = [os.path.join(self.dir, f"out{i}.{r}")
-                for r in range(self.size)]
-        while not all(os.path.exists(p) for p in outs):
-            if self.error is not None or not self.thread.is_alive():
-                raise RuntimeError(f"the K = {self.size} ranks ended before "
-                                   f"job {fn.__name__}: {self.error}")
-            time.sleep(0.02)
-        results = []
-        for p in outs:
-            with open(p, "rb") as f:
-                ok, payload = pickle.load(f)
-            os.unlink(p)
-            if not ok:
-                kind, msg, tb = payload
-                if kind == "ValueError":
-                    raise ValueError(msg)
-                raise RuntimeError(f"{fn.__name__} on a rank: {kind}: {msg}"
-                                   f"\n{tb}")
-            results.append(payload)
-        return results
+        self.thread.join()
+        if self.pool is None:
+            raise RuntimeError(f"the K = {self.size} ranks did not start: "
+                               f"{self.error}")
+        return self.pool.run(_ranks_job, fn.__name__, args)
 
     def close(self) -> float:
-        """Stop both ranks; the seconds their start-up took."""
-        import os
-        import pickle
-        import shutil
-        ready = self.ready_s()
-        _write_atomic(os.path.join(self.dir, f"job{self.jobs}"),
-                      pickle.dumps(None))
-        self.thread.join(timeout=120)
-        shutil.rmtree(self.dir, ignore_errors=True)
-        check(self.error is None and not self.thread.is_alive(),
-              f"the K = {self.size} ranks did not stop: {self.error}")
-        return ready
+        """Stop both ranks, leaving neither alive; the seconds their
+        start-up took."""
+        self.thread.join()
+        check(self.pool is not None,
+              f"the K = {self.size} ranks did not start: {self.error}")
+        pids = self.pool.pids
+        self.pool.close()
+        check(_pids_gone(pids), f"the K = {self.size} ranks left alive: "
+              f"{pids}")
+        return self.ready
 
 
 _K2 = {}
@@ -3563,16 +3517,19 @@ def phase_mesh_fused_planes(dev, smi: str):
 
 # The checkpoints phase: the README's checkpointed commands
 # (README.md:495-498), its 8 devices cut to the card's ranks (K = 1,
-# K = 2 sharing the card under gloo).  CK-SI: --max-rounds 500, then 800
-# with --resume, which must print the JAX package's values for the same
-# two command lines, jax 0.9.0 on the CPU (CK_SI_JAX: (rounds, coverage,
-# msgs) of each).  CK-PL: the flagship planes (10M x 256, 256 rounds, a
-# checkpoint every 50 rounds); CK-PLCH the same under FPCH's churn_heal
-# program, cut to 16 rounds with a checkpoint every 4, so that the kill
-# after the first checkpoint lands inside the partition window [0, 6).
+# K = 2 sharing the card under gloo).  CK-SI: --max-rounds 100, then 160
+# with --resume (cut from 500 and 800 for the script's time limit), which
+# must print the JAX package's values for the same two command lines, jax
+# 0.9.0 on the CPU (CK_SI_JAX: (rounds, coverage, msgs) of each).  CK-PL:
+# the flagship planes (10M x 256, 128 rounds, cut from 256 for the time
+# limit, a checkpoint every 50 rounds); CK-PLCH the same under FPCH's
+# churn_heal program, cut to 16 rounds with a checkpoint every 4, so that
+# the kill after the first checkpoint lands inside the partition window
+# [0, 6).
 # The straight loops beside the checkpointed runs are timed on their
 # first STRAIGHT_ROUNDS rounds.
-# CK-SW: SWIM at 1M (README.md:498).  CK-RM: rumor mongering at RM1's
+# CK-SW: SWIM at 1M (README.md:498), its K = 2 command line cut to the
+# 40 rounds of the half run it is held to.  CK-RM: rumor mongering at RM1's
 # deployment, checkpointed (its fixed rounds run past RM1's extinction,
 # which is absorbing: RM1's coverage and msgs).  CK-CH: the XLA SI engine
 # at 10M under churn_heal, --max-rounds 31 (the round churn_path's loop
@@ -3582,13 +3539,13 @@ def phase_mesh_fused_planes(dev, smi: str):
 # loop's folded product), and CK_CH_DIGEST its fault-program digest.
 CK_SI = ["--mode", "pushpull", "--n", "1000000"]
 STRAIGHT_ROUNDS = 32
-CK_SI_JAX = {500: (500, 1.0, 1486711168.0), 800: (800, 1.0, 2386710016.0)}
+CK_SI_JAX = {100: (100, 1.0, 286702528.0), 160: (160, 1.0, 466702528.0)}
 CK_CH_JAX = (31, 0.9948086738586426, 506505408.0, 56747272.0)
 CK_CH_DIGEST = ("94d0485ce32ab5e61e71571e0cd502e7"
                 "babb7b7405d25b90035887ac2783a8b3")
 CK_FP = ["--mode", "pull", "--n", str(N), "--rumors", str(FP_RUMORS),
          "--engine", "fused", "--curve"]
-CK_PLANES = {"CK-PL": (CK_FP, 50),
+CK_PLANES = {"CK-PL": ([*CK_FP, "--max-rounds", "128"], 50),
              "CK-PLCH": ([*CK_FP, *_HEAL_CUT, "--max-rounds", "16"], 4)}
 CK_SW = ["--mode", "swim", "--n", "1000000", "--max-rounds", "80",
          "--curve"]
@@ -3921,16 +3878,16 @@ def _ck_runs(dev, smi: str, tmp: str, t_phase: float, children):
         torch.cuda.synchronize(dev)
         return (time.perf_counter() - t0) * 1e3 / STRAIGHT_ROUNDS
 
-    # CK-SI: 500 rounds, then on to 800 from the file
+    # CK-SI: 100 rounds, then on to 160 from the file
     path = f"{tmp}/run.npz"
-    first, p1 = _ck_run(CK_SI, path, "--max-rounds", "500")
-    second, p2 = _ck_run(CK_SI, path, "--max-rounds", "800", "--resume")
-    for line, want in ((first, CK_SI_JAX[500]), (second, CK_SI_JAX[800])):
+    first, p1 = _ck_run(CK_SI, path, "--max-rounds", "100")
+    second, p2 = _ck_run(CK_SI, path, "--max-rounds", "160", "--resume")
+    for line, want in ((first, CK_SI_JAX[100]), (second, CK_SI_JAX[160])):
         check((line["rounds"], line["coverage"], line["msgs"]) == want,
               f"CK-SI: {line['rounds']} / {line['coverage']} / "
               f"{line['msgs']}, the JAX package's {want}")
     lines["CK-SI"] = {"lines": [first, second], "jax": CK_SI_JAX,
-                      "ms_per_round": [ms(p1, 500), ms(p2, 300)],
+                      "ms_per_round": [ms(p1, 100), ms(p2, 60)],
                       "straight_ms_per_round": straight_ms(CK_SI),
                       "saves": [_ck_saves(p1), _ck_saves(p2)],
                       "load_ms": p2["load_ms"],
@@ -3960,16 +3917,17 @@ def _ck_runs(dev, smi: str, tmp: str, t_phase: float, children):
     _check_no_launches("CK-CH", [pr["launches"], ps["launches"]])
 
     # CK-SW at K = 1 (straight, and 40 rounds resumed to 80) and K = 2
+    # (the 40 rounds of the half run)
     path = f"{tmp}/swim.npz"
     sw, psw = _ck_run(CK_SW, path)
-    _ck_run(CK_SW, f"{tmp}/swim_half.npz", "--max-rounds", "40")
+    half, _ = _ck_run(CK_SW, f"{tmp}/swim_half.npz", "--max-rounds", "40")
     swr, pswr = _ck_run(CK_SW, f"{tmp}/swim_half.npz", "--resume")
-    sw2, psw2 = _ck_run([*CK_SW, "--devices", "2", "--share-card"],
-                        f"{tmp}/swim_k2.npz")
+    sw2, psw2 = _ck_run([*CK_SW, "--devices", "2", "--share-card",
+                         "--max-rounds", "40"], f"{tmp}/swim_k2.npz")
     check(sw == {**swr, "checkpoint": path, "resumed": False,
                  "checkpoint_every": 50}
           and (sw2["rounds"], sw2["coverage"], sw2["curve"])
-          == (sw["rounds"], sw["coverage"], sw["curve"])
+          == (half["rounds"], half["coverage"], half["curve"])
           and sw2["engine"] == "swim-sharded" and sw["engine"] == "swim-xla",
           f"CK-SW: straight {sw}, resumed {swr}, K = 2 {sw2}")
     proto, tc, run, fault = configs(CK_SW)
@@ -3983,7 +3941,7 @@ def _ck_runs(dev, smi: str, tmp: str, t_phase: float, children):
                       "ms_per_round": ms(psw, 80),
                       "straight_ms_per_round":
                           (time.perf_counter() - t0) * 1e3 / STRAIGHT_ROUNDS,
-                      "k2_ms_per_round": ms(psw2, 80),
+                      "k2_ms_per_round": ms(psw2, 40),
                       "saves": _ck_saves(psw), "k2_saves": _ck_saves(psw2),
                       "load_ms": pswr["load_ms"], "resumed_from": 40}
     _check_no_launches("CK-SW", [psw["launches"], *psw2["rank_launches"]])
@@ -4036,23 +3994,25 @@ N_SW = 100_000            # ES32, ER32: swim and rumor ensembles of 32
 N_GRID = 4_096            # GR12 and GRP: grid's default n
 N_GRF = 100_000           # GRF: the families grid
 N_CS = 65_536             # CS8: the JAX bench's churn_sweep family
-EN10M_SEEDS, EN10M_ROUNDS = 8, 16  # cut from 32 (24) for the records phase
-GRID10M_ROUNDS = 8        # cut from 40 (checkpoints), 20, 12 (records)
+EN10M_SEEDS, EN10M_ROUNDS = 8, 8  # cut from 32 (24, records; 16,
+# serving_mesh)
+GRID10M_ROUNDS = 4        # cut from 40 (checkpoints), 20, 12 (records),
+# 8 (serving_mesh)
 CS10M_ROUNDS = 16         # cut from 48 (32) for the records phase
 CF_RUMORS = 256
 EN32_ARGS = ["--mode", "pushpull", "--n", str(N_EN), "--ensemble", "32",
              "--max-rounds", "32"]   # cut from 256 for the records phase
 ES32_ARGS = ["--mode", "swim", "--n", str(N_SW), "--ensemble", "32",
-             "--max-rounds", "64"]   # cut from 256 for the records phase
+             "--max-rounds", "32"]   # cut from 256 (64: serving_mesh)
 ER32_ARGS = ["--mode", "rumor", "--n", str(N_SW), "--rumor-k", "2",
-             "--ensemble", "32", "--max-rounds", "64"]  # cut from 256
+             "--ensemble", "32", "--max-rounds", "32"]  # from 256 (64)
 GR12_ARGS = ["--modes", "push", "pull", "pushpull", "--fanouts", "1", "2",
-             "--drops", "0", "0.1", "--max-rounds", "32"]  # cut from 64
+             "--drops", "0", "0.1", "--max-rounds", "16"]  # from 64 (32)
 GRF_ARGS = ["--modes", "pull", "pushpull", "--fanouts", "1", "2",
             "--families", "erdos_renyi", "watts_strogatz", "power_law",
-            "--n", str(N_GRF), "--max-rounds", "32"]  # cut from 64
+            "--n", str(N_GRF), "--max-rounds", "16"]  # from 64 (32)
 GRP_ARGS = ["--modes", "push", "pull", "pushpull", "antientropy",
-            "--fanouts", "1", "2", "--max-rounds", "32"]  # cut from 64
+            "--fanouts", "1", "2", "--max-rounds", "16"]  # from 64 (32)
 # CS10M: the churn_heal program (JAX bench.py run_churn_heal) and three
 # one-fault programs at 10M
 CS10M_SCENARIOS = (
@@ -4809,7 +4769,8 @@ def _sc_ledger_matches(path: str, line: dict, stats: list) -> dict:
 
 def _sc_case(dev, smi: str, name: str, tmp: str) -> dict:
     """One 100M cell: the plan; the straight streamed run (bitwise the
-    untiled run, measured peak against predicted); the --no-overlap leg;
+    untiled run, measured peak against predicted); the --no-overlap leg
+    (SC100M only);
     the first segment alone under the sync debug mode, then ``run --plan
     --resume`` to the end; every leg's final words the JAX package's."""
     import hashlib
@@ -4855,18 +4816,20 @@ def _sc_case(dev, smi: str, name: str, tmp: str) -> dict:
     sha = _words_sha(ck)
     os.remove(ck)
     legs = {"straight": (line, stats, s, rss, launches, sha)}
-    stats, before = [], _launch_counts()
-    with _RssPeak() as rss:
-        t0 = time.perf_counter()
-        res = PS.run_at_scale(plan, overlap=False, keep_state=True,
-                              stats=stats)
-        s = time.perf_counter() - t0
-    after = _launch_counts()
-    legs["no_overlap"] = (res.to_dict(), stats, s, rss.peak,
-                          {k: after[k] - before[k] for k in after},
-                          hashlib.sha256(np.ascontiguousarray(
-                              res.final_state).tobytes()).hexdigest())
-    del res
+    if name == "SC100M":
+        # the serial leg at one cell (cut from both for the time limit)
+        stats, before = [], _launch_counts()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            res = PS.run_at_scale(plan, overlap=False, keep_state=True,
+                                  stats=stats)
+            s = time.perf_counter() - t0
+        after = _launch_counts()
+        legs["no_overlap"] = (res.to_dict(), stats, s, rss.peak,
+                              {k: after[k] - before[k] for k in after},
+                              hashlib.sha256(np.ascontiguousarray(
+                                  res.final_state).tobytes()).hexdigest())
+        del res
     for leg, (line, stats, s, rss, launches, sha) in legs.items():
         check(sum(launches.values()) == 0,
               f"{name} {leg}: kernels launched {launches}")
@@ -5080,11 +5043,11 @@ CFG5_HEAL_RM = json.loads("""
 668494080.0, "bytes": 1600000128.0, "dropped": 65752904.0}, "front_final":
 [1.0]}""")
 # the records phase's crashloop: the README's 10M nodes, push-pull under
-# the mixed program (tools/crashloop), one kill, 40 rounds every 5 (cut
-# from the tool's default 60 for the script's time: the cut closes at
-# round 20, and push-pull at fanout 2 squares the uncovered share a
-# round after it)
-CL_N, CL_ROUNDS, CL_EVERY = N, 40, 5
+# the mixed program (tools/crashloop), one kill, 24 rounds every 4 (cut
+# from the tool's default 60, then 40, for the script's time: the cut
+# closes at round 12, and push-pull at fanout 2 squares the uncovered
+# share a round after it)
+CL_N, CL_ROUNDS, CL_EVERY = N, 24, 4
 # FP256k1's rounds held against the plain replay (FP_REPLAY's depth)
 RECORDS_REPLAY = 8
 # configuration 5's legs with and without round metrics: two alternated
@@ -5733,8 +5696,8 @@ def phase_roofline(dev, smi: str):
 SERVE_ROUNDS = 24
 SERVE_MODES = ("push", "pull", "pushpull", "antientropy")
 SERVE_DROPS = (0.0, 0.02, 0.05)
-# two alternated pairs (cut from three for the script's time limit)
-SERVE_PAIRS = ("solo", "batched", "batched", "solo")
+# one pair (cut from three, then two, for the script's time limit)
+SERVE_PAIRS = ("solo", "batched")
 
 
 def _serve_requests() -> list:
@@ -5995,8 +5958,8 @@ def phase_serving(dev, smi: str):
     errors = _serve_errors(dev)
 
     # burst throughput: the same sixteen requests at once, solo (no
-    # batcher: they wait on the device lock) and batched, warm, in
-    # alternated pairs.  Sixteen readings a leg give a median and a
+    # batcher: they wait on the device lock) and batched, warm, one leg
+    # each (SERVE_PAIRS).  Sixteen readings a leg give a median and a
     # largest (their p95 and p99 would both be the largest): a smoke
     # reading, not a steady arrival rate
     legs = {"solo": [], "batched": []}
@@ -6023,6 +5986,193 @@ def phase_serving(dev, smi: str):
     emit("serving_throughput", order=list(SERVE_PAIRS), legs=legs,
          summary=summary, errors=errors, phase_s=time.perf_counter() - t_phase,
          build_events=_kernels.build_events(), card=smi)
+    return {"replies": batched, "groups": list(groups.values()),
+            "routes": {k: routes[k] for k in ("flagship", "rumors32")}}
+
+
+# The request-axis mesh and the serving tools (phase ``serving_mesh``): the
+# serving phase's sixteen requests on a K = 2 megabatch mesh (two gloo ranks
+# sharing the card), one request alone (its second rank's slice all
+# inert), the flagship and the 32-rumor Run through the K = 2 replica over
+# gRPC, the load harness's K = 1 and K = 2 legs at a steady arrival rate
+# (its request mix at n = 4096, 16 rounds; 200 requests, one connection
+# each, 10 a second: below both legs' capacity, about 16-20 a second), and
+# the fleet crashloop's smoke (two replicas on the card, one SIGKILL).
+MESH_HARNESS = ["--mesh-devices", "1,2", "--connections", "200", "--rate",
+                "10", "--n", "4096", "--rounds", "16"]
+
+
+def _pids_gone(pids) -> bool:
+    """No process of ``pids`` is alive (or a zombie)."""
+    import os
+    return not any(os.path.exists(f"/proc/{p}") for p in pids)
+
+
+def _quiet_main(main, argv) -> tuple:
+    """``(exit code, the last JSON line printed)`` of a tool's ``main``
+    called in this process, its output captured."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return code, json.loads(lines[-1]) if lines else None
+
+
+def _mesh_server(dev):
+    """The K = 2 replica of ``serving_mesh``, its two ranks sharing the
+    card started with it: ``(server, port, its start's seconds)``."""
+    from gossip_tpu_torch.config import ServingConfig
+    from gossip_tpu_torch.rpc import sidecar as SC
+    t0 = time.perf_counter()
+    server, port = SC.serve(port=0, max_workers=24, device=dev,
+                            batching=ServingConfig(tick_ms=20, max_batch=64,
+                                                   devices=2,
+                                                   shared_card=True))
+    return server, port, time.perf_counter() - t0
+
+
+def phase_serving_mesh(dev, smi: str, k1=None):
+    """The megabatch mesh at K = 2 against the serving phase's K = 1
+    results (``k1``: its sixteen batched replies, each equal to its solo
+    run there, its groups and its two kernel routes), then the tools.
+    Without ``k1`` (``--only serving_mesh``) the sixteen run once through
+    a K = 1 batcher here and the routes through ``run_simulation``.  The
+    K = 2 replica starts after the K = 1 work, so nothing else runs on
+    the card while either is timed.  Any reply off by a bit, a narrower
+    width, a lost acknowledgement or a rank left alive fails the script;
+    speeds are printed."""
+    import os
+    import shutil
+    import tempfile
+
+    from gossip_tpu_torch.backend import run_simulation
+    from gossip_tpu_torch.config import (ProtocolConfig, RunConfig,
+                                         ServingConfig, TopologyConfig)
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.rpc import batcher as B
+    from gossip_tpu_torch.rpc import sidecar as SC
+    from gossip_tpu_torch.tools import fleet_crashloop, load_harness
+    from gossip_tpu_torch.utils.telemetry import percentile
+    t_phase = time.perf_counter()
+    reqs = _serve_requests()
+    if k1 is None:
+        core = B.Batcher(ServingConfig(tick_ms=20, max_batch=64), dev)
+        try:
+            replies, _, _ = _serve_leg(SC._run, reqs, core, dev)
+        finally:
+            core.close()
+        k1 = {"replies": replies, "groups": None, "routes": {}}
+        for name, rumors in (("flagship", 1), ("rumors32", 32)):
+            rep = run_simulation(
+                ProtocolConfig(mode="pull", fanout=1, rumors=rumors),
+                TopologyConfig(family="complete", n=N),
+                RunConfig(seed=SEED, engine="auto"), device=dev)
+            k1["routes"][name] = {"rounds": rep.rounds,
+                                  "coverage": rep.coverage, "msgs": rep.msgs}
+
+    server, port, start_s = _mesh_server(dev)
+    batcher = server.gossip_batcher
+    pids = batcher.pool_pids()
+    out = {"devices": 2, "shared_card": True, "ranks_start_s": start_s}
+    try:
+        mesh, lat, wall = _serve_leg(SC._run, reqs, batcher, dev)
+        groups = {}
+        for req, rep, want in zip(reqs, mesh, k1["replies"]):
+            b = rep["meta"]["batch"]
+            check(_same_reply(rep, want) and rep["meta"]["state_digest"]
+                  == want["meta"]["state_digest"],
+                  f"K = 2 reply != K = 1 (solo) for n={req['topology']['n']}")
+            check(rep["meta"]["devices"] == 2 and b["devices"] == 2,
+                  f"K = 2 reply reports devices {rep['meta']['devices']}")
+            groups[b["tick"], b["rumor_bucket"]] = {
+                "tick": b["tick"], "rumor_bucket": b["rumor_bucket"],
+                "lanes": b["size"], "run_ms": b["run_ms"],
+                "ms_per_round": b["run_ms"] / SERVE_ROUNDS,
+                "cache": b["cache"]}
+        run_ms = sum(g["run_ms"] for g in groups.values())
+        out.update(requests=len(reqs), equal_to_solo=len(reqs),
+                   groups_k2=list(groups.values()), groups_k1=k1["groups"],
+                   ms_per_round_k2=run_ms / SERVE_ROUNDS,
+                   ms_per_round_k1=(None if k1["groups"] is None else
+                                    sum(g["run_ms"] for g in k1["groups"])
+                                    / SERVE_ROUNDS),
+                   leg_wall_s=wall, p50_ms=percentile(lat, 0.5),
+                   max_ms=max(lat))
+        # one request alone: two lanes, the second rank's slice inert
+        (one,), _, _ = _serve_leg(SC._run, [reqs[15]], batcher, dev)
+        check(_same_reply(one, k1["replies"][15])
+              and one["meta"]["batch"]["size"] == 1
+              and one["meta"]["state_digest"]
+              == k1["replies"][15]["meta"]["state_digest"],
+              f"a lone request on K = 2 != solo: {one['meta']['batch']}")
+        out["lone_request"] = {"equal_to_solo": True,
+                               "run_ms": one["meta"]["batch"]["run_ms"]}
+
+        # over gRPC: the width, then the kernels' routes solo through it
+        client = SC.SidecarClient(f"127.0.0.1:{port}")
+        try:
+            widths = (client.health()["serving_devices"],
+                      client.metrics()["serving_devices"])
+            check(widths == (2, 2), f"the K = 2 replica reports {widths}")
+            routes = {}
+            for name, rumors in (("flagship", 1), ("rumors32", 32)):
+                kernel = "fused_round" if rumors == 1 else "fused_mr_round"
+                before = _launch_counts()
+                rep = client.run(timeout=600, proto={
+                    "mode": "pull", "fanout": 1, "rumors": rumors},
+                    topology={"family": "complete", "n": N},
+                    run={"seed": SEED, "engine": "auto"})
+                ran = _launch_counts()[kernel] - before[kernel]
+                want = k1["routes"][name]
+                check(rep["meta"]["launches"][kernel] == rep["rounds"] == ran
+                      and (rep["rounds"], rep["coverage"], rep["msgs"])
+                      == (want["rounds"], want["coverage"], want["msgs"]),
+                      f"{name} through the K = 2 replica: {rep['rounds']} / "
+                      f"{rep['coverage']} / {rep['msgs']}, launches "
+                      f"{rep['meta']['launches']} ({ran} here), solo {want}")
+                routes[name] = {"rounds": rep["rounds"], "launches": ran,
+                                "wall_s": rep["wall_s"], "equal_to_solo": True}
+            out.update(serving_devices=widths, routes=routes)
+        finally:
+            client.close()
+    finally:
+        server.stop(grace=None)
+        batcher.close()
+    check(_pids_gone(pids), f"K = 2 ranks left alive: {pids}")
+    out["mesh_s"] = time.perf_counter() - t_phase
+    emit("serving_mesh", **out, card=smi)
+
+    # the load harness at a steady arrival rate, K = 1 and K = 2
+    tmp = tempfile.mkdtemp(prefix="chip_serving_")
+    try:
+        t0 = time.perf_counter()
+        code, line = _quiet_main(load_harness.main, [
+            *MESH_HARNESS, "--out", os.path.join(tmp, "mesh.jsonl")])
+        harness_s = time.perf_counter() - t0
+        check(line is not None and line["bitwise_equal"]
+              and line["steady_all_warm"]
+              and all(leg["errors"] == 0 for leg in line["legs"].values()),
+              f"load harness: exit {code}, {line}")
+        emit("serving_harness", argv=MESH_HARNESS, exit_code=code,
+             gate_ok=line["ok"], ratio_ok=line["ratio_ok"],
+             devices_ratio=line["devices_ratio"],
+             scaling_resolved=line["scaling_resolved"],
+             scaling_reason=line["scaling_reason"], legs=line["legs"],
+             harness_s=harness_s, card=smi)
+
+        # the fleet crashloop's smoke: two replicas on the card, one kill
+        t0 = time.perf_counter()
+        code, line = _quiet_main(fleet_crashloop.main, [
+            "--smoke", "--workdir", os.path.join(tmp, "fleet"),
+            "--out", os.path.join(tmp, "fleet.jsonl")])
+        check(code == 0 and line is not None and line["ok"],
+              f"fleet crashloop: exit {code}, {line}")
+        emit("serving_crashloop", **line, crashloop_s=time.perf_counter() - t0,
+             phase_s=time.perf_counter() - t_phase,
+             build_events=_kernels.build_events(), card=smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # The five BASELINE.json rows (phase `baseline`): `python -m
@@ -6269,6 +6419,7 @@ def main(argv=None) -> int:
                   "mesh_fused_planes": phase_mesh_fused_planes,
                   "mr_parts": phase_mr_parts,
                   "serving": phase_serving,
+                  "serving_mesh": phase_serving_mesh,
                   "baseline": lambda dev, smi: emit(
                       "baseline_launches",
                       fused_mr_round=phase_baseline(dev, smi)),
@@ -6417,8 +6568,10 @@ def main(argv=None) -> int:
     mark("scale")
     phase_records(dev, smi, report.to_dict())
     mark("records")
-    phase_serving(dev, smi)
+    serving = phase_serving(dev, smi)
     mark("serving")
+    phase_serving_mesh(dev, smi, serving)
+    mark("serving_mesh")
     mr_kernels[0]["launches_by_path"] = {
         "mr_main_path": mr_kernels[0]["launches"],
         "mesh_fused_planes": planes_launches,

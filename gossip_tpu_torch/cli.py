@@ -64,10 +64,11 @@ The port of every command of the JAX package but ``staticcheck``::
         [--share-card] [--device cpu]
     python -m gossip_tpu_torch serve [--port P] [--workers W] \\
         [--no-batching] [--batch-tick-ms T] [--batch-max B]
-        [--batch-queue Q] [--devices 1] [--device cpu]
+        [--batch-queue Q] [--devices K [--share-card]] [--device cpu]
     python -m gossip_tpu_torch route [--replicas N] [--port P] \\
         [--workers W] [--probe-interval-ms T] [--down-after D]
-        [--up-after U] [--max-inflight M] [--no-batching] [--device cpu]
+        [--up-after U] [--max-inflight M] [--no-batching]
+        [--devices-per-replica K] [--device cpu]
     python -m gossip_tpu_torch fleet-status HOST:PORT [--watch] \\
         [--interval S] [--timeout S] [--json] [--out PATH]
     python -m gossip_tpu_torch maelstrom [--workload W] \\
@@ -231,12 +232,17 @@ command's ``--device``) behind the failover router and prints
 admitted within 60 s; ``fleet-status HOST:PORT`` renders a router's or a
 replica's ``Metrics`` reply and exits 0 (healthy), 1 (degraded) or 2
 (unreachable).  They need the ``grpc`` package (without it, an
-ImportError naming it).  ``serve --devices`` and ``route
---devices-per-replica`` above 1 (the reference's request-axis mesh) are
-refused: not ported yet.  The reference's ``--coordinator``,
+ImportError naming it).  ``serve --devices K`` (a power of two) runs each
+tick's megabatch on K spawned ranks that split its request axis (gloo
+on the CPU, NCCL with a card a rank; ``--share-card`` puts the K ranks
+on one card under gloo, a test mode) and refuses more ranks than cards
+without ``--share-card`` (exit 2); ``route --devices-per-replica K``
+spawns each replica with ``--devices K`` (and ``--share-card`` where the
+host has fewer cards than K) and tears the fleet down when a replica
+reports a narrower mesh.  The reference's ``--coordinator``,
 ``--num-processes``, ``--process-id`` (one replica over several
-processes) are refused above one process, and its ``route
---replica-platform`` (the replicas' JAX platform pin) has no
+processes) are refused above one process (not ported yet), and its
+``route --replica-platform`` (the replicas' JAX platform pin) has no
 counterpart: the replicas take ``--device``.
 """
 
@@ -1693,6 +1699,20 @@ def cmd_scale_run(a) -> int:
                          share_card=a.share_card)
 
 
+def _exit_on_sigterm() -> None:
+    """SIGTERM raises ``SystemExit(143)`` in the main thread, so a
+    command's ``finally`` runs: ``serve`` stops its ranks, ``route`` its
+    replicas (each in a session of its own)."""
+    import signal
+    import threading
+    if threading.current_thread() is not threading.main_thread():
+        return
+
+    def stop(signum, frame):
+        raise SystemExit(128 + signum)
+    signal.signal(signal.SIGTERM, stop)
+
+
 def cmd_serve(a) -> int:
     """``serve``: the gRPC sidecar (:func:`gossip_tpu_torch.rpc.sidecar.
     serve`)."""
@@ -1705,7 +1725,8 @@ def cmd_serve(a) -> int:
                                  devices=a.devices,
                                  coordinator=a.coordinator,
                                  num_processes=a.num_processes,
-                                 process_id=a.process_id)
+                                 process_id=a.process_id,
+                                 shared_card=a.share_card)
     server, port = serve(a.port, a.workers, batching=batching,
                          device=a.device)
     print(json.dumps({"serving": True, "port": port,
@@ -1713,24 +1734,40 @@ def cmd_serve(a) -> int:
                       "devices": (batching.devices
                                   if batching is not None else 1)}),
           flush=True)
-    server.wait_for_termination()
+    _exit_on_sigterm()
+    try:
+        server.wait_for_termination()
+    finally:
+        server.stop(grace=None)
+        if server.gossip_batcher is not None:
+            server.gossip_batcher.close()
     return 0
 
 
 def cmd_route(a) -> int:
     """``route``: spawn sidecar replicas behind the failover router
     (:class:`gossip_tpu_torch.rpc.router.Fleet`)."""
-    from gossip_tpu_torch.rpc.router import Fleet, fleet_env
+    from gossip_tpu_torch.rpc.router import (Fleet, fleet_env,
+                                             replica_mesh_argv)
     cfg = FleetConfig(replicas=a.replicas,
                       probe_interval_ms=a.probe_interval_ms,
                       down_after=a.down_after, up_after=a.up_after,
                       max_inflight=a.max_inflight,
                       devices_per_replica=a.devices_per_replica)
-    replica_argv = ["--no-batching"] if a.no_batching else []
+    replica_argv = []
+    if a.no_batching:
+        if cfg.devices_per_replica > 1:
+            # the reference's words
+            raise ValueError(
+                "--devices-per-replica needs batching replicas (the mesh "
+                "shards the admission megabatch); drop --no-batching")
+        replica_argv.append("--no-batching")
+    replica_argv += replica_mesh_argv(cfg.devices_per_replica, a.device)
     if a.device is not None:
         replica_argv += ["--device", a.device]
     fleet = Fleet(cfg=cfg, port=a.port, max_workers=a.workers,
                   replica_argv=replica_argv, env=fleet_env())
+    _exit_on_sigterm()
     try:
         if not fleet.router.wait_healthy(a.replicas, timeout_s=60):
             print(f"error: only {fleet.router.healthy_count()}/"
@@ -1870,9 +1907,13 @@ def _add_serving_parsers(sub) -> None:
                    help="backpressure cap: admissions past this depth "
                         "get RESOURCE_EXHAUSTED")
     p.add_argument("--devices", type=int, default=1,
-                   help="megabatch mesh width (power of two); above 1 "
-                        "refused: the request-axis mesh is not ported "
-                        "yet")
+                   help="megabatch mesh width (power of two): shard "
+                        "each tick's megabatch over K spawned ranks; "
+                        "refuses at startup when the process has fewer "
+                        "cards (without --share-card)")
+    p.add_argument("--share-card", action="store_true",
+                   help="the --devices ranks share one card under gloo "
+                        "(a test mode, not a speed-up)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="coordinator address when one replica spans "
                         "processes (refused: not ported yet)")
@@ -1907,7 +1948,10 @@ def _add_serving_parsers(sub) -> None:
                    help="disable admission batching in the replicas")
     p.add_argument("--devices-per-replica", type=int, default=1,
                    help="megabatch mesh width per replica (power of "
-                        "two); above 1 refused: not ported yet")
+                        "two): children serve --devices K (with "
+                        "--share-card on a host with fewer cards); the "
+                        "fleet refuses loudly if a child reports fewer "
+                        "serving devices")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="the replicas' device: " + device_help)
     p.set_defaults(fn=cmd_route)

@@ -771,10 +771,11 @@ class MeshConfig:
                              f"choose from {EXCHANGES}")
 
 
-# The serving layer's refusal of what this package does not run yet: the
-# reference's request-axis mesh and its multi-process replicas.
-MESH_NOT_PORTED = ("the request-axis megabatch mesh is not ported yet "
-                   "(ROADMAP queue 1, item 7d); serve with one device")
+# The serving layer's refusal of what this package does not run yet: one
+# replica spread over several processes.
+MESH_NOT_PORTED = ("one replica over several processes (--coordinator, "
+                   "--num-processes, --process-id) is not ported yet "
+                   "(ROADMAP queue 1, item 7e); serve from one process")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -789,10 +790,18 @@ class ServingConfig:
       members count one each); the rest wait for the next tick;
     * ``max_queue``: the backpressure cap; an admission past it is
       refused with RESOURCE_EXHAUSTED;
-    * ``devices``, ``coordinator``, ``num_processes``, ``process_id``:
-      the reference's request-axis mesh and its multi-process replica.
-      Checked as the reference checks them, then refused above one
-      device or one process (:data:`MESH_NOT_PORTED`)."""
+    * ``devices``: the megabatch mesh width, a power of two: above 1 the
+      batcher runs each tick's megabatch on a pool of K spawned ranks
+      that split its request axis (:class:`~gossip_tpu_torch.parallel.
+      group.Pool`); 1 is the single-device path.  The batcher refuses at
+      construction a width the process cannot hold (more ranks than
+      cards without ``shared_card``);
+    * ``shared_card`` (the port's): the K ranks share one card under
+      gloo, a test mode rather than a speed-up (``MeshConfig``'s);
+    * ``coordinator``, ``num_processes``, ``process_id``: the
+      reference's replica over several processes, checked as the
+      reference checks them, then refused above one process
+      (:data:`MESH_NOT_PORTED`)."""
 
     tick_ms: float = 20.0
     max_batch: int = 64
@@ -801,6 +810,7 @@ class ServingConfig:
     coordinator: Optional[str] = None
     num_processes: int = 1
     process_id: int = 0
+    shared_card: bool = False
 
     def __post_init__(self):
         # the reference's words
@@ -824,12 +834,9 @@ class ServingConfig:
                 "a multi-process replica (num_processes > 1) needs a "
                 "coordinator address (host:port) for "
                 "jax.distributed.initialize")
-        if self.devices > 1:
-            raise ValueError(f"devices={self.devices}: {MESH_NOT_PORTED}")
         if self.num_processes > 1:
-            raise ValueError(f"num_processes={self.num_processes}: a "
-                             f"replica spanning processes is part of "
-                             f"the same slice; {MESH_NOT_PORTED}")
+            raise ValueError(f"num_processes={self.num_processes}: "
+                             f"{MESH_NOT_PORTED}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -842,7 +849,10 @@ class FleetConfig:
     probes before a downed one returns (the flap hysteresis),
     ``max_inflight`` per replica before the router sheds,
     ``control_capacity`` (each replica's control-plane log ring) and
-    ``devices_per_replica`` (refused above 1, :data:`MESH_NOT_PORTED`)."""
+    ``devices_per_replica``, the megabatch mesh width every spawned
+    replica must serve with (its ``serve --devices``, a power of two);
+    the fleet tears down a replica whose ``Health`` reports fewer
+    (:func:`~gossip_tpu_torch.rpc.router._verify_replica_devices`)."""
 
     replicas: int = 2
     probe_interval_ms: float = 250.0
@@ -875,7 +885,3 @@ class FleetConfig:
             raise ValueError("max_inflight must be >= 1")
         if self.control_capacity < 4:
             raise ValueError("control_capacity must be >= 4")
-        if self.devices_per_replica > 1:
-            raise ValueError(f"devices_per_replica="
-                             f"{self.devices_per_replica}: "
-                             f"{MESH_NOT_PORTED}")

@@ -12,12 +12,15 @@ the drivers use.
   (``MeshConfig.shared_card``: NCCL refuses two ranks on one GPU).  Gloo
   carries CUDA tensors through every collective used here; it copies them
   through the host itself.  The report's meta names the backend.
-* **Launch.**  :func:`launch` spawns K ranks (``torch.multiprocessing``,
+* **Launch.**  A :class:`Pool` spawns K ranks (``torch.multiprocessing``,
   spawn context) joined through a ``file://`` store in a fresh temporary
-  directory, never a fixed port, and returns every rank's result; a rank
-  that fails makes it raise with that rank's error.  Inside a group that
-  is already up (``torchrun``), :func:`current` is this process's rank;
-  :func:`local` opens a one-rank group in this process.
+  directory, never a fixed port, keeps them for its whole lifetime and
+  feeds them one job at a time (the serving batcher's request-axis mesh);
+  :func:`launch` is one job of a pool of its own.  A rank that fails
+  makes the job raise with that rank's error, and a rank ends when its
+  spawner does.  The caller stays outside the group.  Inside a group
+  that is already up (``torchrun``), :func:`current` is this process's
+  rank; :func:`local` opens a one-rank group in this process.
 * **Row split.**  Nodes pad to a multiple of K (:func:`pad_to_mesh`); rank
   r holds the rows ``[r * nl, (r + 1) * nl)`` (:meth:`Group.rows`).
   Padding rows are dead: they never sample, send or receive, and no
@@ -55,6 +58,7 @@ import os
 import pickle
 import queue
 import tempfile
+import threading
 import time
 import traceback
 from typing import Dict, List, Optional
@@ -272,82 +276,255 @@ def _to_host(x):
     return x
 
 
-def _rank_main(rank, size, backend, device, init_method, fn, args, kwargs,
-               results, ledger=None):
-    """One spawned rank: join the group, run ``fn(*args, group=...)``,
-    send its result (or its error) to the launcher.  ``ledger`` is the
-    launcher's run ledger hand-off (rank 0 writes, the others are peers:
-    :func:`~gossip_tpu_torch.utils.telemetry.adopt`)."""
+def _rank_error(rank: int, payload):
+    """A rank's reported error as the caller raises it: a ``ValueError``
+    as itself, anything else as a ``RuntimeError`` with the rank's
+    traceback."""
+    kind, msg, tb = payload
+    if kind == "ValueError":
+        return ValueError(msg)
+    return RuntimeError(f"rank {rank} failed: {kind}: {msg}\n{tb}")
+
+
+def _error(e: BaseException) -> tuple:
+    return type(e).__name__, str(e), traceback.format_exc()
+
+
+def _watch_parent() -> None:
+    """End this rank as soon as the process that spawned it is gone (its
+    sentinel pipe closes), whatever the rank is doing: a SIGKILLed or
+    SIGTERMed launcher leaves no rank behind."""
+    import multiprocessing
+    parent = multiprocessing.parent_process()
+    if parent is None:
+        return
+
+    def watch():
+        parent.join()
+        os._exit(1)
+    threading.Thread(target=watch, daemon=True, name="parent-watch").start()
+
+
+def _pool_main(rank, size, backend, device, init_method, jobs, results,
+               threads, ledger):
+    """One rank of a :class:`Pool`: continue the launcher's run ledger
+    (``ledger``: rank 0 writes, the others are peers:
+    :func:`~gossip_tpu_torch.utils.telemetry.adopt`), join the group
+    once, report ready (job id -1), then run each job ``(i, fn, args,
+    kwargs)`` from ``jobs`` until a None arrives, sending ``(i, rank, ok,
+    payload)``.  A failed start-up is reported under job id None."""
     from gossip_tpu_torch.utils import telemetry
+    _watch_parent()
+    if threads:
+        torch.set_num_threads(threads)
     try:
         telemetry.adopt(ledger, rank)
-        group = _init(rank, size, backend, torch.device(device),
-                      init_method)
-        out = fn(*args, group=group, **kwargs)
-        # pickled to bytes here: a tensor sent as itself would travel as
-        # shared memory that dies with this process
-        results.put((rank, True, pickle.dumps(_to_host(out))))
-    except BaseException as e:      # noqa: BLE001 - sent to the launcher
-        results.put((rank, False, (type(e).__name__, str(e),
-                                   traceback.format_exc())))
+        group = _init(rank, size, backend, torch.device(device), init_method)
+    except BaseException as e:      # noqa: BLE001 - sent to the pool
+        results.put((None, rank, False, _error(e)))
+        return
+    results.put((-1, rank, True, b""))
+    try:
+        while True:
+            job = jobs.get()
+            if job is None:
+                break
+            i, fn, args, kwargs = job
+            try:
+                out = fn(*args, group=group, **kwargs)
+                # pickled to bytes here: a tensor sent as itself would
+                # travel as shared memory that dies with this process
+                results.put((i, rank, True, pickle.dumps(_to_host(out))))
+            except BaseException as e:      # noqa: BLE001 - sent back
+                results.put((i, rank, False, _error(e)))
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        dist.destroy_process_group()
 
 
 def launch(fn, size: int, *args, device=None, shared_card: bool = False,
            **kwargs) -> List:
     """Run ``fn(*args, group=<Group>, **kwargs)`` on ``size`` spawned
-    ranks and return their results in rank order.  ``fn`` must be a
-    module-level function (it is pickled by name); its result comes back
-    with every tensor on the CPU.  A rank that raises makes this raise:
-    a ``ValueError`` as itself, anything else as a ``RuntimeError`` with
-    the rank's traceback.  Under a run ledger, rank 0 writes into it
-    and the other ranks write nothing."""
-    import torch.multiprocessing as mp
+    ranks and return their results in rank order: one job of a
+    :class:`Pool` started for it.  ``fn`` must be a module-level function
+    (it is pickled by name); its result comes back with every tensor on
+    the CPU.  The first rank that raises makes this raise (a
+    ``ValueError`` as itself, anything else as a ``RuntimeError`` with
+    the rank's traceback) and ends every rank.  Under a run ledger, rank
+    0 writes into it and the other ranks write nothing."""
+    pool = Pool(size, device, shared_card, split_threads=False)
+    try:
+        out = pool._job(fn, args, kwargs, first_error=True)
+    except BaseException:
+        pool._teardown("the job failed")
+        raise
+    pool.close()
+    return out
 
-    from gossip_tpu_torch.utils import telemetry
-    backend, devices = plan(size, device, shared_card)
-    ledger = telemetry.handoff()
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    with tempfile.TemporaryDirectory(prefix="gossip_mesh_") as tmp:
-        init_method = "file://" + os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, size, backend, str(devices[r]),
-                                   init_method, fn, args, kwargs, results,
-                                   ledger))
-                 for r in range(size)]
-        for p in procs:
+
+class Pool:
+    """K spawned ranks kept for the pool's lifetime, on the devices
+    :func:`plan` gives (gloo on the CPU or on one shared card, NCCL with
+    a card a rank), fed one job at a time.
+
+    :meth:`run` hands every rank ``fn(*args, group=<Group>, **kwargs)``
+    and returns their results in rank order, under :func:`launch`'s
+    rules: a rank's ``ValueError`` comes back as itself, anything else as
+    a ``RuntimeError`` with the rank's traceback.  When every rank
+    answers, errors included, the group is intact and the pool serves
+    the next job.  When one does not (it exited, or the others were left
+    in a collective for :data:`ERROR_GRACE_S` after a rank's error), the
+    pool tears every rank down and raises; each later job raises too.
+    Construction waits until every rank has joined the group
+    (:data:`START_TIMEOUT_S` at most), and refuses more ranks than cards
+    as :func:`plan` does.  :meth:`close` stops the ranks and leaves no
+    live child; a rank also ends by itself when this process is gone.
+    Under a run ledger, rank 0 writes into it and the other ranks write
+    nothing, as under :func:`launch`.  CPU ranks split this process's
+    intra-op threads between them unless ``split_threads`` is False."""
+
+    ERROR_GRACE_S = 10.0
+    START_TIMEOUT_S = 300.0
+
+    def __init__(self, size: int, device=None, shared_card: bool = False,
+                 split_threads: bool = True):
+        import torch.multiprocessing as mp
+
+        from gossip_tpu_torch.utils import telemetry
+        backend, devices = plan(size, device, shared_card)
+        self.size, self.backend, self.devices = size, backend, devices
+        self.down: Optional[str] = None     # why the ranks were torn down
+        self._lock = threading.Lock()
+        self._next = 0
+        self._tmp = tempfile.mkdtemp(prefix="gossip_pool_")
+        ctx = mp.get_context("spawn")
+        self._jobs = [ctx.Queue() for _ in range(size)]
+        self._results = ctx.Queue()
+        threads = (max(1, torch.get_num_threads() // size)
+                   if split_threads and devices[0].type == "cpu" else None)
+        ledger = telemetry.handoff()
+        init_method = "file://" + os.path.join(self._tmp, "store")
+        self._procs = [ctx.Process(target=_pool_main, daemon=True,
+                                   args=(r, size, backend, str(devices[r]),
+                                         init_method, self._jobs[r],
+                                         self._results, threads, ledger))
+                       for r in range(size)]
+        for p in self._procs:
             p.start()
-        got: Dict[int, object] = {}
         try:
-            while len(got) < size:
-                try:
-                    rank, ok, payload = results.get(timeout=1.0)
-                except queue.Empty:
-                    gone = [r for r, p in enumerate(procs)
-                            if r not in got and p.exitcode is not None]
-                    if gone:
-                        raise RuntimeError(
-                            f"rank {gone[0]} exited with code "
-                            f"{procs[gone[0]].exitcode} before it reported")
-                    continue
-                if not ok:
-                    kind, msg, tb = payload
-                    if kind == "ValueError":
-                        raise ValueError(msg)
-                    raise RuntimeError(f"rank {rank} failed: {kind}: {msg}"
-                                       f"\n{tb}")
-                got[rank] = pickle.loads(payload)
-            for p in procs:
+            self._collect(-1, self.START_TIMEOUT_S)
+        except BaseException:
+            self._teardown("start-up failed")
+            raise
+
+    @property
+    def pids(self) -> List[int]:
+        return [p.pid for p in self._procs]
+
+    def alive(self) -> bool:
+        """Every rank is up and the pool is open."""
+        return self.down is None and all(p.is_alive() for p in self._procs)
+
+    def _collect(self, i: int, timeout: Optional[float],
+                 first_error: bool = False) -> List:
+        """Every rank's answer to job ``i`` (class rules above); with
+        ``first_error``, the first rank's error is raised at once."""
+        got: Dict[int, object] = {}
+        errs: Dict[int, tuple] = {}
+        t0 = time.monotonic()
+        first_err = None
+        while len(got) + len(errs) < self.size:
+            try:
+                j, rank, ok, payload = self._results.get(timeout=0.2)
+            except queue.Empty:
+                now = time.monotonic()
+                gone = [r for r, p in enumerate(self._procs)
+                        if r not in got and r not in errs
+                        and p.exitcode is not None]
+                if gone:
+                    raise RuntimeError(
+                        f"rank {gone[0]} of the pool exited with code "
+                        f"{self._procs[gone[0]].exitcode} before it "
+                        "reported")
+                if first_err is not None and \
+                        now - first_err > self.ERROR_GRACE_S:
+                    r = min(errs)
+                    raise RuntimeError(
+                        f"rank {r} failed and the others did not answer "
+                        f"within {self.ERROR_GRACE_S:.0f} s: "
+                        f"{_rank_error(r, errs[r])}")
+                if timeout is not None and now - t0 > timeout:
+                    raise RuntimeError(
+                        f"the pool's ranks did not answer within "
+                        f"{timeout:.0f} s ({len(got) + len(errs)}/"
+                        f"{self.size} did)")
+                continue
+            if j is None:
+                raise _rank_error(rank, payload)
+            if j != i:
+                continue
+            if ok:
+                got[rank] = payload
+            elif first_error:
+                raise _rank_error(rank, payload)
+            else:
+                errs[rank] = payload
+                first_err = first_err or time.monotonic()
+        if errs:
+            r = min(errs)
+            raise _rank_error(r, errs[r])
+        return [got[r] for r in range(self.size)]
+
+    def run(self, fn, *args, **kwargs) -> List:
+        """``fn(*args, group=<Group>, **kwargs)`` on every rank: the
+        results in rank order (class doc).  ``fn`` must be a module-level
+        function; its result comes back with every tensor on the CPU."""
+        return self._job(fn, args, kwargs)
+
+    def _job(self, fn, args, kwargs, first_error: bool = False) -> List:
+        with self._lock:
+            if self.down is not None:
+                raise RuntimeError(f"the rank pool is down: {self.down}")
+            i, self._next = self._next, self._next + 1
+            for q in self._jobs:
+                q.put((i, fn, args, kwargs))
+            try:
+                out = self._collect(i, None, first_error)
+            except ValueError:
+                if not self.alive():
+                    self._teardown("a rank failed")
+                raise
+            except BaseException as e:
+                self._teardown(str(e).splitlines()[0] if str(e)
+                               else type(e).__name__)
+                raise
+            return [pickle.loads(p) for p in out]
+
+    def _teardown(self, why: str) -> None:
+        import shutil
+        self.down = self.down or why
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self._procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
                 p.join()
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join()
-    return [got[r] for r in range(size)]
+        for q in self._jobs + [self._results]:
+            q.cancel_join_thread()
+            q.close()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+    def close(self) -> None:
+        """Stop every rank (a None job each, then a join; a rank that
+        does not stop within 30 s is killed).  Idempotent."""
+        with self._lock:
+            if self.down is None:
+                for q in self._jobs:
+                    q.put(None)
+                for p in self._procs:
+                    p.join(timeout=30)
+            self._teardown("closed")
 
 
 def current(device=None) -> Group:

@@ -1010,7 +1010,7 @@ def _request_batch(specs, pad: int, n_pad: int, r_max: int, k: int,
 
 
 def request_sweep_curves(specs, topo: Optional[Topology] = None,
-                         n_pad: Optional[int] = None, mesh=None,
+                         n_pad: Optional[int] = None, group=None,
                          lanes: Optional[int] = None,
                          timing: Optional[dict] = None,
                          device=None) -> RequestSweepResult:
@@ -1042,17 +1042,24 @@ def request_sweep_curves(specs, topo: Optional[Topology] = None,
     eventual alive count (``ops/nemesis.folded_denominator``).  The
     reference's megabatch divides in that last case, which its own solo
     run does not (ROADMAP queue 3); ``counts`` holds the integers.
-    ``mesh`` (the reference's request-axis mesh) is refused: not ported
-    yet.  ``timing`` gets ``steady_s``, the batch's device time
+
+    ``group`` (:mod:`gossip_tpu_torch.parallel.group`, the reference's
+    request-axis ``mesh``): the lanes split over the ranks, rank r taking
+    the contiguous slice ``[r * lanes / K, (r + 1) * lanes / K)``, so
+    ``lanes`` must divide by K (the reference's words).  Each rank runs
+    its slice's requests (its inert lanes are read nowhere and are not
+    run), takes its own lanes' state digests, and one all_gather per
+    output (counts, msgs, dropped, digests) puts every lane back in lane
+    order on every rank: value-invariant, since lanes never read each
+    other.  A rank whose whole slice is inert still takes part in every
+    all_gather, with zero rows.  ``timing`` gets ``steady_s``, the
+    batch's device time, the gathers included
     (:func:`~gossip_tpu_torch.utils.timing.steady_timed`, which writes
     its ``driver_timing`` event)."""
-    from gossip_tpu_torch.config import MESH_NOT_PORTED
     from gossip_tpu_torch.utils.timing import steady_timed
     specs = tuple(specs)
     if not specs:
         raise ValueError("need at least one RequestSpec")
-    if mesh is not None:
-        raise ValueError(f"mesh=: {MESH_NOT_PORTED}")
     # the reference's words
     kset = {sp.proto.fanout for sp in specs}
     if len(kset) > 1:
@@ -1087,32 +1094,64 @@ def request_sweep_curves(specs, topo: Optional[Topology] = None,
     lanes = kn if lanes is None else lanes
     if lanes < kn:
         raise ValueError(f"lanes={lanes} below the batch size {kn}")
+    if group is not None and lanes % group.size:
+        # the reference's words
+        raise ValueError(
+            f"{lanes} request lanes do not divide over the request mesh "
+            f"axis of size {group.size}")
     need_push = any(_MODE_FLAGS[sp.proto.mode][0] for sp in specs)
     need_pull = any(_MODE_FLAGS[sp.proto.mode][1] for sp in specs)
     have_ae = any(sp.proto.mode == C.ANTI_ENTROPY for sp in specs)
-    dev = (si_mod.topology_device(topo, device) if topo is not None
-           else resolve_device(device))
+    if group is None:
+        dev = (si_mod.topology_device(topo, device) if topo is not None
+               else resolve_device(device))
+        # every lane here; the padding lanes run inert in their chunk
+        mine, pad_lanes = specs, lanes - kn
+    else:
+        dev = group.device
+        per = lanes // group.size
+        mine, pad_lanes = specs[group.rank * per:(group.rank + 1) * per], 0
 
     def run_chunks():
         point = n_pad * (k * DRAW_BYTES * 2 + 8 * r_max)
         outs = []
-        for sl in _chunks(lanes, point):
-            mine = specs[sl.start:min(sl.stop, kn)]
-            if not mine:
+        for sl in _chunks(len(mine) + pad_lanes, point):
+            chunk = mine[sl.start:min(sl.stop, len(mine))]
+            if not chunk:
                 break                 # inert lanes only: nothing to read
-            pad = (sl.stop - sl.start) - len(mine)
-            outs.append(_request_batch(mine, pad, n_pad, r_max, k,
+            pad = (sl.stop - sl.start) - len(chunk)
+            outs.append(_request_batch(chunk, pad, n_pad, r_max, k,
                                        max_rounds, topo, need_push,
                                        need_pull, have_ae, dev))
         return outs
 
-    outs, steady = steady_timed(dev, run_chunks)
+    def run_gathered():
+        outs = run_chunks()
+        digests = [state_digest(seen, sp.n, sp.proto.rumors)
+                   for seen, sp in zip((s for o in outs for s in o[3]),
+                                       mine)]
+        local = [_rows(np.concatenate([o[j] for o in outs]) if outs
+                       else None, per, max_rounds, dtype)
+                 for j, dtype in ((0, np.int64), (1, np.float32),
+                                  (2, np.float32))]
+        local.append(_rows(np.array([np.frombuffer(d.encode(), np.uint8)
+                                     for d in digests], np.uint8)
+                           .reshape(len(digests), 64), per, 64, np.uint8))
+        c, m, lo, dg = _gather(group, *local)
+        return ([(c, m, lo)], [bytes(row).decode() for row in dg[:kn]],
+                len(outs))
+
+    if group is None:
+        outs, steady = steady_timed(dev, run_chunks)
+        finals = [s for o in outs for s in o[3]][:kn]
+        chunks = len(outs)
+    else:
+        (outs, digests, chunks), steady = steady_timed(dev, run_gathered)
     if timing is not None:
         timing["steady_s"] = steady
     counts = np.concatenate([o[0] for o in outs])[:kn]
     msgs = np.concatenate([o[1] for o in outs])[:kn]
     lost = np.concatenate([o[2] for o in outs])[:kn]
-    finals = [s for o in outs for s in o[3]][:kn]
     curves = np.empty(counts.shape, np.float32)
     rtt = np.full(kn, -1, np.int64)
     for i, sp in enumerate(specs):
@@ -1121,14 +1160,28 @@ def request_sweep_curves(specs, topo: Optional[Topology] = None,
         curves[i] = _fractions(counts[i], total, folded)
         rtt[i] = _rounds_to_target(curves[i:i + 1],
                                    sp.run.target_coverage)[0]
-    digests = tuple(state_digest(seen, sp.n, sp.proto.rumors)
-                    for seen, sp in zip(finals, specs))
+    if group is None:
+        digests = [state_digest(seen, sp.n, sp.proto.rumors)
+                   for seen, sp in zip(finals, specs)]
+    meta = {"lanes": lanes, "n_pad": n_pad, "rumor_bucket": r_max,
+            "batch_chunks": chunks}
+    if group is not None:
+        meta["devices"] = group.size
     return RequestSweepResult(specs=specs, curves=curves, msgs=msgs,
                               dropped=lost, rounds_to_target=rtt,
-                              state_digests=digests, counts=counts,
-                              meta={"lanes": lanes, "n_pad": n_pad,
-                                    "rumor_bucket": r_max,
-                                    "batch_chunks": len(outs)})
+                              state_digests=tuple(digests), counts=counts,
+                              meta=meta)
+
+
+def _rows(a: Optional[np.ndarray], rows: int, width: int,
+          dtype) -> np.ndarray:
+    """``a`` (``[r, width]``, r <= rows; None: no rows) padded with zero
+    rows to ``[rows, width]``: a rank's share of a request batch's
+    gather, its inert lanes zero."""
+    out = np.zeros((rows, width), dtype)
+    if a is not None and len(a):
+        out[:len(a)] = a
+    return out
 
 
 def config_sweep_curves_2d(points, topo, run: RunConfig, mesh,

@@ -28,10 +28,24 @@ at a time anyway), so no call's timed window holds another's kernels; a
 request waiting in the queue does not hold it.  The reference lets its
 solo runs and megabatches overlap on its device.
 
+**Request-axis mesh.**  With ``ServingConfig.devices`` K above 1 the
+batcher starts a pool of K spawned ranks once
+(:class:`~gossip_tpu_torch.parallel.group.Pool`: gloo on the CPU or on
+one shared card, NCCL with a card a rank) and runs each tick's megabatch
+on it (``request_sweep_curves(group=)``), the serving process staying
+outside the group.  The lanes pad to the least multiple of K (the
+reference pads to a power of two floored at K to hold one XLA executable
+a lane bucket; the port compiles nothing); the padding lanes are inert
+and every reply stays its solo run's.  A width the process cannot hold
+(more ranks than cards without ``shared_card``) is refused at
+construction in the reference's words; a pool that fails fails its
+tick's requests, and every later tick's, and nothing falls back to the
+single-device path.  :meth:`Batcher.close` stops the ranks.
+
 **Compile verdict.**  The reference counts XLA backend compiles around a
 megabatch; the port compiles nothing at serve time, and its verdict is
 the count of ``kernel_build`` events (``ops/_kernels.build_events``)
-inside the group: ``warm`` when zero.
+inside the group, the mesh ranks' included: ``warm`` when zero.
 
 Telemetry: one ``batch`` event a group (the reference's fields), and the
 ``backpressure``, ``deadline_exceeded``, ``batch_error``, ``trace_admit``
@@ -166,6 +180,36 @@ def classify_ensemble(args, seeds, count, device=None):
         first, run=dataclasses.replace(run, seed=s)) for s in seeds)
 
 
+def refuse_mesh_width(devices: int, device, shared_card: bool) -> None:
+    """Refuse a megabatch mesh wider than the process can hold: more
+    ranks than cards without ``shared_card`` (the reference's words, with
+    its JAX devices the port's CUDA ones and its remedy the port's).  The
+    CPU's gloo ranks are processes, so the CPU holds any width."""
+    import torch
+    if devices <= 1 or torch.device(device).type != "cuda" or shared_card:
+        return
+    have = torch.cuda.device_count()
+    if have < devices:
+        raise ValueError(
+            f"ServingConfig.devices={devices} but this process has "
+            f"only {have} CUDA device(s) — the megabatch mesh would "
+            "silently degrade; serve with --share-card (the ranks share "
+            "one card under gloo) or on a host with enough cards")
+
+
+def _mesh_batch(specs, topology, n_pad, lanes, group):
+    """One mesh rank's share of a tick's megabatch (runs in the pool's
+    ranks): rank 0's result (every rank holds all of it) and this rank's
+    ``kernel_build`` events during the batch."""
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.parallel.sweep import request_sweep_curves
+    before = _kernels.build_events()
+    res = request_sweep_curves(specs, topo=_topo_for(topology, group.device),
+                               n_pad=n_pad, group=group, lanes=lanes)
+    return (res if group.rank == 0 else None,
+            _kernels.build_events() - before)
+
+
 @lru_cache(maxsize=8)
 def _topo_for(tc: Optional[TopologyConfig], device):
     """The shared explicit table of a batch key on ``device`` (None for
@@ -211,6 +255,8 @@ class Batcher:
         from gossip_tpu_torch.ops.common import resolve_device
         self.cfg = cfg or ServingConfig()
         self.device = resolve_device(device)
+        self.devices = self.cfg.devices
+        self._pool = self._build_pool()
         self._lock = threading.Lock()
         self._queue = []          # [(BatchKey, _Pending)], FIFO
         self._stop = threading.Event()
@@ -219,6 +265,21 @@ class Batcher:
                                         name="gossip-admission-batcher",
                                         daemon=True)
         self._thread.start()
+
+    def _build_pool(self):
+        """The megabatch's K ranks, or None on the single-device path;
+        refused when the process cannot hold them (module doc)."""
+        if self.devices <= 1:
+            return None
+        from gossip_tpu_torch.parallel.group import Pool
+        refuse_mesh_width(self.devices, self.device, self.cfg.shared_card)
+        return Pool(self.devices, self.device,
+                    shared_card=self.cfg.shared_card)
+
+    def pool_pids(self):
+        """The mesh ranks' process ids (empty on the single-device
+        path)."""
+        return [] if self._pool is None else self._pool.pids
 
     # -- admission --------------------------------------------------------
 
@@ -277,10 +338,13 @@ class Batcher:
     # -- collector ----------------------------------------------------------
 
     def close(self):
-        """Stop: refuse admissions first, then answer what is queued."""
+        """Stop: refuse admissions first, then answer what is queued, then
+        stop the mesh ranks."""
         self._stop.set()
         self._thread.join(timeout=10)
         self._drain_once()
+        if self._pool is not None:
+            self._pool.close()
 
     def _loop(self):
         tick_s = self.cfg.tick_ms / 1e3
@@ -350,15 +414,24 @@ class Batcher:
         from gossip_tpu_torch.parallel.sweep import request_sweep_curves
         from gossip_tpu_torch.utils import telemetry
         specs = tuple(s for e in entries for s in e.specs)
+        n_pad = None if key.topology is not None else key.n_bucket
         with DEVICE_LOCK:
             before = _kernels.build_events()
             t0 = time.monotonic()
             try:
-                res = request_sweep_curves(
-                    specs, topo=_topo_for(key.topology, self.device),
-                    n_pad=None if key.topology is not None
-                    else key.n_bucket, device=self.device)
-            except Exception as e:      # classify should have refused it
+                if self._pool is None:
+                    res = request_sweep_curves(
+                        specs, topo=_topo_for(key.topology, self.device),
+                        n_pad=n_pad, device=self.device)
+                    rank_builds = 0
+                else:
+                    lanes = -(-len(specs) // self.devices) * self.devices
+                    ranks = self._pool.run(_mesh_batch, specs,
+                                           key.topology, n_pad, lanes)
+                    res = ranks[0][0]
+                    rank_builds = sum(r[1] for r in ranks)
+            except Exception as e:      # classify should have refused it,
+                # or the mesh's ranks failed: the tick fails, never solo
                 err = BatchError(
                     f"batch execution failed: {type(e).__name__}: "
                     + (str(e).splitlines()[0] if str(e) else ""))
@@ -369,7 +442,7 @@ class Batcher:
                     p.event.set()
                 return
             run_ms = (time.monotonic() - t0) * 1e3
-            compiles = _kernels.build_events() - before
+            compiles = _kernels.build_events() - before + rank_builds
         self._tick += 1
         waits = sorted((t0 - e.enq_t) * 1e3 for e in entries)
         cache = "warm" if compiles == 0 else "compiled"
@@ -377,7 +450,7 @@ class Batcher:
             "batched": True, "tick": self._tick,
             "size": len(specs), "requests": len(entries),
             "run_ms": round(run_ms, 1), "cache": cache,
-            "devices": 1,
+            "devices": self.devices,
             "semantics": "fixed-scan", **key.describe()}
         telemetry.current().event(
             "batch", sync=False, tick=self._tick,
@@ -386,7 +459,7 @@ class Batcher:
             wait_ms_p50=round(telemetry.percentile(waits, 0.50), 1),
             wait_ms_max=round(waits[-1], 1) if waits else 0.0,
             run_ms=round(run_ms, 1), compiles=compiles, cache=cache,
-            devices=1,
+            devices=self.devices,
             trace_ids=[p.trace_id for p in entries
                        if p.trace_id is not None],
             **key.describe())
@@ -426,7 +499,7 @@ class Batcher:
             "wall_s": round(batch_meta["run_ms"] / 1e3, 4),
             "curve": curve if p.want_curve else None,
             "meta": {"clock": "rounds",
-                     "devices": 1,
+                     "devices": batch_meta["devices"],
                      "msgs_counts": "transmissions",
                      "engine": "xla-request-batch",
                      "state_digest": res.state_digests[i],

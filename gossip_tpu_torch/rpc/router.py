@@ -30,6 +30,13 @@ Everything that needs ``grpc`` (the replicas' channels, the probes,
 :func:`serve_router`, :class:`Fleet`) imports it inside the function.
 :func:`spawn_replica` starts ``python -m gossip_tpu_torch serve``; the
 replicas inherit the caller's ``--device`` through ``replica_argv``.
+With ``FleetConfig.devices_per_replica`` K above 1 each replica serves
+a K-rank megabatch mesh: its ``serve --devices K`` (plus ``--share-card``
+where the host has fewer cards than K, :func:`replica_mesh_argv`) is
+what the reference's ``fleet_env`` gives its children through XLA's
+host device count, and every spawn and respawn is checked by
+:func:`_verify_replica_devices`: a replica whose ``Health`` reports a
+narrower mesh is torn down and the fleet refuses, loudly.
 """
 
 from __future__ import annotations
@@ -552,21 +559,35 @@ def serve_router(addresses: Sequence[str], port: int = 0,
 
 # -- spawned fleets ------------------------------------------------------------
 
-def spawn_replica(workdir: str, name: str, extra_argv=(),
-                  env: Optional[dict] = None, timeout_s: float = 90.0
-                  ) -> Tuple[subprocess.Popen, int]:
-    """Start one ``python -m gossip_tpu_torch serve --port 0`` replica
-    and read its port from the command's first JSON line.  Its output
-    goes to ``<workdir>/<name>.out`` / ``.err`` (files, never pipes: an
-    undrained pipe would block a chatty child)."""
+def _start_replica(workdir: str, name: str, extra_argv=(),
+                   env: Optional[dict] = None):
+    """Start one replica process: ``(proc, stdout path, stderr path)``."""
     os.makedirs(workdir, exist_ok=True)
     out_path = os.path.join(workdir, name + ".out")
     err_path = os.path.join(workdir, name + ".err")
     argv = [sys.executable, "-m", "gossip_tpu_torch", "serve", "--port",
             "0", *extra_argv]
     with open(out_path, "wb") as fo, open(err_path, "wb") as fe:
+        # a session of its own, so a kill reaches its mesh ranks too
         proc = subprocess.Popen(argv, stdout=fo, stderr=fe, env=env,
-                                cwd=_REPO)
+                                cwd=_REPO, start_new_session=True)
+    return proc, out_path, err_path
+
+
+def kill_replica(proc: subprocess.Popen) -> None:
+    """SIGKILL a replica started by :func:`spawn_replica` and every
+    process of its session (a ``serve --devices K`` replica's ranks),
+    then reap it."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def _await_port(name: str, proc: subprocess.Popen, out_path: str,
+                err_path: str, timeout_s: float = 90.0) -> int:
+    """The port a started replica reports on its first JSON line."""
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
         if proc.poll() is not None:
@@ -578,22 +599,34 @@ def spawn_replica(workdir: str, name: str, extra_argv=(),
             with open(out_path) as f:
                 line = f.readline().strip()
             if line:
-                return proc, int(json.loads(line)["port"])
+                return int(json.loads(line)["port"])
         except (OSError, ValueError, KeyError):
             pass
         time.sleep(0.05)
-    proc.kill()
-    proc.wait()
+    kill_replica(proc)
     raise RuntimeError(f"replica {name} did not report a port within "
                        f"{timeout_s}s")
+
+
+def spawn_replica(workdir: str, name: str, extra_argv=(),
+                  env: Optional[dict] = None, timeout_s: float = 90.0
+                  ) -> Tuple[subprocess.Popen, int]:
+    """Start one ``python -m gossip_tpu_torch serve --port 0`` replica
+    and read its port from the command's first JSON line.  Its output
+    goes to ``<workdir>/<name>.out`` / ``.err`` (files, never pipes: an
+    undrained pipe would block a chatty child)."""
+    proc, out_path, err_path = _start_replica(workdir, name, extra_argv,
+                                              env)
+    return proc, _await_port(name, proc, out_path, err_path, timeout_s)
 
 
 def fleet_env(compile_cache_dir: Optional[str] = None) -> dict:
     """A replica's environment: the caller's, with this repository on
     ``PYTHONPATH`` and, optionally, a shared kernel store
     (``GOSSIP_COMPILE_CACHE``) so a respawned replica loads its
-    predecessors' builds.  The reference's XLA platform pins have no
-    counterpart: a replica takes its device from ``--device``."""
+    predecessors' builds.  The reference's XLA platform pins and host
+    device count have no counterpart: a replica takes its device from
+    ``--device`` and its mesh width from :func:`replica_mesh_argv`."""
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -602,11 +635,51 @@ def fleet_env(compile_cache_dir: Optional[str] = None) -> dict:
     return env
 
 
+def replica_mesh_argv(devices: int, device: Optional[str] = None) -> list:
+    """The ``serve`` flags a replica needs to serve a ``devices``-rank
+    megabatch mesh on ``device`` (default CUDA): ``--devices K``, plus
+    ``--share-card`` on a host with fewer cards than K (gloo ranks on one
+    card); nothing for one device.  The port's counterpart of the
+    reference's ``fleet_env(devices=K)`` (ROADMAP queue 3 item 8(g))."""
+    if devices <= 1:
+        return []
+    argv = ["--devices", str(devices)]
+    if (device or "cuda") == "cuda" and torch.cuda.device_count() < devices:
+        argv.append("--share-card")
+    return argv
+
+
+def _verify_replica_devices(addr: str, name: str, want: int,
+                            timeout_s: float = 30.0):
+    """The devices-per-replica check: a freshly spawned replica must
+    report, in its ``Health`` reply's ``serving_devices``, at least the
+    mesh width the fleet requires, or this raises (the reference's
+    words, with the port's remedy)."""
+    if want <= 1:
+        return
+    from gossip_tpu_torch.rpc.sidecar import SidecarClient
+    client = SidecarClient(addr)
+    try:
+        h = client.health(timeout=timeout_s)
+    finally:
+        client.close()
+    got = int(h.get("serving_devices", h.get("devices", 1)))
+    if got < want:
+        raise RuntimeError(
+            f"replica {name} at {addr} reports serving_devices={got} "
+            f"but the fleet requires devices_per_replica={want} — the "
+            "megabatch mesh silently degraded; spawn children with serve "
+            "--devices K (and --share-card where the host has fewer "
+            "cards than K: replica_mesh_argv)")
+
+
 class Fleet:
     """N spawned replicas behind a served router (the ``route``
     command's).  ``kill(i)`` SIGKILLs replica i; ``restart(i)`` spawns a
     replacement on a fresh port, which the hysteresis re-admits after a
-    control-plane catch-up."""
+    control-plane catch-up.  With ``cfg.devices_per_replica`` above 1
+    every spawn and respawn goes through :func:`_verify_replica_devices`,
+    and a narrower replica is killed before the fleet raises."""
 
     def __init__(self, n: Optional[int] = None,
                  cfg: Optional[FleetConfig] = None,
@@ -624,17 +697,23 @@ class Fleet:
         self._gen = [0] * n
         procs, addrs = [], []
         try:
+            # every replica starts at once (each start-up is mostly its
+            # imports and its device), then each one's port is read
+            started = []
             for i in range(n):
-                proc, rport = spawn_replica(workdir, f"r{i}_g0",
-                                            self.replica_argv, self.env)
-                procs.append(proc)
+                started.append(_start_replica(workdir, f"r{i}_g0",
+                                              self.replica_argv, self.env))
+                procs.append(started[-1][0])
+            for i, (proc, out_path, err_path) in enumerate(started):
+                rport = _await_port(f"r{i}_g0", proc, out_path, err_path)
                 addrs.append(f"127.0.0.1:{rport}")
+                _verify_replica_devices(addrs[-1], f"r{i}_g0",
+                                        self.cfg.devices_per_replica)
             self.server, self.port, self.router = serve_router(
                 addrs, port=port, max_workers=max_workers, cfg=self.cfg)
         except Exception:
             for p in procs:
-                p.kill()
-                p.wait()
+                kill_replica(p)
             raise
         for i, proc in enumerate(procs):
             self.router.replicas[i].proc = proc
@@ -649,8 +728,7 @@ class Fleet:
         if r.proc is None or r.proc.poll() is not None:
             raise ValueError(f"replica {i} has no live process")
         pid = r.proc.pid
-        r.proc.send_signal(signal.SIGKILL)
-        r.proc.wait()
+        kill_replica(r.proc)
         return pid
 
     def restart(self, i: int) -> str:
@@ -660,6 +738,13 @@ class Fleet:
         proc, rport = spawn_replica(self.workdir, name, self.replica_argv,
                                     self.env)
         addr = f"127.0.0.1:{rport}"
+        try:
+            _verify_replica_devices(addr, name,
+                                    self.cfg.devices_per_replica)
+        except Exception:
+            # a narrower replacement never joins the rotation
+            kill_replica(proc)
+            raise
         self.router.replace_replica(i, addr, proc)
         return addr
 
@@ -668,5 +753,4 @@ class Fleet:
         self.router.close()
         for r in self.router.replicas:
             if r.proc is not None and r.proc.poll() is None:
-                r.proc.kill()
-                r.proc.wait()
+                kill_replica(r.proc)

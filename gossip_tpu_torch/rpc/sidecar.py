@@ -32,7 +32,8 @@ wall and launch tally are its own call's.
 
 Declared differences: ``Health`` reports this package's device type and
 ``torch.cuda.device_count()`` where the reference reports its JAX backend
-and device count, and ``Metrics``' ``compiles_total`` counts this
+and device count (its ``serving_devices``, the batcher's mesh width, is
+the reference's), and ``Metrics``' ``compiles_total`` counts this
 process's ``kernel_build`` events (``ops/_kernels.build_events``), not
 XLA backend compiles; its ``last_compile`` key (the reference's compile
 chokepoint's last record) is absent: nothing here compiles at serve
@@ -299,7 +300,9 @@ def _health(request: bytes, context, batcher=None, device=None) -> bytes:
         "backend": dev.type,
         "devices": (torch.cuda.device_count() if dev.type == "cuda"
                     else 1),
-        "serving_devices": 1,
+        # the megabatch mesh width this replica serves with, which the
+        # fleet's devices_per_replica check reads
+        "serving_devices": batcher.devices if batcher is not None else 1,
         "service": SERVICE,
     }).encode()
 
@@ -324,7 +327,9 @@ def _metrics(request: bytes, context, batcher=None, window=None,
         "ok": True,
         "service": SERVICE,
         "role": "replica",
-        "serving_devices": 1,
+        # the megabatch mesh width this replica serves with, which the
+        # fleet's devices_per_replica check reads
+        "serving_devices": batcher.devices if batcher is not None else 1,
         "inflight": inflight,
         "window": snap,
         "compiles_total": compiles,

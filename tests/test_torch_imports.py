@@ -1,12 +1,14 @@
 """Import hygiene of the port: ``gossip_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX and nothing of the JAX package ``gossip_tpu``.
+import nothing of JAX, nothing of the JAX package ``gossip_tpu`` and
+nothing of the repository's ``tools/`` (the port keeps its own copies of
+the tools it needs, under ``gossip_tpu_torch/tools/``).
 
 Two pins: a fresh interpreter imports the package and every module in
 it, then finds neither ``jax`` nor any ``gossip_tpu`` / ``gossip_tpu.*``
-module loaded; and an AST scan finds no such import statement anywhere
-in the port's sources, including imports inside functions.  Module
-names are matched exactly (``gossip_tpu_torch`` itself starts with
-``gossip_tpu``).
+nor ``tools.*`` module loaded; and an AST scan finds no such import
+statement anywhere in the port's sources, including imports inside
+functions.  Module names are matched exactly (``gossip_tpu_torch``
+itself starts with ``gossip_tpu``).
 """
 
 import ast
@@ -18,7 +20,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "gossip_tpu")
+FORBIDDEN = ("jax", "gossip_tpu", "tools")
 
 PROBE = """
 import importlib, json, pkgutil, sys
@@ -28,7 +30,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 loaded = [m for m in sys.modules
-          if m.split(".")[0] in ("jax", "gossip_tpu")]
+          if m.split(".")[0] in ("jax", "gossip_tpu", "tools")]
 print(json.dumps({"imported": names, "forbidden": loaded}))
 """
 
@@ -43,6 +45,8 @@ def test_forbidden_names_match_exactly():
     assert not _forbidden("gossip_tpu_torch")
     assert not _forbidden("gossip_tpu_torch.ops.fused_round")
     assert not _forbidden("jaxlib_free")
+    assert _forbidden("tools.load_harness") and _forbidden("tools")
+    assert not _forbidden("gossip_tpu_torch.tools.load_harness")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -67,6 +71,8 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.sweep", "utils.checkpoint", "planner",
                  "planner.budget", "planner.stream", "utils.telemetry",
                  "utils.trace", "ops.round_metrics", "tools.crashloop",
+                 "tools.load_harness", "tools.fleet_crashloop",
+                 "tools.trace_report",
                  "rpc", "rpc.batcher", "rpc.sidecar", "rpc.router",
                  "native", "runtime.gonative", "runtime.native_sim",
                  "runtime.native_router", "runtime.txn_checker",

@@ -217,8 +217,8 @@ def test_fleet_env_carries_the_repository_and_the_store(monkeypatch):
     (["route", "--replicas", "0"], "replicas must be >= 1"),
     (["route", "--devices-per-replica", "3"], "power of two"),
     (["route", "--devices-per-replica", "4", "--no-batching"],
-     "not ported yet"),
-    (["serve", "--devices", "2", "--device", "cpu"], "not ported yet"),
+     "--devices-per-replica needs batching replicas"),
+    (["serve", "--devices", "3", "--device", "cpu"], "power of two"),
     (["serve", "--num-processes", "2", "--coordinator", "h:1",
       "--device", "cpu"], "not ported yet"),
     (["serve", "--batch-tick-ms", "0", "--device", "cpu"],
@@ -227,6 +227,68 @@ def test_fleet_env_carries_the_repository_and_the_store(monkeypatch):
 def test_serving_flag_refusals(capsys, argv, words):
     assert TCLI.main(argv) == 2
     assert words in capsys.readouterr().err
+
+
+def test_serve_refuses_more_ranks_than_cards(capsys, monkeypatch):
+    """``serve --devices 2`` on one card without ``--share-card`` exits 2
+    in the reference's words, before any rank starts."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert TCLI.main(["serve", "--port", "0", "--devices", "2"]) == 2
+    err = capsys.readouterr().err
+    assert "ServingConfig.devices=2 but this process has only 1 CUDA " \
+        "device(s) — the megabatch mesh would silently degrade" in err
+
+
+def test_replica_health_reports_its_mesh_width():
+    """A replica serving a K = 2 megabatch mesh says so in ``Health`` and
+    ``Metrics`` over gRPC; closing its batcher stops both ranks."""
+    import os
+    server, port = SC.serve(port=0, max_workers=2, device="cpu",
+                            batching=TC.ServingConfig(tick_ms=25.0,
+                                                      devices=2))
+    pids = server.gossip_batcher.pool_pids()
+    client = SC.SidecarClient(f"127.0.0.1:{port}")
+    try:
+        assert client.health()["serving_devices"] == 2
+        assert client.metrics()["serving_devices"] == 2
+    finally:
+        client.close()
+        server.gossip_batcher.close()
+        server.stop(grace=None)
+    assert len(pids) == 2
+    assert not any(os.path.exists(f"/proc/{p}") for p in pids)
+
+
+def test_replica_device_verification_refuses_degraded_mesh(monkeypatch):
+    """A replica that serves one device where the fleet wants two is
+    refused loudly (the reference's check), and a fleet whose replica
+    comes up narrower kills it before it raises."""
+    server, port = SC.serve(port=0, max_workers=2, device="cpu",
+                            batching=TC.ServingConfig(tick_ms=25.0))
+    try:
+        addr = f"127.0.0.1:{port}"
+        RT._verify_replica_devices(addr, "r0_g0", 1)
+        with pytest.raises(RuntimeError) as ei:
+            RT._verify_replica_devices(addr, "r0_g0", 2)
+        assert "serving_devices=1" in str(ei.value)
+        assert "devices_per_replica=2" in str(ei.value)
+    finally:
+        server.gossip_batcher.close()
+        server.stop(grace=None)
+    started = []
+    real = RT._start_replica
+
+    def start(*a, **kw):
+        out = real(*a, **kw)
+        started.append(out[0])
+        return out
+    monkeypatch.setattr(RT, "_start_replica", start)
+    with pytest.raises(RuntimeError, match="serving_devices=1"):
+        RT.Fleet(n=1, cfg=TC.FleetConfig(devices_per_replica=2),
+                 replica_argv=["--device", "cpu"])
+    assert len(started) == 1 and started[0].poll() is not None
 
 
 def test_fleet_status_unreachable_exits_2(capsys):

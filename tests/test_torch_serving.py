@@ -251,8 +251,9 @@ def test_request_sweep_refusals_are_the_references_words():
             TC.ProtocolConfig(**proto), TC.RunConfig(), None, n)) == \
             _error(lambda: JS.RequestSpec(JC.ProtocolConfig(**proto),
                                           JC.RunConfig(), None, n))
-    assert "not ported yet" in _error(lambda: SWP.request_sweep_curves(
-        ts, mesh=object(), device=CPU))
+    assert _error(lambda: SWP.request_sweep_curves(
+        ts * 2, lanes=1, device=CPU)) == _error(
+        lambda: JS.request_sweep_curves(js * 2, lanes=1))
 
 
 # -- the wire: request_to_args and the batch key -----------------------------
@@ -410,10 +411,11 @@ def test_config_checks_word_for_word(cls, kw):
 
 
 @pytest.mark.parametrize("cls,kw", [
-    ("ServingConfig", dict(devices=2)),
-    ("ServingConfig", dict(num_processes=2, coordinator="h:1")),
-    ("FleetConfig", dict(devices_per_replica=4))])
+    pytest.param("ServingConfig", dict(num_processes=2, coordinator="h:1"),
+                 id="ServingConfig-kw1")])
 def test_request_axis_mesh_refused(cls, kw):
+    """A replica over several processes is refused; the request-axis mesh
+    itself runs (``tests/test_torch_serving_mesh.py``)."""
     assert "not ported yet" in _error(lambda: getattr(TC, cls)(**kw))
 
 
