@@ -363,19 +363,24 @@ roofline tool through the port's own entry points, and measures them.  One JSON 
    its solo run, the failover events, back to two healthy);
 23. ``roofline_checks`` and ``roofline``  the three calibration
    microkernels (``csrc/calibrate.cu``) against their plain versions on
-   the card, bitwise, at rows n_rows(10M) = 2448 and 8, on the stream at
-   i = 0, 3 and 2^31 - 1 and under injected zero and random bits; their
-   SASS instruction counts, recounted from the build, against
-   ``SASS_PER_WORD``, every opcode in a pipe list; their times, plain
-   times and bounds; then ``python -m gossip_tpu_torch.tools.roofline``
-   at N = 10M and 100M (its document on one line each, also written to
-   ``chiprun_out/``), counts set to 0 just before and read just after,
-   with hard checks: every kernel launched as often as the tool issued,
-   the stream beyond L2 and each microkernel's ALU and FMA pipe rates at
-   most 105% of the datasheet and its instructions at most 105% of two
-   pipes' issue, no microkernel faster than its bound, and each measured
-   round (single rumor at plane sharing 1 and 2, the value round, the
-   staged round) at least 95% of its calibrated floor.
+   the card, bitwise, at rows n_rows(10M) = 2448, 8, 1, one more than a
+   full wave of the drawing kernels' blocks and n_rows(100M) = 24416, on
+   the stream at i = 0, 3 and 2^31 - 1 and under injected zero and
+   random bits, with the drawing kernels' launch geometry at each
+   (blocks, threads a block, words a thread, resident blocks an SM,
+   waves); their SASS instruction counts a word, recounted from the
+   build, against ``SASS_PER_WORD``, every opcode in a pipe list; their
+   times, plain times and bounds (``--only
+   roofline_checks`` stops there); then ``python -m
+   gossip_tpu_torch.tools.roofline`` at N = 10M and 100M (its document on
+   one line each, also written to ``chiprun_out/``), counts set to 0 just
+   before and read just after, with hard checks: every kernel launched as
+   often as the tool issued, the stream beyond L2 and each microkernel's
+   ALU and FMA pipe rates at most 105% of the datasheet and its
+   instructions at most 105% of two pipes' issue, no microkernel faster
+   than its bound, and each measured round (single rumor at plane
+   sharing 1 and 2, the value round, the staged round) at least 95% of
+   its calibrated floor.
 
 The K = 2 work of phases 19-22 (``mesh_path``, ``mesh_models``,
 ``mesh_exchanges``, ``mesh_fused_planes``, ``sweeps``, ``scale``) runs on
@@ -5513,14 +5518,19 @@ def phase_records(dev, smi: str, main: dict):
 
 def phase_roofline_checks(dev):
     """The three microkernels against their plain versions on the card,
-    bitwise, at rows n_rows(10M) and 8: on the stream at i = 0, 3 and
-    2^31 - 1, and under injected zero and random bits.  The table's bits
-    are sparse (1/16), so the gathers and the chain show in the output;
-    prng's output on the stream is all ones (32 ORed random words), and
-    the stream's bits are pinned by prng_gather's lane picks.  Returns
-    the cases and each kernel's largest absolute difference."""
+    bitwise, at rows n_rows(10M), 8, 1, one more than a full wave of the
+    drawing kernels' blocks (a block is one row, so no block is ever
+    partial: this count leaves the last wave one block) and
+    n_rows(100M): on the stream at i = 0, 3 and 2^31 - 1, and under
+    injected zero and random bits.  The table's bits are sparse (1/16),
+    so the gathers and the chain show in the output; prng's output on the
+    stream is all ones (32 ORed random words), and the stream's bits are
+    pinned by prng_gather's lane picks.  Returns the cases, each kernel's
+    largest absolute difference, and the drawing kernels' launch geometry
+    at each row count (``ops/_kernels.cal_geometry``)."""
     import numpy as np
     import torch
+    from gossip_tpu_torch.ops import _kernels
     from gossip_tpu_torch.ops import calibrate as CAL
     from gossip_tpu_torch.ops.fused_round import n_rows
 
@@ -5538,7 +5548,16 @@ def phase_roofline_checks(dev):
         check(equal, f"{name} vs plain, rows {rows}, i {i}, {fill}")
         err[name] = max(err[name], e)
 
-    for rows in (n_rows(N), 8):
+    wave = _kernels.cal_geometry("cal_prng", 1)
+    geometry = {}
+    for rows in (n_rows(N), 8, 1, wave["blocks_per_sm"] * wave["sms"] + 1,
+                 n_rows(N_BIG)):
+        geometry[rows] = {}
+        for name, _, _ in kernels:
+            geo = _kernels.cal_geometry(name, rows)
+            geo["words_per_thread"] = (
+                rows * 128 / (geo["blocks"] * geo["threads_per_block"]))
+            geometry[rows][name] = geo
         table = torch.from_numpy(_words(rng, (rows, 128), 4)).to(dev)
         injected = {
             "zeros": torch.zeros(32, rows, 128, dtype=torch.int32,
@@ -5556,7 +5575,8 @@ def phase_roofline_checks(dev):
                 compare(name, rows, CHECK_ROUND, fill,
                         step(CHECK_ROUND, table.clone(), bits),
                         plain(CHECK_ROUND, table, bits))
-    return results, err
+        del injected
+    return results, err, geometry
 
 
 def check_roofline_doc(doc: dict, launches: dict):
@@ -5606,29 +5626,24 @@ def check_roofline_doc(doc: dict, launches: dict):
               f"{what} round {actual} ms below 95% of its floor {floor} ms")
 
 
-def phase_roofline(dev, smi: str):
-    """Phase 16: the microkernels' checks and times, the SASS recount,
-    then the roofline tool at N = 10M and 100M with its hard checks.
-    Returns the microkernels' entries of the ``kernels`` line and the
-    10M document's calibrated floors of the round kernels."""
-    from pathlib import Path
-
+def phase_roofline_kernels(dev, smi: str):
+    """The microkernels' checks and launch geometry
+    (:func:`phase_roofline_checks`), the SASS recount held to
+    ``SASS_PER_WORD``, and each kernel's and plain version's time at
+    n_rows(10M): the ``roofline_checks`` line, printed before its checks.
+    Returns (each kernel's largest difference, the times, the rows)."""
     import torch
-    from gossip_tpu_torch.ops import _kernels
     from gossip_tpu_torch.ops import calibrate as CAL
     from gossip_tpu_torch.ops.fused_round import n_rows
     from gossip_tpu_torch.tools import roofline as R
     from gossip_tpu_torch.utils.timing import steady_timed
 
-    results, err = phase_roofline_checks(dev)
+    results, err, geometry = phase_roofline_checks(dev)
     sass = R.sass_counts()
     recount = {name: {k: c[k] for k in ("alu", "fma", "vector")}
                for name, c in sass.items()}
-    check(recount == R.SASS_PER_WORD,
-          f"SASS counts {recount} differ from SASS_PER_WORD")
     unassigned = {name: c["unassigned"] for name, c in sass.items()
                   if c["unassigned"]}
-    check(not unassigned, f"SASS opcodes in no pipe list: {unassigned}")
     rows = n_rows(N)
     table = torch.zeros(rows, 128, dtype=torch.int32, device=dev)
     times = {}
@@ -5642,8 +5657,26 @@ def phase_roofline(dev, smi: str):
             1e3 * statistics.median(steady_timed(dev, plain, CHECK_ROUND,
                                                  table)[1] for _ in range(3)))
     emit("roofline_checks", cases=results, max_abs_err=err, tolerance=0,
-         sass_per_word=sass, times_ms=times, card=smi)
+         geometry=geometry, sass_per_word=sass, times_ms=times, card=smi)
+    check(recount == R.SASS_PER_WORD,
+          f"SASS counts {recount} differ from SASS_PER_WORD")
+    check(not unassigned, f"SASS opcodes in no pipe list: {unassigned}")
+    return err, times, rows
 
+
+def phase_roofline(dev, smi: str):
+    """Phase 16: the microkernels' checks and times, the SASS recount
+    (:func:`phase_roofline_kernels`), then the roofline tool at N = 10M
+    and 100M with its hard checks.  Returns the microkernels' entries of
+    the ``kernels`` line and the 10M document's calibrated floors of the
+    round kernels."""
+    from pathlib import Path
+
+    import torch
+    from gossip_tpu_torch.ops import _kernels
+    from gossip_tpu_torch.tools import roofline as R
+
+    err, times, rows = phase_roofline_kernels(dev, smi)
     docs, launches = {}, {}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     for n in (N, N_BIG):
@@ -6413,6 +6446,7 @@ def main(argv=None) -> int:
                   for k in built})
     if only:
         phases = {"sweeps": phase_sweeps, "roofline": phase_roofline,
+                  "roofline_checks": phase_roofline_kernels,
                   "checkpoints": phase_checkpoints,
                   "scale": phase_scale,
                   "mesh_path": phase_mesh_path,

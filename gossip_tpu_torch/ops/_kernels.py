@@ -519,6 +519,25 @@ def cal_prng_gather(table, key, rbits=None):
     return _calibrate(CAL_PRNG_GATHER, table, key, rbits)
 
 
+def cal_geometry(name: str, rows: int) -> dict:
+    """The launch geometry of the drawing microkernel ``name``
+    (``cal_prng`` or ``cal_prng_gather``, its timed instantiation) on
+    ``[rows, 128]`` on the current device, as ``csrc/calibrate.cu``'s
+    ``cal_geometry`` reports it: blocks, threads a block, resident
+    blocks an SM, SMs, and the waves those make."""
+    if name not in (CAL_PRNG.name, CAL_PRNG_GATHER.name):
+        raise ValueError(f"no drawing microkernel {name!r}")
+    fn = CAL_PRNG.entry_point("cal_geometry", [_I, _I, _OCC])
+    out = (ctypes.c_int * 4)()
+    err = fn(int(name == CAL_PRNG_GATHER.name), rows, out)
+    if err:
+        raise RuntimeError(f"cal_geometry failed: CUDA error {err}")
+    geo = dict(zip(("blocks", "threads_per_block", "blocks_per_sm", "sms"),
+                   out))
+    geo["waves"] = geo["blocks"] / (geo["blocks_per_sm"] * geo["sms"])
+    return geo
+
+
 def cal_vpu(table, s: int):
     """Launch ``cal_vpu_launch`` once: the 256-step chain on every word
     of ``table``, in place, with seed word ``s``."""

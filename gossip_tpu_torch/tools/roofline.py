@@ -111,8 +111,9 @@ def philox_pipe_ops(calls: int):
 # word (16); its shared-memory address is not counted, since the mask or
 # the load's addressing can carry it.  vpu's step is a funnel shift and
 # one logic op (s + k is one per warp).  The compiled code
-# (SASS_PER_WORD) has 132 IMAD.WIDE.U32 for prng: these 123, the global
-# address, and 8 that the compiler does not share between calls.
+# (SASS_PER_WORD) has 124 IMAD.WIDE.U32 for prng: these 123 and the
+# global address (csrc/calibrate.cu shares a word's products by hand and
+# folds round 2's uniform product into the keys on the host).
 CAL_PHILOX_PRODUCTS, CAL_PHILOX_XORS = philox_pipe_ops(8)
 CAL_ALU_OPS = {"cal_prng": CAL_PHILOX_XORS + 16,
                "cal_prng_gather": CAL_PHILOX_XORS + BITS + 16,
@@ -143,25 +144,29 @@ MR_COUNT_BITS = 5
 MR_WORD_ALU_OPS = (2 + (2 + 2 * (MR_COUNT_BITS - 1)) / 2
                    + MR_COUNT_BITS * (5 * 3 + 2) / MR_THREAD_WORDS)
 
-# SASS instructions per word (one thread) of each microkernel's timed,
-# straight-line instantiation (the stream, not the injected bits), by the
-# pipe that issues them: "alu" (LOP3, SHF, LEA, ...), "fma" (the IMAD
-# family: the Philox products, and shifts the compiler moved there) and
-# "vector", every per-thread instruction (loads, stores and the like
-# too).  Counted once, by :func:`sass_counts`, in `cuobjdump -sass` of
-# the built library (_build/calibrate-*.so; nvcc of CUDA 12.8, -O3,
-# sm_90a; NVIDIA H100 80GB HBM3), NOPs and the closing self-branch left
-# out; uniform-datapath instructions (U*: the round keys' loads, vpu's
-# s + k) are one per warp, not per thread, and are not counted.  Per
-# inner step: vpu 2 (SHF.R.U32.HI and LOP3.LUT; s + k is a UIADD3); prng
-# 132 IMAD.WIDE.U32 for the 160 products of 8 Philox calls (see above),
-# 161 LOP3.LUT for the 138 xors and 16 ORs.  Philox takes its round keys
-# from the constant bank (csrc/philox.cuh), as the round kernels do.
-# chip_smoke.py recounts them in the build it runs and fails on a
-# difference, or on an opcode in none of the pipe lists below.
+# SASS instructions per word of each microkernel's timed, straight-line
+# instantiation (the stream, not the injected bits), by the pipe that
+# issues them: "alu" (LOP3, SHF, LEA, ...), "fma" (the IMAD family: the
+# Philox products, and shifts the compiler moved there) and "vector",
+# every per-thread instruction (loads, stores and the like too).  Counted
+# by :func:`sass_counts` in `cuobjdump -sass` of the built library
+# (_build/calibrate-*.so; nvcc of CUDA 12.8, -O3, sm_90a; NVIDIA H100 80GB
+# HBM3), NOPs and the closing self-branch left out; uniform-datapath
+# instructions (U*: the round keys' loads, vpu's s + k) are one per warp,
+# not per thread, and are not counted.  A thread's static count is what
+# it issues (straight-line code), and each kernel runs one thread a word,
+# so a thread's count is a word's.  Per word: vpu 2 a step
+# (SHF.R.U32.HI and LOP3.LUT; s + k is a UIADD3); prng 124 IMAD.WIDE.U32
+# for the 123 products of 8 Philox calls (see above) and the global
+# address, 155 LOP3.LUT for the 138 xors and 16 ORs;
+# prng_gather beside those 32 lane masks, 32 address shifts (IMAD.SHL, on
+# the FMA pipe) and 32 LDS.  Philox takes its round keys from the
+# constant bank, as the round kernels do.  chip_smoke.py recounts them in
+# the build it runs and fails on a difference, or on an opcode in none of
+# the pipe lists below.
 SASS_PER_WORD = {
-    "cal_prng": {"alu": 161, "fma": 133, "vector": 302},
-    "cal_prng_gather": {"alu": 194, "fma": 165, "vector": 402},
+    "cal_prng": {"alu": 155, "fma": 125, "vector": 289},
+    "cal_prng_gather": {"alu": 188, "fma": 157, "vector": 390},
     "cal_vpu": {"alu": 512, "fma": 2, "vector": 521},
 }
 FMA_PIPE = ("IMAD", "IMUL")
@@ -171,10 +176,12 @@ ALU_PIPE = ("LOP3", "SHF", "LEA", "IADD3", "VIADD", "ISETP", "SEL", "PRMT",
             "MOV", "POPC", "FLO", "IMNMX", "VIMNMX", "VIADDMNMX", "IABS",
             "PLOP3", "R2P")
 # memory, barrier, branch and special-register instructions: other units
+# (ACQBULK and PREEXIT: griddepcontrol.wait and .launch_dependents)
 OTHER_PIPE = ("LDC", "LDG", "LDS", "STG", "STS", "LDGSTS", "LDGDEPBAR",
               "DEPBAR", "BAR", "BRA", "EXIT", "S2R", "S2UR", "CS2R", "SHFL",
               "ATOMS", "ATOMG", "RED", "REDG", "VOTE", "VOTEU", "BSSY",
-              "BSYNC", "WARPSYNC", "MUFU", "I2F", "F2I")
+              "BSYNC", "WARPSYNC", "MUFU", "I2F", "F2I", "ACQBULK",
+              "PREEXIT")
 
 
 class Work(NamedTuple):

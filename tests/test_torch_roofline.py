@@ -212,6 +212,9 @@ def test_refusals(capsys):
                          (_kernels.cal_vpu, (0,))):
         with pytest.raises(ValueError, match="CUDA tensor"):
             launch(torch.zeros(8, 128, dtype=torch.int32), *args)
+    # only the two drawing kernels report a launch geometry
+    with pytest.raises(ValueError, match="no drawing microkernel"):
+        _kernels.cal_geometry("cal_vpu", 8)
     if torch.cuda.is_available():
         return
     with pytest.raises(ValueError, match="needs a CUDA device"):
@@ -508,6 +511,75 @@ def test_sass_counts_parse(monkeypatch):
             for k in ("alu", "fma", "vector")} == \
         {"alu": 1, "fma": 0, "vector": 5}
     assert got["fused_round_f1_s1"]["unassigned"] == []
+
+
+# the timed prng instantiation as csrc/calibrate.cu compiles it: its
+# launch trigger and wait (PREEXIT, ACQBULK), two products and three logic
+# ops standing for a word's, and the per-warp key loads
+SASS_PDL = """
+\tFunction : _ZN45_GLOBAL__N__x_12_calibrate_cu_y15cal_prng_kernelILb0EEEvPjPKjNS_7CalKeysEm
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_CTAID.X ;
+        /*0020*/                   PREEXIT ;
+        /*0030*/                   ULDC.64 UR4, c[0x0][0x220] ;
+        /*0040*/                   IMAD.WIDE.U32 R2, R0, -0x2daee0ad, RZ ;
+        /*0050*/                   LOP3.LUT R4, R3, UR4, RZ, 0x3c, !PT ;
+        /*0060*/                   IMAD.WIDE.U32 R6, R4, -0x3261729d, RZ ;
+        /*0070*/                   LOP3.LUT R8, R7, R2, UR5, 0x96, !PT ;
+        /*0080*/                   LOP3.LUT R8, R8, R6, RZ, 0xfc, !PT ;
+        /*0090*/                   ACQBULK ;
+        /*00a0*/                   LDG.E R9, desc[UR6][R2.64] ;
+        /*00b0*/                   STG.E desc[UR6][R2.64], R9 ;
+        /*00c0*/                   EXIT ;
+        /*00d0*/                   BRA 0xd0;
+"""
+
+
+def test_sass_counts_parse_programmatic_launch(monkeypatch):
+    """The drawing kernels' SASS under programmatic dependent launch: the
+    launch trigger and wait are in a pipe list, and a thread's counts are
+    a word's (one thread a word), the products on the FMA pipe."""
+    monkeypatch.setattr(R, "subprocess", types.SimpleNamespace(
+        run=lambda *a, **k: types.SimpleNamespace(stdout=SASS_PDL)))
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "/cuda/bin/nvcc")
+    got = R.sass_counts("lib.so")
+    assert set(got) == {"cal_prng"}
+    assert {k: got["cal_prng"][k] for k in ("alu", "fma", "vector")} == \
+        {"alu": 3, "fma": 2, "vector": 12}
+    assert got["cal_prng"]["opcodes"]["ACQBULK"] == 1
+    assert got["cal_prng"]["opcodes"]["PREEXIT"] == 1
+    assert got["cal_prng"]["opcodes"]["IMAD.WIDE.U32"] == 2
+    assert got["cal_prng"]["unassigned"] == []
+
+
+# a pipe_probe.cu chain kernel: its timed loop (from the backward
+# branch's target to the branch), a NOP inside it, and the prologue
+SASS_LOOP = """
+\tFunction : _ZN12_GLOBAL__N_111pipe_kernelILi0ELi3ELi4EEEvPjjjiPx
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   IMAD R2, R0, 0x7, RZ ;
+        /*0020*/                   IMAD.WIDE.U32 R4, R4, R5, RZ ;
+        /*0030*/                   LOP3.LUT R2, R2, R6, R7, 0x96, !PT ;
+        /*0040*/                   NOP;
+        /*0050*/                   VIADD R8, R8, 0x1 ;
+        /*0060*/                   ISETP.GE.AND P0, PT, R8, R9, PT ;
+        /*0070*/              @!P0 BRA 0x20 ;
+        /*0080*/                   STG.E desc[UR4][R10.64], R2 ;
+        /*0090*/                   EXIT ;
+        /*00a0*/                   BRA 0xa0;
+"""
+
+
+def test_pipe_probe_loop_body():
+    """The probe counts the opcodes of a chain kernel's timed loop only,
+    and finds the instantiation of each mix by its template arguments."""
+    from gossip_tpu_torch.tools import pipe_probe as P
+    bodies = P.loop_bodies(SASS_LOOP)
+    (name, body), = bodies.items()
+    assert P.mix_kernel("wide+lop3") in name
+    assert P.mix_kernel("wide") not in name
+    assert body == {"IMAD.WIDE.U32": 1, "LOP3.LUT": 1, "VIADD": 1,
+                    "ISETP.GE.AND": 1, "BRA": 1}
 
 
 def test_one_build_per_source(monkeypatch):
